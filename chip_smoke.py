@@ -1,0 +1,394 @@
+#!/usr/bin/env python3
+"""Chip smoke test of consul_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure raises and exits
+non-zero before the result line):
+
+1. env      — the card, the device count, its name and power limit from
+              nvidia-smi; builds the CUDA kernels from
+              consul_tpu_torch/csrc and prints ptxas's register/spill
+              report.
+2. check    — at 1,048,576 nodes, on a state warmed by the plain path:
+              one round_kernel launch in the stable and the full
+              variant, one churn-config launch, and one R=8 mega_kernel
+              launch per variant, each held against its plain PyTorch
+              version on the same inputs (int lanes exact — at most 2
+              nodes may differ, each only where a decision's margin is
+              under 4 ulp; informed within 4 ulp; partial sums, on
+              every block that holds no such node: counter lanes exact,
+              scalar lanes within 1e-5 relative + 1e-4).
+3. headline — the main path through the user entry points
+              (consul_tpu_torch.bench.run_headline: per-round and R=8
+              runners on the stable and full configs, best of 3), its
+              launch counters zeroed just before and read just after;
+              then a 262,144-node, 60-round crash-detection check,
+              counted on its own (exactly 60 stable round launches).
+4. timing   — each kernel's time per launch (CUDA events), its plain
+              version's time, and its bound (``kernel_bound``) from the
+              bytes it must move and the operations it must do.
+
+Then the ``kernels`` line, the nvidia-smi line, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and 32-bit
+#: arithmetic outside the tensor cores (67 TFLOP/s in f32). The data
+#: sheet gives no int32 rate. Integer and f32 operations are summed and
+#: both held to the f32 rate. That rate counts an FMA as two operations:
+#: the SMs issue at most 128 32-bit lane operations per clock (33.5 T/s
+#: at 1.98 GHz), of any type. So the bound stays a lower bound on the
+#: time.
+HBM_BYTES_PER_S = 3.35e12
+OPS32_PER_S = 67e12
+
+#: integer operations of one Philox4x32-10 draw on the card: per round
+#: two widening multiplies and two three-input xors. The key schedule
+#: depends only on seeds[r] and is shared by every draw, so no draw
+#: pays for it. Then the shift and the int->float conversion.
+PHILOX_INT_OPS = 10 * (2 + 2) + 2
+#: f32 operations that every node does in a period, whatever its state
+#: (counted from node_round in round_kernels.cu): two no-ack
+#: evaluations (13 each), the ack mix and test (6), the truncated
+#: Poisson's rate, exp and four terms (20), the 8 scalar lanes (8). The
+#: suspicion timeouts, refutation, epidemic growth, patience, slow and
+#: stats terms are left out: their count depends on the data, so the
+#: bound does not claim them.
+BODY_F32_OPS = 2 * 13 + 6 + 20 + 8
+
+N = 1_048_576
+MEGA_R = 8
+MAX_INT_MISMATCH = 2
+MARGIN_ULPS = 4.0
+INFORMED_ULPS = 4
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_env(torch, build, cuda_round):
+    t0 = time.perf_counter()
+    reports = build.build([cuda_round.SOURCE])
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for text in reports.values()
+             for ln in text.splitlines()
+             if "spill" in ln or ("ptxas info" in ln and
+                                  ("Used" in ln or "Compiling" in ln))]
+    emit({"phase": "env", "device": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": build_s, "ptxas": ptxas})
+
+
+def warmed_state(torch, m, p, dev, rounds=12):
+    """A 1M-node state with dead, left, slow and suspect rows, evolved by
+    the plain version (so the kernels are not their own input)."""
+    s = m.state.init_state(N, device=dev)
+    s = m.state.with_crashed(s, torch.arange(0, N, 4099, device=dev), age=3)
+    s = m.state.with_slow(s, torch.arange(1, N, 5003, device=dev))
+    arrays = s.node_arrays()
+    scal = m.round.init_scalars(s, p)
+    seeds = m.prng.round_seeds(m.prng.key(7, device=dev), 0, rounds)
+    for r in range(rounds):
+        arrays, part = m.cuda_round.block_round_ref(arrays, scal, seeds[r],
+                                                    p)
+        scal = m.round.clamp_scalars(part.sum(0)[:8])
+    return arrays, scal
+
+
+def plain_margins(m, arrays, scal, seeds, p):
+    """Per-node smallest decision margin (ulps) over the call's rounds."""
+    vals, worst = arrays, None
+    for r in range(seeds.shape[0]):
+        mg = []
+        vals, _ = m.cuda_round.block_round_ref(vals, scal, seeds[r], p,
+                                               margin=mg)
+        worst = mg[0] if worst is None else worst.clamp_max(mg[0])
+    return worst
+
+
+def compare(torch, m, name, arrays, scal, seeds, p, mega):
+    cr = m.cuda_round
+    k_arrays = tuple(a.clone() for a in arrays)
+    if mega:
+        ref_out, ref_part = cr.mega_round_ref(arrays, scal, seeds, p)
+        k_part = cr.mega_kernel(k_arrays, scal, seeds, p)
+    else:
+        ref_out, ref_part = cr.block_round_ref(arrays, scal, seeds[0], p)
+        k_part = cr.round_kernel(k_arrays, scal, seeds, 0, p)
+    torch.cuda.synchronize()
+    fields = m.state.NODE_FIELDS
+    bad = torch.zeros(arrays[0].shape[0], dtype=torch.bool,
+                      device=arrays[0].device)
+    max_err = 0.0
+    for f, k, r in zip(fields, k_arrays, ref_out):
+        if f == "informed":
+            continue
+        diff = k != r
+        bad |= diff
+        if diff.any():
+            max_err = max(max_err, float((k.int() - r.int()).abs().max()))
+    n_bad = int(bad.sum())
+    margin_max = None
+    if n_bad:
+        margins = plain_margins(m, arrays, scal,
+                                seeds if mega else seeds[:1], p)
+        margin_max = float(margins[bad].max())
+        if n_bad > MAX_INT_MISMATCH or margin_max >= MARGIN_ULPS:
+            raise SmokeFailure(
+                f"{name}: {n_bad} nodes differ in int lanes (largest "
+                f"decision margin {margin_max} ulp)")
+    ki, ri = k_arrays[fields.index("informed")], \
+        ref_out[fields.index("informed")]
+    inf_err = (ki - ri).abs()
+    ulp = torch.clamp_min(ri.abs() * 2.0 ** -23, 2.0 ** -149)
+    ok_inf = (inf_err <= INFORMED_ULPS * ulp) | bad
+    if not bool(ok_inf.all()):
+        raise SmokeFailure(f"{name}: informed differs by more than "
+                           f"{INFORMED_ULPS} ulp")
+    max_err = max(max_err, float(inf_err[~bad].max()) if (~bad).any()
+                  else 0.0)
+    # partial sums row by row; only the blocks that hold a node allowed
+    # to differ above are exempt
+    blocks = k_part.shape[0]
+    in_block = torch.zeros(blocks * cr.THREADS, dtype=torch.bool,
+                           device=bad.device)
+    in_block[:bad.shape[0]] = bad
+    held = ~in_block.view(blocks, cr.THREADS).any(1)
+    pdiff = (k_part - ref_part).abs()[held]
+    counters = list(range(8, 18))
+    counters.remove(8 + m.round.LAT)
+    if float(pdiff[:, counters].max()) != 0.0:
+        raise SmokeFailure(f"{name}: counter partial sums differ")
+    tol = 1e-5 * ref_part[held].abs() + 1e-4
+    if not bool((pdiff <= tol).all()):
+        raise SmokeFailure(f"{name}: partial sums differ by "
+                           f"{float(pdiff.max())}")
+    max_err = max(max_err, float(pdiff.max()))
+    return {"name": name, "int_mismatch_nodes": n_bad,
+            "mismatch_margin_ulps": margin_max,
+            "informed_max_abs_err": float(inf_err.max()),
+            "partials_max_abs_err": float(pdiff.max()),
+            "partials_exempt_blocks": blocks - int(held.sum()),
+            "max_abs_err": max_err}
+
+
+def phase_check(torch, m, dev):
+    b = m.bench
+    p_stable, p_full = b.headline_params(N), b.diag_params(N)
+    p_churn = p_full.with_(fail_per_round=0.002, rejoin_per_round=0.02,
+                           leave_per_round=0.0005)
+    arrays, scal = warmed_state(torch, m, p_churn, dev)
+    seeds = m.prng.round_seeds(m.prng.key(11, device=dev), 100, MEGA_R)
+    results = {}
+    for name, p, mega in (("round_kernel/stable", p_stable, False),
+                          ("round_kernel/full", p_full, False),
+                          ("round_kernel/churn", p_churn, False),
+                          ("mega_kernel/stable", p_stable, True),
+                          ("mega_kernel/full", p_full, True)):
+        results[name] = compare(torch, m, name, arrays, scal, seeds, p,
+                                mega)
+    emit({"phase": "check", "n": N, "ok": True,
+          "kernels": list(results.values())})
+    return results, (arrays, scal, seeds)
+
+
+def crash_detection(torch, m, dev):
+    n = 262_144
+    p = m.params.SimParams(n=n, loss=0.01, collect_stats=False)
+    s = m.state.with_crashed(m.state.init_state(n, device=dev), 7)
+    out = m.cuda_round.make_run_rounds_cuda(p, 60)(
+        s, m.prng.key(2, device=dev))
+    dead = int((out.status == m.state.DEAD).sum())
+    res = {"n": n, "rounds": 60, "node7_dead":
+           int(out.status[7]) == m.state.DEAD, "dead_total": dead,
+           "informed7": float(out.informed[7])}
+    if not (res["node7_dead"] and dead == 1 and res["informed7"] > 0.99):
+        raise SmokeFailure(f"crash detection failed: {res}")
+    return res
+
+
+def phase_headline(torch, m, dev):
+    cr = m.cuda_round
+    cr.reset_launches()
+    res = m.bench.run_headline(dev)
+    launches = dict(cr.LAUNCHES)
+    for k in ("round_kernel/stable", "round_kernel/full",
+              "mega_kernel/stable", "mega_kernel/full"):
+        if launches.get(k, 0) <= 0:
+            raise SmokeFailure(f"{k} was not launched on the main path")
+    cr.reset_launches()
+    crash = crash_detection(torch, m, dev)
+    crash["launches"] = dict(cr.LAUNCHES)
+    if crash["launches"] != {"round_kernel/stable": crash["rounds"]}:
+        raise SmokeFailure(f"crash detection launched {crash['launches']}"
+                           f", expected {crash['rounds']} stable rounds")
+    fd = res["fd"]
+    if not (fd["suspicions_per_node_round"] > 0 and
+            fd["refutes_per_node_round"] > 0):
+        raise SmokeFailure(f"full-model diagnostic shows no FD activity: "
+                           f"{fd}")
+    emit({"phase": "headline", **res, "crash_detection": crash,
+          "launches": launches})
+    return res, launches
+
+
+def kernel_bound(p, arrays, rounds=1) -> dict:
+    """The least time one launch of ``rounds`` periods on ``arrays``
+    could take: the larger of its bytes (each input read once, each
+    output written once: state, scalars, seeds, partials) over the HBM
+    rate and its 32-bit operations over ``OPS32_PER_S``.
+
+    Draws counted, as this input needs them: every node's Poisson draw,
+    every node's churn and slow draws where those models are on, and
+    the ack draw of every live node. The refutation draws of wrongly
+    suspected nodes are left out. Liveness moves only under churn, so
+    the live count of the input holds for every round of a call only
+    without it; a churn config is refused."""
+    from consul_tpu_torch.sim import cuda_round as cr
+
+    if p.has_churn:
+        raise ValueError("kernel_bound counts live nodes from the input, "
+                         "which churn would change within the call")
+    rows = arrays[0].shape[0]
+    age = arrays[3]
+    node_bytes = sum(a.element_size() for a in arrays)
+    written = node_bytes - (0 if p.age_mutable else age.element_size())
+    state_bytes = rows * (node_bytes + written)
+    nbytes = state_bytes + 4 * cr.N_SCALARS + 4 * rounds \
+        + 4 * cr.N_LANES * cr.n_blocks(rows)
+    draws = rows * (1 + int(p.enabled("slow_per_round"))) \
+        + int((age < 0).sum())
+    int_ops = rounds * draws * PHILOX_INT_OPS
+    f32_ops = rounds * rows * BODY_F32_OPS
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (int_ops + f32_ops) / OPS32_PER_S * 1e3
+    return {"bytes": nbytes, "state_bytes": state_bytes,
+            "int32_ops": int_ops, "f32_ops": f32_ops,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _events_ms(torch, fn, reps, warm=2):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_timing(torch, m, inputs):
+    cr = m.cuda_round
+    b = m.bench
+    arrays, scal, seeds = inputs
+    rows = arrays[0].shape[0]
+    out = {}
+    for name, p, mega in (("round_kernel/stable", b.headline_params(N),
+                           False),
+                          ("round_kernel/full", b.diag_params(N), False),
+                          ("mega_kernel/stable", b.headline_params(N),
+                           True),
+                          ("mega_kernel/full", b.diag_params(N), True)):
+        work = tuple(a.clone() for a in arrays)
+        buf = torch.empty((cr.n_blocks(rows), cr.N_LANES),
+                          dtype=torch.float32, device=arrays[0].device)
+        if mega:
+            def kern():
+                cr.mega_kernel(work, scal, seeds, p, out=buf)
+
+            def plain():
+                cr.mega_round_ref(arrays, scal, seeds, p)
+            reps, rounds = 50, MEGA_R
+        else:
+            def kern():
+                cr.round_kernel(work, scal, seeds, 0, p, out=buf)
+
+            def plain():
+                cr.block_round_ref(arrays, scal, seeds[0], p)
+            reps, rounds = 200, 1
+        bound = kernel_bound(p, arrays, rounds)
+        ms = _events_ms(torch, kern, reps, warm=10)
+        plain_ms = _events_ms(torch, plain, 3, warm=1)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, **bound,
+                     "rounds_per_launch": rounds}
+    emit({"phase": "timing", "n": N, "kernels": out})
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available; nothing was run",
+              file=sys.stderr)
+        return 2
+    import types
+
+    from consul_tpu_torch import bench
+    from consul_tpu_torch.sim import (cuda_round, params, prng, round,
+                                      state)
+    from consul_tpu_torch.utils import build
+
+    m = types.SimpleNamespace(bench=bench, cuda_round=cuda_round,
+                              params=params, prng=prng, round=round,
+                              state=state)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_env(torch, build, cuda_round)
+    checks, inputs = phase_check(torch, m, dev)
+    headline, launches = phase_headline(torch, m, dev)
+    timing = phase_timing(torch, m, inputs)
+
+    source = "consul_tpu_torch/csrc/round_kernels.cu"
+    replaces = {"round_kernel": "consul_tpu/sim/pallas_round.py:439",
+                "mega_kernel": "consul_tpu/sim/pallas_round.py:526"}
+    kernels = []
+    for name, t in timing.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces[name.split("/")[0]],
+            "launches": launches[name],
+            "max_abs_err": checks[name]["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    emit({"kernels": kernels})
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,249 @@
+"""The port's headline: SWIM rounds per second at 1,048,576 nodes.
+
+    python -m consul_tpu_torch.bench            # on the CUDA card
+    python -m consul_tpu_torch.bench --profile  # + where the time goes
+    python -m consul_tpu_torch.bench --smoke    # 65,536 nodes, CPU plain path
+
+The timed configuration is the JAX bench's (bench.py's
+``gossip_rounds_per_sec_1M_nodes``): ``GossipConfig.lan()`` at 1% loss,
+TCP fallback off, no stats — the STABLE kernel variant. It is timed two
+ways: the per-round runner (``round_kernel``, 500-round calls) and the
+R=8 megakernel runner (``mega_kernel``, 512-round calls), best of three
+trials, each ending in ``torch.cuda.synchronize()`` and a fetched
+checksum. The full-model diagnostic (stats + slow-node model, the FULL
+variant) runs through both runners too, and its ``fd_report`` gives
+false positives, suspicions and refutes per node-round.
+
+Prints one JSON object on stdout. Without a card (and without
+``--smoke``) it raises rather than running on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from consul_tpu_torch.config import GossipConfig
+from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim.cuda_round import (LAUNCHES, make_run_rounds_cuda,
+                                             reset_launches)
+from consul_tpu_torch.sim.metrics import fd_report
+from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim.state import SimState, init_state
+from consul_tpu_torch.utils.platform import default_device, device_name
+
+HEADLINE_N = 1_048_576
+SMOKE_N = 65_536
+MEGA_RPC = 8
+
+
+def headline_params(n: int) -> SimParams:
+    """The timed configuration (stable kernel variant)."""
+    return SimParams.from_gossip_config(GossipConfig.lan(), n=n, loss=0.01,
+                                        tcp_fallback=False,
+                                        collect_stats=False)
+
+
+def diag_params(n: int) -> SimParams:
+    """The full-model diagnostic configuration (full kernel variant)."""
+    return headline_params(n).with_(collect_stats=True,
+                                    slow_per_round=0.001)
+
+
+def clone_state(s: SimState) -> SimState:
+    """A deep copy (the runners update their input state in place)."""
+    return SimState(*[x.clone() for x in s[:-1]],
+                    stats=type(s.stats)(*[x.clone() for x in s.stats]))
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _best_of(run, state, key, base, iters, trials, dev):
+    """Best wall time of `trials` trials of `iters` runner calls, each
+    ending in a device sync and a fetched checksum."""
+    best = float("inf")
+    for trial in range(trials):
+        t0 = time.perf_counter()
+        for i in range(iters):
+            state = run(state, prng.fold_in(key, base + 10 * trial + i))
+        _sync(dev)
+        checksum = float(state.informed.sum())
+        best = min(best, time.perf_counter() - t0)
+        if not checksum > 0:
+            raise RuntimeError(f"checksum {checksum} after a timed trial")
+    return best, state
+
+
+def run_headline(device=None, smoke: bool = False) -> dict:
+    """Time both runners on both configurations; returns the result
+    dict (rates are rounds per second of the whole cluster)."""
+    dev = torch.device("cpu") if smoke else default_device(device)
+    n = SMOKE_N if smoke else HEADLINE_N
+    p, p_diag = headline_params(n), diag_params(n)
+    chunk, iters, trials = (10, 1, 2) if smoke else (500, 6, 3)
+    mega_chunk = 16 if smoke else 512
+    diag_chunk, mega_diag_chunk, diag_iters = \
+        (10, 16, 1) if smoke else (200, 240, 5)
+    key = prng.key(0, device=dev)
+    out = {"device": device_name(dev), "n": n, "smoke": smoke}
+
+    state = init_state(n, device=dev)
+    run = make_run_rounds_cuda(p, chunk)
+    state = run(state, prng.fold_in(key, 1))   # warm-up (build, caches)
+    _sync(dev)
+    dt, state = _best_of(run, state, key, 10, iters, trials, dev)
+    rounds = chunk * iters
+    out["per_round"] = {"kernel": "round_kernel/stable", "chunk": chunk,
+                        "rounds_per_sec": rounds / dt,
+                        "us_per_round": dt / rounds * 1e6,
+                        "launches_per_round": 1.0}
+
+    mega = make_run_rounds_cuda(p, mega_chunk, rounds_per_call=MEGA_RPC)
+    mstate = mega(clone_state(state), prng.fold_in(key, 3000))
+    _sync(dev)
+    mdt, mstate = _best_of(mega, mstate, key, 3001, iters, trials, dev)
+    rounds = mega_chunk * iters
+    out["mega"] = {"kernel": "mega_kernel/stable", "chunk": mega_chunk,
+                   "rounds_per_call": MEGA_RPC,
+                   "rounds_per_sec": rounds / mdt,
+                   "us_per_round": mdt / rounds * 1e6,
+                   "launches_per_round": 1.0 / MEGA_RPC}
+
+    # the full model: stats lanes + slow-node model
+    diag = make_run_rounds_cuda(p_diag, diag_chunk)
+    dstate = diag(clone_state(state), prng.fold_in(key, 998))
+    _sync(dev)
+    fdt, dstate = _best_of(diag, dstate, key, 1000, diag_iters, 2, dev)
+    rounds = diag_chunk * diag_iters
+    out["full_per_round"] = {"kernel": "round_kernel/full",
+                             "rounds_per_sec": rounds / fdt,
+                             "us_per_round": fdt / rounds * 1e6}
+    mdiag = make_run_rounds_cuda(p_diag, mega_diag_chunk,
+                                 rounds_per_call=MEGA_RPC)
+    mdstate = mdiag(clone_state(dstate), prng.fold_in(key, 3100))
+    _sync(dev)
+    mfdt, mdstate = _best_of(mdiag, mdstate, key, 3101, diag_iters, 2,
+                             dev)
+    rounds = mega_diag_chunk * diag_iters
+    out["full_mega"] = {"kernel": "mega_kernel/full",
+                        "rounds_per_sec": rounds / mfdt,
+                        "us_per_round": mfdt / rounds * 1e6}
+
+    # FD quality of the per-round full-model run: its stats began at
+    # zero when the diagnostic started
+    diag_rounds = int(dstate.round_idx) - int(state.round_idx)
+    rep = fd_report(dstate, p_diag)
+    node_rounds = float(n) * diag_rounds
+    out["fd"] = {"rounds": diag_rounds,
+                 "fp_per_node_round": rep.false_positives / node_rounds,
+                 "suspicions_per_node_round": rep.suspicions / node_rounds,
+                 "refutes_per_node_round": rep.refutes / node_rounds,
+                 "live_fraction": rep.live_fraction,
+                 "mean_informed": rep.mean_informed}
+    out["rounds_per_sec"] = max(out["per_round"]["rounds_per_sec"],
+                                out["mega"]["rounds_per_sec"])
+    return out
+
+
+def _short_kernel_name(name: str) -> str:
+    for noise in ("(anonymous namespace)::", "at::native::"):
+        name = name.replace(noise, "")
+    return name.removeprefix("void ")[:96]
+
+
+def profile_runners(device=None) -> dict:
+    """Where a stable headline run's time goes, from ``torch.profiler``:
+    for one call of each runner at the headline's chunk size, the wall
+    time (inflated by the profiler's own host cost), the device time by
+    kernel name, and the device's busy share of the span from its first
+    kernel's start to its last one's end (1 minus the idle share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = default_device(device)
+    if dev.type != "cuda":
+        raise ValueError("profile_runners traces the card; it has no CPU "
+                         "mode")
+    p = headline_params(HEADLINE_N)
+    key = prng.key(0, device=dev)
+    out = {}
+    for name, rpc, rounds in (("per_round", 1, 500),
+                              ("mega", MEGA_RPC, 512)):
+        run = make_run_rounds_cuda(p, rounds, rounds_per_call=rpc)
+        state = run(init_state(HEADLINE_N, device=dev),
+                    prng.fold_in(key, 1))   # warm-up
+        _sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = run(state, prng.fold_in(key, 2))
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        spans = sorted((e.time_range.start, e.time_range.end,
+                        _short_kernel_name(e.name))
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        out[name] = {"rounds": rounds,
+                     "wall_us_per_round": wall / rounds * 1e6,
+                     **device_breakdown(spans, rounds)}
+    return out
+
+
+def device_breakdown(spans, rounds: int) -> dict:
+    """Busy time (the union of the device intervals), the span from the
+    first start to the last end, and device µs per round by name, from
+    ``(start_us, end_us, name)`` tuples sorted by start."""
+    if not spans:
+        return {"device": "not measured: the trace holds no device events"}
+    by_name: dict = {}
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e, k in spans:
+        by_name[k] = by_name.get(k, 0.0) + (e - s)
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e for _, e, _ in spans) - spans[0][0]
+    return {
+        "device_span_us": span, "device_busy_us": busy,
+        "busy_share": busy / span if span > 0 else None,
+        "device_us_per_round_by_kernel": {
+            k: v / rounds for k, v in sorted(by_name.items(),
+                                             key=lambda kv: -kv[1])},
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="SWIM rounds/s of consul_tpu_torch at 1,048,576 nodes")
+    ap.add_argument("--smoke", action="store_true",
+                    help="65,536 nodes on the CPU through the plain path")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one call of each runner with "
+                         "torch.profiler (device time by kernel, busy "
+                         "share); needs the card")
+    args = ap.parse_args(argv)
+    if args.smoke and args.profile:
+        ap.error("--profile traces the card; it cannot run with --smoke")
+    reset_launches()
+    res = run_headline(smoke=args.smoke)
+    res["launches"] = dict(LAUNCHES)
+    res["metric"] = ("gossip_rounds_per_sec_smoke" if args.smoke
+                     else "gossip_rounds_per_sec_1M_nodes")
+    if args.profile:
+        res["profile"] = profile_runners()
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,371 @@
+"""The round kernels' wrappers, their plain versions, and the runner.
+
+Counterpart of the JAX package's ``consul_tpu/sim/pallas_round.py``.
+Two CUDA kernels (``csrc/round_kernels.cu``) carry the hot loop:
+
+* ``round_kernel`` — one protocol period per launch; replaces the TPU
+  kernel ``_round_kernel`` (pallas_round.py:439). Bandwidth-bound: per
+  round it reads 15 B/node and writes 13 B/node in the stable variant,
+  15 B/node in the full variant (29,360,128 B / 31,457,280 B at
+  1,048,576 nodes).
+* ``mega_kernel`` — R periods per launch on frozen scalars, each node
+  held in registers across the rounds; replaces ``_mega_kernel``
+  (pallas_round.py:526). It moves the bytes of one round per call, so
+  its R rounds of arithmetic bound it instead.
+
+Beside each kernel sits its plain PyTorch version (``block_round_ref``,
+``mega_round_ref``): the same protocol body as ``round.round_core``
+drawing the same Philox words the kernel draws. A wrapper takes the
+plain version only for tensors on the CPU; for CUDA tensors it checks
+device, dtype, shape and contiguity, launches the kernel, counts the
+launch in ``LAUNCHES`` and raises if the launch failed — there is no
+fallback.
+
+Both kernels write a ``[blocks, 18]`` table of per-block partial sums
+(8 population scalars, then the 10 SimStats counters); the runner folds
+it into the next call's stale scalars in PyTorch, as the JAX runner
+folds the TPU kernel's partials outside the kernel.
+
+The STABLE variant (configs with no churn, no slow model and no stats,
+``SimParams.age_mutable`` false) never writes down_age: a dead row's
+age stays frozen at its entry value, as the TPU kernel's does.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
+                                        _cast_like, _round_body,
+                                        clamp_scalars, init_scalars)
+from consul_tpu_torch.sim.state import (NODE_FIELDS, STATS_FIELDS,
+                                        SimState, SimStats)
+from consul_tpu_torch.utils import build
+
+THREADS = 256  # nodes per block (one thread per node)
+SOURCE = "round_kernels"
+
+#: launches per kernel and variant since the last ``reset_launches()``;
+#: incremented only where a kernel is launched (never by a plain version)
+LAUNCHES: collections.Counter = collections.Counter()
+
+_PACKED_DTYPES = (torch.int8, torch.int16, torch.float32, torch.int16,
+                  torch.int16, torch.int16, torch.int8, torch.int8)
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def variant(p: SimParams) -> str:
+    """'full' when a round can change down_age, else 'stable'."""
+    return "full" if p.age_mutable else "stable"
+
+
+def n_blocks(rows: int) -> int:
+    return (rows + THREADS - 1) // THREADS
+
+
+class RoundParams(ctypes.Structure):
+    """Mirror of ``struct RoundParams`` in round_kernels.cu."""
+
+    _fields_ = [("rows", ctypes.c_int)] + [
+        (f, ctypes.c_float) for f in (
+            "n_f", "inv_n", "probe_interval", "fail_p", "fail_leave_p",
+            "rejoin_p", "slow_p", "slow_recover_p", "slow_factor",
+            "one_minus_slow_factor", "p_direct", "p_relay", "p_tcp",
+            "fanout_ticks", "one_minus_loss", "susp_max_s", "shrink_r",
+            "shrink_omr", "conf_k_f")] + [
+        (f, ctypes.c_int) for f in (
+            "awareness_max", "indirect_checks", "lifeguard", "shrink_on",
+            "patience_on", "churn_on", "slow_on", "stats_on", "write_age")]
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_params(p: SimParams, rows: int) -> RoundParams:
+    """The host-folded constants of ``p`` (f64 folds, cast to f32 once —
+    the values the plain version's Python-float operands round to)."""
+    return RoundParams(
+        rows=rows, n_f=float(p.n), inv_n=1.0 / p.n,
+        probe_interval=p.probe_interval, fail_p=p.fail_per_round,
+        fail_leave_p=p.fail_per_round + p.leave_per_round,
+        rejoin_p=p.rejoin_per_round, slow_p=p.slow_per_round,
+        slow_recover_p=p.slow_recover_per_round,
+        slow_factor=p.slow_factor,
+        one_minus_slow_factor=1.0 - p.slow_factor,
+        p_direct=p.p_direct, p_relay=p.p_relay, p_tcp=p.p_tcp,
+        fanout_ticks=p.fanout_ticks, one_minus_loss=p.one_minus_loss,
+        susp_max_s=p.suspicion_max_s, shrink_r=p.shrink_r,
+        shrink_omr=p.shrink_omr, conf_k_f=float(p.confirmation_k),
+        awareness_max=p.awareness_max, indirect_checks=p.indirect_checks,
+        lifeguard=int(p.lifeguard),
+        shrink_on=int(p.lifeguard
+                      and p.suspicion_max_s > p.suspicion_min_s),
+        patience_on=int(p.lifeguard and p.enabled("slow_per_round")),
+        churn_on=int(p.has_churn), slow_on=int(p.enabled("slow_per_round")),
+        stats_on=int(p.collect_stats), write_age=int(p.age_mutable))
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    ptrs = [ctypes.c_void_p] * 8
+    lib.launch_round_kernel.argtypes = [RoundParams, *ptrs,
+                                        ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_void_p, ctypes.c_void_p]
+    lib.launch_round_kernel.restype = ctypes.c_int
+    lib.launch_mega_kernel.argtypes = [RoundParams, *ptrs,
+                                       ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p]
+    lib.launch_mega_kernel.restype = ctypes.c_int
+    lib.round_kernels_error_string.argtypes = [ctypes.c_int]
+    lib.round_kernels_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_launch(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.round_kernels_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def _check_inputs(arrays: Sequence[torch.Tensor], scalars: torch.Tensor,
+                  seeds: torch.Tensor) -> int:
+    if len(arrays) != len(NODE_FIELDS):
+        raise ValueError(f"expected {len(NODE_FIELDS)} node arrays "
+                         f"({', '.join(NODE_FIELDS)}), got {len(arrays)}")
+    dev = arrays[0].device
+    rows = arrays[0].shape[0]
+    for f, a, dt in zip(NODE_FIELDS, arrays, _PACKED_DTYPES):
+        if a.device != dev:
+            raise ValueError(f"{f} is on {a.device}, expected {dev}")
+        if a.dtype != dt:
+            raise ValueError(f"{f} has dtype {a.dtype}; the kernels take "
+                             f"the packed layout ({dt})")
+        if a.dim() != 1 or a.shape[0] != rows:
+            raise ValueError(f"{f} has shape {tuple(a.shape)}, expected "
+                             f"({rows},)")
+        if not a.is_contiguous():
+            raise ValueError(f"{f} is not contiguous")
+    if (scalars.device != dev or scalars.dtype != torch.float32
+            or tuple(scalars.shape) != (N_SCALARS,)
+            or not scalars.is_contiguous()):
+        raise ValueError("scalars must be a contiguous f32 "
+                         f"[{N_SCALARS}] tensor on {dev}")
+    if (seeds.device != dev or seeds.dtype != torch.int32
+            or seeds.dim() != 1 or not seeds.is_contiguous()):
+        raise ValueError(f"seeds must be a contiguous 1-D int32 tensor "
+                         f"on {dev}")
+    return rows
+
+
+def _partials_out(out, rows, dev):
+    shape = (n_blocks(rows), N_LANES)
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    if tuple(out.shape) != shape or out.dtype != torch.float32 \
+            or out.device != dev or not out.is_contiguous():
+        raise ValueError(f"partials buffer must be a contiguous f32 "
+                         f"{shape} tensor on {dev}")
+    return out
+
+
+# ------------------------------------------------------- plain versions
+
+
+def _block_sums(lanes, rows: int) -> torch.Tensor:
+    """Per-node contribution lanes -> [blocks, N_LANES] block sums."""
+    blocks = n_blocks(rows)
+    dev = lanes[0].device
+    stack = torch.zeros((N_LANES, blocks * THREADS), dtype=torch.float32,
+                        device=dev)
+    for i, lane in enumerate(lanes):
+        if lane is not None:
+            stack[i, :rows] = lane
+    return stack.view(N_LANES, blocks, THREADS).sum(2).t().contiguous()
+
+
+def _one_round(vals, arrays, scalars, seed, p, margin=None):
+    rows = arrays[0].shape[0]
+    outs, lanes = _round_body(vals, scalars, p,
+                              prng.philox_u01(seed, rows), margin=margin)
+    outs = _cast_like(outs, arrays)
+    if not p.age_mutable:
+        # the stable variant never stores down_age
+        outs = outs[:3] + (arrays[3],) + outs[4:]
+    return outs, lanes
+
+
+def block_round_ref(arrays, scalars, seed, p: SimParams,
+                    margin: Optional[list] = None):
+    """Plain version of ``round_kernel``: one period on the packed
+    arrays with ``seed``'s Philox draws. Returns (new arrays, partials
+    [blocks, 18]); the inputs are not modified."""
+    outs, lanes = _one_round(arrays, arrays, scalars, seed, p, margin)
+    return outs, _block_sums(lanes, arrays[0].shape[0])
+
+
+def mega_round_ref(arrays, scalars, seeds, p: SimParams):
+    """Plain version of ``mega_kernel``: ``len(seeds)`` periods on the
+    frozen ``scalars``; counter lanes sum over every round, scalar lanes
+    are the last round's. Returns (new arrays, partials)."""
+    vals = tuple(arrays)
+    acc = [None] * N_LANES
+    for r in range(seeds.shape[0]):
+        vals, lanes = _one_round(vals, arrays, scalars, seeds[r], p)
+        for i in range(N_SCALARS, N_LANES):
+            if lanes[i] is not None:
+                acc[i] = lanes[i] if acc[i] is None else acc[i] + lanes[i]
+    acc[:N_SCALARS] = lanes[:N_SCALARS]
+    return vals, _block_sums(acc, arrays[0].shape[0])
+
+
+# -------------------------------------------------------------- wrappers
+
+
+def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
+                 r: int, p: SimParams,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One period over ``arrays`` (updated IN PLACE) with the stale
+    ``scalars`` and seed ``seeds[r]``; returns the [blocks, 18] partial
+    sums. CPU tensors run ``block_round_ref``."""
+    rows = _check_inputs(arrays, scalars, seeds)
+    if not 0 <= r < seeds.shape[0]:
+        raise IndexError(f"seed index {r} outside seeds[{seeds.shape[0]}]")
+    dev = arrays[0].device
+    partials = _partials_out(out, rows, dev)
+    if dev.type == "cpu":
+        outs, sums = block_round_ref(arrays, scalars, seeds[r], p)
+        for a, o in zip(arrays, outs):
+            a.copy_(o)
+        partials.copy_(sums)
+        return partials
+    lib = _lib()
+    rc = lib.launch_round_kernel(
+        kernel_params(p, rows), *[a.data_ptr() for a in arrays],
+        scalars.data_ptr(), seeds.data_ptr() + 4 * r, partials.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(lib, rc, "round_kernel")
+    LAUNCHES[f"round_kernel/{variant(p)}"] += 1
+    return partials
+
+
+def mega_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
+                p: SimParams,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``len(seeds)`` periods over ``arrays`` (updated IN PLACE) on
+    frozen ``scalars``; returns the [blocks, 18] partial sums (counter
+    lanes are call totals, scalar lanes the last round's). CPU tensors
+    run ``mega_round_ref``."""
+    rows = _check_inputs(arrays, scalars, seeds)
+    dev = arrays[0].device
+    partials = _partials_out(out, rows, dev)
+    if dev.type == "cpu":
+        outs, sums = mega_round_ref(arrays, scalars, seeds, p)
+        for a, o in zip(arrays, outs):
+            a.copy_(o)
+        partials.copy_(sums)
+        return partials
+    lib = _lib()
+    rc = lib.launch_mega_kernel(
+        kernel_params(p, rows), *[a.data_ptr() for a in arrays],
+        scalars.data_ptr(), seeds.data_ptr(), int(seeds.shape[0]),
+        partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(lib, rc, "mega_kernel")
+    LAUNCHES[f"mega_kernel/{variant(p)}"] += 1
+    return partials
+
+
+# ---------------------------------------------------------------- runner
+
+
+def make_run_rounds_cuda(p: SimParams, rounds: int,
+                         rounds_per_call: int = 1, carry: bool = False,
+                         plan=None, coords: bool = False,
+                         flight_every: Optional[int] = None,
+                         blackbox: bool = False):
+    """The kernel hot loop: ``run(state, key, scalars0=None)`` -> state
+    (``(state, scalars)`` with ``carry=True``).
+
+    ``rounds_per_call=1`` launches ``round_kernel`` once per round and
+    folds its partials into the next round's stale scalars;
+    ``rounds_per_call=R > 1`` launches ``mega_kernel`` once per R rounds
+    on scalars frozen for the call (the ``stale_k == R`` schedule).
+    Per-round seeds are ``prng.round_seeds(key, state.round_idx,
+    rounds)``, so a run cut at a call boundary and resumed with the
+    returned scalars (``scalars0=``) draws the same seeds as the uncut
+    run. Counters accumulate in int32 with an f32 latency lane.
+
+    The state's per-node tensors are updated IN PLACE — the stand-in
+    for JAX's buffer donation: the passed state and the returned one
+    share them. The fault-plan, coordinate, flight-recorder and
+    black-box options of the JAX runner belong to later slices of the
+    port and are refused by name."""
+    for name, val in (("plan", plan), ("coords", coords),
+                      ("flight_every", flight_every),
+                      ("blackbox", blackbox)):
+        if val is not None and val is not False:
+            raise ValueError(
+                f"make_run_rounds_cuda: {name}= is not supported yet — it "
+                "belongs to a later slice of the port")
+    R = rounds_per_call
+    if R < 1:
+        raise ValueError(f"rounds_per_call must be >= 1: {R}")
+    if rounds % R:
+        raise ValueError(f"rounds={rounds} must be a multiple of "
+                         f"rounds_per_call={R}")
+    keep = torch.ones(N_STATS)
+    keep[LAT] = 0.0
+
+    def run(state: SimState, key: torch.Tensor, scalars0=None):
+        if scalars0 is not None and not carry:
+            raise ValueError("scalars0 needs a carry=True runner")
+        arrays = state.node_arrays()
+        dev = arrays[0].device
+        if scalars0 is None:
+            scalars = init_scalars(state, p)
+        else:
+            scalars = scalars0.to(device=dev, dtype=torch.float32).clone()
+        seeds = prng.round_seeds(key.to(dev), state.round_idx, rounds)
+        rows = arrays[0].shape[0]
+        buf = torch.empty((n_blocks(rows), N_LANES), dtype=torch.float32,
+                          device=dev)
+        acc_i = torch.zeros(N_STATS, dtype=torch.int32, device=dev)
+        acc_lat = torch.zeros((), dtype=torch.float32, device=dev)
+        keep_d = keep.to(dev)
+        t = state.t
+        for c in range(rounds // R):
+            if R == 1:
+                partials = round_kernel(arrays, scalars, seeds, c, p,
+                                        out=buf)
+                t = t + p.probe_interval
+            else:
+                partials = mega_kernel(arrays, scalars,
+                                       seeds[c * R:(c + 1) * R], p,
+                                       out=buf)
+                t = t + torch.tensor(float(R), dtype=torch.float32,
+                                     device=dev) * p.probe_interval
+            sums = partials.sum(0)
+            scalars = clamp_scalars(sums[:N_SCALARS])
+            if p.collect_stats:
+                stat = sums[N_SCALARS:]
+                acc_i += (stat * keep_d).to(torch.int32)
+                acc_lat += stat[LAT]
+        st = state.stats
+        if p.collect_stats:
+            st = SimStats(**{
+                f: getattr(st, f) + (acc_lat if i == LAT else acc_i[i])
+                for i, f in enumerate(STATS_FIELDS)})
+        out = SimState(*arrays, t=t, round_idx=state.round_idx + rounds,
+                       stats=st)
+        return (out, scalars) if carry else out
+
+    return run

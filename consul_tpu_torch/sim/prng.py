@@ -1,0 +1,186 @@
+"""Counter-based random streams in plain PyTorch.
+
+Two generators live here:
+
+* **threefry2x32**, bit-exact with JAX's default PRNG
+  (``jax_threefry_partitionable=True``): ``key``, ``fold_in``, ``split``,
+  ``bits`` and ``uniform``, and on top of them the per-round streams
+  ``round_keys`` / ``round_seeds`` of the JAX package's
+  ``sim/round.py``. A run seeded with the same base key therefore draws
+  the same per-round kernel seeds in both packages, and a run cut at a
+  call boundary resumes seed for seed (round ``r``'s key is
+  ``fold_in(base, r)``, independent of how the run is cut).
+* **Philox4x32-10** (Salmon et al., "Parallel random numbers: as easy as
+  1, 2, 3", SC'11) — the generator the CUDA round kernels run per node.
+  ``philox_bits`` is its plain twin: the same 32-bit words for the same
+  key and counter, so the kernels' plain versions draw exactly what the
+  kernels draw.
+
+Words are carried in int64 tensors holding values in [0, 2^32), masked
+after every add and shift (PyTorch on the CPU has no ``<<`` for uint32).
+Multiplications split one factor into 16-bit halves so no product
+leaves int64's range.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import torch
+
+MASK = 0xFFFFFFFF
+
+Start = Union[int, torch.Tensor]
+
+# ------------------------------------------------------------- threefry
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds on broadcastable int64 word tensors;
+    returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + k0) & MASK
+    x1 = (x1 + k1) & MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
+    return x0, x1
+
+
+def key(seed: int, device=None) -> torch.Tensor:
+    """A raw threefry key ``[2]`` from an integer seed (``jax.random.key``)."""
+    return torch.tensor([(seed >> 32) & MASK if seed >= 0 else 0,
+                         seed & MASK], dtype=torch.int64, device=device)
+
+
+def fold_in(k: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: a new key from ``k`` and uint32 ``data``
+    (a 1-D ``data`` tensor gives a ``[len, 2]`` stack of keys)."""
+    d = torch.as_tensor(data, device=k.device).to(torch.int64) & MASK
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def split(k: torch.Tensor, num: int) -> torch.Tensor:
+    """``jax.random.split(k, num)`` -> ``[num, 2]`` keys."""
+    i = torch.arange(num, dtype=torch.int64, device=k.device)
+    y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def bits(k: torch.Tensor, n: int = 0) -> torch.Tensor:
+    """32-bit random words of ``k`` (``jax.random.bits``): the scalar
+    word for ``n == 0`` (per key, for a ``[..., 2]`` key stack), else an
+    ``[n]`` vector."""
+    if n == 0:
+        z = torch.zeros_like(k[..., 0])
+        y0, y1 = threefry2x32(k[..., 0], k[..., 1], z, z)
+    else:
+        j = torch.arange(n, dtype=torch.int64, device=k.device)
+        y0, y1 = threefry2x32(k[0], k[1], j >> 32, j & MASK)
+    return y0 ^ y1
+
+
+def uniform(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(k, (n,))`` in f32, bit for bit: the top 23
+    bits of each word as the mantissa of a float in [1, 2), minus one —
+    which is exactly ``(word >> 9) * 2**-23``."""
+    return (bits(k, n) >> 9).to(torch.float32) * (2.0 ** -23)
+
+
+def round_keys(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
+    """``[count, 2]`` per-round keys for ABSOLUTE rounds
+    start..start+count-1: round r's key is ``fold_in(k, r)``, a pure
+    function of the base key and the absolute round index."""
+    idx = torch.as_tensor(start, device=k.device).to(torch.int64) \
+        + torch.arange(count, dtype=torch.int64, device=k.device)
+    return fold_in(k, idx)
+
+
+def round_seeds(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
+    """``[count]`` non-negative int32 kernel seeds for absolute rounds
+    start..start+count-1 (one word of each round key, shifted right
+    once) — the same stream the JAX package feeds its TPU kernels."""
+    return (bits(round_keys(k, start, count)) >> 1).to(torch.int32)
+
+
+# --------------------------------------------------------- Philox4x32-10
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+PHILOX_ROUNDS = 10
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product of constant ``a`` and
+    word tensor ``b``, without leaving int64 range."""
+    p0 = b * (a & 0xFFFF)
+    p1 = b * (a >> 16)
+    hi = (p1 + (p0 >> 16)) >> 16
+    lo = (((p1 & 0xFFFF) << 16) + p0) & MASK
+    return hi, lo
+
+
+def philox4x32(c, k):
+    """Philox4x32-10 on a 4-word counter ``c`` and 2-word key ``k``
+    (broadcastable int64 word tensors or ints); returns 4 words."""
+    c0, c1, c2, c3 = c
+    k0, k1 = k
+    for _ in range(PHILOX_ROUNDS):
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & MASK
+        k1 = (k1 + PHILOX_W1) & MASK
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: torch.Tensor, node: torch.Tensor,
+                slot: int) -> torch.Tensor:
+    """The kernels' per-node word: Philox4x32-10 keyed by
+    ``(seed, 0)`` on counter ``(node, slot, 0, 0)``, output word 0.
+    ``seed`` is an int32 0-d tensor, ``node`` the global node indices."""
+    s = seed.to(torch.int64) & MASK
+    node = node.to(torch.int64)
+    z = torch.zeros_like(node)
+    return philox4x32((node, z + slot, z, z), (s, 0))[0]
+
+
+def philox_uniform(seed: torch.Tensor, node: torch.Tensor,
+                   slot: int) -> torch.Tensor:
+    """f32 uniform in [0, 1) from the top 24 bits of ``philox_bits`` —
+    the kernels' conversion, ``(bits >> 8) * 2**-24``."""
+    return (philox_bits(seed, node, slot) >> 8).to(torch.float32) \
+        * (2.0 ** -24)
+
+
+# ------------------------------------------------ per-node draw sources
+
+#: a round body's draw source: slot index -> [L] f32 uniforms
+U01 = Callable[[int], torch.Tensor]
+
+
+def threefry_u01(k: torch.Tensor, n: int) -> U01:
+    """The JAX engines' draws for one round: ``split(k, 5)`` gives one
+    key per slot and each slot draws ``uniform(slot_key, (n,))``."""
+    keys = split(k, 5)
+    return lambda slot: uniform(keys[slot], n)
+
+
+def philox_u01(seed: torch.Tensor, n: int) -> U01:
+    """The round kernels' draws for one round over nodes 0..n-1: Philox
+    keyed by the round's seed, counter (node index, slot)."""
+    node = torch.arange(n, dtype=torch.int64, device=seed.device)
+    return lambda slot: philox_uniform(seed, node, slot)

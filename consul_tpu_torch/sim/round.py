@@ -1,0 +1,463 @@
+"""One SWIM protocol period as plain PyTorch tensor code.
+
+The port of the JAX package's ``consul_tpu/sim/round.py`` main path: the
+batch-synchronous, Poissonized protocol period over every node at once
+(the module docstring there derives the mean-field model). One body,
+``_round_body``, serves every engine here and the round kernels' plain
+versions in ``cuda_round.py``, so they cannot drift:
+
+* ``round_core(state, scalars, p, u01)`` — live mode (``scalars=None``:
+  population scalars from this round's post-churn arrays) or stale mode
+  (last round's scalars in, next round's out of the same pass);
+* ``gossip_round`` / ``gossip_round_fast`` — one period on threefry
+  draws keyed exactly as the JAX engines key theirs;
+* ``run_rounds`` / ``make_run_rounds_fast`` — the multi-round loops.
+
+Per-node randomness comes from a caller-supplied source ``u01(slot)``
+(five slots: churn, slow, ack, pois, hear — ``prng.threefry_u01``,
+``prng.philox_u01``, or injected arrays in the tests). That seam is what
+holds the port bit for bit against the reference when both draw the same
+uniforms.
+
+Arithmetic follows the reference op for op in f32 (constants fold on the
+host in f64 and are cast once, integer powers are repeated products in
+the same order), so the int lanes agree exactly and the f32 lanes within
+a few ulp of the platform's ``exp``/``log``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim.state import (ALIVE, ALIVE_AGE, CONF_MAX, DEAD,
+                                        LEFT, SLOW_AGE, STATS_FIELDS,
+                                        SUSPECT, TICK_MAX, TTL_NEVER,
+                                        SimState, SimStats)
+
+#: scalar vector layout for the stale-scalar fast path
+#: [n_live, n_elig, n_up_elig, n_slow_up_elig,
+#:  sum(up*pf_fast), sum(up*pf_slow), lfail_num, lfail_den]
+N_SCALARS = 8
+N_STATS = len(STATS_FIELDS)
+#: per-node contribution lanes: the 8 scalar lanes, then the counters
+N_LANES = N_SCALARS + N_STATS
+LAT = STATS_FIELDS.index("detect_latency_sum")
+
+#: draw slots, in the reference's draw order
+U_CHURN, U_SLOW, U_ACK, U_POIS, U_HEAR = range(5)
+N_DRAWS = 5
+
+#: floors applied to a reduced scalar vector (n_elig >= 1,
+#: n_up_elig >= 1e-9, lfail_den >= 1e-9); the other lanes are unclamped
+SCALAR_FLOORS = (float("-inf"), 1.0, 1e-9, float("-inf"), float("-inf"),
+                 float("-inf"), float("-inf"), 1e-9)
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+def ipow(x: torch.Tensor, y: int) -> torch.Tensor:
+    """x**y for a static int y >= 1 by binary exponentiation, multiplied
+    in the order XLA's integer_pow uses (so the f32 rounding matches)."""
+    if y == 0:
+        return torch.ones_like(x)
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc
+
+
+def _shrink(c: torch.Tensor, p: SimParams) -> torch.Tensor:
+    """Normalized Lifeguard timeout shrink factor for c confirmations."""
+    if not p.lifeguard or p.suspicion_max_s <= p.suspicion_min_s:
+        return torch.ones_like(c, dtype=_F32)
+    den = torch.log(torch.tensor(float(p.confirmation_k), dtype=_F32,
+                                 device=c.device) + 1.0)
+    frac = torch.log(c.to(_F32) + 1.0) / den
+    return torch.clamp_min(1.0 - p.shrink_omr * frac, p.shrink_r)
+
+
+def _trunc_poisson(u: torch.Tensor, lam: torch.Tensor, kmax: int = 4,
+                   cdf: Optional[list] = None) -> torch.Tensor:
+    """Poisson sample via inverse CDF truncated at kmax (elementwise).
+    ``cdf`` (a list) collects the compared CDF terms."""
+    nf = torch.zeros_like(lam, dtype=_I32)
+    term = torch.exp(-lam)
+    c = term
+    for k in range(1, kmax + 1):
+        if cdf is not None:
+            cdf.append(c)
+        nf = nf + (u > c).to(_I32)
+        term = term * lam / k
+        c = c + term
+    return nf
+
+
+def pf_arrays(slow: torch.Tensor, lh: torch.Tensor, sbar, live_frac,
+              p: SimParams):
+    """Per-prober miss probabilities for fast/slow targets given the
+    population scalars: (g, pf_fast, pf_slow)."""
+    g = torch.where(slow, p.slow_factor, 1.0).to(_F32)
+    if p.lifeguard and p.enabled("slow_per_round"):
+        patience = 1.0 - torch.exp2(-lh.to(_F32))
+    else:
+        patience = torch.zeros_like(g)
+
+    def noack_given(gj_val):
+        gj = torch.tensor(gj_val, dtype=_F32, device=g.device)
+        ge_i = g + (1.0 - g) * patience
+        ge_j = gj + (1.0 - gj) * patience
+        pair2 = ipow(ge_i * ge_j, 2)
+        p_d = p.p_direct * pair2
+        ge_p_slow = p.slow_factor + (1.0 - p.slow_factor) * patience
+        e_gp4 = (1.0 - sbar) * 1.0 + sbar * ipow(ge_p_slow, 4)
+        p_relay1 = live_frac * p.p_relay * pair2 * e_gp4
+        p_no_relay = ipow(1.0 - p_relay1, p.indirect_checks)
+        p_tcp = p.p_tcp * ge_i * ge_j
+        return (1.0 - p_d) * p_no_relay * (1.0 - p_tcp)
+
+    return g, noack_given(1.0), noack_given(p.slow_factor)
+
+
+def _ulps(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|x - ref| in units of ref's f32 spacing (approximately)."""
+    spacing = torch.clamp_min(ref.abs() * 2.0 ** -23, 2.0 ** -149)
+    return (x - ref).abs() / spacing
+
+
+def _round_body(vals, scal, p: SimParams, u01: prng.U01,
+                margin: Optional[list] = None):
+    """ONE protocol period over per-node tensors — the single copy of
+    the protocol body.
+
+    ``vals``: the 8 per-node tensors in ``state.NODE_FIELDS`` order, any
+    integer width (widened to int32 here). ``scal``: None (live mode) or
+    the stale scalar vector. Returns ``(outs, lanes)``: the 8 updated
+    lanes widened (int32, f32 informed) and the ``N_LANES`` per-node
+    contribution tensors (None where identically zero) — the 8 scalar
+    lanes on the post-round state, then the ``STATS_FIELDS`` counters.
+
+    ``margin`` (a list) receives, per node, the smallest distance in ulps
+    between a uniform and the computed threshold it was compared with,
+    or between a ceil argument and the nearest integer: the decisions a
+    last-bit difference in exp/log could flip."""
+    (status_in, inc_in, informed, age_in, slen_in, sttl_in, conf_in,
+     lh_in) = vals
+    n = p.n
+    age = age_in.to(_I32)
+    up = age < 0
+    slow = age == SLOW_AGE
+    status = status_in.to(_I32)
+    inc = inc_in.to(_I32)
+    slen = slen_in.to(_I32)
+    sttl = sttl_in.to(_I32)
+    s_conf = conf_in.to(_I32)
+    lh = lh_in.to(_I32)
+    new_rumor = torch.zeros_like(up)
+    crash = leave = rejoin = None
+
+    # dead nodes age one tick per round (saturating)
+    age = torch.where(age >= 0, torch.clamp_max(age + 1, TICK_MAX), age)
+
+    # ------------------------------------------------------------- churn
+    if p.has_churn:
+        u = u01(U_CHURN)
+        fail_p, leave_p = p.fail_per_round, p.leave_per_round
+        crash = up & (u < fail_p)
+        leave = up & (u >= fail_p) & (u < fail_p + leave_p)
+        rejoin = (~up) & (u < p.rejoin_per_round)
+        up = (up & ~(crash | leave)) | rejoin
+        age = torch.where(crash | leave, 0, age)
+        age = torch.where(rejoin, ALIVE_AGE, age)
+        slow = slow & up
+        status = torch.where(leave, LEFT, status)
+        status = torch.where(rejoin, ALIVE, status)
+        inc = torch.where(rejoin, torch.clamp_max(inc + 1, TICK_MAX), inc)
+        lh = torch.where(rejoin, 0, lh)
+        started = leave | rejoin
+        informed = torch.where(started, 1.0 / n, informed)
+        sttl = torch.where(started, TTL_NEVER, sttl)
+        new_rumor = new_rumor | started
+
+    # ------------------------------------------------ degraded-node churn
+    if p.enabled("slow_per_round"):
+        u_s = u01(U_SLOW)
+        slow = torch.where(slow, u_s >= p.slow_recover_per_round,
+                           u_s < p.slow_per_round) & up
+
+    # ---------------------------------------------- mean-field population
+    upf = up.to(_F32)
+    elig = (status == ALIVE) | (status == SUSPECT)
+    eligf = elig.to(_F32)
+    if scal is None:
+        n_live = torch.sum(upf)
+        n_elig = torch.clamp_min(torch.sum(eligf), 1.0)
+        n_up_elig = torch.clamp_min(torch.sum(upf * eligf), 1e-9)
+        sbar = torch.sum((slow & up & elig).to(_F32)) / n_up_elig
+    else:
+        n_live, n_elig, n_up_elig = scal[0], scal[1], scal[2]
+        sbar = scal[3] / n_up_elig
+    frac_up_elig = n_up_elig / n_elig
+
+    g, pf_fast, pf_slow = pf_arrays(slow, lh, sbar, n_live / n, p)
+
+    # ------------------------------------------------- prober-side probe
+    mix_i = (1.0 - sbar) * pf_fast + sbar * pf_slow
+    p_ack = frac_up_elig * (1.0 - mix_i)
+    u_ack = u01(U_ACK)
+    ack = up & (u_ack < p_ack)
+    failed = up & ~ack
+    if p.lifeguard:
+        lh = torch.clamp(lh + failed.to(_I32) - ack.to(_I32), 0,
+                         p.awareness_max)
+
+    # --------------------------------------------- target-side suspicion
+    if scal is None:
+        e_pf_fast = torch.sum(upf * pf_fast) / torch.clamp_min(n_live,
+                                                                1e-9)
+        e_pf_slow = torch.sum(upf * pf_slow) / torch.clamp_min(n_live,
+                                                                1e-9)
+    else:
+        e_pf_fast = scal[4] / torch.clamp_min(n_live, 1e-9)
+        e_pf_slow = scal[5] / torch.clamp_min(n_live, 1e-9)
+    probe_rate = n_live / torch.clamp_min(n_elig - 1.0, 1.0)
+    base_fail = torch.where(slow, e_pf_slow, e_pf_fast)
+    p_fail_j = torch.where(up, base_fail, 1.0)
+    lam_fail = probe_rate * p_fail_j * eligf
+    cdf = [] if margin is not None else None
+    u_pois = u01(U_POIS)
+    n_fail = _trunc_poisson(u_pois, lam_fail, cdf=cdf)
+
+    # mean Lifeguard (LH+1) scale of failing probers
+    if scal is None:
+        w_fail = upf * (1.0 - p_ack)
+        lfail_num = torch.sum(w_fail * (lh.to(_F32) + 1.0))
+        lfail_den = torch.clamp_min(torch.sum(w_fail), 1e-9)
+    else:
+        lfail_num, lfail_den = scal[6], scal[7]
+    if p.lifeguard:
+        scale = lfail_num / lfail_den
+    else:
+        scale = torch.tensor(1.0, dtype=_F32, device=informed.device)
+
+    # carried suspicion timers advance one tick
+    sttl = torch.where(status == SUSPECT, sttl - 1, sttl)
+
+    starts = (n_fail > 0) & (status == ALIVE)
+    confirms = (n_fail > 0) & (status == SUSPECT)
+    c0 = torch.clamp_min(n_fail - 1, 0)
+    timeout0 = scale * p.suspicion_max_s * _shrink(c0, p)
+    ticks0 = torch.ceil(timeout0 / p.probe_interval)
+    len0 = torch.clamp_max(ticks0, float(TICK_MAX)).to(_I32)
+    status = torch.where(starts, SUSPECT, status)
+    slen = torch.where(starts, len0, slen)
+    sttl = torch.where(starts, len0, sttl)
+    s_conf = torch.where(starts, c0, s_conf)
+    informed = torch.where(starts, 1.0 / n, informed)
+    new_rumor = new_rumor | starts
+
+    # existing suspicions: independent confirmations shrink the timer
+    c_new = torch.clamp_max(s_conf + n_fail, CONF_MAX)
+    ratio = _shrink(c_new, p) / _shrink(s_conf, p)
+    len2_f = slen.to(_F32) * ratio
+    len2 = torch.ceil(len2_f).to(_I32)
+    sttl = torch.where(confirms, sttl - (slen - len2), sttl)
+    slen = torch.where(confirms, len2, slen)
+    s_conf = torch.where(confirms, c_new, s_conf)
+
+    # ------------------------------------------- refutation (the race)
+    lam_hear = p.fanout_ticks * informed * p.one_minus_loss * g
+    p_hear = 1.0 - torch.exp(-lam_hear)
+    wrongly = up & ((status == SUSPECT) | (status == DEAD)) & ~new_rumor
+    u_hear = u01(U_HEAR)
+    refute = wrongly & (u_hear < p_hear)
+    status = torch.where(refute, ALIVE, status)
+    inc = torch.where(refute, torch.clamp_max(inc + 1, TICK_MAX), inc)
+    informed = torch.where(refute, 1.0 / n, informed)
+    sttl = torch.where(refute, TTL_NEVER, sttl)
+    slen = torch.where(refute, 0, slen)
+    s_conf = torch.where(refute, 0, s_conf)
+    new_rumor = new_rumor | refute
+    if p.lifeguard:
+        lh = torch.clamp(lh + refute.to(_I32), 0, p.awareness_max)
+
+    # ------------------------------------------------- dead declaration
+    declare = (status == SUSPECT) & (sttl <= 0)
+    status = torch.where(declare, DEAD, status)
+    informed = torch.where(declare, 1.0 / n, informed)
+    sttl = torch.where(declare, TTL_NEVER, sttl)
+    new_rumor = new_rumor | declare
+    # a node crashing in round r ends it at age 0: (age + 1) periods
+    lat = (age + 1).to(_F32) * p.probe_interval
+
+    # ----------------------------------------------- epidemic growth
+    grow = (~new_rumor) & (informed < 1.0)
+    lam_g = p.fanout_ticks * informed * p.one_minus_loss
+    informed = torch.where(
+        grow, informed + (1.0 - informed) * (1.0 - torch.exp(-lam_g)),
+        informed)
+
+    age_out = torch.where(up, torch.where(slow, SLOW_AGE, ALIVE_AGE), age)
+    outs = (status, inc, informed, age_out, slen, sttl, s_conf, lh)
+
+    # ------------------------------------- per-node contribution lanes
+    upf2 = up.to(_F32)
+    elig2 = (status == ALIVE) | (status == SUSPECT)
+    elig2f = elig2.to(_F32)
+    w_fail2 = upf2 * (1.0 - p_ack)
+    lanes = [upf2, elig2f, upf2 * elig2f, (slow & up & elig2).to(_F32),
+             upf2 * pf_fast, upf2 * pf_slow,
+             w_fail2 * (lh.to(_F32) + 1.0), w_fail2]
+    if p.collect_stats:
+        tp = declare & ~up
+
+        def f(m):
+            return None if m is None else m.to(_F32)
+
+        lanes += [f(starts), f(refute), f(declare & up), f(tp),
+                  torch.where(tp, lat, 0.0), f(crash), f(rejoin),
+                  f(leave), None, None]
+    else:
+        lanes += [None] * N_STATS
+
+    if margin is not None:
+        inf = torch.full_like(informed, float("inf"))
+        m = torch.where(up, _ulps(u_ack, p_ack.expand_as(u_ack)), inf)
+        for c in cdf:
+            m = torch.minimum(m, torch.where(eligf > 0, _ulps(u_pois, c),
+                                             inf))
+        m = torch.minimum(m, torch.where(wrongly, _ulps(u_hear, p_hear),
+                                         inf))
+        m = torch.minimum(m, torch.where(
+            starts, _ulps(timeout0 / p.probe_interval,
+                          torch.round(timeout0 / p.probe_interval)), inf))
+        m = torch.minimum(m, torch.where(
+            confirms, _ulps(len2_f, torch.round(len2_f)), inf))
+        margin.append(m)
+    return outs, lanes
+
+
+def _cast_like(outs, vals):
+    """Narrow each widened lane back to its input tensor's dtype."""
+    return tuple(o.to(v.dtype) for o, v in zip(outs, vals))
+
+
+def _stats_add(st: SimStats, lanes) -> SimStats:
+    """Fold one round's counter lanes into the cumulative SimStats."""
+    deltas = {}
+    for i, f in enumerate(STATS_FIELDS):
+        lane = lanes[N_SCALARS + i]
+        if lane is None:
+            continue
+        if i == LAT:
+            deltas[f] = torch.sum(lane)
+        else:
+            deltas[f] = torch.sum(lane.to(_I32)).to(_I32)
+    return st._replace(**{f: getattr(st, f) + d for f, d in deltas.items()})
+
+
+def clamp_scalars(sums: torch.Tensor) -> torch.Tensor:
+    """Apply ``SCALAR_FLOORS`` to a reduced [8] scalar vector."""
+    floors = torch.tensor(SCALAR_FLOORS, dtype=_F32, device=sums.device)
+    return torch.maximum(sums, floors)
+
+
+def round_core(state: SimState, scalars: Optional[torch.Tensor],
+               p: SimParams, u01: prng.U01):
+    """ONE protocol period; returns ``(state', scalars')``.
+
+    ``scalars=None`` is live mode (``scalars'`` is None);
+    a stale [8] vector is stale mode, producing next round's scalars in
+    the same pass. ``u01(slot)`` supplies each slot's [N] uniforms."""
+    vals = state.node_arrays()
+    outs, lanes = _round_body(vals, scalars, p, u01)
+    st = _stats_add(state.stats, lanes) \
+        if p.collect_stats else state.stats
+    out = SimState(*_cast_like(outs, vals),
+                   t=state.t + p.probe_interval,
+                   round_idx=state.round_idx + 1, stats=st)
+    if scalars is None:
+        return out, None
+    sums = torch.stack([torch.sum(lane) for lane in lanes[:N_SCALARS]])
+    return out, clamp_scalars(sums)
+
+
+def gossip_round(state: SimState, key: torch.Tensor,
+                 p: SimParams) -> SimState:
+    """One period with LIVE population scalars, drawing from ``key``
+    exactly as the JAX engines draw (``prng.threefry_u01``)."""
+    out, _ = round_core(state, None, p,
+                        prng.threefry_u01(key, state.status.shape[0]))
+    return out
+
+
+def gossip_round_fast(state: SimState, scalars: torch.Tensor,
+                      key: torch.Tensor, p: SimParams):
+    """One period on LAST round's scalars: returns (state', scalars')."""
+    return round_core(state, scalars, p,
+                      prng.threefry_u01(key, state.status.shape[0]))
+
+
+def init_scalars(state: SimState, p: SimParams) -> torch.Tensor:
+    """Exact population scalars for the stale path's first round."""
+    up, status, slow, lh = (state.up, state.status, state.slow,
+                            state.local_health)
+    upf = up.to(_F32)
+    elig = (status == ALIVE) | (status == SUSPECT)
+    eligf = elig.to(_F32)
+    n_live = torch.sum(upf)
+    n_elig = torch.clamp_min(torch.sum(eligf), 1.0)
+    n_up_elig = torch.clamp_min(torch.sum(upf * eligf), 1e-9)
+    n_slow = torch.sum((slow & up & elig).to(_F32))
+    sbar = n_slow / n_up_elig
+    _, pf_fast, pf_slow = pf_arrays(slow, lh, sbar, n_live / p.n, p)
+    mix = (1.0 - sbar) * pf_fast + sbar * pf_slow
+    p_ack = (n_up_elig / n_elig) * (1.0 - mix)
+    w_fail = upf * (1.0 - p_ack)
+    return torch.stack([
+        n_live, n_elig, n_up_elig, n_slow,
+        torch.sum(upf * pf_fast), torch.sum(upf * pf_slow),
+        torch.sum(w_fail * (lh.to(_F32) + 1.0)),
+        torch.clamp_min(torch.sum(w_fail), 1e-9)])
+
+
+def run_rounds(state: SimState, key: torch.Tensor, p: SimParams,
+               rounds: int, trace_node: Optional[int] = None):
+    """Run ``rounds`` live-scalar periods; returns (final, trace) where
+    trace is the per-round informed fraction of ``trace_node`` (or
+    None). Round keys are ``round_keys(key, state.round_idx, rounds)``,
+    so a run cut anywhere and resumed from its state is the same run."""
+    keys = prng.round_keys(key, state.round_idx, rounds)
+    trace = []
+    for r in range(rounds):
+        state = gossip_round(state, keys[r], p)
+        if trace_node is not None:
+            trace.append(state.informed[trace_node])
+    return state, (torch.stack(trace) if trace_node is not None else None)
+
+
+def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
+    """Stale-scalar loop on threefry draws: ``run(state, key,
+    scalars0=None)`` -> state (``(state, scalars)`` with ``carry``).
+    ``carry=True`` is the checkpoint seam: the returned scalars, passed
+    back as ``scalars0``, resume the run bit for bit (``init_scalars``
+    would recompute live sums instead)."""
+
+    def run(state: SimState, key: torch.Tensor, scalars0=None):
+        if scalars0 is not None and not carry:
+            raise ValueError("scalars0 needs a carry=True runner")
+        sc = init_scalars(state, p) if scalars0 is None else scalars0
+        keys = prng.round_keys(key, state.round_idx, rounds)
+        for r in range(rounds):
+            state, sc = gossip_round_fast(state, sc, keys[r], p)
+        return (state, sc) if carry else state
+
+    return run
