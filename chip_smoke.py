@@ -12,8 +12,13 @@ non-zero before the result line):
               report.
 2. check    — at 1,048,576 nodes, on a state warmed by the plain path:
               one round_kernel launch in the stable and the full
-              variant, one churn-config launch, and one R=8 mega_kernel
-              launch per variant, each held against its plain PyTorch
+              variant, one churn-config launch, one full-variant launch
+              with corroboration_k=1, one fault-variant launch on a
+              frame of an all-primitive honest plan, one byz-variant
+              launch on a frame of the four byzantine primitives with
+              corroboration_k=2 (both on the chaos suite's config, and
+              again on the full one), and one R=8 mega_kernel launch per
+              honest variant, each held against its plain PyTorch
               version on the same inputs (int lanes exact — at most 2
               nodes may differ, each only where a decision's margin is
               under 4 ulp; informed within 4 ulp; partial sums, on
@@ -25,7 +30,14 @@ non-zero before the result line):
               launch counters zeroed just before and read just after;
               then a 262,144-node, 60-round crash-detection check,
               counted on its own (exactly 60 stable round launches).
-4. timing   — each kernel's time per launch (CUDA events), its plain
+4. chaos    — the fault-plan path through its entry point
+              (consul_tpu_torch.bench.run_chaos_suite: the nine chaos
+              classes of sim/scenarios.py at 1,048,576 nodes, each run
+              twice: an untimed warm-up, then the timed run), counted
+              on its own: every round of an honest class is a fault
+              launch, of a byzantine class a byz launch. Each class's
+              detection signature is asserted (see ``CHAOS_SIGNATURES``).
+5. timing   — each kernel's time per launch (CUDA events), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do.
 
@@ -63,6 +75,14 @@ PHILOX_INT_OPS = 10 * (2 + 2) + 2
 #: stats terms are left out: their count depends on the data, so the
 #: bound does not claim them.
 BODY_F32_OPS = 2 * 13 + 6 + 20 + 8
+#: f32 operations a fault frame adds to every node's period: the four
+#: churn-rate sums, the round trip and relay factor (2), their three
+#: products in each no-ack evaluation (6), the suspicion-weighted miss
+#: (3). A byzantine frame adds the spurious-suspicion arrivals (2). The
+#: detection gate, the refutation and growth factors are left out, like
+#: the other data-dependent terms.
+FAULT_F32_OPS = 4 + 2 + 6 + 3
+BYZ_F32_OPS = 2
 
 N = 1_048_576
 MEGA_R = 8
@@ -85,6 +105,48 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def check_plans(n: int) -> dict:
+    """The plans the fault variants are checked on: every honest
+    primitive (partitions that overlap, one of them one-way, loss,
+    forced slow, a flap that the phase flip releases, duplication, a
+    churn burst), and the four byzantine primitives beside a crash
+    burst among the forged-ack victims."""
+    from consul_tpu_torch import faults as F
+
+    m = max(1, n // 16)
+    adv = (n - 2 * m, n)
+    honest = F.FaultPlan(phases=(
+        F.Phase(rounds=2, name="warm"),
+        F.Phase(rounds=8, name="fault", faults=(
+            F.Partition(a=(0, m), b=(m, n), drop=0.8),
+            F.Partition(a=(m // 2, 2 * m), b=(4 * m, n), symmetric=False),
+            F.NodeLoss(nodes=(2 * m, 4 * m), ingress=0.3, egress=0.4),
+            F.SlowNodes(nodes=(4 * m, 5 * m)),
+            F.Flap(nodes=(5 * m, 6 * m), half_period=2),
+            F.Duplicate(nodes=(0, 3 * m), copies=3),
+            F.ChurnBurst(nodes=(6 * m, 8 * m), crash=0.05, rejoin=0.3,
+                         leave=0.01))),
+        F.Phase(rounds=4, name="recover")))
+    byz = F.FaultPlan(phases=(
+        F.Phase(rounds=2, name="warm"),
+        F.Phase(rounds=8, name="attack", faults=(
+            F.ForgedAcks(adversaries=adv, victims=(0, 2 * m),
+                         coverage=0.9),
+            F.SpuriousSuspicion(adversaries=adv, victims=(2 * m, 4 * m),
+                                rate=2.0),
+            F.Eclipse(adversaries=adv, victims=(4 * m, 5 * m),
+                      coverage=0.95),
+            F.StaleReplay(adversaries=adv, victims=(5 * m, 7 * m),
+                          rate=0.4),
+            F.ChurnBurst(nodes=(0, 2 * m), crash=0.05)))))
+    return {"fault": honest, "byz": byz}
+
+
+#: the round of each check plan whose frame the check feeds the kernel:
+#: the honest plan's flappers are down there, the byzantine one attacks
+CHECK_ROUNDS = {"fault": 4, "byz": 5}
 
 
 def phase_env(torch, build, cuda_round):
@@ -117,26 +179,27 @@ def warmed_state(torch, m, p, dev, rounds=12):
     return arrays, scal
 
 
-def plain_margins(m, arrays, scal, seeds, p):
+def plain_margins(m, arrays, scal, seeds, p, fx=None):
     """Per-node smallest decision margin (ulps) over the call's rounds."""
     vals, worst = arrays, None
     for r in range(seeds.shape[0]):
         mg = []
         vals, _ = m.cuda_round.block_round_ref(vals, scal, seeds[r], p,
-                                               margin=mg)
+                                               margin=mg, fx=fx)
         worst = mg[0] if worst is None else worst.clamp_max(mg[0])
     return worst
 
 
-def compare(torch, m, name, arrays, scal, seeds, p, mega):
+def compare(torch, m, name, arrays, scal, seeds, p, mega, fx=None):
     cr = m.cuda_round
     k_arrays = tuple(a.clone() for a in arrays)
     if mega:
         ref_out, ref_part = cr.mega_round_ref(arrays, scal, seeds, p)
         k_part = cr.mega_kernel(k_arrays, scal, seeds, p)
     else:
-        ref_out, ref_part = cr.block_round_ref(arrays, scal, seeds[0], p)
-        k_part = cr.round_kernel(k_arrays, scal, seeds, 0, p)
+        ref_out, ref_part = cr.block_round_ref(arrays, scal, seeds[0], p,
+                                               fx=fx)
+        k_part = cr.round_kernel(k_arrays, scal, seeds, 0, p, fx=fx)
     torch.cuda.synchronize()
     fields = m.state.NODE_FIELDS
     bad = torch.zeros(arrays[0].shape[0], dtype=torch.bool,
@@ -153,7 +216,7 @@ def compare(torch, m, name, arrays, scal, seeds, p, mega):
     margin_max = None
     if n_bad:
         margins = plain_margins(m, arrays, scal,
-                                seeds if mega else seeds[:1], p)
+                                seeds if mega else seeds[:1], p, fx)
         margin_max = float(margins[bad].max())
         if n_bad > MAX_INT_MISMATCH or margin_max >= MARGIN_ULPS:
             raise SmokeFailure(
@@ -194,6 +257,18 @@ def compare(torch, m, name, arrays, scal, seeds, p, mega):
             "max_abs_err": max_err}
 
 
+def check_frames(m, dev) -> dict:
+    """The fault views the check and the timing feed the fault
+    variants, with each plan's host seconds in compile_plan."""
+    out = {}
+    for name, plan in check_plans(N).items():
+        t0 = time.perf_counter()
+        cp = m.faults.compile_plan(plan, N, dev)
+        out[name] = (m.faults.fault_frame(cp, CHECK_ROUNDS[name]),
+                     time.perf_counter() - t0)
+    return out
+
+
 def phase_check(torch, m, dev):
     b = m.bench
     p_stable, p_full = b.headline_params(N), b.diag_params(N)
@@ -201,17 +276,33 @@ def phase_check(torch, m, dev):
                            leave_per_round=0.0005)
     arrays, scal = warmed_state(torch, m, p_churn, dev)
     seeds = m.prng.round_seeds(m.prng.key(11, device=dev), 100, MEGA_R)
+    frames = check_frames(m, dev)
+    fx_fault, fx_byz = frames["fault"][0], frames["byz"][0]
+    # the fault variants on the chaos suite's configuration, which their
+    # path runs, and on the full one (slow-node model, TCP fallback)
+    p_chaos = m.scenarios.chaos_params(N)
     results = {}
-    for name, p, mega in (("round_kernel/stable", p_stable, False),
-                          ("round_kernel/full", p_full, False),
-                          ("round_kernel/churn", p_churn, False),
-                          ("mega_kernel/stable", p_stable, True),
-                          ("mega_kernel/full", p_full, True)):
+    for name, p, mega, fx in (
+            ("round_kernel/stable", p_stable, False, None),
+            ("round_kernel/full", p_full, False, None),
+            ("round_kernel/churn", p_churn, False, None),
+            ("round_kernel/full corroboration_k=1",
+             p_full.with_(corroboration_k=1), False, None),
+            ("round_kernel/fault", p_chaos, False, fx_fault),
+            ("round_kernel/byz", p_chaos.with_(corroboration_k=2), False,
+             fx_byz),
+            ("round_kernel/fault slow+tcp", p_full, False, fx_fault),
+            ("round_kernel/byz slow+tcp", p_full.with_(corroboration_k=2),
+             False, fx_byz),
+            ("mega_kernel/stable", p_stable, True, None),
+            ("mega_kernel/full", p_full, True, None)):
         results[name] = compare(torch, m, name, arrays, scal, seeds, p,
-                                mega)
+                                mega, fx)
     emit({"phase": "check", "n": N, "ok": True,
+          "compile_plan_s": {k: v[1] for k, v in frames.items()},
           "kernels": list(results.values())})
-    return results, (arrays, scal, seeds)
+    return results, (arrays, scal, seeds, {"fault": fx_fault,
+                                           "byz": fx_byz})
 
 
 def crash_detection(torch, m, dev):
@@ -254,41 +345,141 @@ def phase_headline(torch, m, dev):
     return res, launches
 
 
-def kernel_bound(p, arrays, rounds=1) -> dict:
+def chaos_failures(suite: dict) -> list:
+    """The chaos classes' detection signatures that ``suite`` (bench's
+    ``run_chaos_suite`` classes) breaks: the chaos-suite and byzantine
+    tests of the JAX package (tests/test_faults.py:285-298,
+    tests/test_byzantine.py:284-315). The reference's live-scalar engine
+    also declares no gc_pause node; the stale-scalar engines, its own
+    fast path included, do declare some, so that one is not asserted."""
+    bad = []
+
+    def want(ok, what):
+        if not ok:
+            bad.append(what)
+
+    for name, rep in suite.items():
+        ph = rep["phases"]
+        want([x["phase"] for x in ph] == ["warmup", name, "recover"],
+             f"{name}: phases {[x['phase'] for x in ph]}")
+        want(ph[0]["suspicions"] == 0 and ph[0]["false_positives"] == 0
+             and ph[0]["attack_suspicions"] == 0,
+             f"{name}: the warm-up is not quiet")
+        want(rep["final_wrongly_dead"] == 0,
+             f"{name}: {rep['final_wrongly_dead']} wrongly dead at the end")
+        want(rep["final_live_fraction"] > 0.95,
+             f"{name}: live fraction {rep['final_live_fraction']}")
+    f = {name: rep["phases"][1] for name, rep in suite.items()}
+    want(f["asym_partition"]["suspicions"] > 0, "asym_partition: no "
+         "suspicions")
+    want(f["per_node_loss"]["refutes"] > 0, "per_node_loss: no refutes")
+    want(f["gc_pause"]["suspicions"] > 0, "gc_pause: no suspicions")
+    want(f["flapping"]["crashes"] > 0, "flapping: no crashes")
+    want(f["churn_burst"]["crashes"] > 0, "churn_burst: no crashes")
+    fa = f["forged_acks"]
+    want(fa["crashes"] > 0 and fa["true_deaths_declared"]
+         <= 0.1 * fa["crashes"],
+         f"forged_acks: detection not suppressed ({fa['crashes']} crashes,"
+         f" {fa['true_deaths_declared']} declared)")
+    ss = f["spurious_suspicion"]
+    want(100 < ss["attack_suspicions"] <= ss["suspicions"]
+         and ss["refutes"] >= 0.9 * ss["suspicions"]
+         and ss["false_positives"] == ss["attack_false_positives"] == 0,
+         f"spurious_suspicion: {ss}")
+    ec = f["eclipse"]
+    want(ec["false_positives"] > 0
+         and ec["attack_false_positives"] == ec["false_positives"],
+         f"eclipse: {ec}")
+    sr = f["stale_replay"]
+    want(sr["crashes"] > 0
+         and sr["true_deaths_declared"] >= 0.5 * sr["crashes"],
+         f"stale_replay: detection blocked ({sr})")
+    return bad
+
+
+def kernel_bound(p, arrays, rounds=1, fx=None, out=None) -> dict:
     """The least time one launch of ``rounds`` periods on ``arrays``
     could take: the larger of its bytes (each input read once, each
-    output written once: state, scalars, seeds, partials) over the HBM
-    rate and its 32-bit operations over ``OPS32_PER_S``.
+    output written once: state, fault frame, scalars, seeds, partials)
+    over the HBM rate and its 32-bit operations over ``OPS32_PER_S``.
 
     Draws counted, as this input needs them: every node's Poisson draw,
-    every node's churn and slow draws where those models are on, and
-    the ack draw of every live node. The refutation draws of wrongly
-    suspected nodes are left out. Liveness moves only under churn, so
-    the live count of the input holds for every round of a call only
-    without it; a churn config is refused."""
+    every node's churn and slow draws where those models are on (a
+    fault frame always draws churn), the ack draw of every live node,
+    and on a byzantine frame the replay draw of every live node whose
+    replay pressure is positive. The refutation draws of wrongly
+    suspected nodes are left out. Liveness moves only under churn: the
+    live count comes from the input without churn, and from ``out``
+    (the plain version's output on this input: liveness is final once
+    churn is drawn) for a single fault round; a churn config without a
+    frame is refused."""
     from consul_tpu_torch.sim import cuda_round as cr
 
-    if p.has_churn:
+    if fx is None and p.has_churn:
         raise ValueError("kernel_bound counts live nodes from the input, "
                          "which churn would change within the call")
+    if fx is not None and (rounds != 1 or out is None):
+        raise ValueError("a fault frame shapes one round: pass rounds=1 "
+                         "and the plain version's output as out=")
     rows = arrays[0].shape[0]
     age = arrays[3]
     node_bytes = sum(a.element_size() for a in arrays)
-    written = node_bytes - (0 if p.age_mutable else age.element_size())
+    mutable = p.age_mutable or fx is not None
+    written = node_bytes - (0 if mutable else age.element_size())
+    frame_bytes = 0
+    if fx is not None:
+        lanes = [a for a in fx if a is not None and a.dim() == 1]
+        frame_bytes = sum(a.element_size() for a in lanes)
     state_bytes = rows * (node_bytes + written)
-    nbytes = state_bytes + 4 * cr.N_SCALARS + 4 * rounds \
-        + 4 * cr.N_LANES * cr.n_blocks(rows)
-    draws = rows * (1 + int(p.enabled("slow_per_round"))) \
-        + int((age < 0).sum())
+    nbytes = state_bytes + rows * frame_bytes + 4 * cr.N_SCALARS \
+        + 4 * rounds + 4 * cr.N_LANES * cr.n_blocks(rows) \
+        + (4 if fx is not None else 0)
+    if fx is None:
+        draws = rows * (1 + int(p.enabled("slow_per_round"))) \
+            + int((age < 0).sum())
+        f32_ops = rounds * rows * BODY_F32_OPS
+    else:
+        up = out[3] < 0
+        draws = rows * (2 + int(p.enabled("slow_per_round"))) \
+            + int(up.sum())
+        per_node = BODY_F32_OPS + FAULT_F32_OPS
+        if fx.attacked is not None:
+            draws += int((up & (fx.replay > 0)).sum())
+            per_node += BYZ_F32_OPS
+        f32_ops = rows * per_node
     int_ops = rounds * draws * PHILOX_INT_OPS
-    f32_ops = rounds * rows * BODY_F32_OPS
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (int_ops + f32_ops) / OPS32_PER_S * 1e3
     return {"bytes": nbytes, "state_bytes": state_bytes,
+            "frame_bytes": rows * frame_bytes,
             "int32_ops": int_ops, "f32_ops": f32_ops,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_chaos(torch, m, dev):
+    """The fault-plan path through its entry point, counted on its own:
+    the nine chaos classes at N nodes."""
+    cr = m.cuda_round
+    cr.reset_launches()
+    res = m.bench.run_chaos_suite(dev)
+    launches = dict(cr.LAUNCHES)
+    honest = [k for k in res["classes"]
+              if k not in m.scenarios.BYZANTINE_CHAOS]
+    # each class runs twice (an untimed warm-up, then the timed run)
+    rounds = {k: 2 * sum(res["classes"][c]["rounds"] for c in cls)
+              for k, cls in (("round_kernel/fault", honest),
+                             ("round_kernel/byz",
+                              m.scenarios.BYZANTINE_CHAOS))}
+    if launches != rounds:
+        raise SmokeFailure(f"chaos launched {launches}, expected one "
+                           f"launch per round of both runs: {rounds}")
+    bad = chaos_failures(res["classes"])
+    if bad:
+        raise SmokeFailure("chaos signatures: " + "; ".join(bad))
+    emit({"phase": "chaos", **res, "launches": launches})
+    return res, launches
 
 
 def _events_ms(torch, fn, reps, warm=2):
@@ -308,18 +499,25 @@ def _events_ms(torch, fn, reps, warm=2):
 def phase_timing(torch, m, inputs):
     cr = m.cuda_round
     b = m.bench
-    arrays, scal, seeds = inputs
+    arrays, scal, seeds, frames = inputs
     rows = arrays[0].shape[0]
+    p_full, p_chaos = b.diag_params(N), m.scenarios.chaos_params(N)
     out = {}
-    for name, p, mega in (("round_kernel/stable", b.headline_params(N),
-                           False),
-                          ("round_kernel/full", b.diag_params(N), False),
-                          ("mega_kernel/stable", b.headline_params(N),
-                           True),
-                          ("mega_kernel/full", b.diag_params(N), True)):
+    for name, p, mega, fx in (
+            ("round_kernel/stable", b.headline_params(N), False, None),
+            ("round_kernel/full", p_full, False, None),
+            ("mega_kernel/stable", b.headline_params(N), True, None),
+            ("mega_kernel/full", p_full, True, None),
+            ("round_kernel/fault", p_chaos, False, frames["fault"]),
+            ("round_kernel/byz", p_chaos.with_(corroboration_k=2), False,
+             frames["byz"])):
         work = tuple(a.clone() for a in arrays)
         buf = torch.empty((cr.n_blocks(rows), cr.N_LANES),
                           dtype=torch.float32, device=arrays[0].device)
+        ref_out = None
+        if fx is not None:
+            ref_out, _ = cr.block_round_ref(arrays, scal, seeds[0], p,
+                                            fx=fx)
         if mega:
             def kern():
                 cr.mega_kernel(work, scal, seeds, p, out=buf)
@@ -329,12 +527,12 @@ def phase_timing(torch, m, inputs):
             reps, rounds = 50, MEGA_R
         else:
             def kern():
-                cr.round_kernel(work, scal, seeds, 0, p, out=buf)
+                cr.round_kernel(work, scal, seeds, 0, p, out=buf, fx=fx)
 
             def plain():
-                cr.block_round_ref(arrays, scal, seeds[0], p)
+                cr.block_round_ref(arrays, scal, seeds[0], p, fx=fx)
             reps, rounds = 200, 1
-        bound = kernel_bound(p, arrays, rounds)
+        bound = kernel_bound(p, arrays, rounds, fx=fx, out=ref_out)
         ms = _events_ms(torch, kern, reps, warm=10)
         plain_ms = _events_ms(torch, plain, 3, warm=1)
         out[name] = {"ms": ms, "plain_ms": plain_ms, **bound,
@@ -352,13 +550,14 @@ def main() -> int:
         return 2
     import types
 
-    from consul_tpu_torch import bench
+    from consul_tpu_torch import bench, faults
     from consul_tpu_torch.sim import (cuda_round, params, prng, round,
-                                      state)
+                                      scenarios, state)
     from consul_tpu_torch.utils import build
 
     m = types.SimpleNamespace(bench=bench, cuda_round=cuda_round,
-                              params=params, prng=prng, round=round,
+                              faults=faults, params=params, prng=prng,
+                              round=round, scenarios=scenarios,
                               state=state)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -367,6 +566,8 @@ def main() -> int:
     phase_env(torch, build, cuda_round)
     checks, inputs = phase_check(torch, m, dev)
     headline, launches = phase_headline(torch, m, dev)
+    chaos, chaos_launches = phase_chaos(torch, m, dev)
+    launches.update(chaos_launches)
     timing = phase_timing(torch, m, inputs)
 
     source = "consul_tpu_torch/csrc/round_kernels.cu"

@@ -3,6 +3,7 @@
     python -m consul_tpu_torch.bench            # on the CUDA card
     python -m consul_tpu_torch.bench --profile  # + where the time goes
     python -m consul_tpu_torch.bench --smoke    # 65,536 nodes, CPU plain path
+    python -m consul_tpu_torch.bench --chaos [--profile | --smoke]
 
 The timed configuration is the JAX bench's (bench.py's
 ``gossip_rounds_per_sec_1M_nodes``): ``GossipConfig.lan()`` at 1% loss,
@@ -13,6 +14,16 @@ trials, each ending in ``torch.cuda.synchronize()`` and a fetched
 checksum. The full-model diagnostic (stats + slow-node model, the FULL
 variant) runs through both runners too, and its ``fd_report`` gives
 false positives, suspicions and refutes per node-round.
+
+``--chaos`` runs the nine chaos classes of ``sim/scenarios.py`` (five
+honest FaultPlans, four byzantine) at 1,048,576 nodes through the fault
+and byz variants of ``round_kernel``: per class the per-phase detection
+report, the host seconds ``compile_plan`` took and the run's rounds per
+second (``--smoke``: 4,096 nodes on the CPU). With ``--profile`` it
+also traces the fault phase of three plan runs (a flapping plan, the
+same at ``fault_gain`` 0.5, a byzantine plan) and the frame building
+alone: the device time per round of the kernel, the fold and the
+frame.
 
 Prints one JSON object on stdout. Without a card (and without
 ``--smoke``) it raises rather than running on the CPU.
@@ -28,16 +39,21 @@ import time
 import torch
 
 from consul_tpu_torch.config import GossipConfig
+from consul_tpu_torch.faults import (compile_plan, fault_frame,
+                                     plan_schedule, scale_plan)
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.cuda_round import (LAUNCHES, make_run_rounds_cuda,
                                              reset_launches)
 from consul_tpu_torch.sim.metrics import fd_report
+from consul_tpu_torch.sim.scenarios import (CHAOS_WARMUP_ROUNDS, chaos_params,
+                                            chaos_plans, run_chaos)
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import SimState, init_state
 from consul_tpu_torch.utils.platform import default_device, device_name
 
 HEADLINE_N = 1_048_576
 SMOKE_N = 65_536
+CHAOS_SMOKE_N = 4_096
 MEGA_RPC = 8
 
 
@@ -152,6 +168,100 @@ def run_headline(device=None, smoke: bool = False) -> dict:
     return out
 
 
+def run_chaos_suite(device=None, smoke: bool = False) -> dict:
+    """Every chaos class at ``HEADLINE_N`` nodes (``smoke``:
+    ``CHAOS_SMOKE_N`` on the CPU). Per class: ``run_chaos``'s report,
+    the host seconds ``compile_plan`` took, and the rounds per second
+    of the run (runner calls and report reads, ending in a sync). Each
+    class runs twice from the same seed, which gives the same report:
+    the first run builds the kernels and loads PyTorch's, and only the
+    second is timed."""
+    dev = torch.device("cpu") if smoke else default_device(device)
+    n = CHAOS_SMOKE_N if smoke else HEADLINE_N
+    out = {"device": device_name(dev), "n": n, "smoke": smoke,
+           "classes": {}}
+    for name, plan in chaos_plans(n).items():
+        t0 = time.perf_counter()
+        cp = compile_plan(plan, n, dev)
+        _sync(dev)
+        compile_s = time.perf_counter() - t0
+        run_chaos(name, n=n, device=dev, cp=cp)
+        _sync(dev)
+        t1 = time.perf_counter()
+        rep = run_chaos(name, n=n, device=dev, cp=cp)
+        _sync(dev)
+        run_s = time.perf_counter() - t1
+        rep.update(compile_plan_s=compile_s, run_s=run_s,
+                   rounds_per_sec=rep["rounds"] / run_s)
+        out["classes"][name] = rep
+        del cp
+    return out
+
+
+def profile_plans(device=None) -> dict:
+    """Where a fault-plan run's time goes, from ``torch.profiler``: the
+    fault phase (60 rounds) of the ``flapping`` class, of the same at
+    ``fault_gain`` 0.5 (the plan blended once by ``scale_plan``) and of the
+    ``eclipse`` class (byz variant), each after its warm-up phase; and,
+    for each, the frames alone built for the same rounds (the device
+    time per round of the flap schedule and the gain blend)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = default_device(device)
+    if dev.type != "cuda":
+        raise ValueError("profile_plans traces the card; it has no CPU "
+                         "mode")
+    n = HEADLINE_N
+    key = prng.key(0, device=dev)
+    out = {}
+    for label, name, gain in (("flapping", "flapping", 1.0),
+                              ("flapping_gain_0.5", "flapping", 0.5),
+                              ("eclipse", "eclipse", 1.0)):
+        plan = chaos_plans(n)[name]
+        cp = compile_plan(plan, n, dev)
+        p = chaos_params(n).with_(fault_gain=gain)
+        rounds = plan.phases[1].rounds
+        warm = make_run_rounds_cuda(p, CHAOS_WARMUP_ROUNDS, carry=True,
+                                    plan=cp)
+        state, sc = warm(init_state(n, device=dev), key)
+        run = make_run_rounds_cuda(p, rounds, carry=True, plan=cp)
+        # an untraced call on a copy first: frees the trace of set-up
+        run(clone_state(state), key, scalars0=sc.clone())
+        _sync(dev)
+
+        def spans_of(prof):
+            return sorted((e.time_range.start, e.time_range.end,
+                           _short_kernel_name(e.name))
+                          for e in prof.events()
+                          if e.device_type == DeviceType.CUDA)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(state, key, scalars0=sc)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        # the frames as the runner builds them: on the plan it blended
+        # once when it was made
+        cpf = cp if gain == 1.0 else scale_plan(cp, gain)
+        sched = plan_schedule(cpf)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as fprof:
+            for r in range(CHAOS_WARMUP_ROUNDS,
+                           CHAOS_WARMUP_ROUNDS + rounds):
+                fault_frame(cpf, r, sched, gain)
+            _sync(dev)
+        frame = device_breakdown(spans_of(fprof), rounds)
+        out[label] = {"rounds": rounds,
+                      "wall_us_per_round": wall / rounds * 1e6,
+                      **device_breakdown(spans_of(prof), rounds),
+                      "frame_device_us_per_round": (
+                          frame.get("device_busy_us", 0.0) / rounds)}
+        del cp, cpf
+    return out
+
+
 def _short_kernel_name(name: str) -> str:
     for noise in ("(anonymous namespace)::", "at::native::"):
         name = name.replace(noise, "")
@@ -231,16 +341,25 @@ def main(argv=None) -> int:
                     help="also trace one call of each runner with "
                          "torch.profiler (device time by kernel, busy "
                          "share); needs the card")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run the nine chaos classes (fault and byz "
+                         "kernel variants) instead of the headline")
     args = ap.parse_args(argv)
     if args.smoke and args.profile:
         ap.error("--profile traces the card; it cannot run with --smoke")
     reset_launches()
-    res = run_headline(smoke=args.smoke)
+    if args.chaos:
+        res = run_chaos_suite(smoke=args.smoke)
+        res["metric"] = ("chaos_detection_quality_smoke" if args.smoke
+                         else "chaos_detection_quality_1M_nodes")
+    else:
+        res = run_headline(smoke=args.smoke)
+        res["metric"] = ("gossip_rounds_per_sec_smoke" if args.smoke
+                         else "gossip_rounds_per_sec_1M_nodes")
     res["launches"] = dict(LAUNCHES)
-    res["metric"] = ("gossip_rounds_per_sec_smoke" if args.smoke
-                     else "gossip_rounds_per_sec_1M_nodes")
     if args.profile:
-        res["profile"] = profile_runners()
+        res["profile"] = profile_plans() if args.chaos \
+            else profile_runners()
     print(json.dumps(res))
     return 0
 

@@ -1,10 +1,15 @@
 // SWIM protocol-period kernels for Hopper (sm_90a), bound through ctypes.
 //
 // round_kernel replaces the TPU kernel _round_kernel
-// (consul_tpu/sim/pallas_round.py:439, body _block_round :144);
-// mega_kernel replaces _mega_kernel (pallas_round.py:526). Both run the
-// same per-node body, node_round(), which follows round_core's plain
-// PyTorch body (consul_tpu_torch/sim/round.py, _round_body) op for op.
+// (consul_tpu/sim/pallas_round.py:439, body _block_round :144) in its
+// three compiled variants: honest (stable/full), fault=True (8 per-node
+// fault-plan lanes and the plan's mean link quality `mid`) and
+// fault=True, byz=True (4 more byzantine lanes, a replay draw and the
+// attack counters). mega_kernel replaces _mega_kernel
+// (pallas_round.py:526). All run one per-node body, node_round<FAULT,
+// BYZ>(), which follows the plain PyTorch body
+// (consul_tpu_torch/sim/round.py, _round_body) op for op; the honest
+// instantiation (FAULT = BYZ = false) compiles the fault terms away.
 //
 // Design:
 //  * one thread per node, 256 threads per block, a 1-D grid over
@@ -23,14 +28,23 @@
 //    and shared memory in a fixed order and writes one row of a
 //    [blocks, 18] f32 table: no float atomics, same bits every run;
 //  * the STABLE variant (write_age == 0) never stores down_age, so a
-//    dead row's age stays frozen — the TPU kernel's behaviour.
+//    dead row's age stays frozen — the TPU kernel's behaviour;
+//  * fault lanes are plain per-node loads beside the state loads (the
+//    bool masks read as uint8); `mid` is read from device memory like
+//    the scalars. A fault round always draws churn and always writes
+//    down_age. The byzantine replay draw is Philox slot 5, taken only
+//    where it can matter (replay > 0 on a live node);
+//  * detection_gate (forged acks, k-of-m corroboration) runs whenever
+//    the frame is byzantine or corroboration_k > 0, honest rounds too.
 //
 // Bound: bandwidth. Per round at n nodes the stable variant reads
 // 15 B/node and writes 13 B/node (28 B/node, 29,360,128 B at 1,048,576
 // nodes, 8.76 us at 3.35 TB/s); the full variant also writes down_age
-// (30 B/node). mega_kernel moves the same bytes once per call of R
-// rounds, which leaves it bound by its arithmetic (2 to 5 Philox draws
-// of 10 rounds each per node and round, plus the protocol math).
+// (30 B/node); the fault variant reads 29 B/node of frame on top (59
+// B/node, 18.47 us), the byzantine one 42 (72 B/node, 22.54 us).
+// mega_kernel moves the same bytes once per call of R rounds, which
+// leaves it bound by its arithmetic (2 to 5 Philox draws of 10 rounds
+// each per node and round, plus the protocol math).
 //
 // Build with -fmad=false: the plain version runs each PyTorch op as its
 // own rounded step, so contracting a*b+c into one FMA here would move
@@ -61,14 +75,33 @@ struct RoundParams {
   float n_f;            // global population, as f32
   float inv_n;          // f32(1 / n)
   float probe_interval;
-  float fail_p, fail_leave_p, rejoin_p;
+  float fail_p, leave_p, fail_leave_p, rejoin_p;
   float slow_p, slow_recover_p, slow_factor, one_minus_slow_factor;
   float p_direct, p_relay, p_tcp;
   float fanout_ticks, one_minus_loss;
   float susp_max_s, shrink_r, shrink_omr, conf_k_f;
-  int awareness_max, indirect_checks;
+  int awareness_max, indirect_checks, corroboration_k;
   int lifeguard, shrink_on, patience_on, churn_on, slow_on, stats_on,
       write_age;
+};
+
+// One round's fault frame: [rows] lanes and the 0-d `mid`. Field order
+// must match FaultArrays in consul_tpu_torch/sim/cuda_round.py. The
+// byzantine pointers are null on an honest frame.
+struct FaultArrays {
+  const float* psend;
+  const float* precv;
+  const float* suspw;
+  const float* hear_w;
+  const uint8_t* slow_f;
+  const float* crash_p;
+  const float* rejoin_p;
+  const float* leave_p;
+  const float* mid;
+  const float* forge_ack;
+  const float* spur_susp;
+  const float* replay;
+  const uint8_t* attacked;
 };
 
 namespace {
@@ -144,22 +177,51 @@ __device__ __forceinline__ float shrink(int c, const RoundParams& P,
   return fmaxf(1.0f - P.shrink_omr * frac, P.shrink_r);
 }
 
-// P(no ack | prober timeliness g, target timeliness gj)
+// P(no ack | prober timeliness g, target timeliness gj); a fault frame
+// scales direct and TCP legs by the round trip rt, relay legs by relay_m
+template <bool FAULT>
 __device__ __forceinline__ float noack(float g, float gj, float patience,
+                                       float rt, float relay_m,
                                        const Shared& D,
                                        const RoundParams& P) {
   const float ge_i = g + (1.0f - g) * patience;
   const float ge_j = gj + (1.0f - gj) * patience;
   const float pr = ge_i * ge_j;
   const float pair2 = pr * pr;
-  const float p_d = P.p_direct * pair2;
+  float p_d = P.p_direct * pair2;
   const float ge_p_slow = P.slow_factor + P.one_minus_slow_factor * patience;
   const float gps2 = ge_p_slow * ge_p_slow;
   const float e_gp4 = (1.0f - D.sbar) * 1.0f + D.sbar * (gps2 * gps2);
-  const float p_relay1 = D.live_frac * P.p_relay * pair2 * e_gp4;
+  float p_relay1 = D.live_frac * P.p_relay * pair2 * e_gp4;
+  float p_tcp = P.p_tcp * ge_i * ge_j;
+  if (FAULT) {
+    p_d = p_d * rt;
+    p_relay1 = p_relay1 * relay_m;
+    p_tcp = p_tcp * rt;
+  }
   const float p_no_relay = ipow(1.0f - p_relay1, P.indirect_checks);
-  const float p_tcp = P.p_tcp * ge_i * ge_j;
   return (1.0f - p_d) * p_no_relay * (1.0f - p_tcp);
+}
+
+__device__ __forceinline__ int binom(int m, int j) {
+  int c = 1;
+  for (int i = 1; i <= j; ++i) c = c * (m - j + i) / i;
+  return c;
+}
+
+// faults.detection_gate for a static k: (1-af)^m on down nodes, 1 on live
+// ones when k == 0; P(Binom(m, q) >= k), q = p_direct*mid*(1-af), else
+// (faults._binom_tail_ge: terms j >= k in order, comb(m, j) as f32).
+__device__ __forceinline__ float detection_gate(bool up, float af,
+                                                float mid,
+                                                const RoundParams& P) {
+  const int m = P.indirect_checks;
+  if (P.corroboration_k <= 0) return up ? 1.0f : ipow(1.0f - af, m);
+  const float q = P.p_direct * mid * (1.0f - af);
+  float total = 0.0f;
+  for (int j = P.corroboration_k; j <= m; ++j)
+    total = total + (float)binom(m, j) * ipow(q, j) * ipow(1.0f - q, m - j);
+  return fminf(fmaxf(total, 0.0f), 1.0f);
 }
 
 struct Node {
@@ -167,12 +229,22 @@ struct Node {
   float informed;
 };
 
+// one node's view of the round's fault frame
+struct FaultIn {
+  float psend, precv, suspw, hear_w, crash_p, rejoin_p, leave_p, mid;
+  float forge_ack, spur_susp, replay;
+  bool slow_f, attacked;
+};
+
 // One protocol period for one node. Sets the 8 scalar lanes of `lanes`
 // (post-round population terms) and ADDS this round's counters to lanes
-// 8..17 when stats are on.
+// 8..17 when stats are on (16 and 17, the attack counters, on byzantine
+// rounds only).
+template <bool FAULT, bool BYZ>
 __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
                                            const Shared& D, uint32_t seed,
-                                           uint32_t node, float* lanes) {
+                                           uint32_t node, const FaultIn& f,
+                                           float* lanes) {
   int age = s.age;
   bool up = age < 0;
   bool slow = age == SLOW_AGE;
@@ -183,12 +255,19 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
 
   if (age >= 0) age = min(age + 1, TICK_MAX);
 
-  // churn
-  if (P.churn_on) {
+  // churn (plan churn bursts and flap schedules add to the rates)
+  if (FAULT || P.churn_on) {
     const float u = u01(seed, node, 0);
-    crash = up && (u < P.fail_p);
-    leave = up && (u >= P.fail_p) && (u < P.fail_leave_p);
-    rejoin = !up && (u < P.rejoin_p);
+    float fail_p = P.fail_p, fail_leave_p = P.fail_leave_p,
+          rejoin_p = P.rejoin_p;
+    if (FAULT) {
+      fail_p = P.fail_p + f.crash_p;
+      fail_leave_p = fail_p + (P.leave_p + f.leave_p);
+      rejoin_p = P.rejoin_p + f.rejoin_p;
+    }
+    crash = up && (u < fail_p);
+    leave = up && (u >= fail_p) && (u < fail_leave_p);
+    rejoin = !up && (u < rejoin_p);
     up = (up && !(crash || leave)) || rejoin;
     if (crash || leave) age = 0;
     if (rejoin) age = ALIVE_AGE;
@@ -211,14 +290,22 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
     const float us = u01(seed, node, 1);
     slow = (slow ? (us >= P.slow_recover_p) : (us < P.slow_p)) && up;
   }
+  // forced slow shapes this round only; the stored slow stays stochastic
+  const bool slow_eff = FAULT ? ((slow || f.slow_f) && up) : slow;
 
   // prober side
   const bool elig = (status == ALIVE) || (status == SUSPECT);
-  const float g = slow ? P.slow_factor : 1.0f;
-  const float patience =
-      P.patience_on ? 1.0f - exp2f(-(float)lh) : 0.0f;
-  const float pf_fast = noack(g, 1.0f, patience, D, P);
-  const float pf_slow = noack(g, P.slow_factor, patience, D, P);
+  const float g = slow_eff ? P.slow_factor : 1.0f;
+  const bool patience_on = FAULT ? (bool)P.lifeguard : (bool)P.patience_on;
+  const float patience = patience_on ? 1.0f - exp2f(-(float)lh) : 0.0f;
+  float rt = 1.0f, relay_m = 1.0f;
+  if (FAULT) {
+    rt = f.psend * f.precv;
+    relay_m = rt * f.mid;
+  }
+  const float pf_fast = noack<FAULT>(g, 1.0f, patience, rt, relay_m, D, P);
+  const float pf_slow =
+      noack<FAULT>(g, P.slow_factor, patience, rt, relay_m, D, P);
   const float mix = (1.0f - D.sbar) * pf_fast + D.sbar * pf_slow;
   const float p_ack = D.frac_up_elig * (1.0f - mix);
   const bool ack = up && (u01(seed, node, 2) < p_ack);
@@ -227,9 +314,15 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
     lh = min(max(lh + (int)failed - (int)ack, 0), P.awareness_max);
 
   // target side: truncated-Poisson failed-probe arrivals (k <= 4)
-  const float base_fail = slow ? D.e_pf_slow : D.e_pf_fast;
-  const float p_fail = up ? base_fail : 1.0f;
-  const float lam = D.probe_rate * p_fail * (elig ? 1.0f : 0.0f);
+  float base_fail = slow_eff ? D.e_pf_slow : D.e_pf_fast;
+  if (FAULT) base_fail = 1.0f - (1.0f - base_fail) * f.suspw;
+  float p_fail = up ? base_fail : 1.0f;
+  if (BYZ || P.corroboration_k > 0)
+    p_fail = p_fail * detection_gate(up, BYZ ? f.forge_ack : 0.0f,
+                                     FAULT ? f.mid : 1.0f, P);
+  const float eligf = elig ? 1.0f : 0.0f;
+  float lam = D.probe_rate * p_fail * eligf;
+  if (BYZ) lam = lam + f.spur_susp * eligf;
   const float u_pois = u01(seed, node, 3);
   float term = expf(-lam);
   float cdf = term;
@@ -245,7 +338,10 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   const bool starts = (n_fail > 0) && (status == ALIVE);
   const bool confirms = (n_fail > 0) && (status == SUSPECT);
   const int c0 = max(n_fail - 1, 0);
-  const float timeout0 = D.scale * P.susp_max_s * shrink(c0, P, D.log_den);
+  // byzantine rounds: a forged suspicion races the full Lifeguard timer
+  const float scale =
+      (BYZ && P.lifeguard) ? fmaxf(D.scale, 1.0f) : D.scale;
+  const float timeout0 = scale * P.susp_max_s * shrink(c0, P, D.log_den);
   const int len0 =
       (int)fminf(ceilf(timeout0 / P.probe_interval), (float)TICK_MAX);
   if (starts) {
@@ -267,7 +363,9 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   }
 
   // refutation race
-  const float lam_hear = P.fanout_ticks * informed * P.one_minus_loss * g;
+  float lam_hear = P.fanout_ticks * informed * P.one_minus_loss * g;
+  if (FAULT) lam_hear = lam_hear * f.hear_w;
+  if (BYZ) lam_hear = lam_hear * (1.0f - f.replay);
   const float p_hear = 1.0f - expf(-lam_hear);
   const bool wrongly =
       up && (status == SUSPECT || status == DEAD) && !new_rumor;
@@ -283,6 +381,17 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   }
   if (P.lifeguard) lh = min(max(lh + (int)refute, 0), P.awareness_max);
 
+  // stale replays force live victims into incarnation bumps; the draw is
+  // taken only where replay > 0 on a live node (elsewhere it cannot bump)
+  if (BYZ && up && f.replay > 0.0f) {
+    const float ur = u01(seed, node, 5);
+    if (status == ALIVE && !new_rumor && ur < f.replay) {
+      inc = min(inc + 1, TICK_MAX);
+      informed = P.inv_n;
+      new_rumor = true;
+    }
+  }
+
   // dead declaration
   const bool declare = (status == SUSPECT) && (sttl <= 0);
   if (declare) {
@@ -295,14 +404,16 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
 
   // epidemic growth
   if (!new_rumor && informed < 1.0f) {
-    const float lam_g = P.fanout_ticks * informed * P.one_minus_loss;
+    float lam_g = P.fanout_ticks * informed * P.one_minus_loss;
+    if (FAULT) lam_g = lam_g * f.mid;
+    if (BYZ) lam_g = lam_g * (1.0f - f.replay);
     informed = informed + (1.0f - informed) * (1.0f - expf(-lam_g));
   }
 
   s.status = status;
   s.inc = inc;
   s.informed = informed;
-  if (P.write_age) s.age = up ? (slow ? SLOW_AGE : ALIVE_AGE) : age;
+  if (FAULT || P.write_age) s.age = up ? (slow ? SLOW_AGE : ALIVE_AGE) : age;
   s.slen = slen;
   s.sttl = sttl;
   s.conf = s_conf;
@@ -330,6 +441,10 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
     lanes[13] += crash ? 1.0f : 0.0f;
     lanes[14] += rejoin ? 1.0f : 0.0f;
     lanes[15] += leave ? 1.0f : 0.0f;
+    if (BYZ) {
+      lanes[16] += (starts && f.attacked) ? 1.0f : 0.0f;
+      lanes[17] += (declare && up && f.attacked) ? 1.0f : 0.0f;
+    }
   }
 }
 
@@ -369,6 +484,29 @@ __device__ __forceinline__ void store(const Arrays& a, int i, const Node& s,
   a.lh[i] = (int8_t)s.lh;
 }
 
+template <bool FAULT, bool BYZ>
+__device__ __forceinline__ FaultIn load_fault(const FaultArrays& F, int i) {
+  FaultIn f{};
+  if (FAULT) {
+    f.psend = F.psend[i];
+    f.precv = F.precv[i];
+    f.suspw = F.suspw[i];
+    f.hear_w = F.hear_w[i];
+    f.slow_f = F.slow_f[i] != 0;
+    f.crash_p = F.crash_p[i];
+    f.rejoin_p = F.rejoin_p[i];
+    f.leave_p = F.leave_p[i];
+    f.mid = *F.mid;
+  }
+  if (BYZ) {
+    f.forge_ack = F.forge_ack[i];
+    f.spur_susp = F.spur_susp[i];
+    f.replay = F.replay[i];
+    f.attacked = F.attacked[i] != 0;
+  }
+  return f;
+}
+
 // Fixed-order block reduction of the lanes into partials[blockIdx.x, :].
 __device__ __forceinline__ void block_reduce(float* lanes, int n_lanes,
                                              float* __restrict__ partials) {
@@ -393,8 +531,10 @@ __device__ __forceinline__ void block_reduce(float* lanes, int n_lanes,
   }
 }
 
+template <bool FAULT, bool BYZ>
 __global__ void __launch_bounds__(THREADS)
-    round_kernel(RoundParams P, Arrays a, const float* __restrict__ scal,
+    round_kernel(RoundParams P, Arrays a, FaultArrays F,
+                 const float* __restrict__ scal,
                  const int32_t* __restrict__ seed,
                  float* __restrict__ partials) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
@@ -404,8 +544,10 @@ __global__ void __launch_bounds__(THREADS)
   if (i < P.rows) {
     const Shared D = derive(scal, P);
     Node s = load(a, i);
-    node_round(s, P, D, (uint32_t)seed[0], (uint32_t)i, lanes);
-    store(a, i, s, P.write_age);
+    const FaultIn f = load_fault<FAULT, BYZ>(F, i);
+    node_round<FAULT, BYZ>(s, P, D, (uint32_t)seed[0], (uint32_t)i, f,
+                           lanes);
+    store(a, i, s, FAULT || P.write_age);
   }
   block_reduce(lanes, P.stats_on ? N_LANES : N_SCALARS, partials);
 }
@@ -423,9 +565,11 @@ __global__ void __launch_bounds__(THREADS)
     // other: each thread carries its node through all rounds in
     // registers, reading it once and writing it once
     const Shared D = derive(scal, P);
+    const FaultIn none{};
     Node s = load(a, i);
     for (int r = 0; r < rounds; ++r)
-      node_round(s, P, D, (uint32_t)seeds[r], (uint32_t)i, lanes);
+      node_round<false, false>(s, P, D, (uint32_t)seeds[r], (uint32_t)i,
+                               none, lanes);
     store(a, i, s, P.write_age);
   }
   // counter lanes hold the call's totals; scalar lanes the last round's
@@ -447,8 +591,33 @@ int launch_round_kernel(RoundParams P, void* status, void* inc,
   Arrays a{(int8_t*)status, (int16_t*)inc,  (float*)informed,
            (int16_t*)age,   (int16_t*)slen, (int16_t*)sttl,
            (int8_t*)conf,   (int8_t*)lh};
-  round_kernel<<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
-      P, a, (const float*)scal, (const int32_t*)seed, (float*)partials);
+  round_kernel<false, false>
+      <<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
+          P, a, FaultArrays{}, (const float*)scal, (const int32_t*)seed,
+          (float*)partials);
+  return (int)cudaGetLastError();
+}
+
+// The fault-plan variants: byz != 0 takes the byzantine lanes too.
+int launch_round_kernel_fault(RoundParams P, void* status, void* inc,
+                              void* informed, void* age, void* slen,
+                              void* sttl, void* conf, void* lh,
+                              FaultArrays F, int byz, const void* scal,
+                              const void* seed, void* partials,
+                              void* stream) {
+  Arrays a{(int8_t*)status, (int16_t*)inc,  (float*)informed,
+           (int16_t*)age,   (int16_t*)slen, (int16_t*)sttl,
+           (int8_t*)conf,   (int8_t*)lh};
+  if (byz)
+    round_kernel<true, true>
+        <<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
+            P, a, F, (const float*)scal, (const int32_t*)seed,
+            (float*)partials);
+  else
+    round_kernel<true, false>
+        <<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
+            P, a, F, (const float*)scal, (const int32_t*)seed,
+            (float*)partials);
   return (int)cudaGetLastError();
 }
 

@@ -4,10 +4,13 @@ Counterpart of the JAX package's ``consul_tpu/sim/pallas_round.py``.
 Two CUDA kernels (``csrc/round_kernels.cu``) carry the hot loop:
 
 * ``round_kernel`` — one protocol period per launch; replaces the TPU
-  kernel ``_round_kernel`` (pallas_round.py:439). Bandwidth-bound: per
-  round it reads 15 B/node and writes 13 B/node in the stable variant,
-  15 B/node in the full variant (29,360,128 B / 31,457,280 B at
-  1,048,576 nodes).
+  kernel ``_round_kernel`` (pallas_round.py:439) in all four of its
+  variants: stable and full (honest), ``fault`` (a fault plan's frame:
+  8 per-node lanes and ``mid``) and ``byz`` (4 more byzantine lanes).
+  Bandwidth-bound: per round it reads 15 B/node of state and writes 13
+  B/node in the stable variant, 15 B/node in the others; the fault
+  variants read 29 / 42 B/node of frame besides (29,360,128 B /
+  31,457,280 B / 61,865,984 B / 75,497,472 B at 1,048,576 nodes).
 * ``mega_kernel`` — R periods per launch on frozen scalars, each node
   held in registers across the rounds; replaces ``_mega_kernel``
   (pallas_round.py:526). It moves the bytes of one round per call, so
@@ -28,7 +31,8 @@ folds the TPU kernel's partials outside the kernel.
 
 The STABLE variant (configs with no churn, no slow model and no stats,
 ``SimParams.age_mutable`` false) never writes down_age: a dead row's
-age stays frozen at its entry value, as the TPU kernel's does.
+age stays frozen at its entry value, as the TPU kernel's does. A fault
+frame forces the full behaviour (churn drawn, down_age written).
 """
 
 from __future__ import annotations
@@ -40,11 +44,14 @@ from typing import Optional, Sequence
 
 import torch
 
+from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
+                                     scale_plan)
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
                                         _cast_like, _round_body,
-                                        clamp_scalars, init_scalars)
+                                        clamp_scalars, init_scalars,
+                                        plan_frames)
 from consul_tpu_torch.sim.state import (NODE_FIELDS, STATS_FIELDS,
                                         SimState, SimStats)
 from consul_tpu_torch.utils import build
@@ -64,8 +71,11 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def variant(p: SimParams) -> str:
-    """'full' when a round can change down_age, else 'stable'."""
+def variant(p: SimParams, fx: Optional[FaultFrame] = None) -> str:
+    """'byz' / 'fault' for a byzantine / honest fault frame; else
+    'full' when a round can change down_age, 'stable' when not."""
+    if fx is not None:
+        return "fault" if fx.attacked is None else "byz"
     return "full" if p.age_mutable else "stable"
 
 
@@ -78,14 +88,30 @@ class RoundParams(ctypes.Structure):
 
     _fields_ = [("rows", ctypes.c_int)] + [
         (f, ctypes.c_float) for f in (
-            "n_f", "inv_n", "probe_interval", "fail_p", "fail_leave_p",
-            "rejoin_p", "slow_p", "slow_recover_p", "slow_factor",
-            "one_minus_slow_factor", "p_direct", "p_relay", "p_tcp",
-            "fanout_ticks", "one_minus_loss", "susp_max_s", "shrink_r",
-            "shrink_omr", "conf_k_f")] + [
+            "n_f", "inv_n", "probe_interval", "fail_p", "leave_p",
+            "fail_leave_p", "rejoin_p", "slow_p", "slow_recover_p",
+            "slow_factor", "one_minus_slow_factor", "p_direct", "p_relay",
+            "p_tcp", "fanout_ticks", "one_minus_loss", "susp_max_s",
+            "shrink_r", "shrink_omr", "conf_k_f")] + [
         (f, ctypes.c_int) for f in (
-            "awareness_max", "indirect_checks", "lifeguard", "shrink_on",
-            "patience_on", "churn_on", "slow_on", "stats_on", "write_age")]
+            "awareness_max", "indirect_checks", "corroboration_k",
+            "lifeguard", "shrink_on", "patience_on", "churn_on", "slow_on",
+            "stats_on", "write_age")]
+
+
+#: the frame lanes the fault variants read, in ``FaultArrays`` order;
+#: ``mid`` (0-d) sits between the honest and the byzantine lanes
+_FAULT_LANES = ("psend", "precv", "suspw", "hear_w", "slow_f", "crash_p",
+                "rejoin_p", "leave_p")
+_BYZ_LANES = ("forge_ack", "spur_susp", "replay", "attacked")
+_MASKS = ("slow_f", "attacked")
+
+
+class FaultArrays(ctypes.Structure):
+    """Mirror of ``struct FaultArrays`` in round_kernels.cu."""
+
+    _fields_ = [(f, ctypes.c_void_p)
+                for f in _FAULT_LANES + ("mid",) + _BYZ_LANES]
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,11 +126,13 @@ def kernel_params(p: SimParams, rows: int) -> RoundParams:
         slow_recover_p=p.slow_recover_per_round,
         slow_factor=p.slow_factor,
         one_minus_slow_factor=1.0 - p.slow_factor,
+        leave_p=p.leave_per_round,
         p_direct=p.p_direct, p_relay=p.p_relay, p_tcp=p.p_tcp,
         fanout_ticks=p.fanout_ticks, one_minus_loss=p.one_minus_loss,
         susp_max_s=p.suspicion_max_s, shrink_r=p.shrink_r,
         shrink_omr=p.shrink_omr, conf_k_f=float(p.confirmation_k),
         awareness_max=p.awareness_max, indirect_checks=p.indirect_checks,
+        corroboration_k=p.corroboration_k,
         lifeguard=int(p.lifeguard),
         shrink_on=int(p.lifeguard
                       and p.suspicion_max_s > p.suspicion_min_s),
@@ -121,6 +149,10 @@ def _lib() -> ctypes.CDLL:
                                         ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_void_p, ctypes.c_void_p]
     lib.launch_round_kernel.restype = ctypes.c_int
+    lib.launch_round_kernel_fault.argtypes = [
+        RoundParams, *ptrs, FaultArrays, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.launch_round_kernel_fault.restype = ctypes.c_int
     lib.launch_mega_kernel.argtypes = [RoundParams, *ptrs,
                                        ctypes.c_void_p, ctypes.c_void_p,
                                        ctypes.c_int, ctypes.c_void_p,
@@ -167,6 +199,40 @@ def _check_inputs(arrays: Sequence[torch.Tensor], scalars: torch.Tensor,
     return rows
 
 
+def _check_frame(fx: FaultFrame, rows: int, dev: torch.device) -> None:
+    """The fault lanes must be contiguous [rows] tensors on the state's
+    device: f32, the masks bool; ``mid`` a one-element f32 tensor."""
+    lanes = _FAULT_LANES + (_BYZ_LANES if fx.attacked is not None else ())
+    for f in lanes:
+        a = getattr(fx, f)
+        dt = torch.bool if f in _MASKS else torch.float32
+        if a is None:
+            raise ValueError(f"fault frame lacks {f}: a byzantine frame "
+                             "carries all four byzantine lanes")
+        if a.device != dev:
+            raise ValueError(f"fault lane {f} is on {a.device}, expected "
+                             f"{dev}")
+        if a.dtype != dt:
+            raise ValueError(f"fault lane {f} has dtype {a.dtype}, "
+                             f"expected {dt}")
+        if tuple(a.shape) != (rows,):
+            raise ValueError(f"fault lane {f} has shape {tuple(a.shape)}, "
+                             f"expected ({rows},)")
+        if not a.is_contiguous():
+            raise ValueError(f"fault lane {f} is not contiguous")
+    if (fx.mid.device != dev or fx.mid.dtype != torch.float32
+            or fx.mid.numel() != 1):
+        raise ValueError(f"fault frame mid must be a one-element f32 "
+                         f"tensor on {dev}")
+
+
+def _fault_arrays(fx: FaultFrame) -> FaultArrays:
+    byz = fx.attacked is not None
+    return FaultArrays(**{
+        f: getattr(fx, f).data_ptr()
+        for f in _FAULT_LANES + ("mid",) + (_BYZ_LANES if byz else ())})
+
+
 def _partials_out(out, rows, dev):
     shape = (n_blocks(rows), N_LANES)
     if out is None:
@@ -193,23 +259,26 @@ def _block_sums(lanes, rows: int) -> torch.Tensor:
     return stack.view(N_LANES, blocks, THREADS).sum(2).t().contiguous()
 
 
-def _one_round(vals, arrays, scalars, seed, p, margin=None):
+def _one_round(vals, arrays, scalars, seed, p, margin=None, fx=None):
     rows = arrays[0].shape[0]
     outs, lanes = _round_body(vals, scalars, p,
-                              prng.philox_u01(seed, rows), margin=margin)
+                              prng.philox_u01(seed, rows), margin=margin,
+                              fx=fx, kernel_sums=True)
     outs = _cast_like(outs, arrays)
-    if not p.age_mutable:
+    if not p.age_mutable and fx is None:
         # the stable variant never stores down_age
         outs = outs[:3] + (arrays[3],) + outs[4:]
     return outs, lanes
 
 
 def block_round_ref(arrays, scalars, seed, p: SimParams,
-                    margin: Optional[list] = None):
+                    margin: Optional[list] = None,
+                    fx: Optional[FaultFrame] = None):
     """Plain version of ``round_kernel``: one period on the packed
-    arrays with ``seed``'s Philox draws. Returns (new arrays, partials
-    [blocks, 18]); the inputs are not modified."""
-    outs, lanes = _one_round(arrays, arrays, scalars, seed, p, margin)
+    arrays with ``seed``'s Philox draws and the fault view ``fx`` as
+    given (no ``fault_gain`` blend: the runner applies it). Returns (new
+    arrays, partials [blocks, 18]); the inputs are not modified."""
+    outs, lanes = _one_round(arrays, arrays, scalars, seed, p, margin, fx)
     return outs, _block_sums(lanes, arrays[0].shape[0])
 
 
@@ -233,28 +302,37 @@ def mega_round_ref(arrays, scalars, seeds, p: SimParams):
 
 def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
                  r: int, p: SimParams,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 fx: Optional[FaultFrame] = None) -> torch.Tensor:
     """One period over ``arrays`` (updated IN PLACE) with the stale
-    ``scalars`` and seed ``seeds[r]``; returns the [blocks, 18] partial
-    sums. CPU tensors run ``block_round_ref``."""
+    ``scalars``, seed ``seeds[r]`` and, for the fault variants, the
+    round's fault view ``fx``; returns the [blocks, 18] partial sums.
+    CPU tensors run ``block_round_ref``."""
     rows = _check_inputs(arrays, scalars, seeds)
     if not 0 <= r < seeds.shape[0]:
         raise IndexError(f"seed index {r} outside seeds[{seeds.shape[0]}]")
     dev = arrays[0].device
+    if fx is not None:
+        _check_frame(fx, rows, dev)
     partials = _partials_out(out, rows, dev)
     if dev.type == "cpu":
-        outs, sums = block_round_ref(arrays, scalars, seeds[r], p)
+        outs, sums = block_round_ref(arrays, scalars, seeds[r], p, fx=fx)
         for a, o in zip(arrays, outs):
             a.copy_(o)
         partials.copy_(sums)
         return partials
     lib = _lib()
-    rc = lib.launch_round_kernel(
-        kernel_params(p, rows), *[a.data_ptr() for a in arrays],
-        scalars.data_ptr(), seeds.data_ptr() + 4 * r, partials.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = [a.data_ptr() for a in arrays]
+    tail = (scalars.data_ptr(), seeds.data_ptr() + 4 * r,
+            partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if fx is None:
+        rc = lib.launch_round_kernel(kernel_params(p, rows), *ptrs, *tail)
+    else:
+        rc = lib.launch_round_kernel_fault(
+            kernel_params(p, rows), *ptrs, _fault_arrays(fx),
+            int(fx.attacked is not None), *tail)
     _check_launch(lib, rc, "round_kernel")
-    LAUNCHES[f"round_kernel/{variant(p)}"] += 1
+    LAUNCHES[f"round_kernel/{variant(p, fx)}"] += 1
     return partials
 
 
@@ -289,7 +367,8 @@ def mega_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
 
 def make_run_rounds_cuda(p: SimParams, rounds: int,
                          rounds_per_call: int = 1, carry: bool = False,
-                         plan=None, coords: bool = False,
+                         plan: Optional[CompiledFaultPlan] = None,
+                         coords: bool = False,
                          flight_every: Optional[int] = None,
                          blackbox: bool = False):
     """The kernel hot loop: ``run(state, key, scalars0=None)`` -> state
@@ -304,13 +383,19 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     returned scalars (``scalars0=``) draws the same seeds as the uncut
     run. Counters accumulate in int32 with an f32 latency lane.
 
+    ``plan`` (``faults.compile_plan`` on the state's device) threads a
+    FaultPlan through the kernel: each round's ``fault_frame``, keyed by
+    the absolute round, feeds the ``fault`` (honest plan) or ``byz``
+    (byzantine plan) variant of ``round_kernel``. When ``p.fault_gain``
+    is not 1 the plan is blended once here (``scale_plan``), which gives
+    every frame the bits of the reference's per-round ``scale_frame``.
+
     The state's per-node tensors are updated IN PLACE — the stand-in
     for JAX's buffer donation: the passed state and the returned one
-    share them. The fault-plan, coordinate, flight-recorder and
-    black-box options of the JAX runner belong to later slices of the
-    port and are refused by name."""
-    for name, val in (("plan", plan), ("coords", coords),
-                      ("flight_every", flight_every),
+    share them. The coordinate, flight-recorder and black-box options
+    of the JAX runner belong to later slices of the port and are
+    refused by name."""
+    for name, val in (("coords", coords), ("flight_every", flight_every),
                       ("blackbox", blackbox)):
         if val is not None and val is not False:
             raise ValueError(
@@ -319,15 +404,24 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     R = rounds_per_call
     if R < 1:
         raise ValueError(f"rounds_per_call must be >= 1: {R}")
+    if plan is not None and R > 1:
+        raise ValueError(
+            "the megakernel freezes its inputs for the whole call but "
+            "fault frames vary per round; run fault plans with "
+            "rounds_per_call=1")
     if rounds % R:
         raise ValueError(f"rounds={rounds} must be a multiple of "
                          f"rounds_per_call={R}")
+    if plan is not None and p.fault_gain != 1.0:
+        # the kernel consumes the frame as given: blend the plan here
+        plan = scale_plan(plan, p.fault_gain)
     keep = torch.ones(N_STATS)
     keep[LAT] = 0.0
 
     def run(state: SimState, key: torch.Tensor, scalars0=None):
         if scalars0 is not None and not carry:
             raise ValueError("scalars0 needs a carry=True runner")
+        fxs = plan_frames(plan, state, rounds, p.fault_gain)
         arrays = state.node_arrays()
         dev = arrays[0].device
         if scalars0 is None:
@@ -342,10 +436,10 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
         acc_lat = torch.zeros((), dtype=torch.float32, device=dev)
         keep_d = keep.to(dev)
         t = state.t
-        for c in range(rounds // R):
+        for c, fx in zip(range(rounds // R), fxs):
             if R == 1:
                 partials = round_kernel(arrays, scalars, seeds, c, p,
-                                        out=buf)
+                                        out=buf, fx=fx)
                 t = t + p.probe_interval
             else:
                 partials = mega_kernel(arrays, scalars,

@@ -33,7 +33,7 @@ class SimParams:
     tcp_fallback: bool = True
 
     # k-of-m corroboration of suspicion starts (0 = memberlist's classic
-    # any-ack-cancels rule). Only 0 is supported by the port so far.
+    # any-ack-cancels rule; faults.detection_gate applies k >= 1)
     corroboration_k: int = 0
 
     # Lifeguard suspicion
@@ -85,12 +85,6 @@ class SimParams:
                 f"corroboration_k={self.corroboration_k} out of range: "
                 f"must satisfy 0 <= corroboration_k <= indirect_checks "
                 f"(indirect_checks={self.indirect_checks})")
-        if self.corroboration_k > 0:
-            raise ValueError(
-                f"corroboration_k={self.corroboration_k} is not supported "
-                "by consul_tpu_torch yet: k-of-m corroboration needs the "
-                "detection gate of the fault-plan slice (faults."
-                "detection_gate), which is still to be ported")
 
     # --- derived (all Python floats/ints) ------------------------------
 

@@ -172,11 +172,24 @@ def philox_uniform(seed: torch.Tensor, node: torch.Tensor,
 U01 = Callable[[int], torch.Tensor]
 
 
+#: the JAX engines key the byzantine replay draw (slot 5) by folding
+#: this constant into the round key, off the five split keys
+REPLAY_FOLD = 0xB12A
+
+
 def threefry_u01(k: torch.Tensor, n: int) -> U01:
     """The JAX engines' draws for one round: ``split(k, 5)`` gives one
-    key per slot and each slot draws ``uniform(slot_key, (n,))``."""
+    key per slot 0-4 and each slot draws ``uniform(slot_key, (n,))``;
+    slot 5 (the replay draw of byzantine rounds) draws from
+    ``fold_in(k, REPLAY_FOLD)``."""
     keys = split(k, 5)
-    return lambda slot: uniform(keys[slot], n)
+
+    def u01(slot: int) -> torch.Tensor:
+        if slot == 5:
+            return uniform(fold_in(k, REPLAY_FOLD), n)
+        return uniform(keys[slot], n)
+
+    return u01
 
 
 def philox_u01(seed: torch.Tensor, n: int) -> U01:

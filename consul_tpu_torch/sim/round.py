@@ -13,11 +13,17 @@ versions in ``cuda_round.py``, so they cannot drift:
   draws keyed exactly as the JAX engines key theirs;
 * ``run_rounds`` / ``make_run_rounds_fast`` — the multi-round loops.
 
+Each takes an optional fault view (``fx=``, a ``faults.FaultFrame``) or
+plan (``plan=``, a ``faults.CompiledFaultPlan``), as its JAX twin does:
+the frame's per-node delivery multipliers, forced-slow mask and churn
+rates shape the round, and a byzantine frame adds forged acks, spurious
+suspicions and stale replays.
+
 Per-node randomness comes from a caller-supplied source ``u01(slot)``
-(five slots: churn, slow, ack, pois, hear — ``prng.threefry_u01``,
-``prng.philox_u01``, or injected arrays in the tests). That seam is what
-holds the port bit for bit against the reference when both draw the same
-uniforms.
+(six slots: churn, slow, ack, pois, hear, and replay on byzantine
+rounds only — ``prng.threefry_u01``, ``prng.philox_u01``, or injected
+arrays in the tests). That seam is what holds the port bit for bit
+against the reference when both draw the same uniforms.
 
 Arithmetic follows the reference op for op in f32 (constants fold on the
 host in f64 and are cast once, integer powers are repeated products in
@@ -27,10 +33,14 @@ a few ulp of the platform's ``exp``/``log``.
 
 from __future__ import annotations
 
-from typing import Optional
+import itertools
+from typing import Iterator, Optional
 
 import torch
 
+from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
+                                     detection_gate, fault_frame, ipow,
+                                     plan_schedule, scale_frame)
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import (ALIVE, ALIVE_AGE, CONF_MAX, DEAD,
@@ -47,9 +57,10 @@ N_STATS = len(STATS_FIELDS)
 N_LANES = N_SCALARS + N_STATS
 LAT = STATS_FIELDS.index("detect_latency_sum")
 
-#: draw slots, in the reference's draw order
-U_CHURN, U_SLOW, U_ACK, U_POIS, U_HEAR = range(5)
-N_DRAWS = 5
+#: draw slots, in the reference's draw order; U_REPLAY only on
+#: byzantine rounds
+U_CHURN, U_SLOW, U_ACK, U_POIS, U_HEAR, U_REPLAY = range(6)
+N_DRAWS = 6
 
 #: floors applied to a reduced scalar vector (n_elig >= 1,
 #: n_up_elig >= 1e-9, lfail_den >= 1e-9); the other lanes are unclamped
@@ -58,21 +69,6 @@ SCALAR_FLOORS = (float("-inf"), 1.0, 1e-9, float("-inf"), float("-inf"),
 
 _F32 = torch.float32
 _I32 = torch.int32
-
-
-def ipow(x: torch.Tensor, y: int) -> torch.Tensor:
-    """x**y for a static int y >= 1 by binary exponentiation, multiplied
-    in the order XLA's integer_pow uses (so the f32 rounding matches)."""
-    if y == 0:
-        return torch.ones_like(x)
-    acc = None
-    while y > 0:
-        if y & 1:
-            acc = x if acc is None else acc * x
-        y >>= 1
-        if y > 0:
-            x = x * x
-    return acc
 
 
 def _shrink(c: torch.Tensor, p: SimParams) -> torch.Tensor:
@@ -102,14 +98,20 @@ def _trunc_poisson(u: torch.Tensor, lam: torch.Tensor, kmax: int = 4,
 
 
 def pf_arrays(slow: torch.Tensor, lh: torch.Tensor, sbar, live_frac,
-              p: SimParams):
+              p: SimParams, fx: Optional[FaultFrame] = None):
     """Per-prober miss probabilities for fast/slow targets given the
-    population scalars: (g, pf_fast, pf_slow)."""
+    population scalars: (g, pf_fast, pf_slow). With a frame, direct
+    probes and the TCP fallback scale by the prober's round trip
+    (psend·precv), relay legs by that times the plan's mean link
+    quality ``mid``."""
     g = torch.where(slow, p.slow_factor, 1.0).to(_F32)
-    if p.lifeguard and p.enabled("slow_per_round"):
+    if p.lifeguard and (p.enabled("slow_per_round") or fx is not None):
         patience = 1.0 - torch.exp2(-lh.to(_F32))
     else:
         patience = torch.zeros_like(g)
+    if fx is not None:
+        rt = fx.psend * fx.precv
+        relay_m = rt * fx.mid
 
     def noack_given(gj_val):
         gj = torch.tensor(gj_val, dtype=_F32, device=g.device)
@@ -120,8 +122,12 @@ def pf_arrays(slow: torch.Tensor, lh: torch.Tensor, sbar, live_frac,
         ge_p_slow = p.slow_factor + (1.0 - p.slow_factor) * patience
         e_gp4 = (1.0 - sbar) * 1.0 + sbar * ipow(ge_p_slow, 4)
         p_relay1 = live_frac * p.p_relay * pair2 * e_gp4
-        p_no_relay = ipow(1.0 - p_relay1, p.indirect_checks)
         p_tcp = p.p_tcp * ge_i * ge_j
+        if fx is not None:
+            p_d = p_d * rt
+            p_relay1 = p_relay1 * relay_m
+            p_tcp = p_tcp * rt
+        p_no_relay = ipow(1.0 - p_relay1, p.indirect_checks)
         return (1.0 - p_d) * p_no_relay * (1.0 - p_tcp)
 
     return g, noack_given(1.0), noack_given(p.slow_factor)
@@ -134,7 +140,9 @@ def _ulps(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def _round_body(vals, scal, p: SimParams, u01: prng.U01,
-                margin: Optional[list] = None):
+                margin: Optional[list] = None,
+                fx: Optional[FaultFrame] = None,
+                kernel_sums: bool = False):
     """ONE protocol period over per-node tensors — the single copy of
     the protocol body.
 
@@ -148,7 +156,13 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     ``margin`` (a list) receives, per node, the smallest distance in ulps
     between a uniform and the computed threshold it was compared with,
     or between a ceil argument and the nearest integer: the decisions a
-    last-bit difference in exp/log could flip."""
+    last-bit difference in exp/log could flip.
+
+    ``fx`` is this round's fault view, consumed as given (callers apply
+    ``scale_frame``). The XLA engines count forced-slow nodes in the
+    n_slow scalar lane; the TPU kernel counts the stochastic slow mask
+    only (pallas_round.py:389) — ``kernel_sums=True`` selects the
+    kernel's rule for the round kernels' plain versions."""
     (status_in, inc_in, informed, age_in, slen_in, sttl_in, conf_in,
      lh_in) = vals
     n = p.n
@@ -163,17 +177,24 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     lh = lh_in.to(_I32)
     new_rumor = torch.zeros_like(up)
     crash = leave = rejoin = None
+    byz = fx is not None and fx.attacked is not None
 
     # dead nodes age one tick per round (saturating)
     age = torch.where(age >= 0, torch.clamp_max(age + 1, TICK_MAX), age)
 
     # ------------------------------------------------------------- churn
-    if p.has_churn:
+    if p.has_churn or fx is not None:
         u = u01(U_CHURN)
         fail_p, leave_p = p.fail_per_round, p.leave_per_round
+        rejoin_p = p.rejoin_per_round
+        if fx is not None:
+            # plan churn bursts and flap schedules add to the rates
+            fail_p = fail_p + fx.crash_p
+            leave_p = leave_p + fx.leave_p
+            rejoin_p = rejoin_p + fx.rejoin_p
         crash = up & (u < fail_p)
         leave = up & (u >= fail_p) & (u < fail_p + leave_p)
-        rejoin = (~up) & (u < p.rejoin_per_round)
+        rejoin = (~up) & (u < rejoin_p)
         up = (up & ~(crash | leave)) | rejoin
         age = torch.where(crash | leave, 0, age)
         age = torch.where(rejoin, ALIVE_AGE, age)
@@ -192,6 +213,9 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         u_s = u01(U_SLOW)
         slow = torch.where(slow, u_s >= p.slow_recover_per_round,
                            u_s < p.slow_per_round) & up
+    # forced slow (the GC-pause primitive) shapes this round only; the
+    # stored slow state stays stochastic
+    slow_eff = (slow | fx.slow_f) & up if fx is not None else slow
 
     # ---------------------------------------------- mean-field population
     upf = up.to(_F32)
@@ -201,13 +225,13 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         n_live = torch.sum(upf)
         n_elig = torch.clamp_min(torch.sum(eligf), 1.0)
         n_up_elig = torch.clamp_min(torch.sum(upf * eligf), 1e-9)
-        sbar = torch.sum((slow & up & elig).to(_F32)) / n_up_elig
+        sbar = torch.sum((slow_eff & up & elig).to(_F32)) / n_up_elig
     else:
         n_live, n_elig, n_up_elig = scal[0], scal[1], scal[2]
         sbar = scal[3] / n_up_elig
     frac_up_elig = n_up_elig / n_elig
 
-    g, pf_fast, pf_slow = pf_arrays(slow, lh, sbar, n_live / n, p)
+    g, pf_fast, pf_slow = pf_arrays(slow_eff, lh, sbar, n_live / n, p, fx)
 
     # ------------------------------------------------- prober-side probe
     mix_i = (1.0 - sbar) * pf_fast + sbar * pf_slow
@@ -229,9 +253,18 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         e_pf_fast = scal[4] / torch.clamp_min(n_live, 1e-9)
         e_pf_slow = scal[5] / torch.clamp_min(n_live, 1e-9)
     probe_rate = n_live / torch.clamp_min(n_elig - 1.0, 1.0)
-    base_fail = torch.where(slow, e_pf_slow, e_pf_fast)
+    base_fail = torch.where(slow_eff, e_pf_slow, e_pf_fast)
+    if fx is not None:
+        # suspicion-weighted round-trip success
+        base_fail = 1.0 - (1.0 - base_fail) * fx.suspw
     p_fail_j = torch.where(up, base_fail, 1.0)
+    if byz or p.corroboration_k > 0:
+        # forged acks and k-of-m corroboration gate suspicion starts
+        p_fail_j = p_fail_j * detection_gate(up, fx, p)
     lam_fail = probe_rate * p_fail_j * eligf
+    if byz:
+        # forged suspicions arrive like failed probes
+        lam_fail = lam_fail + fx.spur_susp * eligf
     cdf = [] if margin is not None else None
     u_pois = u01(U_POIS)
     n_fail = _trunc_poisson(u_pois, lam_fail, cdf=cdf)
@@ -245,6 +278,10 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         lfail_num, lfail_den = scal[6], scal[7]
     if p.lifeguard:
         scale = lfail_num / lfail_den
+        if byz:
+            # a forged suspicion in a cluster where no probe fails must
+            # race the full Lifeguard timer, not a 0/epsilon one
+            scale = torch.clamp_min(scale, 1.0)
     else:
         scale = torch.tensor(1.0, dtype=_F32, device=informed.device)
 
@@ -275,6 +312,12 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
 
     # ------------------------------------------- refutation (the race)
     lam_hear = p.fanout_ticks * informed * p.one_minus_loss * g
+    if fx is not None:
+        # both legs of a refutation: hear the suspicion, answer it
+        lam_hear = lam_hear * fx.hear_w
+    if byz:
+        # replayed stale rumors crowd out the current one
+        lam_hear = lam_hear * (1.0 - fx.replay)
     p_hear = 1.0 - torch.exp(-lam_hear)
     wrongly = up & ((status == SUSPECT) | (status == DEAD)) & ~new_rumor
     u_hear = u01(U_HEAR)
@@ -289,6 +332,14 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     if p.lifeguard:
         lh = torch.clamp(lh + refute.to(_I32), 0, p.awareness_max)
 
+    if byz:
+        # stale replays force live victims into incarnation bumps
+        u_rep = u01(U_REPLAY)
+        bump = up & (status == ALIVE) & ~new_rumor & (u_rep < fx.replay)
+        inc = torch.where(bump, torch.clamp_max(inc + 1, TICK_MAX), inc)
+        informed = torch.where(bump, 1.0 / n, informed)
+        new_rumor = new_rumor | bump
+
     # ------------------------------------------------- dead declaration
     declare = (status == SUSPECT) & (sttl <= 0)
     status = torch.where(declare, DEAD, status)
@@ -301,6 +352,10 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     # ----------------------------------------------- epidemic growth
     grow = (~new_rumor) & (informed < 1.0)
     lam_g = p.fanout_ticks * informed * p.one_minus_loss
+    if fx is not None:
+        lam_g = lam_g * fx.mid
+    if byz:
+        lam_g = lam_g * (1.0 - fx.replay)
     informed = torch.where(
         grow, informed + (1.0 - informed) * (1.0 - torch.exp(-lam_g)),
         informed)
@@ -313,7 +368,8 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     elig2 = (status == ALIVE) | (status == SUSPECT)
     elig2f = elig2.to(_F32)
     w_fail2 = upf2 * (1.0 - p_ack)
-    lanes = [upf2, elig2f, upf2 * elig2f, (slow & up & elig2).to(_F32),
+    slow_sum = slow if kernel_sums else slow_eff
+    lanes = [upf2, elig2f, upf2 * elig2f, (slow_sum & up & elig2).to(_F32),
              upf2 * pf_fast, upf2 * pf_slow,
              w_fail2 * (lh.to(_F32) + 1.0), w_fail2]
     if p.collect_stats:
@@ -324,7 +380,9 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
 
         lanes += [f(starts), f(refute), f(declare & up), f(tp),
                   torch.where(tp, lat, 0.0), f(crash), f(rejoin),
-                  f(leave), None, None]
+                  f(leave)]
+        lanes += ([f(starts & fx.attacked), f(declare & up & fx.attacked)]
+                  if byz else [None, None])
     else:
         lanes += [None] * N_STATS
 
@@ -371,14 +429,19 @@ def clamp_scalars(sums: torch.Tensor) -> torch.Tensor:
 
 
 def round_core(state: SimState, scalars: Optional[torch.Tensor],
-               p: SimParams, u01: prng.U01):
+               p: SimParams, u01: prng.U01,
+               fx: Optional[FaultFrame] = None):
     """ONE protocol period; returns ``(state', scalars')``.
 
     ``scalars=None`` is live mode (``scalars'`` is None);
     a stale [8] vector is stale mode, producing next round's scalars in
-    the same pass. ``u01(slot)`` supplies each slot's [N] uniforms."""
+    the same pass. ``u01(slot)`` supplies each slot's [N] uniforms.
+    ``fx`` is the round's fault view, blended by ``p.fault_gain`` here
+    as the reference's ``_round_core`` does."""
+    if fx is not None and p.fault_gain != 1.0:
+        fx = scale_frame(fx, p.fault_gain)
     vals = state.node_arrays()
-    outs, lanes = _round_body(vals, scalars, p, u01)
+    outs, lanes = _round_body(vals, scalars, p, u01, fx=fx)
     st = _stats_add(state.stats, lanes) \
         if p.collect_stats else state.stats
     out = SimState(*_cast_like(outs, vals),
@@ -390,20 +453,36 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
     return out, clamp_scalars(sums)
 
 
-def gossip_round(state: SimState, key: torch.Tensor,
-                 p: SimParams) -> SimState:
+def gossip_round(state: SimState, key: torch.Tensor, p: SimParams,
+                 fx: Optional[FaultFrame] = None) -> SimState:
     """One period with LIVE population scalars, drawing from ``key``
     exactly as the JAX engines draw (``prng.threefry_u01``)."""
     out, _ = round_core(state, None, p,
-                        prng.threefry_u01(key, state.status.shape[0]))
+                        prng.threefry_u01(key, state.status.shape[0]), fx)
     return out
 
 
 def gossip_round_fast(state: SimState, scalars: torch.Tensor,
-                      key: torch.Tensor, p: SimParams):
+                      key: torch.Tensor, p: SimParams,
+                      fx: Optional[FaultFrame] = None):
     """One period on LAST round's scalars: returns (state', scalars')."""
     return round_core(state, scalars, p,
-                      prng.threefry_u01(key, state.status.shape[0]))
+                      prng.threefry_u01(key, state.status.shape[0]), fx)
+
+
+def plan_frames(plan: Optional[CompiledFaultPlan], state: SimState,
+                rounds: int,
+                gain: float = 1.0) -> Iterator[Optional[FaultFrame]]:
+    """An iterator over the fault view of each of the next ``rounds``
+    rounds of ``state``, keyed by the absolute round (all None without a
+    plan). Frames are built as they are taken, so a flapping phase's
+    rewritten lanes never pile up; the phase lookup runs on the host
+    from one read of the plan's schedule. ``gain`` is that of a plan
+    blended by ``scale_plan`` (see ``fault_frame``)."""
+    if plan is None:
+        return itertools.repeat(None, rounds)
+    sched, r0 = plan_schedule(plan), int(state.round_idx)
+    return (fault_frame(plan, r0 + r, sched, gain) for r in range(rounds))
 
 
 def init_scalars(state: SimState, p: SimParams) -> torch.Tensor:
@@ -430,34 +509,38 @@ def init_scalars(state: SimState, p: SimParams) -> torch.Tensor:
 
 
 def run_rounds(state: SimState, key: torch.Tensor, p: SimParams,
-               rounds: int, trace_node: Optional[int] = None):
+               rounds: int, trace_node: Optional[int] = None,
+               plan: Optional[CompiledFaultPlan] = None):
     """Run ``rounds`` live-scalar periods; returns (final, trace) where
     trace is the per-round informed fraction of ``trace_node`` (or
     None). Round keys are ``round_keys(key, state.round_idx, rounds)``,
-    so a run cut anywhere and resumed from its state is the same run."""
+    so a run cut anywhere and resumed from its state is the same run.
+    ``plan`` shapes each round with its ``fault_frame``."""
     keys = prng.round_keys(key, state.round_idx, rounds)
     trace = []
-    for r in range(rounds):
-        state = gossip_round(state, keys[r], p)
+    for r, fx in enumerate(plan_frames(plan, state, rounds)):
+        state = gossip_round(state, keys[r], p, fx)
         if trace_node is not None:
             trace.append(state.informed[trace_node])
     return state, (torch.stack(trace) if trace_node is not None else None)
 
 
 def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
-    """Stale-scalar loop on threefry draws: ``run(state, key,
+    """Stale-scalar loop on threefry draws: ``run(state, key, plan=None,
     scalars0=None)`` -> state (``(state, scalars)`` with ``carry``).
     ``carry=True`` is the checkpoint seam: the returned scalars, passed
     back as ``scalars0``, resume the run bit for bit (``init_scalars``
-    would recompute live sums instead)."""
+    would recompute live sums instead). ``plan`` shapes each round with
+    its ``fault_frame``."""
 
-    def run(state: SimState, key: torch.Tensor, scalars0=None):
+    def run(state: SimState, key: torch.Tensor,
+            plan: Optional[CompiledFaultPlan] = None, scalars0=None):
         if scalars0 is not None and not carry:
             raise ValueError("scalars0 needs a carry=True runner")
         sc = init_scalars(state, p) if scalars0 is None else scalars0
         keys = prng.round_keys(key, state.round_idx, rounds)
-        for r in range(rounds):
-            state, sc = gossip_round_fast(state, sc, keys[r], p)
+        for r, fx in enumerate(plan_frames(plan, state, rounds)):
+            state, sc = gossip_round_fast(state, sc, keys[r], p, fx)
         return (state, sc) if carry else state
 
     return run

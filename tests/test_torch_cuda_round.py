@@ -2,10 +2,14 @@
 
 On the CPU the wrappers take the plain versions, which must equal
 ``round_core`` fed the kernels' Philox uniforms (except down_age of dead
-rows in the stable variant, pinned frozen as the TPU kernel's is); the
-R-round version must equal R per-round calls on frozen scalars; a run
-resumed from the scalars carry must be bitwise the straight run. The
-``cuda``-marked tests repeat the kernel-vs-plain checks on the card.
+rows in the stable variant, pinned frozen as the TPU kernel's is; and,
+with a fault frame, the n_slow scalar lane, which the kernels count
+without the forced-slow nodes as the TPU kernel does); the R-round
+version must equal R per-round calls on frozen scalars; a run resumed
+from the scalars carry must be bitwise the straight run, with or
+without a fault plan. The ``cuda``-marked tests repeat the
+kernel-vs-plain checks on the card, the fault and byz variants
+included.
 """
 
 from __future__ import annotations
@@ -14,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from consul_tpu_torch import bench
+from consul_tpu_torch import faults as tfaults
 from consul_tpu_torch.sim import cuda_round as cr
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim import round as tround
@@ -140,9 +146,10 @@ def test_runner_updates_state_in_place_and_accumulates_stats():
 
 
 def test_maker_refusals():
+    cp = _plan("fault")
     for kw, match in ((dict(rounds_per_call=0), ">= 1"),
                       (dict(rounds_per_call=8), "multiple of"),
-                      (dict(plan=object()), "plan="),
+                      (dict(plan=cp, rounds_per_call=4), "megakernel"),
                       (dict(coords=True), "coords="),
                       (dict(flight_every=8), "flight_every="),
                       (dict(blackbox=True), "blackbox=")):
@@ -195,6 +202,31 @@ def test_kernel_params_are_the_f32_host_folds():
     assert cr.variant(STABLE) == "stable" and cr.variant(FULL) == "full"
 
 
+def test_kernel_bound_counts_the_fault_frame():
+    n = 65_536
+    arrays, scal = _warm(rounds=1, n=n)
+    seed = torch.tensor(5, dtype=torch.int32)
+    for name, frame_b in (("fault", 29), ("byz", 42)):
+        fx = _frame(name, n)
+        out, _ = cr.block_round_ref(arrays, scal, seed, FULL, fx=fx)
+        c = chip_smoke.kernel_bound(FULL, arrays, fx=fx, out=out)
+        # state read 15 B and written 15 B (a fault round stores
+        # down_age), the frame read once, plus mid, scalars, seed,
+        # partials: 61,865,984 / 75,497,472 B of node lanes at 1M
+        assert c["frame_bytes"] == frame_b * n
+        assert c["state_bytes"] == 30 * n
+        assert c["bytes"] == (30 + frame_b) * n + 4 + 4 * 8 + 4 \
+            + 4 * 18 * (n // 256)
+        up = out[3] < 0
+        draws = 3 * n + int(up.sum())      # churn, slow, Poisson, ack
+        if name == "byz":
+            draws += int((up & (fx.replay > 0)).sum())
+        assert c["int32_ops"] == draws * chip_smoke.PHILOX_INT_OPS
+        assert c["bound_by"] == "bytes"
+    with pytest.raises(ValueError, match="out="):
+        chip_smoke.kernel_bound(FULL, arrays, fx=fx)
+
+
 def test_kernel_cost_counts_the_bytes_of_one_call():
     import chip_smoke
 
@@ -228,8 +260,12 @@ def test_bench_smoke_runs_the_plain_path():
 def test_bench_profile_needs_the_card():
     with pytest.raises(SystemExit):
         bench.main(["--smoke", "--profile"])
+    with pytest.raises(SystemExit):
+        bench.main(["--chaos", "--smoke", "--profile"])
     with pytest.raises(ValueError, match="no CPU mode"):
         bench.profile_runners("cpu")
+    with pytest.raises(ValueError, match="no CPU mode"):
+        bench.profile_plans("cpu")
 
 
 def test_device_breakdown_unions_overlapping_intervals():
@@ -241,6 +277,125 @@ def test_device_breakdown_unions_overlapping_intervals():
     assert got["busy_share"] == 8.0 / 12.0
     assert got["device_us_per_round_by_kernel"] == {"a": 4.0, "b": 2.0}
     assert "not measured" in bench.device_breakdown([], 1)["device"]
+
+
+# ----------------------------------------------------- fault variants
+
+
+def _plan(name, n=N, device="cpu"):
+    return tfaults.compile_plan(chip_smoke.check_plans(n)[name], n, device)
+
+
+def _frame(name, n=N, device="cpu"):
+    return tfaults.fault_frame(_plan(name, n, device),
+                               chip_smoke.CHECK_ROUNDS[name])
+
+
+@pytest.mark.parametrize("name", ["fault", "byz"])
+def test_plain_fault_round_equals_round_core_on_philox_draws(name):
+    p = FULL.with_(corroboration_k=2 if name == "byz" else 0)
+    arrays, scal = _warm()
+    seed = torch.tensor(777, dtype=torch.int32)
+    fx = _frame(name)
+    outs, part = cr.block_round_ref(arrays, scal, seed, p, fx=fx)
+    s2, sc2 = tround.round_core(_state_of(arrays), scal, p,
+                                prng.philox_u01(seed, N), fx=fx)
+    for f, o in zip(tstate.NODE_FIELDS, outs):
+        assert torch.equal(o, getattr(s2, f)), f
+    sums = part.sum(0)
+    # the kernels' n_slow lane leaves the forced-slow nodes out
+    want = sc2.clone()
+    want[3] = float((s2.slow & s2.up & ((s2.status == tstate.ALIVE) |
+                                        (s2.status == tstate.SUSPECT))
+                     ).sum())
+    np.testing.assert_allclose(tround.clamp_scalars(sums[:8]).numpy(),
+                               want.numpy(), rtol=1e-5)
+    if name == "fault":
+        assert float(want[3]) < float(sc2[3])  # forced-slow rows exist
+    for i, f in enumerate(tstate.STATS_FIELDS):
+        if f != "detect_latency_sum":
+            assert int(part[:, 8 + i].sum()) == int(getattr(s2.stats, f)), f
+    if name == "byz":
+        assert int(s2.stats.attack_suspicions) > 0
+        assert int((s2.incarnation != arrays[1]).sum()) > 0
+
+
+def test_runner_with_plan_cut_at_phase_starts_is_the_uncut_run():
+    plan = chip_smoke.check_plans(N)["byz"]
+    cp = tfaults.compile_plan(plan, N, "cpu")
+    key = prng.key(4)
+    whole = cr.make_run_rounds_cuda(FULL, plan.total_rounds, plan=cp)(
+        tstate.init_state(N, device="cpu"), key)
+    s, sc = tstate.init_state(N, device="cpu"), None
+    for ph in plan.phases:
+        run = cr.make_run_rounds_cuda(FULL, ph.rounds, carry=True, plan=cp)
+        s, sc = run(s, key, scalars0=sc)
+    for f in tstate.NODE_FIELDS:
+        assert torch.equal(getattr(whole, f), getattr(s, f)), f
+    for f in tstate.STATS_FIELDS:
+        a, b = getattr(whole.stats, f), getattr(s.stats, f)
+        if f == "detect_latency_sum":
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a, b), f
+    assert int(whole.stats.attack_suspicions) > 0
+    assert int(s.round_idx) == plan.total_rounds
+
+
+def test_runner_applies_fault_gain_and_gain_zero_is_no_plan():
+    cp = _plan("fault")
+    key = prng.key(6)
+    plain = cr.make_run_rounds_cuda(FULL, 12)(
+        tstate.init_state(N, device="cpu"), key)
+    off = cr.make_run_rounds_cuda(FULL.with_(fault_gain=0.0), 12,
+                                  plan=cp)(
+        tstate.init_state(N, device="cpu"), key)
+    half = cr.make_run_rounds_cuda(FULL.with_(fault_gain=0.5), 12,
+                                   plan=cp)(
+        tstate.init_state(N, device="cpu"), key)
+    full = cr.make_run_rounds_cuda(FULL, 12, plan=cp)(
+        tstate.init_state(N, device="cpu"), key)
+    # at gain 0 the frame is the identity: only the churn draw, which a
+    # frame always makes, is extra — and at rate 0 it changes nothing
+    for f in tstate.NODE_FIELDS:
+        assert torch.equal(getattr(plain, f), getattr(off, f)), f
+    crashes = [int(s.stats.crashes) for s in (off, half, full)]
+    assert crashes[0] == 0 < crashes[1] < crashes[2]
+
+
+def test_wrapper_checks_the_fault_frame():
+    arrays, scal = _warm(rounds=1)
+    seeds = prng.round_seeds(prng.key(0), 0, 1)
+    fx = _frame("byz")
+    cr.reset_launches()
+    work = tuple(a.clone() for a in arrays)
+    part = cr.round_kernel(work, scal, seeds, 0, FULL, fx=fx)
+    want, want_part = cr.block_round_ref(arrays, scal, seeds[0], FULL,
+                                         fx=fx)
+    assert all(torch.equal(a, b) for a, b in zip(work, want))
+    assert torch.equal(part, want_part)
+    assert sum(cr.LAUNCHES.values()) == 0
+    assert cr.variant(FULL, fx) == "byz"
+    assert cr.variant(FULL, fx._replace(forge_ack=None, spur_susp=None,
+                                        replay=None, attacked=None)) \
+        == "fault"
+    for bad, match in ((fx._replace(psend=fx.psend.double()), "psend"),
+                       (fx._replace(slow_f=fx.slow_f.to(torch.int8)),
+                        "slow_f"),
+                       (fx._replace(hear_w=fx.hear_w[:-1]), "hear_w"),
+                       (fx._replace(replay=None), "replay"),
+                       (fx._replace(crash_p=torch.stack(
+                           [fx.crash_p, fx.crash_p], 1)[:, 0]),
+                        "crash_p"),
+                       (fx._replace(mid=fx.mid.double()), "mid")):
+        with pytest.raises(ValueError, match=match):
+            cr.round_kernel(arrays, scal, seeds, 0, FULL, fx=bad)
+
+
+def test_megakernel_refuses_a_plan():
+    with pytest.raises(ValueError, match="megakernel"):
+        cr.make_run_rounds_cuda(FULL, 16, rounds_per_call=8,
+                                plan=_plan("byz"))
 
 
 # ------------------------------------------------------------ on the card
@@ -281,3 +436,55 @@ def test_runner_on_the_card_detects_a_crash(cuda):
     assert cr.LAUNCHES["round_kernel/stable"] == 60
     assert int(out.status[7]) == tstate.DEAD
     assert int((out.status == tstate.DEAD).sum()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fault", "byz"])
+def test_fault_kernels_match_plain_on_the_card(cuda, name):
+    p = FULL.with_(corroboration_k=2 if name == "byz" else 0)
+    arrays, scal = _warm(device=cuda)
+    seeds = prng.round_seeds(prng.key(9, device=cuda), 0, 1)
+    fx = _frame(name, device=cuda)
+    work = tuple(a.clone() for a in arrays)
+    cr.reset_launches()
+    want, want_part = cr.block_round_ref(arrays, scal, seeds[0], p, fx=fx)
+    part = cr.round_kernel(work, scal, seeds, 0, p, fx=fx)
+    torch.cuda.synchronize()
+    assert dict(cr.LAUNCHES) == {f"round_kernel/{name}": 1}
+    for f, a, b in zip(tstate.NODE_FIELDS, work, want):
+        if f == "informed":
+            torch.testing.assert_close(a, b, rtol=4 * 2**-23, atol=0)
+        else:
+            assert torch.equal(a, b), f
+    torch.testing.assert_close(part, want_part, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_corroboration_gate_matches_plain_on_the_card(cuda):
+    p = FULL.with_(corroboration_k=1)
+    arrays, scal = _warm(device=cuda)
+    seeds = prng.round_seeds(prng.key(10, device=cuda), 0, 8)
+    work = tuple(a.clone() for a in arrays)
+    want, want_part = cr.block_round_ref(arrays, scal, seeds[0], p)
+    part = cr.round_kernel(work, scal, seeds, 0, p)
+    torch.cuda.synchronize()
+    for f, a, b in zip(tstate.NODE_FIELDS, work, want):
+        if f == "informed":
+            torch.testing.assert_close(a, b, rtol=4 * 2**-23, atol=0)
+        else:
+            assert torch.equal(a, b), f
+    torch.testing.assert_close(part, want_part, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_runner_with_a_byzantine_plan_on_the_card(cuda):
+    n = 65_536
+    plan = chip_smoke.check_plans(n)["byz"]
+    cp = tfaults.compile_plan(plan, n, cuda)
+    cr.reset_launches()
+    out = cr.make_run_rounds_cuda(SimParams(n=n, loss=0.05),
+                                  plan.total_rounds, plan=cp)(
+        tstate.init_state(n, device=cuda), prng.key(3, device=cuda))
+    assert dict(cr.LAUNCHES) == {"round_kernel/byz": plan.total_rounds}
+    assert int(out.stats.attack_suspicions) > 0
+    assert int(out.stats.crashes) > 0

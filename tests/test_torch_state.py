@@ -74,10 +74,13 @@ def test_sim_params_derived_fields_equal_reference(ref):
 
 
 def test_corroboration_is_refused_by_name():
-    with pytest.raises(ValueError, match="corroboration_k"):
-        tparams.SimParams(corroboration_k=1)
-    with pytest.raises(ValueError, match="out of range"):
+    # out of [0, indirect_checks] is refused by name; inside it, k-of-m
+    # corroboration runs (faults.detection_gate)
+    with pytest.raises(ValueError, match="corroboration_k=9 out of range"):
         tparams.SimParams(corroboration_k=9)
+    with pytest.raises(ValueError, match="corroboration_k=-1 out of range"):
+        tparams.SimParams(corroboration_k=-1)
+    assert tparams.SimParams(corroboration_k=3).corroboration_k == 3
 
 
 @pytest.mark.parametrize("packed", [True, False])
