@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke test of consul_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke test
+    python3 chip_smoke.py --shapes   # env, check, then the shape sweep
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero before the result line):
 
 1. env      — the card, the device count, its name and power limit from
               nvidia-smi; builds the CUDA kernels from
-              consul_tpu_torch/csrc and prints ptxas's register/spill
-              report.
+              consul_tpu_torch/csrc and prints, per kernel
+              instantiation, ptxas's registers and spills (a spill
+              fails the run), its static SASS instruction count
+              (cuobjdump -sass on the built library) and the nodes
+              each thread takes.
 2. check    — at 1,048,576 nodes, on a state warmed by the plain path:
               one round_kernel launch in the stable and the full
               variant, one churn-config launch, one full-variant launch
@@ -30,6 +34,9 @@ non-zero before the result line):
               launch counters zeroed just before and read just after;
               then a 262,144-node, 60-round crash-detection check,
               counted on its own (exactly 60 stable round launches).
+              The full-model diagnostic must show no false positive
+              and suspicions and refutes per node-round within
+              0.85-1.15x of the port's first measurement (``FD_REF``).
 4. chaos    — the fault-plan path through its entry point
               (consul_tpu_torch.bench.run_chaos_suite: the nine chaos
               classes of sim/scenarios.py at 1,048,576 nodes, each run
@@ -37,9 +44,12 @@ non-zero before the result line):
               on its own: every round of an honest class is a fault
               launch, of a byzantine class a byz launch. Each class's
               detection signature is asserted (see ``CHAOS_SIGNATURES``).
-5. timing   — each kernel's time per launch (CUDA events), its plain
+5. timing   — each kernel's time per launch (device time: CUDA events
+              around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
-              bytes it must move and the operations it must do.
+              bytes it must move and the operations it must do; the
+              six variants of the paths and the gated full variant
+              (corroboration_k=1), which no path runs yet.
 
 Then the ``kernels`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -48,6 +58,8 @@ Then the ``kernels`` line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -62,19 +74,28 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 OPS32_PER_S = 67e12
 
-#: integer operations of one Philox4x32-10 draw on the card: per round
-#: two widening multiplies and two three-input xors. The key schedule
-#: depends only on seeds[r] and is shared by every draw, so no draw
-#: pays for it. Then the shift and the int->float conversion.
-PHILOX_INT_OPS = 10 * (2 + 2) + 2
-#: f32 operations that every node does in a period, whatever its state
-#: (counted from node_round in round_kernels.cu): two no-ack
+#: integer operations of one Philox4x32-10 call on the card, which gives
+#: four words: per round two widening multiplies and two three-input
+#: xors. The key schedule depends only on seeds[r] and is shared by
+#: every call, so no call pays for it.
+PHILOX_INT_OPS = 10 * (2 + 2)
+#: integer operations to make a uniform of one word: the shift and the
+#: int->float conversion
+DRAW_INT_OPS = 2
+#: f32 operations that every node does in a period, whatever its state,
+#: where the no-ack and Poisson terms are per node (the fault and byz
+#: variants; counted from node_round in round_kernels.cu): two no-ack
 #: evaluations (13 each), the ack mix and test (6), the truncated
 #: Poisson's rate, exp and four terms (20), the 8 scalar lanes (8). The
 #: suspicion timeouts, refutation, epidemic growth, patience, slow and
 #: stats terms are left out: their count depends on the data, so the
 #: bound does not claim them.
 BODY_F32_OPS = 2 * 13 + 6 + 20 + 8
+#: the same in the honest variants, which read the no-ack terms, p_ack
+#: and the Poisson thresholds from the block's tables: the ack test (1),
+#: four threshold compares (4), the miss weight 1 - p_ack (1) and the 8
+#: scalar lanes (8)
+TABLE_BODY_F32_OPS = 1 + 4 + 1 + 8
 #: f32 operations a fault frame adds to every node's period: the four
 #: churn-rate sums, the round trip and relay factor (2), their three
 #: products in each no-ack evaluation (6), the suspicion-weighted miss
@@ -89,6 +110,12 @@ MEGA_R = 8
 MAX_INT_MISMATCH = 2
 MARGIN_ULPS = 4.0
 INFORMED_ULPS = 4
+#: the full-model diagnostic's suspicions and refutes per node-round at
+#: 1% loss on the port's first chip runs (PERF.md); a new random
+#: stream must stay within FD_BAND of them, with no false positive
+FD_REF = {"suspicions_per_node_round": 0.01107,
+          "refutes_per_node_round": 0.01105}
+FD_BAND = (0.85, 1.15)
 
 
 class SmokeFailure(RuntimeError):
@@ -149,18 +176,85 @@ def check_plans(n: int) -> dict:
 CHECK_ROUNDS = {"fault": 4, "byz": 5}
 
 
-def phase_env(torch, build, cuda_round):
+def kernel_label(symbol: str):
+    """The variant whose instantiation a mangled kernel symbol names
+    (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>),
+    or None."""
+    m = re.search(r"mega_kernelILb([01])E", symbol)
+    if m:
+        return "mega_kernel/" + ("stable" if m.group(1) == "1" else "full")
+    m = re.search(r"round_kernelILb([01])ELb([01])ELb([01])E", symbol)
+    if m is None:
+        return None
+    return {"001": "round_kernel/stable", "000": "round_kernel/full",
+            "100": "round_kernel/fault",
+            "110": "round_kernel/byz"}.get("".join(m.groups()))
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes per kernel from nvcc -Xptxas -v."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            cur = kernel_label(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.setdefault(cur, {})["spill_bytes"] = int(m.group(1)) + \
+                int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(build, target) -> dict:
+    """Static SASS instructions per kernel of the built library (NOPs
+    left out), from cuobjdump -sass beside nvcc."""
+    tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass",
+                           str(build.library_path(target))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = kernel_label(m.group(1))
+            if cur is not None:
+                out[cur] = 0
+        elif cur is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", ln) \
+                and not re.match(r"\s+/\*[0-9a-f]+\*/\s+NOP\b", ln):
+            out[cur] += 1
+    return out
+
+
+def phase_env(torch, build, cuda_round, strict=True):
     t0 = time.perf_counter()
     reports = build.build([cuda_round.SOURCE])
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for text in reports.values()
-             for ln in text.splitlines()
-             if "spill" in ln or ("ptxas info" in ln and
-                                  ("Used" in ln or "Compiling" in ln))]
+    regs = ptxas_report(reports[cuda_round.SOURCE])
+    sass = sass_counts(build, cuda_round.SOURCE)
+    layout = cuda_round.kernel_layout()
+    kernels = {k: {**regs.get(k, {}), "sass_instructions": sass.get(k),
+                   **layout.get(k, {}),
+                   "grid_blocks": cuda_round.GRID_BLOCKS}
+               for k in sorted(set(regs) | set(sass))}
+    if len(kernels) != 6 or any((strict and v.get("spill_bytes") != 0) or
+                                not v.get("registers") or
+                                not v["sass_instructions"]
+                                for v in kernels.values()):
+        raise SmokeFailure(f"kernel report incomplete or spilling: "
+                           f"{kernels}")
     emit({"phase": "env", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "kernels": kernels})
 
 
 def warmed_state(torch, m, p, dev, rounds=12):
@@ -232,13 +326,11 @@ def compare(torch, m, name, arrays, scal, seeds, p, mega, fx=None):
                            f"{INFORMED_ULPS} ulp")
     max_err = max(max_err, float(inf_err[~bad].max()) if (~bad).any()
                   else 0.0)
-    # partial sums row by row; only the blocks that hold a node allowed
+    # partial sums row by row; only the rows that hold a node allowed
     # to differ above are exempt
     blocks = k_part.shape[0]
-    in_block = torch.zeros(blocks * cr.THREADS, dtype=torch.bool,
-                           device=bad.device)
-    in_block[:bad.shape[0]] = bad
-    held = ~in_block.view(blocks, cr.THREADS).any(1)
+    held = torch.ones(blocks, dtype=torch.bool, device=bad.device)
+    held[cr.partials_row_of(bad.shape[0], bad.device)[bad]] = False
     pdiff = (k_part - ref_part).abs()[held]
     counters = list(range(8, 18))
     counters.remove(8 + m.round.LAT)
@@ -269,15 +361,26 @@ def check_frames(m, dev) -> dict:
     return out
 
 
-def phase_check(torch, m, dev):
-    b = m.bench
-    p_stable, p_full = b.headline_params(N), b.diag_params(N)
-    p_churn = p_full.with_(fail_per_round=0.002, rejoin_per_round=0.02,
-                           leave_per_round=0.0005)
+def check_inputs(torch, m, dev):
+    """The state, scalars, seeds and frames the checks and timings run
+    on, and each plan's host seconds in compile_plan."""
+    p_churn = m.bench.diag_params(N).with_(
+        fail_per_round=0.002, rejoin_per_round=0.02, leave_per_round=0.0005)
     arrays, scal = warmed_state(torch, m, p_churn, dev)
     seeds = m.prng.round_seeds(m.prng.key(11, device=dev), 100, MEGA_R)
     frames = check_frames(m, dev)
-    fx_fault, fx_byz = frames["fault"][0], frames["byz"][0]
+    return ((arrays, scal, seeds, {k: v[0] for k, v in frames.items()}),
+            {k: v[1] for k, v in frames.items()})
+
+
+def run_checks(torch, m, inputs) -> dict:
+    """Every kernel variant against its plain version (``compare``)."""
+    b = m.bench
+    arrays, scal, seeds, frames = inputs
+    p_stable, p_full = b.headline_params(N), b.diag_params(N)
+    p_churn = p_full.with_(fail_per_round=0.002, rejoin_per_round=0.02,
+                           leave_per_round=0.0005)
+    fx_fault, fx_byz = frames["fault"], frames["byz"]
     # the fault variants on the chaos suite's configuration, which their
     # path runs, and on the full one (slow-node model, TCP fallback)
     p_chaos = m.scenarios.chaos_params(N)
@@ -298,11 +401,15 @@ def phase_check(torch, m, dev):
             ("mega_kernel/full", p_full, True, None)):
         results[name] = compare(torch, m, name, arrays, scal, seeds, p,
                                 mega, fx)
+    return results
+
+
+def phase_check(torch, m, dev):
+    inputs, compile_s = check_inputs(torch, m, dev)
+    results = run_checks(torch, m, inputs)
     emit({"phase": "check", "n": N, "ok": True,
-          "compile_plan_s": {k: v[1] for k, v in frames.items()},
-          "kernels": list(results.values())})
-    return results, (arrays, scal, seeds, {"fault": fx_fault,
-                                           "byz": fx_byz})
+          "compile_plan_s": compile_s, "kernels": list(results.values())})
+    return results, inputs
 
 
 def crash_detection(torch, m, dev):
@@ -336,9 +443,11 @@ def phase_headline(torch, m, dev):
         raise SmokeFailure(f"crash detection launched {crash['launches']}"
                            f", expected {crash['rounds']} stable rounds")
     fd = res["fd"]
-    if not (fd["suspicions_per_node_round"] > 0 and
-            fd["refutes_per_node_round"] > 0):
-        raise SmokeFailure(f"full-model diagnostic shows no FD activity: "
+    if fd["fp_per_node_round"] != 0 or not all(
+            FD_BAND[0] <= fd[k] / v <= FD_BAND[1]
+            for k, v in FD_REF.items()):
+        raise SmokeFailure(f"full-model diagnostic outside its band "
+                           f"({FD_BAND} of {FD_REF}, no false positive): "
                            f"{fd}")
     emit({"phase": "headline", **res, "crash_detection": crash,
           "launches": launches})
@@ -403,13 +512,18 @@ def kernel_bound(p, arrays, rounds=1, fx=None, out=None) -> dict:
     output written once: state, fault frame, scalars, seeds, partials)
     over the HBM rate and its 32-bit operations over ``OPS32_PER_S``.
 
-    Draws counted, as this input needs them: every node's Poisson draw,
-    every node's churn and slow draws where those models are on (a
-    fault frame always draws churn), the ack draw of every live node,
-    and on a byzantine frame the replay draw of every live node whose
-    replay pressure is positive. The refutation draws of wrongly
-    suspected nodes are left out. Liveness moves only under churn: the
-    live count comes from the input without churn, and from ``out``
+    Philox calls counted, as this input needs them: call 0 of every
+    node and round (it serves churn, slow, ack and Poisson), and on a
+    byzantine frame call 1 of every live node whose replay pressure is
+    positive; the call 1 of wrongly suspected nodes (refutation) is left
+    out. Draws, each a shift and a conversion: every node's Poisson
+    draw, every node's churn and slow draws where those models are on (a
+    fault frame always draws churn), the ack draw of every live node and
+    the replay draws above. The honest variants read their no-ack and
+    Poisson terms from tables (``TABLE_BODY_F32_OPS``), the fault ones
+    compute them per node (``BODY_F32_OPS``). Liveness moves only under
+    churn: the live count comes from the input without churn, and from
+    ``out``
     (the plain version's output on this input: liveness is final once
     churn is drawn) for a single fault round; a churn config without a
     frame is refused."""
@@ -432,26 +546,30 @@ def kernel_bound(p, arrays, rounds=1, fx=None, out=None) -> dict:
         frame_bytes = sum(a.element_size() for a in lanes)
     state_bytes = rows * (node_bytes + written)
     nbytes = state_bytes + rows * frame_bytes + 4 * cr.N_SCALARS \
-        + 4 * rounds + 4 * cr.N_LANES * cr.n_blocks(rows) \
+        + 4 * rounds + 4 * cr.N_LANES * cr.partials_rows(rows) \
         + (4 if fx is not None else 0)
+    calls = rows
     if fx is None:
         draws = rows * (1 + int(p.enabled("slow_per_round"))) \
             + int((age < 0).sum())
-        f32_ops = rounds * rows * BODY_F32_OPS
+        f32_ops = rounds * rows * TABLE_BODY_F32_OPS
     else:
         up = out[3] < 0
         draws = rows * (2 + int(p.enabled("slow_per_round"))) \
             + int(up.sum())
         per_node = BODY_F32_OPS + FAULT_F32_OPS
         if fx.attacked is not None:
-            draws += int((up & (fx.replay > 0)).sum())
+            replays = int((up & (fx.replay > 0)).sum())
+            calls += replays
+            draws += replays
             per_node += BYZ_F32_OPS
         f32_ops = rows * per_node
-    int_ops = rounds * draws * PHILOX_INT_OPS
+    int_ops = rounds * (calls * PHILOX_INT_OPS + draws * DRAW_INT_OPS)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = (int_ops + f32_ops) / OPS32_PER_S * 1e3
     return {"bytes": nbytes, "state_bytes": state_bytes,
             "frame_bytes": rows * frame_bytes,
+            "philox_calls": rounds * calls, "draws": rounds * draws,
             "int32_ops": int_ops, "f32_ops": f32_ops,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
@@ -496,7 +614,31 @@ def _events_ms(torch, fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(torch, m, inputs):
+def _graph_ms(torch, fn, reps, per_graph=20):
+    """Device time per call of ``fn``: CUDA events around replays of a
+    CUDA graph of ``per_graph`` calls, so the host's time per launch
+    (the wrapper's checks, ctypes) does not stretch the gaps between
+    kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    replays = max(1, reps // per_graph)
+    return _events_ms(torch, graph.replay, replays, warm=1) / per_graph
+
+
+def time_kernels(torch, m, inputs, plain_too=True) -> dict:
+    """Each variant's time per launch, with its bound and, with
+    ``plain_too``, its plain version's time. ``ms`` is device time
+    (``_graph_ms``); ``enqueue_ms`` times back-to-back wrapper calls
+    with CUDA events, which the host bounds once a kernel takes less
+    time than its wrapper's call."""
     cr = m.cuda_round
     b = m.bench
     arrays, scal, seeds, frames = inputs
@@ -506,13 +648,15 @@ def phase_timing(torch, m, inputs):
     for name, p, mega, fx in (
             ("round_kernel/stable", b.headline_params(N), False, None),
             ("round_kernel/full", p_full, False, None),
+            ("round_kernel/full corroboration_k=1",
+             p_full.with_(corroboration_k=1), False, None),
             ("mega_kernel/stable", b.headline_params(N), True, None),
             ("mega_kernel/full", p_full, True, None),
             ("round_kernel/fault", p_chaos, False, frames["fault"]),
             ("round_kernel/byz", p_chaos.with_(corroboration_k=2), False,
              frames["byz"])):
         work = tuple(a.clone() for a in arrays)
-        buf = torch.empty((cr.n_blocks(rows), cr.N_LANES),
+        buf = torch.empty((cr.partials_rows(rows), cr.N_LANES),
                           dtype=torch.float32, device=arrays[0].device)
         ref_out = None
         if fx is not None:
@@ -533,16 +677,63 @@ def phase_timing(torch, m, inputs):
                 cr.block_round_ref(arrays, scal, seeds[0], p, fx=fx)
             reps, rounds = 200, 1
         bound = kernel_bound(p, arrays, rounds, fx=fx, out=ref_out)
-        ms = _events_ms(torch, kern, reps, warm=10)
-        plain_ms = _events_ms(torch, plain, 3, warm=1)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, **bound,
+        enqueue_ms = _events_ms(torch, kern, reps, warm=10)
+        ms = _graph_ms(torch, kern, reps)
+        plain_ms = _events_ms(torch, plain, 3, warm=1) if plain_too \
+            else None
+        out[name] = {"ms": ms, "enqueue_ms": enqueue_ms,
+                     "plain_ms": plain_ms, **bound,
                      "rounds_per_launch": rounds}
+    return out
+
+
+def phase_timing(torch, m, inputs):
+    out = time_kernels(torch, m, inputs)
     emit({"phase": "timing", "n": N, "kernels": out})
     return out
 
 
-def main() -> int:
+#: launch shapes ``--shapes`` compares: (nodes per thread, resident
+#: blocks per SM). The tile (512 nodes) and the grid stay, so every shape
+#: writes the same partials table; 4 blocks per SM keep all 528 blocks
+#: resident, 2 run them in two waves.
+SHAPES = ((4, 4), (2, 4), (2, 2), (1, 2))
+
+
+def phase_shapes(torch, m, build, inputs):
+    """Every kernel variant built at each of ``SHAPES``: registers and
+    spills, static SASS, the checks and the time per launch. A shape
+    whose checks fail is reported, not raised."""
+    cr = m.cuda_round
+    targets = [cr.shape_target(*sh) for sh in SHAPES]
+    reports = build.build(targets)
+    out = {}
+    for sh, tgt in zip(SHAPES, targets):
+        row = {"ptxas": ptxas_report(reports[tgt]),
+               "sass": sass_counts(build, tgt)}
+        with cr.kernels_of(cr.shape_lib(*sh)):
+            try:
+                run_checks(torch, m, inputs)
+                row["checks"] = "ok"
+            except SmokeFailure as e:
+                row["checks"] = str(e)
+            row["us"] = {k: v["ms"] * 1e3 for k, v in
+                         time_kernels(torch, m, inputs, False).items()}
+        out[f"npt={sh[0]} minb={sh[1]}"] = row
+    emit({"phase": "shapes", "n": N, "shapes": out})
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shapes", action="store_true",
+                    help="after env and check, sweep the kernels' launch "
+                         "shapes (SHAPES) instead of the other phases")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run",
@@ -563,8 +754,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_env(torch, build, cuda_round)
+    # the sweep reports spills per shape rather than stopping at them
+    phase_env(torch, build, cuda_round, strict=not args.shapes)
     checks, inputs = phase_check(torch, m, dev)
+    if args.shapes:
+        phase_shapes(torch, m, build, inputs)
+        return 0
     headline, launches = phase_headline(torch, m, dev)
     chaos, chaos_launches = phase_chaos(torch, m, dev)
     launches.update(chaos_launches)
@@ -574,7 +769,11 @@ def main() -> int:
     replaces = {"round_kernel": "consul_tpu/sim/pallas_round.py:439",
                 "mega_kernel": "consul_tpu/sim/pallas_round.py:526"}
     kernels = []
+    # the kernels of the paths; the gated full variant, which no path
+    # launches yet, is timed in phase timing only
     for name, t in timing.items():
+        if name not in launches:
+            continue
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces[name.split("/")[0]],

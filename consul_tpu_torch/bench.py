@@ -272,8 +272,9 @@ def profile_runners(device=None) -> dict:
     """Where a stable headline run's time goes, from ``torch.profiler``:
     for one call of each runner at the headline's chunk size, the wall
     time (inflated by the profiler's own host cost), the device time by
-    kernel name, and the device's busy share of the span from its first
-    kernel's start to its last one's end (1 minus the idle share)."""
+    kernel name, the device's busy share of the span from its first
+    kernel's start to its last one's end (1 minus the idle share), and
+    the runtime calls in the window that make the host wait."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,10 +291,12 @@ def profile_runners(device=None) -> dict:
         state = run(init_state(HEADLINE_N, device=dev),
                     prng.fold_in(key, 1))   # warm-up
         _sync(dev)
+        k2 = prng.fold_in(key, 2)
+        _sync(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state = run(state, prng.fold_in(key, 2))
+            state = run(state, k2)
             _sync(dev)
             wall = time.perf_counter() - t0
         spans = sorted((e.time_range.start, e.time_range.end,
@@ -302,8 +305,22 @@ def profile_runners(device=None) -> dict:
                        if e.device_type == DeviceType.CUDA)
         out[name] = {"rounds": rounds,
                      "wall_us_per_round": wall / rounds * 1e6,
-                     **device_breakdown(spans, rounds)}
+                     **device_breakdown(spans, rounds),
+                     "host_waits": host_waits(prof)}
     return out
+
+
+#: CUDA runtime calls that make the host wait for the card: the syncs,
+#: and copies (a copy from pageable host memory syncs its stream first)
+HOST_WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                   "cudaMemcpyAsync", "cudaMemcpy")
+
+
+def host_waits(prof) -> dict:
+    """How many times a traced window called each of
+    ``HOST_WAIT_CALLS`` (the window's closing device sync included)."""
+    return {e.key: e.count for e in prof.key_averages()
+            if e.key in HOST_WAIT_CALLS}
 
 
 def device_breakdown(spans, rounds: int) -> dict:

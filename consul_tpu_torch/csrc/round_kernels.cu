@@ -1,50 +1,73 @@
 // SWIM protocol-period kernels for Hopper (sm_90a), bound through ctypes.
 //
-// round_kernel replaces the TPU kernel _round_kernel
+// What they replace. round_kernel replaces the TPU kernel _round_kernel
 // (consul_tpu/sim/pallas_round.py:439, body _block_round :144) in its
 // three compiled variants: honest (stable/full), fault=True (8 per-node
-// fault-plan lanes and the plan's mean link quality `mid`) and
-// fault=True, byz=True (4 more byzantine lanes, a replay draw and the
-// attack counters). mega_kernel replaces _mega_kernel
-// (pallas_round.py:526). All run one per-node body, node_round<FAULT,
-// BYZ>(), which follows the plain PyTorch body
-// (consul_tpu_torch/sim/round.py, _round_body) op for op; the honest
-// instantiation (FAULT = BYZ = false) compiles the fault terms away.
+// fault-plan lanes and the plan's mean link quality `mid`) and fault=True,
+// byz=True (4 more byzantine lanes, a replay draw and the attack
+// counters). mega_kernel replaces _mega_kernel (pallas_round.py:526). All
+// run one per-node body, node_round<FAULT, BYZ, STABLE>(), which follows
+// the plain PyTorch body (consul_tpu_torch/sim/round.py, _round_body) op
+// for op; the honest instantiations compile the fault terms away, and
+// the STABLE ones (the headline's config: no churn, slow-node model,
+// stats or down_age store) the churn, slow and counter code too.
 //
-// Design:
-//  * one thread per node, 256 threads per block, a 1-D grid over
-//    ceil(rows / 256) blocks; the ragged edge is masked and padded nodes
-//    contribute nothing to the sums;
-//  * int8/int16 lanes widen to int32 in registers on load and narrow on
-//    store (every value is already clamped to TICK_MAX / CONF_MAX);
-//  * randomness: Philox4x32-10 keyed by (seeds[r], 0) on counter
-//    (global node index, draw slot, 0, 0), output word 0, converted to a
-//    uniform with its top 24 bits — so the draws do not depend on the
-//    block size, and prng.philox_bits reproduces them on the host;
+// What bounds them. Not bytes: a round moves 28-72 B/node (8.8-22.6 us
+// at 1,048,576 nodes and 3.35 TB/s), and the state (15.7 MB) even fits
+// in the 50 MB L2. What bounds them is instructions per node and round:
+// Philox4x32-10 (~45 integer ops a call, and Hopper has half as many
+// INT32 lanes as FP32 ones), and f32 terms (divisions, logf, expf,
+// exp2f, integer powers) that are the same for every node of a round.
+//
+// What the design does about it:
+//  * one Philox call gives four draws: counter (node, slot >> 2, 0, 0)
+//    under the key (seeds[r], 0) yields word slot & 3. Call 0 serves
+//    churn, slow, ack and the Poisson draw; call 1 (hear, replay) runs
+//    only for a node that takes one of those draws: a wrongly suspected
+//    live node, or a live byzantine replay victim. In the honest
+//    variants a thread's four nodes run call 0 side by side, which gives
+//    the scheduler four independent chains. prng.philox_bits reproduces
+//    the words on the host;
+//  * the round's uniform terms are built once per block in shared memory
+//    (Tables), from the same device functions the per-node code would
+//    call, so every entry has the bits that code computes: derive()
+//    (seven divisions and a logf), shrink(c) for every confirmation count
+//    c in [0, CONF_MAX], the new suspicion length for c0 in [0, 3], and
+//    in the honest variants (pf_fast, pf_slow, p_ack) by (slow_eff, lh)
+//    and the four Poisson CDF thresholds of each of the four rate
+//    classes (not eligible; down; up and fast; up and slow). The body
+//    reads the tables; the rare paths (suspicion start, confirmation,
+//    refutation, epidemic growth) compute only under their own branch.
+//    The fault and byz variants keep the per-node no-ack and Poisson
+//    terms, whose inputs (psend, precv, suspw, forge_ack) vary per node;
+//  * wide loads: a thread takes NPT consecutive nodes (4 in the honest
+//    and fault round kernels, 2 in byz and mega_kernel), so with NPT = 4
+//    an int8 lane is one 4-byte access, an int16 lane 8 bytes and
+//    informed (or an f32 frame lane) 16 bytes; round_kernel issues the
+//    next group's state loads before the current group's arithmetic, so
+//    those bytes are in flight while the body runs (the fault variants
+//    load their frame lanes at the top of each group, and the byz one
+//    its state too: more would spill). A group at the ragged edge, or on
+//    a pointer that is not 16-byte aligned, goes node by node;
+//  * a grid sized to the card: min(GRID_BLOCKS, tiles) blocks of TILE /
+//    NPT threads (4 blocks on each of the H100's 132 SMs; 2 resident for
+//    byz and mega) walk tiles of TILE nodes in a fixed order: block b
+//    takes tiles b, b + gridDim.x, ...
+//    Each thread sums its lanes in registers across its nodes; each
+//    block reduces once, with warp shuffles and shared memory in a fixed
+//    order, into row b of a [gridDim.x, 18] f32 table (8 population
+//    scalars, then the 10 SimStats counters when stats are on): no float
+//    atomics, same bits every run. cuda_round.partials_rows/_row_of give
+//    the same node -> row map on the host;
 //  * the 8 stale population scalars and the per-round seeds are read
 //    from device memory, so a multi-round run never syncs the host;
-//  * each block reduces its 18 partial-sum lanes (8 population scalars,
-//    then the 10 SimStats counters when stats are on) with warp shuffles
-//    and shared memory in a fixed order and writes one row of a
-//    [blocks, 18] f32 table: no float atomics, same bits every run;
 //  * the STABLE variant (write_age == 0) never stores down_age, so a
-//    dead row's age stays frozen — the TPU kernel's behaviour;
-//  * fault lanes are plain per-node loads beside the state loads (the
-//    bool masks read as uint8); `mid` is read from device memory like
-//    the scalars. A fault round always draws churn and always writes
-//    down_age. The byzantine replay draw is Philox slot 5, taken only
-//    where it can matter (replay > 0 on a live node);
+//    dead row's age stays frozen: the TPU kernel's behaviour;
 //  * detection_gate (forged acks, k-of-m corroboration) runs whenever
-//    the frame is byzantine or corroboration_k > 0, honest rounds too.
-//
-// Bound: bandwidth. Per round at n nodes the stable variant reads
-// 15 B/node and writes 13 B/node (28 B/node, 29,360,128 B at 1,048,576
-// nodes, 8.76 us at 3.35 TB/s); the full variant also writes down_age
-// (30 B/node); the fault variant reads 29 B/node of frame on top (59
-// B/node, 18.47 us), the byzantine one 42 (72 B/node, 22.54 us).
-// mega_kernel moves the same bytes once per call of R rounds, which
-// leaves it bound by its arithmetic (2 to 5 Philox draws of 10 rounds
-// each per node and round, plus the protocol math).
+//    the frame is byzantine or corroboration_k > 0, honest rounds too
+//    (there it depends only on `up`, so it folds into the class table).
+// mega_kernel carries each thread's nodes in registers through its R
+// rounds (scalars frozen for the call), reading and writing them once.
 //
 // Build with -fmad=false: the plain version runs each PyTorch op as its
 // own rounded step, so contracting a*b+c into one FMA here would move
@@ -63,8 +86,27 @@ constexpr int ALIVE = 1, SUSPECT = 2, DEAD = 3, LEFT = 5;
 constexpr int ALIVE_AGE = -1, SLOW_AGE = -2;
 constexpr int N_SCALARS = 8;
 constexpr int N_LANES = 18;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 512;              // nodes per block step
+constexpr int GRID_BLOCKS = 528;       // most blocks: 4 per SM of 132
+// Per kernel: consecutive nodes per thread (a block has TILE / NPT
+// threads) and the resident blocks per SM asked of ptxas (which caps
+// registers at 65,536 / (MINB * TILE / NPT)). Each is the fastest shape
+// of chip_smoke.py --shapes that ptxas fits without a spill (PERF.md):
+// byz and mega need the registers of two nodes per thread at 2 blocks
+// per SM (their 528 blocks then run in two waves). SHAPE_NPT and
+// SHAPE_MINB give every kernel one shape instead, for that sweep.
+#if defined(SHAPE_NPT) && defined(SHAPE_MINB)
+constexpr int HONEST_NPT = SHAPE_NPT, HONEST_MINB = SHAPE_MINB;
+constexpr int FAULT_NPT = SHAPE_NPT, FAULT_MINB = SHAPE_MINB;
+constexpr int BYZ_NPT = SHAPE_NPT, BYZ_MINB = SHAPE_MINB;
+constexpr int MEGA_NPT = SHAPE_NPT, MEGA_MINB = SHAPE_MINB;
+#else
+constexpr int HONEST_NPT = 4, HONEST_MINB = 4;
+constexpr int FAULT_NPT = 4, FAULT_MINB = 4;
+constexpr int BYZ_NPT = 2, BYZ_MINB = 2;
+constexpr int MEGA_NPT = 2, MEGA_MINB = 2;
+#endif
+constexpr int LH_TAB = 32;             // awareness levels a table holds
 
 }  // namespace
 
@@ -106,10 +148,10 @@ struct FaultArrays {
 
 namespace {
 
-__device__ __forceinline__ uint32_t philox_word0(uint32_t seed,
-                                                 uint32_t node,
-                                                 uint32_t slot) {
-  uint32_t c0 = node, c1 = slot, c2 = 0u, c3 = 0u;
+// Philox4x32-10 on counter (node, call, 0, 0) under key (seed, 0)
+__device__ __forceinline__ uint4 philox(uint32_t seed, uint32_t node,
+                                        uint32_t call) {
+  uint32_t c0 = node, c1 = call, c2 = 0u, c3 = 0u;
   uint32_t k0 = seed, k1 = 0u;
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
@@ -124,13 +166,12 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t seed,
     k0 += 0x9E3779B9u;
     k1 += 0xBB67AE85u;
   }
-  return c0;
+  return make_uint4(c0, c1, c2, c3);
 }
 
-__device__ __forceinline__ float u01(uint32_t seed, uint32_t node,
-                                     uint32_t slot) {
-  return (float)(philox_word0(seed, node, slot) >> 8) *
-         (1.0f / 16777216.0f);
+// a word's top 24 bits as a uniform in [0, 1)
+__device__ __forceinline__ float u01(uint32_t word) {
+  return (float)(word >> 8) * (1.0f / 16777216.0f);
 }
 
 // x**y by binary exponentiation, in XLA integer_pow's product order
@@ -177,6 +218,14 @@ __device__ __forceinline__ float shrink(int c, const RoundParams& P,
   return fmaxf(1.0f - P.shrink_omr * frac, P.shrink_r);
 }
 
+// a new suspicion's length in ticks for c0 independent confirmations
+__device__ __forceinline__ int susp_len(int c0, float scale,
+                                        const Shared& D,
+                                        const RoundParams& P) {
+  const float timeout0 = scale * P.susp_max_s * shrink(c0, P, D.log_den);
+  return (int)fminf(ceilf(timeout0 / P.probe_interval), (float)TICK_MAX);
+}
+
 // P(no ack | prober timeliness g, target timeliness gj); a fault frame
 // scales direct and TCP legs by the round trip rt, relay legs by relay_m
 template <bool FAULT>
@@ -203,6 +252,27 @@ __device__ __forceinline__ float noack(float g, float gj, float patience,
   return (1.0f - p_d) * p_no_relay * (1.0f - p_tcp);
 }
 
+struct Probe {
+  float pf_fast, pf_slow, p_ack;
+};
+
+// the prober side of a period: miss probabilities against fast and slow
+// targets, and the ack probability
+template <bool FAULT>
+__device__ __forceinline__ Probe probe_terms(bool slow_eff, int lh,
+                                             bool patience_on, float rt,
+                                             float relay_m, const Shared& D,
+                                             const RoundParams& P) {
+  const float g = slow_eff ? P.slow_factor : 1.0f;
+  const float patience = patience_on ? 1.0f - exp2f(-(float)lh) : 0.0f;
+  Probe pr;
+  pr.pf_fast = noack<FAULT>(g, 1.0f, patience, rt, relay_m, D, P);
+  pr.pf_slow = noack<FAULT>(g, P.slow_factor, patience, rt, relay_m, D, P);
+  const float mix = (1.0f - D.sbar) * pr.pf_fast + D.sbar * pr.pf_slow;
+  pr.p_ack = D.frac_up_elig * (1.0f - mix);
+  return pr;
+}
+
 __device__ __forceinline__ int binom(int m, int j) {
   int c = 1;
   for (int i = 1; i <= j; ++i) c = c * (m - j + i) / i;
@@ -224,11 +294,6 @@ __device__ __forceinline__ float detection_gate(bool up, float af,
   return fminf(fmaxf(total, 0.0f), 1.0f);
 }
 
-struct Node {
-  int status, inc, age, slen, sttl, conf, lh;
-  float informed;
-};
-
 // one node's view of the round's fault frame
 struct FaultIn {
   float psend, precv, suspw, hear_w, crash_p, rejoin_p, leave_p, mid;
@@ -236,15 +301,114 @@ struct FaultIn {
   bool slow_f, attacked;
 };
 
-// One protocol period for one node. Sets the 8 scalar lanes of `lanes`
-// (post-round population terms) and ADDS this round's counters to lanes
-// 8..17 when stats are on (16 and 17, the attack counters, on byzantine
-// rounds only).
+// the target side's failed-probe arrival rate
 template <bool FAULT, bool BYZ>
+__device__ __forceinline__ float fail_rate(bool up, bool slow_eff,
+                                           bool elig, const FaultIn& f,
+                                           const Shared& D,
+                                           const RoundParams& P) {
+  float base_fail = slow_eff ? D.e_pf_slow : D.e_pf_fast;
+  if (FAULT) base_fail = 1.0f - (1.0f - base_fail) * f.suspw;
+  float p_fail = up ? base_fail : 1.0f;
+  if (BYZ || P.corroboration_k > 0)
+    p_fail = p_fail * detection_gate(up, BYZ ? f.forge_ack : 0.0f,
+                                     FAULT ? f.mid : 1.0f, P);
+  const float eligf = elig ? 1.0f : 0.0f;
+  float lam = D.probe_rate * p_fail * eligf;
+  if (BYZ) lam = lam + f.spur_susp * eligf;
+  return lam;
+}
+
+// the four CDF terms a truncated Poisson draw (k <= 4) is compared with
+__device__ __forceinline__ void poisson_cdf(float lam, float* cdf) {
+  float term = expf(-lam);
+  float c = term;
+#pragma unroll
+  for (int k = 1; k <= 4; ++k) {
+    cdf[k - 1] = c;
+    term = term * lam / (float)k;
+    c = c + term;
+  }
+}
+
+__device__ __forceinline__ int poisson_draw(float u, const float* cdf) {
+  return (int)(u > cdf[0]) + (int)(u > cdf[1]) + (int)(u > cdf[2]) +
+         (int)(u > cdf[3]);
+}
+
+// The round's uniform terms, built once per block (see the note above).
+struct Tables {
+  Shared D;
+  float shrink[CONF_MAX + 1];  // shrink(c)
+  int len0[4];                 // susp_len(c0)
+  int n_lh;                    // awareness levels tabulated; 0: none
+  float pf_fast[2][LH_TAB];    // [slow_eff][lh], honest variants
+  float pf_slow[2][LH_TAB];
+  float p_ack[2][LH_TAB];
+  float cdf[4][4];             // [rate class][k], honest variants
+};
+
+template <bool FAULT, bool BYZ, bool STABLE, int THREADS>
+__device__ __forceinline__ void build_tables(Tables& T,
+                                             const float* __restrict__ scal,
+                                             const RoundParams& P) {
+  if (threadIdx.x == 0) T.D = derive(scal, P);
+  __syncthreads();
+  const Shared D = T.D;
+  for (int c = threadIdx.x; c <= CONF_MAX; c += THREADS)
+    T.shrink[c] = shrink(c, P, D.log_den);
+  // byzantine rounds: a forged suspicion races the full Lifeguard timer
+  const float scale = (BYZ && P.lifeguard) ? fmaxf(D.scale, 1.0f) : D.scale;
+  if (threadIdx.x < 4)
+    T.len0[threadIdx.x] = susp_len(threadIdx.x, scale, D, P);
+  if (!FAULT) {
+    // lh enters only through patience; without it one level serves all
+    const bool patience_on = !STABLE && P.patience_on;
+    const int n_lh = patience_on ? P.awareness_max + 1 : 1;
+    if (threadIdx.x == 0) T.n_lh = n_lh <= LH_TAB ? n_lh : 0;
+    for (int e = threadIdx.x; e < 2 * LH_TAB; e += THREADS) {
+      const int se = e / LH_TAB, lh = e - se * LH_TAB;
+      if (lh < n_lh) {
+        const Probe pr = probe_terms<false>(se != 0, lh, patience_on,
+                                            1.0f, 1.0f, D, P);
+        T.pf_fast[se][lh] = pr.pf_fast;
+        T.pf_slow[se][lh] = pr.pf_slow;
+        T.p_ack[se][lh] = pr.p_ack;
+      }
+    }
+    if (threadIdx.x < 4) {
+      // class 0: not eligible; 1: down; 2: up and fast; 3: up and slow
+      const int cls = threadIdx.x;
+      const FaultIn none{};
+      poisson_cdf(fail_rate<false, false>(cls >= 2, cls == 3, cls >= 1,
+                                          none, D, P),
+                  T.cdf[cls]);
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float shrink_at(const Tables& T, int c,
+                                           const RoundParams& P) {
+  return (unsigned)c <= (unsigned)CONF_MAX ? T.shrink[c]
+                                           : shrink(c, P, T.D.log_den);
+}
+
+struct Node {
+  int status, inc, age, slen, sttl, conf, lh;
+  float informed;
+};
+
+// One protocol period for one node, on the words w of its Philox call 0.
+// Sets the 8 scalar lanes `sc` (post-round population terms) and ADDS
+// this round's counters to acc[8..17] when stats are on (16 and 17, the
+// attack counters, on byzantine rounds only).
+template <bool FAULT, bool BYZ, bool STABLE>
 __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
-                                           const Shared& D, uint32_t seed,
-                                           uint32_t node, const FaultIn& f,
-                                           float* lanes) {
+                                           const Tables& T, const Shared& D,
+                                           uint32_t seed, uint32_t node,
+                                           uint4 w, const FaultIn& f,
+                                           float* sc, float* acc) {
   int age = s.age;
   bool up = age < 0;
   bool slow = age == SLOW_AGE;
@@ -256,8 +420,8 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   if (age >= 0) age = min(age + 1, TICK_MAX);
 
   // churn (plan churn bursts and flap schedules add to the rates)
-  if (FAULT || P.churn_on) {
-    const float u = u01(seed, node, 0);
+  if (FAULT || (!STABLE && P.churn_on)) {
+    const float u = u01(w.x);
     float fail_p = P.fail_p, fail_leave_p = P.fail_leave_p,
           rejoin_p = P.rejoin_p;
     if (FAULT) {
@@ -286,8 +450,8 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   }
 
   // degraded-node churn
-  if (P.slow_on) {
-    const float us = u01(seed, node, 1);
+  if (!STABLE && P.slow_on) {
+    const float us = u01(w.y);
     slow = (slow ? (us >= P.slow_recover_p) : (us < P.slow_p)) && up;
   }
   // forced slow shapes this round only; the stored slow stays stochastic
@@ -295,81 +459,75 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
 
   // prober side
   const bool elig = (status == ALIVE) || (status == SUSPECT);
-  const float g = slow_eff ? P.slow_factor : 1.0f;
-  const bool patience_on = FAULT ? (bool)P.lifeguard : (bool)P.patience_on;
-  const float patience = patience_on ? 1.0f - exp2f(-(float)lh) : 0.0f;
-  float rt = 1.0f, relay_m = 1.0f;
+  const bool patience_on =
+      FAULT ? (bool)P.lifeguard : (!STABLE && P.patience_on);
+  Probe pr;
   if (FAULT) {
-    rt = f.psend * f.precv;
-    relay_m = rt * f.mid;
+    const float rt = f.psend * f.precv;
+    pr = probe_terms<true>(slow_eff, lh, patience_on, rt, rt * f.mid, D, P);
+  } else {
+    const int li = patience_on ? lh : 0;
+    if ((unsigned)li < (unsigned)T.n_lh) {
+      const int se = slow_eff ? 1 : 0;
+      pr.pf_fast = T.pf_fast[se][li];
+      pr.pf_slow = T.pf_slow[se][li];
+      pr.p_ack = T.p_ack[se][li];
+    } else {
+      pr = probe_terms<false>(slow_eff, lh, patience_on, 1.0f, 1.0f, D, P);
+    }
   }
-  const float pf_fast = noack<FAULT>(g, 1.0f, patience, rt, relay_m, D, P);
-  const float pf_slow =
-      noack<FAULT>(g, P.slow_factor, patience, rt, relay_m, D, P);
-  const float mix = (1.0f - D.sbar) * pf_fast + D.sbar * pf_slow;
-  const float p_ack = D.frac_up_elig * (1.0f - mix);
-  const bool ack = up && (u01(seed, node, 2) < p_ack);
+  const bool ack = up && (u01(w.z) < pr.p_ack);
   const bool failed = up && !ack;
   if (P.lifeguard)
     lh = min(max(lh + (int)failed - (int)ack, 0), P.awareness_max);
 
   // target side: truncated-Poisson failed-probe arrivals (k <= 4)
-  float base_fail = slow_eff ? D.e_pf_slow : D.e_pf_fast;
-  if (FAULT) base_fail = 1.0f - (1.0f - base_fail) * f.suspw;
-  float p_fail = up ? base_fail : 1.0f;
-  if (BYZ || P.corroboration_k > 0)
-    p_fail = p_fail * detection_gate(up, BYZ ? f.forge_ack : 0.0f,
-                                     FAULT ? f.mid : 1.0f, P);
-  const float eligf = elig ? 1.0f : 0.0f;
-  float lam = D.probe_rate * p_fail * eligf;
-  if (BYZ) lam = lam + f.spur_susp * eligf;
-  const float u_pois = u01(seed, node, 3);
-  float term = expf(-lam);
-  float cdf = term;
-  int n_fail = 0;
-#pragma unroll
-  for (int k = 1; k <= 4; ++k) {
-    n_fail += (u_pois > cdf) ? 1 : 0;
-    term = term * lam / (float)k;
-    cdf = cdf + term;
+  int n_fail;
+  if (FAULT) {
+    float cdf[4];
+    poisson_cdf(fail_rate<FAULT, BYZ>(up, slow_eff, elig, f, D, P), cdf);
+    n_fail = poisson_draw(u01(w.w), cdf);
+  } else {
+    const int cls = elig ? (up ? (slow_eff ? 3 : 2) : 1) : 0;
+    n_fail = poisson_draw(u01(w.w), T.cdf[cls]);
   }
 
   if (status == SUSPECT) sttl -= 1;
   const bool starts = (n_fail > 0) && (status == ALIVE);
   const bool confirms = (n_fail > 0) && (status == SUSPECT);
-  const int c0 = max(n_fail - 1, 0);
-  // byzantine rounds: a forged suspicion races the full Lifeguard timer
-  const float scale =
-      (BYZ && P.lifeguard) ? fmaxf(D.scale, 1.0f) : D.scale;
-  const float timeout0 = scale * P.susp_max_s * shrink(c0, P, D.log_den);
-  const int len0 =
-      (int)fminf(ceilf(timeout0 / P.probe_interval), (float)TICK_MAX);
   if (starts) {
+    const int c0 = n_fail - 1;
     status = SUSPECT;
-    slen = len0;
-    sttl = len0;
+    slen = T.len0[c0];
+    sttl = slen;
     s_conf = c0;
     informed = P.inv_n;
     new_rumor = true;
   }
-  const int c_new = min(s_conf + n_fail, CONF_MAX);
-  const float ratio =
-      shrink(c_new, P, D.log_den) / shrink(s_conf, P, D.log_den);
-  const int len2 = (int)ceilf((float)slen * ratio);
   if (confirms) {
+    const int c_new = min(s_conf + n_fail, CONF_MAX);
+    const float ratio = shrink_at(T, c_new, P) / shrink_at(T, s_conf, P);
+    const int len2 = (int)ceilf((float)slen * ratio);
     sttl = sttl - (slen - len2);
     slen = len2;
     s_conf = c_new;
   }
 
-  // refutation race
-  float lam_hear = P.fanout_ticks * informed * P.one_minus_loss * g;
-  if (FAULT) lam_hear = lam_hear * f.hear_w;
-  if (BYZ) lam_hear = lam_hear * (1.0f - f.replay);
-  const float p_hear = 1.0f - expf(-lam_hear);
+  // refutation race; the hear and replay draws are words 0 and 1 of the
+  // node's Philox call 1, taken only where one of them is needed
+  uint4 w1 = make_uint4(0u, 0u, 0u, 0u);
   const bool wrongly =
       up && (status == SUSPECT || status == DEAD) && !new_rumor;
-  const bool refute = wrongly && (u01(seed, node, 4) < p_hear);
+  bool refute = false;
+  if (wrongly) {
+    const float g = slow_eff ? P.slow_factor : 1.0f;
+    float lam_hear = P.fanout_ticks * informed * P.one_minus_loss * g;
+    if (FAULT) lam_hear = lam_hear * f.hear_w;
+    if (BYZ) lam_hear = lam_hear * (1.0f - f.replay);
+    const float p_hear = 1.0f - expf(-lam_hear);
+    w1 = philox(seed, node, 1u);
+    refute = u01(w1.x) < p_hear;
+  }
   if (refute) {
     status = ALIVE;
     inc = min(inc + 1, TICK_MAX);
@@ -384,7 +542,8 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   // stale replays force live victims into incarnation bumps; the draw is
   // taken only where replay > 0 on a live node (elsewhere it cannot bump)
   if (BYZ && up && f.replay > 0.0f) {
-    const float ur = u01(seed, node, 5);
+    if (!wrongly) w1 = philox(seed, node, 1u);
+    const float ur = u01(w1.y);
     if (status == ALIVE && !new_rumor && ur < f.replay) {
       inc = min(inc + 1, TICK_MAX);
       informed = P.inv_n;
@@ -400,7 +559,6 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
     sttl = TTL_NEVER;
     new_rumor = true;
   }
-  const float lat = (float)(age + 1) * P.probe_interval;
 
   // epidemic growth
   if (!new_rumor && informed < 1.0f) {
@@ -413,7 +571,9 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   s.status = status;
   s.inc = inc;
   s.informed = informed;
-  if (FAULT || P.write_age) s.age = up ? (slow ? SLOW_AGE : ALIVE_AGE) : age;
+  // the stable variant never stores down_age, across R rounds too
+  if (FAULT || (!STABLE && P.write_age))
+    s.age = up ? (slow ? SLOW_AGE : ALIVE_AGE) : age;
   s.slen = slen;
   s.sttl = sttl;
   s.conf = s_conf;
@@ -422,31 +582,35 @@ __device__ __forceinline__ void node_round(Node& s, const RoundParams& P,
   const float upf = up ? 1.0f : 0.0f;
   const bool elig2 = (status == ALIVE) || (status == SUSPECT);
   const float elig2f = elig2 ? 1.0f : 0.0f;
-  const float w_fail = upf * (1.0f - p_ack);
-  lanes[0] = upf;
-  lanes[1] = elig2f;
-  lanes[2] = upf * elig2f;
-  lanes[3] = (slow && up && elig2) ? 1.0f : 0.0f;
-  lanes[4] = upf * pf_fast;
-  lanes[5] = upf * pf_slow;
-  lanes[6] = w_fail * ((float)lh + 1.0f);
-  lanes[7] = w_fail;
-  if (P.stats_on) {
+  const float w_fail = upf * (1.0f - pr.p_ack);
+  sc[0] = upf;
+  sc[1] = elig2f;
+  sc[2] = upf * elig2f;
+  sc[3] = (slow && up && elig2) ? 1.0f : 0.0f;
+  sc[4] = upf * pr.pf_fast;
+  sc[5] = upf * pr.pf_slow;
+  sc[6] = w_fail * ((float)lh + 1.0f);
+  sc[7] = w_fail;
+  if (!STABLE && P.stats_on) {
     const bool tp = declare && !up;
-    lanes[8] += starts ? 1.0f : 0.0f;
-    lanes[9] += refute ? 1.0f : 0.0f;
-    lanes[10] += (declare && up) ? 1.0f : 0.0f;
-    lanes[11] += tp ? 1.0f : 0.0f;
-    lanes[12] += tp ? lat : 0.0f;
-    lanes[13] += crash ? 1.0f : 0.0f;
-    lanes[14] += rejoin ? 1.0f : 0.0f;
-    lanes[15] += leave ? 1.0f : 0.0f;
+    // a node crashing in round r ends it at age 0: (age + 1) periods
+    const float lat = (float)(age + 1) * P.probe_interval;
+    acc[8] += starts ? 1.0f : 0.0f;
+    acc[9] += refute ? 1.0f : 0.0f;
+    acc[10] += (declare && up) ? 1.0f : 0.0f;
+    acc[11] += tp ? 1.0f : 0.0f;
+    acc[12] += tp ? lat : 0.0f;
+    acc[13] += crash ? 1.0f : 0.0f;
+    acc[14] += rejoin ? 1.0f : 0.0f;
+    acc[15] += leave ? 1.0f : 0.0f;
     if (BYZ) {
-      lanes[16] += (starts && f.attacked) ? 1.0f : 0.0f;
-      lanes[17] += (declare && up && f.attacked) ? 1.0f : 0.0f;
+      acc[16] += (starts && f.attacked) ? 1.0f : 0.0f;
+      acc[17] += (declare && up && f.attacked) ? 1.0f : 0.0f;
     }
   }
 }
+
+// ------------------------------------------------ groups of NPT nodes
 
 struct Arrays {
   int8_t* status;
@@ -459,57 +623,234 @@ struct Arrays {
   int8_t* lh;
 };
 
-__device__ __forceinline__ Node load(const Arrays& a, int i) {
+// NPT consecutive values of one SIZE-byte lane, as 32-bit words
+template <int NPT, int SIZE>
+struct Lane {
+  static constexpr int BYTES = NPT * SIZE;
+  uint32_t w[(BYTES + 3) / 4];
+};
+
+// one naturally aligned access of BYTES
+template <int BYTES> struct Access;
+template <> struct Access<1> { using T = uint8_t; };
+template <> struct Access<2> { using T = uint16_t; };
+template <> struct Access<4> { using T = uint32_t; };
+template <> struct Access<8> { using T = uint2; };
+template <> struct Access<16> { using T = uint4; };
+
+// `wide`: one access for the whole group (aligned and inside the rows);
+// else node by node, nodes past the end left 0
+template <int NPT, int SIZE>
+__device__ __forceinline__ Lane<NPT, SIZE> ld(const void* base, int i,
+                                              int n, bool wide) {
+  using A = typename Access<NPT * SIZE>::T;
+  const uint8_t* p = (const uint8_t*)base + (size_t)i * SIZE;
+  Lane<NPT, SIZE> L;
+  if (wide) {
+    const A v = *reinterpret_cast<const A*>(p);
+    if constexpr (NPT * SIZE == 16) {
+      L.w[0] = v.x; L.w[1] = v.y; L.w[2] = v.z; L.w[3] = v.w;
+    } else if constexpr (NPT * SIZE == 8) {
+      L.w[0] = v.x; L.w[1] = v.y;
+    } else {
+      L.w[0] = (uint32_t)v;
+    }
+    return L;
+  }
+#pragma unroll
+  for (int k = 0; k < (NPT * SIZE + 3) / 4; ++k) L.w[k] = 0u;
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) {
+    if (i + j < n) {
+      uint32_t v;
+      if constexpr (SIZE == 1) v = p[j];
+      else if constexpr (SIZE == 2) v = ((const uint16_t*)p)[j];
+      else v = ((const uint32_t*)p)[j];
+      L.w[(j * SIZE) / 4] |= v << (8 * ((j * SIZE) % 4));
+    }
+  }
+  return L;
+}
+
+template <int NPT, int SIZE>
+__device__ __forceinline__ void st(void* base, int i, int n, bool wide,
+                                   const Lane<NPT, SIZE>& L) {
+  using A = typename Access<NPT * SIZE>::T;
+  uint8_t* p = (uint8_t*)base + (size_t)i * SIZE;
+  if (wide) {
+    A v;
+    if constexpr (NPT * SIZE == 16) {
+      v.x = L.w[0]; v.y = L.w[1]; v.z = L.w[2]; v.w = L.w[3];
+    } else if constexpr (NPT * SIZE == 8) {
+      v.x = L.w[0]; v.y = L.w[1];
+    } else {
+      v = (A)L.w[0];
+    }
+    *reinterpret_cast<A*>(p) = v;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < NPT; ++j) {
+    if (i + j < n) {
+      const uint32_t v = L.w[(j * SIZE) / 4] >> (8 * ((j * SIZE) % 4));
+      if constexpr (SIZE == 1) p[j] = (uint8_t)v;
+      else if constexpr (SIZE == 2) ((uint16_t*)p)[j] = (uint16_t)v;
+      else ((uint32_t*)p)[j] = v;
+    }
+  }
+}
+
+// value j of an int8/int16 lane, sign-extended
+template <int NPT, int SIZE>
+__device__ __forceinline__ int geti(const Lane<NPT, SIZE>& L, int j) {
+  const uint32_t v = L.w[(j * SIZE) / 4] >> (8 * ((j * SIZE) % 4));
+  if constexpr (SIZE == 1) return (int)(int8_t)(uint8_t)v;
+  else return (int)(int16_t)(uint16_t)v;
+}
+
+template <int NPT>
+__device__ __forceinline__ float getf(const Lane<NPT, 4>& L, int j) {
+  return __uint_as_float(L.w[j]);
+}
+
+// int8/int16 narrowing: every value is already clamped to TICK_MAX /
+// CONF_MAX / awareness_max
+template <int NPT, int SIZE>
+__device__ __forceinline__ void seti(Lane<NPT, SIZE>& L, int j, int x) {
+  const int sh = 8 * ((j * SIZE) % 4);
+  const uint32_t mask = SIZE == 1 ? 0xFFu : 0xFFFFu;
+  uint32_t& w = L.w[(j * SIZE) / 4];
+  w = (w & ~(mask << sh)) | (((uint32_t)x & mask) << sh);
+}
+
+template <int NPT>
+__device__ __forceinline__ void setf(Lane<NPT, 4>& L, int j, float x) {
+  L.w[j] = __float_as_uint(x);
+}
+
+template <int NPT>
+struct Group {
+  Lane<NPT, 1> status, conf, lh;
+  Lane<NPT, 2> inc, age, slen, sttl;
+  Lane<NPT, 4> informed;
+};
+
+template <int NPT>
+struct FaultGroup {
+  Lane<NPT, 4> psend, precv, suspw, hear_w, crash_p, rejoin_p, leave_p;
+  Lane<NPT, 4> forge_ack, spur_susp, replay;
+  Lane<NPT, 1> slow_f, attacked;
+};
+
+template <int NPT>
+__device__ __forceinline__ Group<NPT> load_group(const Arrays& a, int i,
+                                                 int n, bool wide) {
+  Group<NPT> g;
+  g.status = ld<NPT, 1>(a.status, i, n, wide);
+  g.conf = ld<NPT, 1>(a.conf, i, n, wide);
+  g.lh = ld<NPT, 1>(a.lh, i, n, wide);
+  g.inc = ld<NPT, 2>(a.inc, i, n, wide);
+  g.age = ld<NPT, 2>(a.age, i, n, wide);
+  g.slen = ld<NPT, 2>(a.slen, i, n, wide);
+  g.sttl = ld<NPT, 2>(a.sttl, i, n, wide);
+  g.informed = ld<NPT, 4>(a.informed, i, n, wide);
+  return g;
+}
+
+template <int NPT>
+__device__ __forceinline__ void store_group(const Arrays& a, int i, int n,
+                                            bool wide, const Group<NPT>& g,
+                                            bool write_age) {
+  st(a.status, i, n, wide, g.status);
+  st(a.conf, i, n, wide, g.conf);
+  st(a.lh, i, n, wide, g.lh);
+  st(a.inc, i, n, wide, g.inc);
+  if (write_age) st(a.age, i, n, wide, g.age);
+  st(a.slen, i, n, wide, g.slen);
+  st(a.sttl, i, n, wide, g.sttl);
+  st(a.informed, i, n, wide, g.informed);
+}
+
+template <int NPT>
+__device__ __forceinline__ Node get_node(const Group<NPT>& g, int j) {
   Node s;
-  s.status = a.status[i];
-  s.inc = a.inc[i];
-  s.informed = a.informed[i];
-  s.age = a.age[i];
-  s.slen = a.slen[i];
-  s.sttl = a.sttl[i];
-  s.conf = a.conf[i];
-  s.lh = a.lh[i];
+  s.status = geti(g.status, j);
+  s.inc = geti(g.inc, j);
+  s.informed = getf(g.informed, j);
+  s.age = geti(g.age, j);
+  s.slen = geti(g.slen, j);
+  s.sttl = geti(g.sttl, j);
+  s.conf = geti(g.conf, j);
+  s.lh = geti(g.lh, j);
   return s;
 }
 
-__device__ __forceinline__ void store(const Arrays& a, int i, const Node& s,
-                                      bool write_age) {
-  a.status[i] = (int8_t)s.status;
-  a.inc[i] = (int16_t)s.inc;
-  a.informed[i] = s.informed;
-  if (write_age) a.age[i] = (int16_t)s.age;
-  a.slen[i] = (int16_t)s.slen;
-  a.sttl[i] = (int16_t)s.sttl;
-  a.conf[i] = (int8_t)s.conf;
-  a.lh[i] = (int8_t)s.lh;
+template <int NPT>
+__device__ __forceinline__ void put_node(Group<NPT>& g, int j,
+                                         const Node& s) {
+  seti(g.status, j, s.status);
+  seti(g.inc, j, s.inc);
+  setf(g.informed, j, s.informed);
+  seti(g.age, j, s.age);
+  seti(g.slen, j, s.slen);
+  seti(g.sttl, j, s.sttl);
+  seti(g.conf, j, s.conf);
+  seti(g.lh, j, s.lh);
 }
 
-template <bool FAULT, bool BYZ>
-__device__ __forceinline__ FaultIn load_fault(const FaultArrays& F, int i) {
-  FaultIn f{};
+template <bool FAULT, bool BYZ, int NPT>
+__device__ __forceinline__ FaultGroup<NPT> load_fault_group(
+    const FaultArrays& F, int i, int n, bool wide) {
+  FaultGroup<NPT> g{};
   if (FAULT) {
-    f.psend = F.psend[i];
-    f.precv = F.precv[i];
-    f.suspw = F.suspw[i];
-    f.hear_w = F.hear_w[i];
-    f.slow_f = F.slow_f[i] != 0;
-    f.crash_p = F.crash_p[i];
-    f.rejoin_p = F.rejoin_p[i];
-    f.leave_p = F.leave_p[i];
-    f.mid = *F.mid;
+    g.psend = ld<NPT, 4>(F.psend, i, n, wide);
+    g.precv = ld<NPT, 4>(F.precv, i, n, wide);
+    g.suspw = ld<NPT, 4>(F.suspw, i, n, wide);
+    g.hear_w = ld<NPT, 4>(F.hear_w, i, n, wide);
+    g.crash_p = ld<NPT, 4>(F.crash_p, i, n, wide);
+    g.rejoin_p = ld<NPT, 4>(F.rejoin_p, i, n, wide);
+    g.leave_p = ld<NPT, 4>(F.leave_p, i, n, wide);
+    g.slow_f = ld<NPT, 1>(F.slow_f, i, n, wide);
   }
   if (BYZ) {
-    f.forge_ack = F.forge_ack[i];
-    f.spur_susp = F.spur_susp[i];
-    f.replay = F.replay[i];
-    f.attacked = F.attacked[i] != 0;
+    g.forge_ack = ld<NPT, 4>(F.forge_ack, i, n, wide);
+    g.spur_susp = ld<NPT, 4>(F.spur_susp, i, n, wide);
+    g.replay = ld<NPT, 4>(F.replay, i, n, wide);
+    g.attacked = ld<NPT, 1>(F.attacked, i, n, wide);
+  }
+  return g;
+}
+
+template <bool FAULT, bool BYZ, int NPT>
+__device__ __forceinline__ FaultIn get_fault(const FaultGroup<NPT>& g,
+                                             int j, float mid) {
+  FaultIn f{};
+  if (FAULT) {
+    f.psend = getf(g.psend, j);
+    f.precv = getf(g.precv, j);
+    f.suspw = getf(g.suspw, j);
+    f.hear_w = getf(g.hear_w, j);
+    f.slow_f = geti(g.slow_f, j) != 0;
+    f.crash_p = getf(g.crash_p, j);
+    f.rejoin_p = getf(g.rejoin_p, j);
+    f.leave_p = getf(g.leave_p, j);
+    f.mid = mid;
+  }
+  if (BYZ) {
+    f.forge_ack = getf(g.forge_ack, j);
+    f.spur_susp = getf(g.spur_susp, j);
+    f.replay = getf(g.replay, j);
+    f.attacked = geti(g.attacked, j) != 0;
   }
   return f;
 }
 
 // Fixed-order block reduction of the lanes into partials[blockIdx.x, :].
-__device__ __forceinline__ void block_reduce(float* lanes, int n_lanes,
+template <int THREADS>
+__device__ __forceinline__ void block_reduce(const float* lanes,
+                                             int n_lanes,
                                              float* __restrict__ partials) {
+  constexpr int WARPS = THREADS / 32;
   __shared__ float warp_sums[WARPS][N_LANES];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -531,56 +872,196 @@ __device__ __forceinline__ void block_reduce(float* lanes, int n_lanes,
   }
 }
 
-template <bool FAULT, bool BYZ>
-__global__ void __launch_bounds__(THREADS)
+// ------------------------------------------------------------- kernels
+
+// One period. Block b walks tiles b, b + gridDim.x, ... of TILE nodes;
+// each of its TILE / NPT threads takes NPT consecutive nodes of a tile.
+template <bool FAULT, bool BYZ, bool STABLE, int NPT, int MINB>
+__global__ void __launch_bounds__(TILE / NPT, MINB)
     round_kernel(RoundParams P, Arrays a, FaultArrays F,
                  const float* __restrict__ scal,
                  const int32_t* __restrict__ seed,
-                 float* __restrict__ partials) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  float lanes[N_LANES];
+                 float* __restrict__ partials, int vec) {
+  constexpr int THREADS = TILE / NPT;
+  __shared__ Tables T;
+  build_tables<FAULT, BYZ, STABLE, THREADS>(T, scal, P);
+  const Shared D = T.D;
+  const uint32_t sd = (uint32_t)seed[0];
+  const float mid = FAULT ? *F.mid : 1.0f;
+  const bool write_age = FAULT || (!STABLE && P.write_age);
+  const int n = P.rows;
+  const int step = gridDim.x * TILE;
+  float acc[N_LANES];
 #pragma unroll
-  for (int l = 0; l < N_LANES; ++l) lanes[l] = 0.0f;
-  if (i < P.rows) {
-    const Shared D = derive(scal, P);
-    Node s = load(a, i);
-    const FaultIn f = load_fault<FAULT, BYZ>(F, i);
-    node_round<FAULT, BYZ>(s, P, D, (uint32_t)seed[0], (uint32_t)i, f,
-                           lanes);
-    store(a, i, s, FAULT || P.write_age);
+  for (int l = 0; l < N_LANES; ++l) acc[l] = 0.0f;
+
+  // Registers cap what a thread holds at once: the honest variants
+  // prefetch the next group's state and run the group's call-0 Philox
+  // chains side by side; the fault variants hold the group's frame lanes
+  // instead and draw node by node, and the byz one also loads its state
+  // at the top of the group.
+  constexpr bool PREFETCH = !BYZ;
+  int i = blockIdx.x * TILE + threadIdx.x * NPT;
+  Group<NPT> g{};
+  if (PREFETCH && i < n) g = load_group<NPT>(a, i, n, vec && i + NPT <= n);
+  for (; i < n; i += step) {
+    const bool wide = vec && i + NPT <= n;
+    const FaultGroup<NPT> fcur =
+        load_fault_group<FAULT, BYZ, NPT>(F, i, n, wide);
+    Group<NPT> cur;
+    if (PREFETCH) {
+      cur = g;
+      // the next group's state is in flight while this group's body runs
+      const int nx = i + step;
+      if (nx < n) g = load_group<NPT>(a, nx, n, vec && nx + NPT <= n);
+    } else {
+      cur = load_group<NPT>(a, i, n, wide);
+    }
+    uint4 w[NPT];
+    if (!FAULT) {
+#pragma unroll
+      for (int j = 0; j < NPT; ++j)
+        w[j] = philox(sd, (uint32_t)(i + j), 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) {
+      if (i + j < n) {
+        Node s = get_node(cur, j);
+        const FaultIn f = get_fault<FAULT, BYZ, NPT>(fcur, j, mid);
+        const uint4 wj = FAULT ? philox(sd, (uint32_t)(i + j), 0u) : w[j];
+        float sc[N_SCALARS];
+        node_round<FAULT, BYZ, STABLE>(s, P, T, D, sd, (uint32_t)(i + j),
+                                       wj, f, sc, acc);
+#pragma unroll
+        for (int l = 0; l < N_SCALARS; ++l) acc[l] += sc[l];
+        put_node(cur, j, s);
+      }
+    }
+    store_group(a, i, n, wide, cur, write_age);
   }
-  block_reduce(lanes, P.stats_on ? N_LANES : N_SCALARS, partials);
+  block_reduce<THREADS>(acc, (!STABLE && P.stats_on) ? N_LANES : N_SCALARS,
+                        partials);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// R periods on frozen scalars. Blocks never wait on each other: each
+// thread carries its nodes through all rounds in registers, reading them
+// once and writing them once.
+template <bool STABLE, int NPT, int MINB>
+__global__ void __launch_bounds__(TILE / NPT, MINB)
     mega_kernel(RoundParams P, Arrays a, const float* __restrict__ scal,
                 const int32_t* __restrict__ seeds, int rounds,
-                float* __restrict__ partials) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  float lanes[N_LANES];
+                float* __restrict__ partials, int vec) {
+  constexpr int THREADS = TILE / NPT;
+  __shared__ Tables T;
+  build_tables<false, false, STABLE, THREADS>(T, scal, P);
+  const Shared D = T.D;
+  const FaultIn none{};
+  const int n = P.rows;
+  const int step = gridDim.x * TILE;
+  float acc[N_LANES];
 #pragma unroll
-  for (int l = 0; l < N_LANES; ++l) lanes[l] = 0.0f;
-  if (i < P.rows) {
-    // scalars are frozen for the call, so blocks never wait on each
-    // other: each thread carries its node through all rounds in
-    // registers, reading it once and writing it once
-    const Shared D = derive(scal, P);
-    const FaultIn none{};
-    Node s = load(a, i);
-    for (int r = 0; r < rounds; ++r)
-      node_round<false, false>(s, P, D, (uint32_t)seeds[r], (uint32_t)i,
-                               none, lanes);
-    store(a, i, s, P.write_age);
+  for (int l = 0; l < N_LANES; ++l) acc[l] = 0.0f;
+
+  for (int i = blockIdx.x * TILE + threadIdx.x * NPT; i < n; i += step) {
+    const bool wide = vec && i + NPT <= n;
+    Group<NPT> g = load_group<NPT>(a, i, n, wide);
+    Node s[NPT];
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) s[j] = get_node(g, j);
+    for (int r = 0; r < rounds; ++r) {
+      const uint32_t sd = (uint32_t)seeds[r];
+      uint4 w[NPT];
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) w[j] = philox(sd, (uint32_t)(i + j), 0u);
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) {
+        if (i + j < n) {
+          float sc[N_SCALARS];
+          node_round<false, false, STABLE>(s[j], P, T, D, sd,
+                                           (uint32_t)(i + j), w[j], none,
+                                           sc, acc);
+          // counter lanes hold the call's totals; scalar lanes the last
+          // round's
+          if (r == rounds - 1) {
+#pragma unroll
+            for (int l = 0; l < N_SCALARS; ++l) acc[l] += sc[l];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NPT; ++j)
+      if (i + j < n) put_node(g, j, s[j]);
+    store_group(a, i, n, wide, g, !STABLE && P.write_age);
   }
-  // counter lanes hold the call's totals; scalar lanes the last round's
-  block_reduce(lanes, P.stats_on ? N_LANES : N_SCALARS, partials);
+  block_reduce<THREADS>(acc, (!STABLE && P.stats_on) ? N_LANES : N_SCALARS,
+                        partials);
 }
 
-int blocks_for(int rows) { return (rows + THREADS - 1) / THREADS; }
+int grid_for(int rows) {
+  const int tiles = (rows + TILE - 1) / TILE;
+  return tiles < 1 ? 1 : (tiles < GRID_BLOCKS ? tiles : GRID_BLOCKS);
+}
+
+// the stable configuration, compiled on its own: no churn, slow-node
+// model, stats or down_age store
+bool stable_config(const RoundParams& P) {
+  return !P.churn_on && !P.slow_on && !P.stats_on && !P.write_age;
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || ((uintptr_t)p & 15u) == 0;
+}
+
+int arrays_aligned(const Arrays& a) {
+  return aligned16(a.status) && aligned16(a.inc) && aligned16(a.informed) &&
+         aligned16(a.age) && aligned16(a.slen) && aligned16(a.sttl) &&
+         aligned16(a.conf) && aligned16(a.lh);
+}
+
+int frame_aligned(const FaultArrays& F) {
+  return aligned16(F.psend) && aligned16(F.precv) && aligned16(F.suspw) &&
+         aligned16(F.hear_w) && aligned16(F.slow_f) && aligned16(F.crash_p) &&
+         aligned16(F.rejoin_p) && aligned16(F.leave_p) &&
+         aligned16(F.forge_ack) && aligned16(F.spur_susp) &&
+         aligned16(F.replay) && aligned16(F.attacked);
+}
+
+template <bool FAULT, bool BYZ, bool STABLE, int NPT, int MINB>
+void launch_round(const RoundParams& P, const Arrays& a,
+                  const FaultArrays& F, const void* scal, const void* seed,
+                  void* partials, int vec, void* stream) {
+  round_kernel<FAULT, BYZ, STABLE, NPT, MINB>
+      <<<grid_for(P.rows), TILE / NPT, 0, (cudaStream_t)stream>>>(
+          P, a, F, (const float*)scal, (const int32_t*)seed,
+          (float*)partials, vec);
+}
+
+template <bool STABLE, int NPT, int MINB>
+void launch_mega(const RoundParams& P, const Arrays& a, const void* scal,
+                 const void* seeds, int rounds, void* partials, int vec,
+                 void* stream) {
+  mega_kernel<STABLE, NPT, MINB>
+      <<<grid_for(P.rows), TILE / NPT, 0, (cudaStream_t)stream>>>(
+          P, a, (const float*)scal, (const int32_t*)seeds, rounds,
+          (float*)partials, vec);
+}
 
 }  // namespace
 
 extern "C" {
+
+// The launch layout, for the host's partials map and reports: nodes per
+// block step, most blocks, and nodes per thread of the honest, fault,
+// byz and R-round kernels.
+void round_kernels_layout(int* tile, int* grid_blocks, int* npt) {
+  *tile = TILE;
+  *grid_blocks = GRID_BLOCKS;
+  npt[0] = HONEST_NPT;
+  npt[1] = FAULT_NPT;
+  npt[2] = BYZ_NPT;
+  npt[3] = MEGA_NPT;
+}
 
 // Each launcher returns cudaGetLastError() after its launch (0 = ok).
 
@@ -591,10 +1072,13 @@ int launch_round_kernel(RoundParams P, void* status, void* inc,
   Arrays a{(int8_t*)status, (int16_t*)inc,  (float*)informed,
            (int16_t*)age,   (int16_t*)slen, (int16_t*)sttl,
            (int8_t*)conf,   (int8_t*)lh};
-  round_kernel<false, false>
-      <<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
-          P, a, FaultArrays{}, (const float*)scal, (const int32_t*)seed,
-          (float*)partials);
+  const int vec = arrays_aligned(a);
+  if (stable_config(P))
+    launch_round<false, false, true, HONEST_NPT, HONEST_MINB>(
+        P, a, FaultArrays{}, scal, seed, partials, vec, stream);
+  else
+    launch_round<false, false, false, HONEST_NPT, HONEST_MINB>(
+        P, a, FaultArrays{}, scal, seed, partials, vec, stream);
   return (int)cudaGetLastError();
 }
 
@@ -608,16 +1092,13 @@ int launch_round_kernel_fault(RoundParams P, void* status, void* inc,
   Arrays a{(int8_t*)status, (int16_t*)inc,  (float*)informed,
            (int16_t*)age,   (int16_t*)slen, (int16_t*)sttl,
            (int8_t*)conf,   (int8_t*)lh};
+  const int vec = arrays_aligned(a) && frame_aligned(F);
   if (byz)
-    round_kernel<true, true>
-        <<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
-            P, a, F, (const float*)scal, (const int32_t*)seed,
-            (float*)partials);
+    launch_round<true, true, false, BYZ_NPT, BYZ_MINB>(
+        P, a, F, scal, seed, partials, vec, stream);
   else
-    round_kernel<true, false>
-        <<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
-            P, a, F, (const float*)scal, (const int32_t*)seed,
-            (float*)partials);
+    launch_round<true, false, false, FAULT_NPT, FAULT_MINB>(
+        P, a, F, scal, seed, partials, vec, stream);
   return (int)cudaGetLastError();
 }
 
@@ -629,9 +1110,13 @@ int launch_mega_kernel(RoundParams P, void* status, void* inc,
   Arrays a{(int8_t*)status, (int16_t*)inc,  (float*)informed,
            (int16_t*)age,   (int16_t*)slen, (int16_t*)sttl,
            (int8_t*)conf,   (int8_t*)lh};
-  mega_kernel<<<blocks_for(P.rows), THREADS, 0, (cudaStream_t)stream>>>(
-      P, a, (const float*)scal, (const int32_t*)seeds, rounds,
-      (float*)partials);
+  const int vec = arrays_aligned(a);
+  if (stable_config(P))
+    launch_mega<true, MEGA_NPT, MEGA_MINB>(P, a, scal, seeds, rounds,
+                                           partials, vec, stream);
+  else
+    launch_mega<false, MEGA_NPT, MEGA_MINB>(P, a, scal, seeds, rounds,
+                                            partials, vec, stream);
   return (int)cudaGetLastError();
 }
 

@@ -7,14 +7,18 @@ Two CUDA kernels (``csrc/round_kernels.cu``) carry the hot loop:
   kernel ``_round_kernel`` (pallas_round.py:439) in all four of its
   variants: stable and full (honest), ``fault`` (a fault plan's frame:
   8 per-node lanes and ``mid``) and ``byz`` (4 more byzantine lanes).
-  Bandwidth-bound: per round it reads 15 B/node of state and writes 13
-  B/node in the stable variant, 15 B/node in the others; the fault
-  variants read 29 / 42 B/node of frame besides (29,360,128 B /
-  31,457,280 B / 61,865,984 B / 75,497,472 B at 1,048,576 nodes).
+  Per round it reads 15 B/node of state and writes 13 B/node in the
+  stable variant, 15 B/node in the others; the fault variants read 29 /
+  42 B/node of frame besides (29,360,128 B / 31,457,280 B / 61,865,984 B
+  / 75,497,472 B at 1,048,576 nodes).
 * ``mega_kernel`` — R periods per launch on frozen scalars, each node
   held in registers across the rounds; replaces ``_mega_kernel``
-  (pallas_round.py:526). It moves the bytes of one round per call, so
-  its R rounds of arithmetic bound it instead.
+  (pallas_round.py:526). It moves the bytes of one round per call.
+
+Both are held back by instructions per node-round rather than bytes;
+the source's note says how they spend fewer (four draws per Philox call,
+the round's uniform terms tabulated once per block, consecutive nodes
+per thread with wide loads).
 
 Beside each kernel sits its plain PyTorch version (``block_round_ref``,
 ``mega_round_ref``): the same protocol body as ``round.round_core``
@@ -24,10 +28,13 @@ device, dtype, shape and contiguity, launches the kernel, counts the
 launch in ``LAUNCHES`` and raises if the launch failed — there is no
 fallback.
 
-Both kernels write a ``[blocks, 18]`` table of per-block partial sums
-(8 population scalars, then the 10 SimStats counters); the runner folds
-it into the next call's stale scalars in PyTorch, as the JAX runner
-folds the TPU kernel's partials outside the kernel.
+Both kernels write a ``[partials_rows(rows), 18]`` table of per-block
+partial sums (8 population scalars, then the 10 SimStats counters): a
+grid of at most ``GRID_BLOCKS`` blocks walks tiles of ``TILE`` nodes, so
+node i lands in row ``(i // TILE) % partials_rows(rows)``
+(``partials_row_of``). The runner folds the table into the next call's
+stale scalars in PyTorch, as the JAX runner folds the TPU kernel's
+partials outside the kernel.
 
 The STABLE variant (configs with no churn, no slow model and no stats,
 ``SimParams.age_mutable`` false) never writes down_age: a dead row's
@@ -38,6 +45,7 @@ frame forces the full behaviour (churn drawn, down_age written).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Sequence
@@ -45,18 +53,26 @@ from typing import Optional, Sequence
 import torch
 
 from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
-                                     scale_plan)
+                                     detection_gate, scale_plan)
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
-                                        _cast_like, _round_body,
-                                        clamp_scalars, init_scalars,
+                                        SCALAR_FLOORS, _cast_like,
+                                        _round_body, _shrink,
+                                        _trunc_poisson, clamp_scalars,
+                                        init_scalars, pf_arrays,
                                         plan_frames)
-from consul_tpu_torch.sim.state import (NODE_FIELDS, STATS_FIELDS,
-                                        SimState, SimStats)
+from consul_tpu_torch.sim.state import (CONF_MAX, NODE_FIELDS,
+                                        STATS_FIELDS, TICK_MAX, SimState,
+                                        SimStats)
 from consul_tpu_torch.utils import build
 
-THREADS = 256  # nodes per block (one thread per node)
+#: the kernels' partials layout (round_kernels.cu; ``_lib`` checks it):
+#: nodes per block step, and most blocks (4 on each of the H100's 132
+#: SMs); how many threads share a tile is each kernel's own choice
+#: (``kernel_layout``)
+TILE = 512
+GRID_BLOCKS = 528
 SOURCE = "round_kernels"
 
 #: launches per kernel and variant since the last ``reset_launches()``;
@@ -79,8 +95,17 @@ def variant(p: SimParams, fx: Optional[FaultFrame] = None) -> str:
     return "full" if p.age_mutable else "stable"
 
 
-def n_blocks(rows: int) -> int:
-    return (rows + THREADS - 1) // THREADS
+def partials_rows(rows: int) -> int:
+    """Rows of the kernels' partials table for ``rows`` nodes: one per
+    block of the grid, ``min(GRID_BLOCKS, tiles)``."""
+    return max(1, min(GRID_BLOCKS, -(-rows // TILE)))
+
+
+def partials_row_of(rows: int, device=None) -> torch.Tensor:
+    """The partials row of each node: block b walks tiles b, b +
+    partials_rows, ...; every node is in exactly one row."""
+    node = torch.arange(rows, dtype=torch.int64, device=device)
+    return (node // TILE) % partials_rows(rows)
 
 
 class RoundParams(ctypes.Structure):
@@ -141,9 +166,63 @@ def kernel_params(p: SimParams, rows: int) -> RoundParams:
         stats_on=int(p.collect_stats), write_age=int(p.age_mutable))
 
 
+#: the kernel variants, by the launch counters' names
+VARIANTS = ("round_kernel/stable", "round_kernel/full", "round_kernel/fault",
+            "round_kernel/byz", "mega_kernel/stable", "mega_kernel/full")
+
+
+def kernel_layout() -> dict:
+    """Nodes per thread and threads per block of each variant's kernel
+    (builds the library)."""
+    npt = _kernels().nodes_per_thread
+    return {v: {"nodes_per_thread": npt[i], "threads_per_block":
+                TILE // npt[i]}
+            for v, i in zip(VARIANTS, (0, 0, 1, 2, 3, 3))}
+
+
+def shape_target(npt: int, minb: int) -> tuple:
+    """The build of the kernels with every kernel at ``npt`` nodes per
+    thread and ``minb`` resident blocks per SM (``build.build`` target)."""
+    return (SOURCE, (f"SHAPE_NPT={npt}", f"SHAPE_MINB={minb}"))
+
+
+@functools.lru_cache(maxsize=None)
+def shape_lib(npt: int, minb: int) -> ctypes.CDLL:
+    return _bind(build.load(shape_target(npt, minb)))
+
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def kernels_of(lib: ctypes.CDLL):
+    """Launch from ``lib`` (a ``shape_lib``) inside the block."""
+    _ACTIVE.append(lib)
+    try:
+        yield lib
+    finally:
+        _ACTIVE.pop()
+
+
+def _kernels() -> ctypes.CDLL:
+    return _ACTIVE[-1] if _ACTIVE else _lib()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
+    return _bind(build.load(SOURCE))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    tile, blocks = ctypes.c_int(), ctypes.c_int()
+    npt = (ctypes.c_int * 4)()
+    lib.round_kernels_layout(ctypes.byref(tile), ctypes.byref(blocks), npt)
+    if (tile.value, blocks.value) != (TILE, GRID_BLOCKS):
+        raise RuntimeError(
+            f"round_kernels.cu walks tiles of {tile.value} nodes on at most "
+            f"{blocks.value} blocks; cuda_round maps {TILE} and "
+            f"{GRID_BLOCKS}")
+    lib.nodes_per_thread = tuple(npt)
     ptrs = [ctypes.c_void_p] * 8
     lib.launch_round_kernel.argtypes = [RoundParams, *ptrs,
                                         ctypes.c_void_p, ctypes.c_void_p,
@@ -234,7 +313,7 @@ def _fault_arrays(fx: FaultFrame) -> FaultArrays:
 
 
 def _partials_out(out, rows, dev):
-    shape = (n_blocks(rows), N_LANES)
+    shape = (partials_rows(rows), N_LANES)
     if out is None:
         return torch.empty(shape, dtype=torch.float32, device=dev)
     if tuple(out.shape) != shape or out.dtype != torch.float32 \
@@ -248,15 +327,61 @@ def _partials_out(out, rows, dev):
 
 
 def _block_sums(lanes, rows: int) -> torch.Tensor:
-    """Per-node contribution lanes -> [blocks, N_LANES] block sums."""
-    blocks = n_blocks(rows)
+    """Per-node contribution lanes -> the [partials_rows, N_LANES] table:
+    tile t of TILE nodes adds to row t % partials_rows (nodes past the
+    end are zeros)."""
+    blocks = partials_rows(rows)
+    walks = -(-rows // (TILE * blocks))
     dev = lanes[0].device
-    stack = torch.zeros((N_LANES, blocks * THREADS), dtype=torch.float32,
-                        device=dev)
+    stack = torch.zeros((N_LANES, walks * blocks * TILE),
+                        dtype=torch.float32, device=dev)
     for i, lane in enumerate(lanes):
         if lane is not None:
             stack[i, :rows] = lane
-    return stack.view(N_LANES, blocks, THREADS).sum(2).t().contiguous()
+    return stack.view(N_LANES, walks, blocks, TILE).sum((1, 3)).t() \
+        .contiguous()
+
+
+def kernel_tables(scal: torch.Tensor, p: SimParams) -> dict:
+    """Plain twin of the shared-memory tables the kernels build once per
+    block (round_kernels.cu, ``build_tables``), computed by the body's
+    own functions on every index: ``shrink`` [CONF_MAX + 1]; ``len0``
+    [4], a new suspicion's length for c0 = n_fail - 1; and for the
+    honest variants ``pf_fast``/``pf_slow``/``p_ack`` [2, levels] by
+    (slow, lh) (one level when patience is off: lh does not enter), and
+    ``cdf`` [4, 4], the truncated Poisson's compared CDF terms for the
+    rate classes 0 not eligible, 1 down, 2 up and fast, 3 up and
+    slow."""
+    dev = scal.device
+    n_live, n_elig, n_up_elig = scal[0], scal[1], scal[2]
+    sbar = scal[3] / n_up_elig
+    c = torch.arange(CONF_MAX + 1, dtype=torch.int32, device=dev)
+    scale = scal[6] / scal[7] if p.lifeguard \
+        else torch.tensor(1.0, dtype=torch.float32, device=dev)
+    timeout0 = scale * p.suspicion_max_s * _shrink(c[:4], p)
+    len0 = torch.clamp_max(torch.ceil(timeout0 / p.probe_interval),
+                           float(TICK_MAX)).to(torch.int32)
+    levels = p.awareness_max + 1 \
+        if p.lifeguard and p.enabled("slow_per_round") else 1
+    lh = torch.arange(levels, dtype=torch.int32, device=dev).expand(2, -1)
+    slow = torch.tensor([[False], [True]], device=dev).expand(2, levels)
+    _, pf_fast, pf_slow = pf_arrays(slow, lh, sbar, n_live / p.n, p)
+    mix = (1.0 - sbar) * pf_fast + sbar * pf_slow
+    p_ack = (n_up_elig / n_elig) * (1.0 - mix)
+    up = torch.tensor([False, False, True, True], device=dev)
+    slow_c = torch.tensor([False, False, False, True], device=dev)
+    eligf = torch.tensor([0.0, 1.0, 1.0, 1.0], device=dev)
+    nl = torch.clamp_min(n_live, 1e-9)
+    base_fail = torch.where(slow_c, scal[5] / nl, scal[4] / nl)
+    p_fail = torch.where(up, base_fail, 1.0)
+    if p.corroboration_k > 0:
+        p_fail = p_fail * detection_gate(up, None, p)
+    lam = n_live / torch.clamp_min(n_elig - 1.0, 1.0) * p_fail * eligf
+    cdf: list = []
+    _trunc_poisson(torch.zeros_like(lam), lam, cdf=cdf)
+    return {"shrink": _shrink(c, p), "len0": len0, "pf_fast": pf_fast,
+            "pf_slow": pf_slow, "p_ack": p_ack,
+            "cdf": torch.stack(cdf, 1)}
 
 
 def _one_round(vals, arrays, scalars, seed, p, margin=None, fx=None):
@@ -277,7 +402,7 @@ def block_round_ref(arrays, scalars, seed, p: SimParams,
     """Plain version of ``round_kernel``: one period on the packed
     arrays with ``seed``'s Philox draws and the fault view ``fx`` as
     given (no ``fault_gain`` blend: the runner applies it). Returns (new
-    arrays, partials [blocks, 18]); the inputs are not modified."""
+    arrays, partials [partials_rows, 18]); the inputs are not modified."""
     outs, lanes = _one_round(arrays, arrays, scalars, seed, p, margin, fx)
     return outs, _block_sums(lanes, arrays[0].shape[0])
 
@@ -306,7 +431,7 @@ def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
                  fx: Optional[FaultFrame] = None) -> torch.Tensor:
     """One period over ``arrays`` (updated IN PLACE) with the stale
     ``scalars``, seed ``seeds[r]`` and, for the fault variants, the
-    round's fault view ``fx``; returns the [blocks, 18] partial sums.
+    round's fault view ``fx``; returns the [partials_rows, 18] partial sums.
     CPU tensors run ``block_round_ref``."""
     rows = _check_inputs(arrays, scalars, seeds)
     if not 0 <= r < seeds.shape[0]:
@@ -321,7 +446,7 @@ def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
             a.copy_(o)
         partials.copy_(sums)
         return partials
-    lib = _lib()
+    lib = _kernels()
     ptrs = [a.data_ptr() for a in arrays]
     tail = (scalars.data_ptr(), seeds.data_ptr() + 4 * r,
             partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -340,7 +465,7 @@ def mega_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
                 p: SimParams,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``len(seeds)`` periods over ``arrays`` (updated IN PLACE) on
-    frozen ``scalars``; returns the [blocks, 18] partial sums (counter
+    frozen ``scalars``; returns the [partials_rows, 18] partial sums (counter
     lanes are call totals, scalar lanes the last round's). CPU tensors
     run ``mega_round_ref``."""
     rows = _check_inputs(arrays, scalars, seeds)
@@ -352,7 +477,7 @@ def mega_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
             a.copy_(o)
         partials.copy_(sums)
         return partials
-    lib = _lib()
+    lib = _kernels()
     rc = lib.launch_mega_kernel(
         kernel_params(p, rows), *[a.data_ptr() for a in arrays],
         scalars.data_ptr(), seeds.data_ptr(), int(seeds.shape[0]),
@@ -417,6 +542,15 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
         plan = scale_plan(plan, p.fault_gain)
     keep = torch.ones(N_STATS)
     keep[LAT] = 0.0
+    # the JAX megakernel runner's t + f32(R) * probe_interval, its step
+    # folded in f32 on the host once: an f32 value, so adding the Python
+    # float to the f32 clock rounds as the f32 add does, and no call
+    # makes a tensor (a host-to-device copy, which syncs the host)
+    step = float(torch.tensor(float(R), dtype=torch.float32)
+                 * torch.tensor(p.probe_interval, dtype=torch.float32))
+    # the counter mask and the scalar floors, copied to each device once
+    # (a copy from host memory makes the host wait for the stream)
+    consts: dict = {}
 
     def run(state: SimState, key: torch.Tensor, scalars0=None):
         if scalars0 is not None and not carry:
@@ -430,11 +564,14 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
             scalars = scalars0.to(device=dev, dtype=torch.float32).clone()
         seeds = prng.round_seeds(key.to(dev), state.round_idx, rounds)
         rows = arrays[0].shape[0]
-        buf = torch.empty((n_blocks(rows), N_LANES), dtype=torch.float32,
-                          device=dev)
+        buf = torch.empty((partials_rows(rows), N_LANES),
+                          dtype=torch.float32, device=dev)
         acc_i = torch.zeros(N_STATS, dtype=torch.int32, device=dev)
         acc_lat = torch.zeros((), dtype=torch.float32, device=dev)
-        keep_d = keep.to(dev)
+        if dev not in consts:
+            consts[dev] = (keep.to(dev), torch.tensor(
+                SCALAR_FLOORS, dtype=torch.float32, device=dev))
+        keep_d, floors = consts[dev]
         t = state.t
         for c, fx in zip(range(rounds // R), fxs):
             if R == 1:
@@ -445,10 +582,9 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                 partials = mega_kernel(arrays, scalars,
                                        seeds[c * R:(c + 1) * R], p,
                                        out=buf)
-                t = t + torch.tensor(float(R), dtype=torch.float32,
-                                     device=dev) * p.probe_interval
+                t = t + step
             sums = partials.sum(0)
-            scalars = clamp_scalars(sums[:N_SCALARS])
+            scalars = clamp_scalars(sums[:N_SCALARS], floors)
             if p.collect_stats:
                 stat = sums[N_SCALARS:]
                 acc_i += (stat * keep_d).to(torch.int32)

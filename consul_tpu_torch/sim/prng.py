@@ -14,7 +14,8 @@ Two generators live here:
   1, 2, 3", SC'11) — the generator the CUDA round kernels run per node.
   ``philox_bits`` is its plain twin: the same 32-bit words for the same
   key and counter, so the kernels' plain versions draw exactly what the
-  kernels draw.
+  kernels draw. One call gives four words, so draw slot ``s`` is word
+  ``s & 3`` of the call on counter ``(node, s >> 2, 0, 0)``.
 
 Words are carried in int64 tensors holding values in [0, 2^32), masked
 after every add and shift (PyTorch on the CPU has no ``<<`` for uint32).
@@ -147,23 +148,32 @@ def philox4x32(c, k):
     return c0, c1, c2, c3
 
 
-def philox_bits(seed: torch.Tensor, node: torch.Tensor,
-                slot: int) -> torch.Tensor:
-    """The kernels' per-node word: Philox4x32-10 keyed by
-    ``(seed, 0)`` on counter ``(node, slot, 0, 0)``, output word 0.
-    ``seed`` is an int32 0-d tensor, ``node`` the global node indices."""
+def philox_words(seed: torch.Tensor, node: torch.Tensor, call: int):
+    """The four words of one kernel Philox call: Philox4x32-10 keyed by
+    ``(seed, 0)`` on counter ``(node, call, 0, 0)``. ``seed`` is an int32
+    0-d tensor, ``node`` the global node indices."""
     s = seed.to(torch.int64) & MASK
     node = node.to(torch.int64)
     z = torch.zeros_like(node)
-    return philox4x32((node, z + slot, z, z), (s, 0))[0]
+    return philox4x32((node, z + call, z, z), (s, 0))
+
+
+def philox_bits(seed: torch.Tensor, node: torch.Tensor,
+                slot: int) -> torch.Tensor:
+    """The kernels' per-node word for draw ``slot``: word ``slot & 3`` of
+    call ``slot >> 2`` (one Philox call serves four draws)."""
+    return philox_words(seed, node, slot >> 2)[slot & 3]
+
+
+def _u01_of(bits: torch.Tensor) -> torch.Tensor:
+    """The kernels' conversion: the top 24 bits, ``(bits >> 8) * 2**-24``."""
+    return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
 
 def philox_uniform(seed: torch.Tensor, node: torch.Tensor,
                    slot: int) -> torch.Tensor:
-    """f32 uniform in [0, 1) from the top 24 bits of ``philox_bits`` —
-    the kernels' conversion, ``(bits >> 8) * 2**-24``."""
-    return (philox_bits(seed, node, slot) >> 8).to(torch.float32) \
-        * (2.0 ** -24)
+    """f32 uniform in [0, 1) from ``philox_bits``."""
+    return _u01_of(philox_bits(seed, node, slot))
 
 
 # ------------------------------------------------ per-node draw sources
@@ -194,6 +204,14 @@ def threefry_u01(k: torch.Tensor, n: int) -> U01:
 
 def philox_u01(seed: torch.Tensor, n: int) -> U01:
     """The round kernels' draws for one round over nodes 0..n-1: Philox
-    keyed by the round's seed, counter (node index, slot)."""
+    keyed by the round's seed; slot s is word ``s & 3`` of call ``s >> 2``
+    on counter (node index, call). Each call runs once, on first use."""
     node = torch.arange(n, dtype=torch.int64, device=seed.device)
-    return lambda slot: philox_uniform(seed, node, slot)
+    calls: dict = {}
+
+    def u01(slot: int) -> torch.Tensor:
+        if slot >> 2 not in calls:
+            calls[slot >> 2] = philox_words(seed, node, slot >> 2)
+        return _u01_of(calls[slot >> 2][slot & 3])
+
+    return u01

@@ -114,7 +114,9 @@ def pf_arrays(slow: torch.Tensor, lh: torch.Tensor, sbar, live_frac,
         relay_m = rt * fx.mid
 
     def noack_given(gj_val):
-        gj = torch.tensor(gj_val, dtype=_F32, device=g.device)
+        # a 0-d CPU tensor enters a CUDA op as a scalar: no host-to-device
+        # copy, which would make the host wait
+        gj = torch.tensor(gj_val, dtype=_F32)
         ge_i = g + (1.0 - g) * patience
         ge_j = gj + (1.0 - gj) * patience
         pair2 = ipow(ge_i * ge_j, 2)
@@ -422,9 +424,13 @@ def _stats_add(st: SimStats, lanes) -> SimStats:
     return st._replace(**{f: getattr(st, f) + d for f, d in deltas.items()})
 
 
-def clamp_scalars(sums: torch.Tensor) -> torch.Tensor:
-    """Apply ``SCALAR_FLOORS`` to a reduced [8] scalar vector."""
-    floors = torch.tensor(SCALAR_FLOORS, dtype=_F32, device=sums.device)
+def clamp_scalars(sums: torch.Tensor,
+                  floors: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply ``SCALAR_FLOORS`` to a reduced [8] scalar vector. A loop on
+    the card passes ``floors`` made once on the device: building them
+    here copies from host memory, which makes the host wait."""
+    if floors is None:
+        floors = torch.tensor(SCALAR_FLOORS, dtype=_F32, device=sums.device)
     return torch.maximum(sums, floors)
 
 

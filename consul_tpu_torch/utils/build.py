@@ -16,7 +16,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Iterable
+from typing import Iterable, Tuple, Union
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
@@ -52,45 +52,71 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+#: a build: a source name, or (name, defines) with ``-D`` macros as a
+#: tuple of "NAME=value" strings
+Target = Union[str, Tuple[str, Tuple[str, ...]]]
+
+
+def _split(target: Target) -> Tuple[str, Tuple[str, ...]]:
+    return (target, ()) if isinstance(target, str) else target
+
+
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(target: Target) -> pathlib.Path:
+    name, defines = _split(target)
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(names: Iterable[str]) -> dict:
-    """Compile every named source that has no current library, all in
-    parallel. Returns {name: nvcc's output} for the sources it compiled
-    (the -Xptxas -v register and spill report); raises
-    ``KernelBuildError`` with the compiler's output on any failure."""
+def report_path(target: Target) -> pathlib.Path:
+    """nvcc's output for the current library, kept beside it."""
+    return library_path(target).with_suffix(".nvcc.txt")
+
+
+def build(targets: Iterable[Target]) -> dict:
+    """Compile every target that has no current library, all in
+    parallel. Returns {target: nvcc's output} for every target (the
+    -Xptxas -v register and spill report; for a library built earlier,
+    the output kept beside it); raises ``KernelBuildError`` with the
+    compiler's output on any failure."""
+    names = list(targets)
     todo = [n for n in names if not library_path(n).exists()]
+    reports = {n: report_path(n).read_text() for n in names
+               if n not in todo and report_path(n).exists()}
     if not todo:
-        return {}
+        return reports
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, defines = _split(name)
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
         reports[name] = text
         if proc.returncode != 0:
             failed.append(f"{name} (rc {proc.returncode}):\n{text}")
         else:
+            report_path(name).write_text(text)
             os.replace(tmp, out)
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The compiled library of ``csrc/<name>.cu``, built if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+def load(target: Target) -> ctypes.CDLL:
+    """The compiled library of ``csrc/<name>.cu`` (with its defines),
+    built if needed."""
+    build([target])
+    return ctypes.CDLL(str(library_path(target)))

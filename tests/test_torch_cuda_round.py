@@ -77,7 +77,7 @@ def test_plain_round_equals_round_core_on_philox_draws(name):
             assert bool((want[~live] == arrays[3][~live] + 1).all())
         else:
             assert torch.equal(o, want), f
-    assert part.shape == (cr.n_blocks(N), cr.N_LANES)
+    assert part.shape == (cr.partials_rows(N), cr.N_LANES)
     np.testing.assert_allclose(
         tround.clamp_scalars(part.sum(0)[:8]).numpy(), sc2.numpy(),
         rtol=1e-5)
@@ -105,6 +105,105 @@ def test_mega_plain_equals_per_round_calls_on_frozen_scalars(name):
         assert torch.equal(a, b)
     assert torch.equal(m_part[:, :8], part[:, :8])
     assert torch.equal(m_part[:, 8:].sum(0), counters)
+
+
+@pytest.mark.parametrize("rows", [1, 8192, 8199,
+                                  2 * cr.GRID_BLOCKS * cr.TILE + 37])
+def test_partials_map_covers_every_node_once(rows):
+    """The kernels' node -> row map: row sums over it equal a direct
+    sum, every node is in exactly one row, the ragged edge adds
+    nothing; past GRID_BLOCKS tiles the blocks walk on."""
+    gen = torch.Generator().manual_seed(rows)
+    lanes = [torch.rand(rows, generator=gen) if i % 3 else None
+             for i in range(cr.N_LANES)]
+    lanes[0] = torch.ones(rows)
+    got = cr._block_sums(lanes, rows)
+    row_of = cr.partials_row_of(rows)
+    n_rows = cr.partials_rows(rows)
+    assert got.shape == (n_rows, cr.N_LANES)
+    assert n_rows == min(cr.GRID_BLOCKS, -(-rows // cr.TILE))
+    assert int(row_of.min()) == 0 and int(row_of.max()) == n_rows - 1
+    # every node counted once, in its own row
+    assert torch.equal(got[:, 0], torch.bincount(
+        row_of, minlength=n_rows).to(torch.float32))
+    for i, lane in enumerate(lanes):
+        want = torch.zeros(n_rows)
+        if lane is not None:
+            want.index_add_(0, row_of, lane)
+        torch.testing.assert_close(got[:, i], want, rtol=1e-5, atol=1e-5)
+    if rows > cr.GRID_BLOCKS * cr.TILE:
+        assert int(row_of[cr.GRID_BLOCKS * cr.TILE]) == 0
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_kernel_tables_equal_the_elementwise_terms(name):
+    """The premise of the kernels' shared-memory tables: each entry,
+    computed by the body's own functions on its index and gathered per
+    node, equals the value the body computes node by node."""
+    p = VARIANTS[name]
+    arrays, scal = _warm()
+    t = cr.kernel_tables(scal, p)
+    status, _, _, age, _, _, conf, lh = [a.to(torch.int32) if
+                                         a.dtype != torch.float32 else a
+                                         for a in arrays]
+    up, slow = age < 0, age == tstate.SLOW_AGE
+    elig = (status == tstate.ALIVE) | (status == tstate.SUSPECT)
+    assert torch.equal(t["shrink"][conf.long()], tround._shrink(conf, p))
+    n_live, n_elig, n_up_elig = scal[0], scal[1], scal[2]
+    sbar = scal[3] / n_up_elig
+    _, pf_fast, pf_slow = tround.pf_arrays(slow, lh, sbar, n_live / p.n, p)
+    patience = p.lifeguard and p.enabled("slow_per_round")
+    assert t["p_ack"].shape[1] == (p.awareness_max + 1 if patience else 1)
+    idx = (slow.long(), lh.long() if patience else torch.zeros_like(
+        lh, dtype=torch.long))
+    mix = (1.0 - sbar) * pf_fast + sbar * pf_slow
+    assert torch.equal(t["pf_fast"][idx], pf_fast)
+    assert torch.equal(t["pf_slow"][idx], pf_slow)
+    assert torch.equal(t["p_ack"][idx], (n_up_elig / n_elig) * (1.0 - mix))
+    nl = torch.clamp_min(n_live, 1e-9)
+    p_fail = torch.where(up, torch.where(slow, scal[5] / nl, scal[4] / nl),
+                         1.0)
+    if p.corroboration_k > 0:
+        p_fail = p_fail * tfaults.detection_gate(up, None, p)
+    lam = n_live / torch.clamp_min(n_elig - 1.0, 1.0) * p_fail \
+        * elig.to(torch.float32)
+    cdf = []
+    u = prng.philox_u01(torch.tensor(31, dtype=torch.int32), N)(3)
+    n_fail = tround._trunc_poisson(u, lam, cdf=cdf)
+    cls = torch.where(elig, torch.where(up, torch.where(slow, 3, 2), 1), 0)
+    for k in range(4):
+        assert torch.equal(t["cdf"][cls, k], cdf[k]), k
+    assert int((cls == 0).sum()) and int((cls == 1).sum()) \
+        and int((cls == 3).sum()) == (int((slow & elig).sum()))
+    scale = scal[6] / scal[7] if p.lifeguard else 1.0
+    c0 = torch.clamp_min(n_fail - 1, 0)
+    len0 = torch.clamp_max(torch.ceil(
+        scale * p.suspicion_max_s * tround._shrink(c0, p)
+        / p.probe_interval), float(tstate.TICK_MAX)).to(torch.int32)
+    assert torch.equal(t["len0"][c0.long()], len0)
+    assert int((n_fail > 0).sum()) > 0
+
+
+def test_mega_runner_clock_keeps_the_reference_f32_schedule():
+    """After k R=8 calls the runner's t is k f32 additions of
+    f32(8) * f32(probe_interval), bit for bit: the JAX megakernel
+    runner's schedule (pallas_round.py:706), not 8k additions of
+    probe_interval."""
+    p = STABLE.with_(probe_interval=0.7)
+    run = cr.make_run_rounds_cuda(p, 16, rounds_per_call=8)
+    s = tstate.init_state(N, device="cpu")
+    step = np.float32(np.float32(8.0) * np.float32(0.7))
+    want = np.float32(0.0)
+    for _ in range(3):
+        s = run(s, prng.key(1))
+        want = np.float32(want + step)
+        want = np.float32(want + step)
+        assert s.t.dtype == torch.float32
+        assert s.t.numpy().tobytes() == want.tobytes()
+    per_round = np.float32(0.0)
+    for _ in range(48):
+        per_round = np.float32(per_round + np.float32(0.7))
+    assert per_round != want      # the two schedules differ in the bits
 
 
 def test_stable_variant_holds_residual_rows_frozen():
@@ -216,12 +315,17 @@ def test_kernel_bound_counts_the_fault_frame():
         assert c["frame_bytes"] == frame_b * n
         assert c["state_bytes"] == 30 * n
         assert c["bytes"] == (30 + frame_b) * n + 4 + 4 * 8 + 4 \
-            + 4 * 18 * (n // 256)
+            + 4 * 18 * cr.partials_rows(n)
         up = out[3] < 0
         draws = 3 * n + int(up.sum())      # churn, slow, Poisson, ack
+        calls = n                          # one Philox call serves them
         if name == "byz":
-            draws += int((up & (fx.replay > 0)).sum())
-        assert c["int32_ops"] == draws * chip_smoke.PHILOX_INT_OPS
+            replays = int((up & (fx.replay > 0)).sum())
+            draws += replays
+            calls += replays
+        assert c["philox_calls"] == calls and c["draws"] == draws
+        assert c["int32_ops"] == calls * chip_smoke.PHILOX_INT_OPS \
+            + draws * chip_smoke.DRAW_INT_OPS
         assert c["bound_by"] == "bytes"
     with pytest.raises(ValueError, match="out="):
         chip_smoke.kernel_bound(FULL, arrays, fx=fx)
@@ -236,17 +340,50 @@ def test_kernel_cost_counts_the_bytes_of_one_call():
     arrays = s.node_arrays()
     c = chip_smoke.kernel_bound(bench.headline_params(n), arrays)
     assert c["state_bytes"] == 29_360_128
-    assert c["bytes"] == 29_360_128 + 4 * 8 + 4 + 4 * 18 * (n // 256)
-    # every node's Poisson draw and the 3/4 live nodes' ack draws
-    assert c["int32_ops"] == (n + 3 * n // 4) * chip_smoke.PHILOX_INT_OPS
+    assert c["bytes"] == 29_360_128 + 4 * 8 + 4 + 4 * 18 * 528
+    # one Philox call per node; every node's Poisson draw and the 3/4
+    # live nodes' ack draws
+    assert c["int32_ops"] == n * chip_smoke.PHILOX_INT_OPS \
+        + (n + 3 * n // 4) * chip_smoke.DRAW_INT_OPS
     assert c["bound_by"] == "bytes"
     c = chip_smoke.kernel_bound(bench.diag_params(n), arrays, 8)
     assert c["state_bytes"] == 31_457_280
-    assert c["int32_ops"] == 8 * (2 * n + 3 * n // 4) * 42
-    assert c["f32_ops"] == 8 * n * chip_smoke.BODY_F32_OPS
-    assert c["bound_by"] == "operations"
+    assert c["int32_ops"] == 8 * (n * 40 + (2 * n + 3 * n // 4) * 2)
+    assert c["f32_ops"] == 8 * n * chip_smoke.TABLE_BODY_F32_OPS
+    # the tables took the per-node no-ack and Poisson math away: even 8
+    # rounds of arithmetic now take less time than the call's bytes
+    assert c["bound_by"] == "bytes"
     with pytest.raises(ValueError, match="churn"):
         chip_smoke.kernel_bound(CHURN, arrays)
+
+
+def test_kernel_report_parsers():
+    """chip_smoke's readers of ptxas -v and cuobjdump -sass: every
+    instantiation maps to its variant; registers, spills and the static
+    instruction count (NOPs left out) per kernel."""
+    sym = "_ZN12_GLOBAL__N_112round_kernelILb{}ELb{}ELb{}ELi4ELi4EEEv11Round"
+    names = {sym.format(1, 1, 0): "round_kernel/byz",
+             sym.format(1, 0, 0): "round_kernel/fault",
+             sym.format(0, 0, 0): "round_kernel/full",
+             sym.format(0, 0, 1): "round_kernel/stable",
+             "_ZN12_GLOBAL__N_111mega_kernelILb1ELi2ELi2EEEv11R":
+                 "mega_kernel/stable",
+             "_ZN12_GLOBAL__N_111mega_kernelILb0ELi2ELi2EEEv11R":
+                 "mega_kernel/full",
+             "_ZN12_GLOBAL__N_16philoxEjjj": None}
+    for symbol, label in names.items():
+        assert chip_smoke.kernel_label(symbol) == label
+    ptxas = "\n".join(
+        f"ptxas info    : Compiling entry function '{s}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {s}\n"
+        f"    0 bytes stack frame, {8 * i} bytes spill stores, {4 * i} "
+        f"bytes spill loads\n"
+        f"ptxas info    : Used {90 + i} registers, used 1 barriers"
+        for i, s in enumerate(names))
+    got = chip_smoke.ptxas_report(ptxas)
+    assert set(got) == {v for v in names.values() if v}
+    assert got["round_kernel/fault"] == {"spill_bytes": 12, "registers": 91}
+    assert got["round_kernel/byz"] == {"spill_bytes": 0, "registers": 90}
 
 
 def test_bench_smoke_runs_the_plain_path():

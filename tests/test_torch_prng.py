@@ -121,17 +121,21 @@ def test_philox_tensor_matches_python_integers():
 
 
 def test_philox_draws_are_kernel_words():
+    """Slot s is word s & 3 of the call on counter (node, s >> 2): one
+    Philox call serves four draws."""
     seed = torch.tensor(123456789, dtype=torch.int32)
     node = torch.arange(1000, 1100)
-    for slot in range(5):
+    draws = prng.philox_u01(seed, 1100)
+    for slot in range(6):
         bits = prng.philox_bits(seed, node, slot)
         for j in (0, 17, 99):
             assert int(bits[j]) == _philox_py(
-                (1000 + j, slot, 0, 0), (123456789, 0))[0]
+                (1000 + j, slot >> 2, 0, 0), (123456789, 0))[slot & 3]
         u = prng.philox_uniform(seed, node, slot)
         assert u.dtype == torch.float32
         assert bool((u >= 0).all()) and bool((u < 1).all())
         assert torch.equal(u * 2**24, (bits >> 8).to(torch.float32))
+        assert torch.equal(draws(slot)[1000:], u)
 
 
 @pytest.mark.cuda
