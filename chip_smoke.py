@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of consul_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py            # the smoke test
-    python3 chip_smoke.py --shapes   # env, check, then the shape sweep
+    python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero before the result line):
@@ -64,15 +63,18 @@ import subprocess
 import sys
 import time
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and 32-bit
-#: arithmetic outside the tensor cores (67 TFLOP/s in f32). The data
-#: sheet gives no int32 rate. Integer and f32 operations are summed and
-#: both held to the f32 rate. That rate counts an FMA as two operations:
-#: the SMs issue at most 128 32-bit lane operations per clock (33.5 T/s
-#: at 1.98 GHz), of any type. So the bound stays a lower bound on the
-#: time.
+#: H100 SXM peaks: HBM3 bandwidth and f32 arithmetic outside the tensor
+#: cores (67 TFLOP/s, NVIDIA data sheet), and 32-bit integer
+#: arithmetic, which the data sheet does not give: 64 INT32 lanes on
+#: each of the 132 SMs (H100 white paper) at the 1.98 GHz boost clock.
+#: Integer and f32 operations run on separate lanes, so the bound by
+#: operations is the larger of the two types' times. The operation
+#: counts below model only a part of the body (``kernel_bound``), so
+#: that bound is a lower bound, and a low one where the body's
+#: uncounted control flow dominates (the megakernel).
 HBM_BYTES_PER_S = 3.35e12
-OPS32_PER_S = 67e12
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 #: integer operations of one Philox4x32-10 call on the card, which gives
 #: four words: per round two widening multiplies and two three-input
@@ -213,12 +215,12 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-def sass_counts(build, target) -> dict:
+def sass_counts(build, name) -> dict:
     """Static SASS instructions per kernel of the built library (NOPs
     left out), from cuobjdump -sass beside nvcc."""
     tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass",
-                           str(build.library_path(target))],
+                           str(build.library_path(name))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
     out, cur = {}, None
@@ -234,7 +236,7 @@ def sass_counts(build, target) -> dict:
     return out
 
 
-def phase_env(torch, build, cuda_round, strict=True):
+def phase_env(torch, build, cuda_round):
     t0 = time.perf_counter()
     reports = build.build([cuda_round.SOURCE])
     build_s = time.perf_counter() - t0
@@ -245,7 +247,7 @@ def phase_env(torch, build, cuda_round, strict=True):
                    **layout.get(k, {}),
                    "grid_blocks": cuda_round.GRID_BLOCKS}
                for k in sorted(set(regs) | set(sass))}
-    if len(kernels) != 6 or any((strict and v.get("spill_bytes") != 0) or
+    if len(kernels) != 6 or any(v.get("spill_bytes") != 0 or
                                 not v.get("registers") or
                                 not v["sass_instructions"]
                                 for v in kernels.values()):
@@ -373,8 +375,9 @@ def check_inputs(torch, m, dev):
             {k: v[1] for k, v in frames.items()})
 
 
-def run_checks(torch, m, inputs) -> dict:
+def phase_check(torch, m, dev):
     """Every kernel variant against its plain version (``compare``)."""
+    inputs, compile_s = check_inputs(torch, m, dev)
     b = m.bench
     arrays, scal, seeds, frames = inputs
     p_stable, p_full = b.headline_params(N), b.diag_params(N)
@@ -401,12 +404,6 @@ def run_checks(torch, m, inputs) -> dict:
             ("mega_kernel/full", p_full, True, None)):
         results[name] = compare(torch, m, name, arrays, scal, seeds, p,
                                 mega, fx)
-    return results
-
-
-def phase_check(torch, m, dev):
-    inputs, compile_s = check_inputs(torch, m, dev)
-    results = run_checks(torch, m, inputs)
     emit({"phase": "check", "n": N, "ok": True,
           "compile_plan_s": compile_s, "kernels": list(results.values())})
     return results, inputs
@@ -510,7 +507,11 @@ def kernel_bound(p, arrays, rounds=1, fx=None, out=None) -> dict:
     """The least time one launch of ``rounds`` periods on ``arrays``
     could take: the larger of its bytes (each input read once, each
     output written once: state, fault frame, scalars, seeds, partials)
-    over the HBM rate and its 32-bit operations over ``OPS32_PER_S``.
+    over the HBM rate and its modelled operations, integer ones over
+    ``INT32_OPS_PER_S`` and f32 ones over ``F32_OPS_PER_S``: a lower
+    bound, since the model counts the random draws and the f32 body
+    terms named below, not the loads' unpacking, the branches and the
+    state updates.
 
     Philox calls counted, as this input needs them: call 0 of every
     node and round (it serves churn, slow, ack and Poisson), and on a
@@ -566,7 +567,7 @@ def kernel_bound(p, arrays, rounds=1, fx=None, out=None) -> dict:
         f32_ops = rows * per_node
     int_ops = rounds * (calls * PHILOX_INT_OPS + draws * DRAW_INT_OPS)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = (int_ops + f32_ops) / OPS32_PER_S * 1e3
+    ops_ms = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
     return {"bytes": nbytes, "state_bytes": state_bytes,
             "frame_bytes": rows * frame_bytes,
             "philox_calls": rounds * calls, "draws": rounds * draws,
@@ -633,20 +634,37 @@ def _graph_ms(torch, fn, reps, per_graph=20):
     return _events_ms(torch, graph.replay, replays, warm=1) / per_graph
 
 
-def time_kernels(torch, m, inputs, plain_too=True) -> dict:
-    """Each variant's time per launch, with its bound and, with
-    ``plain_too``, its plain version's time. ``ms`` is device time
-    (``_graph_ms``); ``enqueue_ms`` times back-to-back wrapper calls
-    with CUDA events, which the host bounds once a kernel takes less
-    time than its wrapper's call."""
-    cr = m.cuda_round
+def launch_times(torch, kern, reps) -> dict:
+    """Three times per launch of the wrapper call ``kern``: ``ms``, the
+    device's (``_graph_ms``); ``enqueue_ms``, CUDA events around
+    ``reps`` back-to-back calls (the older measure: the device's time, or
+    the host's once a call takes the host longer than the kernel takes
+    the device); ``host_ms``, the host's own time per call in that loop
+    (the wrapper's checks, ctypes, the launch)."""
+    for _ in range(10):
+        kern()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kern()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": _graph_ms(torch, kern, reps),
+            "enqueue_ms": start.elapsed_time(end) / reps,
+            "host_ms": host_ms}
+
+
+def timing_cases(m, inputs) -> list:
+    """(name, params, mega, frame) of each variant ``time_kernels``
+    times: the six of the paths and the gated full variant."""
     b = m.bench
-    arrays, scal, seeds, frames = inputs
-    rows = arrays[0].shape[0]
+    frames = inputs[3]
     p_full, p_chaos = b.diag_params(N), m.scenarios.chaos_params(N)
-    out = {}
-    for name, p, mega, fx in (
-            ("round_kernel/stable", b.headline_params(N), False, None),
+    return [("round_kernel/stable", b.headline_params(N), False, None),
             ("round_kernel/full", p_full, False, None),
             ("round_kernel/full corroboration_k=1",
              p_full.with_(corroboration_k=1), False, None),
@@ -654,35 +672,50 @@ def time_kernels(torch, m, inputs, plain_too=True) -> dict:
             ("mega_kernel/full", p_full, True, None),
             ("round_kernel/fault", p_chaos, False, frames["fault"]),
             ("round_kernel/byz", p_chaos.with_(corroboration_k=2), False,
-             frames["byz"])):
-        work = tuple(a.clone() for a in arrays)
-        buf = torch.empty((cr.partials_rows(rows), cr.N_LANES),
-                          dtype=torch.float32, device=arrays[0].device)
+             frames["byz"])]
+
+
+def kernel_call(m, inputs, p, mega, fx):
+    """The wrapper call of one timed launch, on copies of the state that
+    it updates, writing its partials into one buffer; and the rounds it
+    runs and the launches to time."""
+    cr = m.cuda_round
+    arrays, scal, seeds, _ = inputs
+    work = tuple(a.clone() for a in arrays)
+    if mega:
+        buf = cr.mega_kernel(work, scal, seeds, p)
+
+        def kern():
+            cr.mega_kernel(work, scal, seeds, p, out=buf)
+        return kern, MEGA_R, 50
+    buf = cr.round_kernel(work, scal, seeds, 0, p, fx=fx)
+
+    def kern():
+        cr.round_kernel(work, scal, seeds, 0, p, out=buf, fx=fx)
+    return kern, 1, 200
+
+
+def time_kernels(torch, m, inputs) -> dict:
+    """Each variant's ``launch_times``, its bound and its plain
+    version's time."""
+    cr = m.cuda_round
+    arrays, scal, seeds, _ = inputs
+    out = {}
+    for name, p, mega, fx in timing_cases(m, inputs):
+        kern, rounds, reps = kernel_call(m, inputs, p, mega, fx)
         ref_out = None
         if fx is not None:
             ref_out, _ = cr.block_round_ref(arrays, scal, seeds[0], p,
                                             fx=fx)
         if mega:
-            def kern():
-                cr.mega_kernel(work, scal, seeds, p, out=buf)
-
             def plain():
                 cr.mega_round_ref(arrays, scal, seeds, p)
-            reps, rounds = 50, MEGA_R
         else:
-            def kern():
-                cr.round_kernel(work, scal, seeds, 0, p, out=buf, fx=fx)
-
             def plain():
                 cr.block_round_ref(arrays, scal, seeds[0], p, fx=fx)
-            reps, rounds = 200, 1
-        bound = kernel_bound(p, arrays, rounds, fx=fx, out=ref_out)
-        enqueue_ms = _events_ms(torch, kern, reps, warm=10)
-        ms = _graph_ms(torch, kern, reps)
-        plain_ms = _events_ms(torch, plain, 3, warm=1) if plain_too \
-            else None
-        out[name] = {"ms": ms, "enqueue_ms": enqueue_ms,
-                     "plain_ms": plain_ms, **bound,
+        out[name] = {**launch_times(torch, kern, reps),
+                     "plain_ms": _events_ms(torch, plain, 3, warm=1),
+                     **kernel_bound(p, arrays, rounds, fx=fx, out=ref_out),
                      "rounds_per_launch": rounds}
     return out
 
@@ -693,47 +726,8 @@ def phase_timing(torch, m, inputs):
     return out
 
 
-#: launch shapes ``--shapes`` compares: (nodes per thread, resident
-#: blocks per SM). The tile (512 nodes) and the grid stay, so every shape
-#: writes the same partials table; 4 blocks per SM keep all 528 blocks
-#: resident, 2 run them in two waves.
-SHAPES = ((4, 4), (2, 4), (2, 2), (1, 2))
-
-
-def phase_shapes(torch, m, build, inputs):
-    """Every kernel variant built at each of ``SHAPES``: registers and
-    spills, static SASS, the checks and the time per launch. A shape
-    whose checks fail is reported, not raised."""
-    cr = m.cuda_round
-    targets = [cr.shape_target(*sh) for sh in SHAPES]
-    reports = build.build(targets)
-    out = {}
-    for sh, tgt in zip(SHAPES, targets):
-        row = {"ptxas": ptxas_report(reports[tgt]),
-               "sass": sass_counts(build, tgt)}
-        with cr.kernels_of(cr.shape_lib(*sh)):
-            try:
-                run_checks(torch, m, inputs)
-                row["checks"] = "ok"
-            except SmokeFailure as e:
-                row["checks"] = str(e)
-            row["us"] = {k: v["ms"] * 1e3 for k, v in
-                         time_kernels(torch, m, inputs, False).items()}
-        out[f"npt={sh[0]} minb={sh[1]}"] = row
-    emit({"phase": "shapes", "n": N, "shapes": out})
-    return out
-
-
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--shapes", action="store_true",
-                    help="after env and check, sweep the kernels' launch "
-                         "shapes (SHAPES) instead of the other phases")
-    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run",
@@ -754,12 +748,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # the sweep reports spills per shape rather than stopping at them
-    phase_env(torch, build, cuda_round, strict=not args.shapes)
+    phase_env(torch, build, cuda_round)
     checks, inputs = phase_check(torch, m, dev)
-    if args.shapes:
-        phase_shapes(torch, m, build, inputs)
-        return 0
     headline, launches = phase_headline(torch, m, dev)
     chaos, chaos_launches = phase_chaos(torch, m, dev)
     launches.update(chaos_launches)

@@ -291,12 +291,10 @@ def profile_runners(device=None) -> dict:
         state = run(init_state(HEADLINE_N, device=dev),
                     prng.fold_in(key, 1))   # warm-up
         _sync(dev)
-        k2 = prng.fold_in(key, 2)
-        _sync(dev)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state = run(state, k2)
+            state = run(state, prng.fold_in(key, 2))
             _sync(dev)
             wall = time.perf_counter() - t0
         spans = sorted((e.time_range.start, e.time_range.end,
@@ -318,7 +316,8 @@ HOST_WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 
 def host_waits(prof) -> dict:
     """How many times a traced window called each of
-    ``HOST_WAIT_CALLS`` (the window's closing device sync included)."""
+    ``HOST_WAIT_CALLS``; the window's closing device sync and the copy
+    of the run key's ``fold_in`` data are among them, once each."""
     return {e.key: e.count for e in prof.key_averages()
             if e.key in HOST_WAIT_CALLS}
 

@@ -91,21 +91,13 @@ constexpr int GRID_BLOCKS = 528;       // most blocks: 4 per SM of 132
 // Per kernel: consecutive nodes per thread (a block has TILE / NPT
 // threads) and the resident blocks per SM asked of ptxas (which caps
 // registers at 65,536 / (MINB * TILE / NPT)). Each is the fastest shape
-// of chip_smoke.py --shapes that ptxas fits without a spill (PERF.md):
-// byz and mega need the registers of two nodes per thread at 2 blocks
-// per SM (their 528 blocks then run in two waves). SHAPE_NPT and
-// SHAPE_MINB give every kernel one shape instead, for that sweep.
-#if defined(SHAPE_NPT) && defined(SHAPE_MINB)
-constexpr int HONEST_NPT = SHAPE_NPT, HONEST_MINB = SHAPE_MINB;
-constexpr int FAULT_NPT = SHAPE_NPT, FAULT_MINB = SHAPE_MINB;
-constexpr int BYZ_NPT = SHAPE_NPT, BYZ_MINB = SHAPE_MINB;
-constexpr int MEGA_NPT = SHAPE_NPT, MEGA_MINB = SHAPE_MINB;
-#else
+// measured on the H100 that ptxas fits without a spill (PERF.md, launch
+// shapes): byz and mega need the registers of two nodes per thread at 2
+// blocks per SM (their 528 blocks then run in two waves).
 constexpr int HONEST_NPT = 4, HONEST_MINB = 4;
 constexpr int FAULT_NPT = 4, FAULT_MINB = 4;
 constexpr int BYZ_NPT = 2, BYZ_MINB = 2;
 constexpr int MEGA_NPT = 2, MEGA_MINB = 2;
-#endif
 constexpr int LH_TAB = 32;             // awareness levels a table holds
 
 }  // namespace

@@ -45,7 +45,6 @@ frame forces the full behaviour (churn drawn, down_age written).
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import functools
 from typing import Optional, Sequence
@@ -174,46 +173,15 @@ VARIANTS = ("round_kernel/stable", "round_kernel/full", "round_kernel/fault",
 def kernel_layout() -> dict:
     """Nodes per thread and threads per block of each variant's kernel
     (builds the library)."""
-    npt = _kernels().nodes_per_thread
+    npt = _lib().nodes_per_thread
     return {v: {"nodes_per_thread": npt[i], "threads_per_block":
                 TILE // npt[i]}
             for v, i in zip(VARIANTS, (0, 0, 1, 2, 3, 3))}
 
 
-def shape_target(npt: int, minb: int) -> tuple:
-    """The build of the kernels with every kernel at ``npt`` nodes per
-    thread and ``minb`` resident blocks per SM (``build.build`` target)."""
-    return (SOURCE, (f"SHAPE_NPT={npt}", f"SHAPE_MINB={minb}"))
-
-
-@functools.lru_cache(maxsize=None)
-def shape_lib(npt: int, minb: int) -> ctypes.CDLL:
-    return _bind(build.load(shape_target(npt, minb)))
-
-
-_ACTIVE: list = []
-
-
-@contextlib.contextmanager
-def kernels_of(lib: ctypes.CDLL):
-    """Launch from ``lib`` (a ``shape_lib``) inside the block."""
-    _ACTIVE.append(lib)
-    try:
-        yield lib
-    finally:
-        _ACTIVE.pop()
-
-
-def _kernels() -> ctypes.CDLL:
-    return _ACTIVE[-1] if _ACTIVE else _lib()
-
-
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    return _bind(build.load(SOURCE))
-
-
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    lib = build.load(SOURCE)
     tile, blocks = ctypes.c_int(), ctypes.c_int()
     npt = (ctypes.c_int * 4)()
     lib.round_kernels_layout(ctypes.byref(tile), ctypes.byref(blocks), npt)
@@ -446,7 +414,7 @@ def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
             a.copy_(o)
         partials.copy_(sums)
         return partials
-    lib = _kernels()
+    lib = _lib()
     ptrs = [a.data_ptr() for a in arrays]
     tail = (scalars.data_ptr(), seeds.data_ptr() + 4 * r,
             partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
@@ -477,7 +445,7 @@ def mega_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
             a.copy_(o)
         partials.copy_(sums)
         return partials
-    lib = _kernels()
+    lib = _lib()
     rc = lib.launch_mega_kernel(
         kernel_params(p, rows), *[a.data_ptr() for a in arrays],
         scalars.data_ptr(), seeds.data_ptr(), int(seeds.shape[0]),

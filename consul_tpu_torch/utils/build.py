@@ -16,7 +16,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Iterable, Tuple, Union
+from typing import Iterable
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
@@ -52,38 +52,25 @@ def nvcc_path() -> str:
     return found
 
 
-#: a build: a source name, or (name, defines) with ``-D`` macros as a
-#: tuple of "NAME=value" strings
-Target = Union[str, Tuple[str, Tuple[str, ...]]]
-
-
-def _split(target: Target) -> Tuple[str, Tuple[str, ...]]:
-    return (target, ()) if isinstance(target, str) else target
-
-
-def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(target: Target) -> pathlib.Path:
-    name, defines = _split(target)
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(_flags(defines)).encode())
+def library_path(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def report_path(target: Target) -> pathlib.Path:
+def report_path(name: str) -> pathlib.Path:
     """nvcc's output for the current library, kept beside it."""
-    return library_path(target).with_suffix(".nvcc.txt")
+    return library_path(name).with_suffix(".nvcc.txt")
 
 
-def build(targets: Iterable[Target]) -> dict:
-    """Compile every target that has no current library, all in
-    parallel. Returns {target: nvcc's output} for every target (the
-    -Xptxas -v register and spill report; for a library built earlier,
-    the output kept beside it); raises ``KernelBuildError`` with the
+def build(names: Iterable[str]) -> dict:
+    """Compile every named source that has no current library, all in
+    parallel. Returns {name: nvcc's output} for every name (the -Xptxas
+    -v register and spill report; for a library built earlier, the
+    output kept beside it); raises ``KernelBuildError`` with the
     compiler's output on any failure."""
-    names = list(targets)
+    names = list(names)
     todo = [n for n in names if not library_path(n).exists()]
     reports = {n: report_path(n).read_text() for n in names
                if n not in todo and report_path(n).exists()}
@@ -95,9 +82,7 @@ def build(targets: Iterable[Target]) -> dict:
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        src, defines = _split(name)
-        cmd = [nvcc, *_flags(defines), "-o", str(tmp),
-               str(CSRC / f"{src}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, out)
@@ -115,8 +100,7 @@ def build(targets: Iterable[Target]) -> dict:
     return reports
 
 
-def load(target: Target) -> ctypes.CDLL:
-    """The compiled library of ``csrc/<name>.cu`` (with its defines),
-    built if needed."""
-    build([target])
-    return ctypes.CDLL(str(library_path(target)))
+def load(name: str) -> ctypes.CDLL:
+    """The compiled library of ``csrc/<name>.cu``, built if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

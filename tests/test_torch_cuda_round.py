@@ -350,9 +350,10 @@ def test_kernel_cost_counts_the_bytes_of_one_call():
     assert c["state_bytes"] == 31_457_280
     assert c["int32_ops"] == 8 * (n * 40 + (2 * n + 3 * n // 4) * 2)
     assert c["f32_ops"] == 8 * n * chip_smoke.TABLE_BODY_F32_OPS
-    # the tables took the per-node no-ack and Poisson math away: even 8
-    # rounds of arithmetic now take less time than the call's bytes
-    assert c["bound_by"] == "bytes"
+    # 8 rounds of draws on the INT32 lanes outlast the call's bytes
+    assert c["ops_ms"] == pytest.approx(
+        c["int32_ops"] / chip_smoke.INT32_OPS_PER_S * 1e3)
+    assert c["bound_by"] == "operations"
     with pytest.raises(ValueError, match="churn"):
         chip_smoke.kernel_bound(CHURN, arrays)
 
