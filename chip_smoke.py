@@ -43,7 +43,23 @@ non-zero before the result line):
               on its own: every round of an honest class is a fault
               launch, of a byzantine class a byz launch. Each class's
               detection signature is asserted (see ``CHAOS_SIGNATURES``).
-5. timing   — each kernel's time per launch (device time: CUDA events
+5. observe  — the recorders through the kernel runner, each run counted
+              on its own: at 1,048,576 nodes on the full-model config,
+              200 per-round rounds with the flight recorder at stride 10
+              and the black box (64 agents, ring 256), then 240 R=8
+              rounds at stride 40 (column sums equal the stats delta
+              exactly, the last row's gauges are ``flight_row`` of the
+              final state; exactly 200 full round launches and 30 full
+              megakernel launches); every node of 65,536 tracked at
+              stride 1 through ``run_chaos`` on the flapping and eclipse
+              classes (1% loss: the ring totals must equal the flight
+              counters); and 120 rounds at 1,048,576 nodes with Vivaldi
+              coordinates (stride 10; the last median RTT error under
+              the reference's 0.3 and below the first), with the device
+              µs of a coordinate round's parts: draws, ``vivaldi_step``,
+              ``coord_metrics``; and the host µs and launches of one
+              flight row and one black-box record.
+6. timing   — each kernel's time per launch (device time: CUDA events
               around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do; the
@@ -601,6 +617,245 @@ def phase_chaos(torch, m, dev):
     return res, launches
 
 
+OBSERVE_ROUNDS, OBSERVE_STRIDE = 200, 10
+OBSERVE_MEGA_ROUNDS, OBSERVE_MEGA_STRIDE = 240, 40
+TRACK_N = 65_536
+TRACK_CLASSES = ("flapping", "eclipse")
+#: the reference's bound on the kernel runner's last median relative RTT
+#: error (tests/test_coords.py:301, after 60 rounds there). On jax 0.9's
+#: threefry stream the reference's own live engine sits on a plateau
+#: near 0.33-0.36 until round ~60 at 65,536 nodes (the port's engine
+#: reproduces it bit for bit) and leaves it between rounds 60 and 90, so
+#: the run here is 120 rounds long
+COORD_ROUNDS, COORD_STRIDE = 120, 10
+COORD_MED_BOUND = 0.3
+
+
+def recorder_failures(m, s0, out, trace, label) -> list:
+    """What a recorded run breaks: column sums against the run's stats
+    delta (counters exact, the latency lane within 1e-5 relative, the
+    sum of f32 window deltas), and the last row's gauges against
+    ``flight_row`` of the final state."""
+    fl, st = m.flight, m.state
+    bad = []
+    cols = fl.trace_columns(trace)
+    for f in st.STATS_FIELDS:
+        total = float(getattr(out.stats, f)) - float(getattr(s0.stats, f))
+        got = float(cols[f].astype("float64").sum())
+        ok = abs(got - total) <= 1e-5 * abs(total) \
+            if f == "detect_latency_sum" else got == total
+        if not ok:
+            bad.append(f"{label}: column {f} sums to {got}, stats moved "
+                       f"{total}")
+    last = fl.flight_row(up=out.up, status=out.status,
+                         informed=out.informed,
+                         local_health=out.local_health,
+                         incarnation=out.incarnation, t=out.t,
+                         stats_delta=out.stats, phase=-1)
+    g = len(fl.GAUGE_COLUMNS)
+    if not bool((trace[-1, :g] == last[:g]).all()):
+        bad.append(f"{label}: last row {trace[-1, :g].tolist()} is not the "
+                   f"final state's {last[:g].tolist()}")
+    return bad
+
+
+def observe_recorders(torch, m, dev, n=N, rounds=OBSERVE_ROUNDS,
+                      stride=OBSERVE_STRIDE, mega_rounds=OBSERVE_MEGA_ROUNDS,
+                      mega_stride=OBSERVE_MEGA_STRIDE):
+    """The per-round and R=8 full-model runners with the flight recorder
+    and the black box; returns (report, failures, launches per run)."""
+    cr, p = m.cuda_round, m.bench.diag_params(n)
+    tracked = m.blackbox.default_tracked(n, p.blackbox_k, dev)
+    out, bad, launches = {}, [], {}
+    for label, rpc, r, k in (("per_round", 1, rounds, stride),
+                             ("mega", MEGA_R, mega_rounds, mega_stride)):
+        s0 = m.state.init_state(n, device=dev)
+        run = cr.make_run_rounds_cuda(p, r, rounds_per_call=rpc,
+                                      flight_every=k, blackbox=True)
+        cr.reset_launches()
+        fin, trace, bb = run(m.bench.clone_state(s0),
+                             m.prng.key(21, device=dev), tracked=tracked)
+        launches[label] = dict(cr.LAUNCHES)
+        bad += recorder_failures(m, s0, fin, trace, label)
+        rep = m.metrics.blackbox_report(bb, p)
+        out[label] = {"rounds": r, "rounds_per_call": rpc,
+                      "record_every": k, "rows": int(trace.shape[0]),
+                      "suspicions": float(trace[:, m.flight.COL[
+                          "suspicions"]].sum()),
+                      "blackbox": {x: rep[x] for x in
+                                   ("tracked", "ring_len", "events",
+                                    "dropped_events")}}
+    return out, bad, launches
+
+
+def observe_tracking(m, dev, n=TRACK_N, classes=TRACK_CLASSES):
+    """Every node tracked at stride 1 through ``run_chaos``, at 1% loss
+    (in a loss-free cluster the stale scalars' zero Lifeguard scale
+    declares some crashed nodes in the round they are first suspected,
+    which a state diff cannot see); returns (report, failures,
+    launches)."""
+    cr, sc = m.cuda_round, m.scenarios
+    p = sc.chaos_params(n).with_(loss=0.01, blackbox_k=n)
+    out, bad, launches = {}, [], {}
+    for name in classes:
+        cr.reset_launches()
+        rep = sc.run_chaos(name, n=n, device=dev, p=p, blackbox=True)
+        launches[name] = dict(cr.LAUNCHES)
+        bb = rep["blackbox"]
+        out[name] = {"rounds": rep["rounds"], "tracked": bb["tracked"],
+                     "dropped_events": bb["dropped_events"],
+                     "events": bb["events"],
+                     "crosscheck_agree": bb.get("crosscheck_agree")}
+        if bb.get("crosscheck_agree") is not True:
+            bad.append(f"{name}: ring totals disagree with the flight "
+                       f"counters: {bb.get('crosscheck')}")
+    return out, bad, launches
+
+
+def observe_coords(torch, m, dev, n=N, rounds=COORD_ROUNDS,
+                   stride=COORD_STRIDE):
+    """The kernel runner with Vivaldi coordinates on the reference
+    test's config (LAN, 1% loss, TCP fallback off); returns (report,
+    failures, launches, the run's final coordinates and topology)."""
+    cr, fl = m.cuda_round, m.flight
+    p = m.params.SimParams.from_gossip_config(
+        m.config.GossipConfig.lan(), n=n, loss=0.01, tcp_fallback=False)
+    topo = m.topology.make_topology(m.topology.TopologyParams(n=n), dev)
+    run = cr.make_run_rounds_cuda(p, rounds, coords=True,
+                                  flight_every=stride)
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    _, coo, trace = run(m.state.init_state(n, device=dev),
+                        m.prng.key(0, device=dev),
+                        coo=m.coords.init_coords(n, device=dev), topo=topo)
+    med = trace[:, fl.COL["rtt_err_med"]].tolist()
+    wall = time.perf_counter() - t0
+    launches = dict(cr.LAUNCHES)
+    bad = []
+    if not (med[-1] < COORD_MED_BOUND and med[-1] < med[0]):
+        bad.append(f"coords: median RTT error {med} does not fall under "
+                   f"{COORD_MED_BOUND}")
+    return ({"n": n, "rounds": rounds, "record_every": stride,
+             "rtt_err_med": med,
+             "rtt_err_p99": trace[:, fl.COL["rtt_err_p99"]].tolist(),
+             "wall_us_per_round": wall / rounds * 1e6},
+            bad, launches, coo, topo)
+
+
+def coord_round_split(torch, m, coo, topo, n=N) -> dict:
+    """Device µs of one coordinate round's parts at ``n`` nodes, each
+    part timed alone by ``_graph_ms`` (CUDA-graph replay): the draws
+    (probe pairs, their jittered RTTs, the population ack gate),
+    ``vivaldi_step`` (its [N, 8] direction draw included),
+    ``coord_metrics`` (one sort, two percentiles) and the whole
+    ``coord_round``."""
+    cr, co, topo_m, prng = m.cuda_round, m.coords, m.topology, m.prng
+    dev = coo.vec.device
+    key = prng.fold_in(prng.key(5, device=dev), prng.COORD_FOLD)
+    up = torch.ones(n, dtype=torch.bool, device=dev)
+    sc = torch.tensor([float(n), float(n), float(n), 0.0, 0.01 * n,
+                       0.01 * n, 0.0, 1e-9], device=dev)
+    k_pair, k_jit, k_dir, k_ack = prng.split(key, 4)
+    i_all = torch.arange(n, device=dev)
+    pair_j = topo_m.sample_pairs(n, k_pair)
+    rtt = topo_m.sample_rtt(topo, i_all, pair_j, k_jit)
+    upd = up & (prng.uniform(k_ack, n) < cr.coord_ack_rate(sc))
+    aux = co.CoordRoundAux(pair_j=pair_j,
+                           drift=torch.zeros((), device=dev))
+
+    def draws():
+        j = topo_m.sample_pairs(n, k_pair)
+        topo_m.sample_rtt(topo, i_all, j, k_jit)
+        up & (prng.uniform(k_ack, n) < cr.coord_ack_rate(sc))
+
+    parts = {"draws": draws,
+             "vivaldi_step": lambda: co.vivaldi_step(coo, None, pair_j, rtt,
+                                                     k_dir, upd),
+             "coord_metrics": lambda: co.coord_metrics(coo, topo, aux),
+             "coord_round": lambda: cr.coord_round(coo, topo, key, up, sc)}
+    return {name: _graph_ms(torch, fn, 40, per_graph=5) * 1e3
+            for name, fn in parts.items()}
+
+
+def recorder_host_costs(torch, m, dev, n=N, calls=200) -> dict:
+    """Host µs per call of a flight row and of a black-box record (K=64
+    agents) at ``n`` nodes, over ``calls`` calls after a warm-up, and
+    the kernel launches per call (``cudaLaunchKernel`` in a
+    ``torch.profiler`` trace of 20 calls): what a recorded round costs
+    the per-round runner's host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    s = m.state.init_state(n, device=dev)
+    p = m.bench.diag_params(n)
+    bb = m.blackbox.init_blackbox(
+        s, m.blackbox.default_tracked(n, p.blackbox_k, dev), p.blackbox_ring)
+    delta = torch.zeros(len(m.state.STATS_FIELDS), device=dev)
+    fns = {"flight_row": lambda i: m.flight.flight_row(
+               up=s.up, status=s.status, informed=s.informed,
+               local_health=s.local_health, incarnation=s.incarnation,
+               t=s.t, stats_delta=delta, phase=-1),
+           "record": lambda i: m.blackbox.record(
+               bb, round_idx=i, phase=-1, status=s.status,
+               incarnation=s.incarnation, susp_conf=s.susp_conf, up=s.up)}
+    out = {}
+    for name, fn in fns.items():
+        for i in range(20):
+            fn(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        host = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(20):
+                fn(i)
+            torch.cuda.synchronize()
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.key == "cudaLaunchKernel")
+        out[name] = {"host_us_per_call": host,
+                     "launches_per_call": launches / 20}
+    return out
+
+
+def phase_observe(torch, m, dev):
+    """The recorders and the coordinates through the kernel runner, each
+    run's launches counted on its own and checked."""
+    bad = []
+    rec, rbad, rl = observe_recorders(torch, m, dev)
+    bad += rbad
+    want = {"per_round": {"round_kernel/full": OBSERVE_ROUNDS},
+            "mega": {"mega_kernel/full": OBSERVE_MEGA_ROUNDS // MEGA_R}}
+    for k, v in want.items():
+        if rl[k] != v:
+            bad.append(f"{k}: launched {rl[k]}, expected {v}")
+    track, tbad, tl = observe_tracking(m, dev)
+    bad += tbad
+    for name, got in tl.items():
+        kind = "byz" if name in m.scenarios.BYZANTINE_CHAOS else "fault"
+        want_t = {f"round_kernel/{kind}": track[name]["rounds"]}
+        if got != want_t:
+            bad.append(f"tracking {name}: launched {got}, expected {want_t}")
+    coords, cbad, cl, coo, topo = observe_coords(torch, m, dev)
+    bad += cbad
+    if cl != {"round_kernel/full": COORD_ROUNDS}:
+        bad.append(f"coords: launched {cl}, expected {COORD_ROUNDS} full "
+                   "rounds")
+    if bad:
+        raise SmokeFailure("observe: " + "; ".join(bad))
+    coords["device_us"] = coord_round_split(torch, m, coo, topo)
+    host = recorder_host_costs(torch, m, dev)
+    launches: dict = {}
+    for part in (rl, tl, {"coords": cl}):
+        for counts in part.values():
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    emit({"phase": "observe", "recorders": rec, "host_us": host,
+          "tracking": track, "coords": coords, "launches": launches})
+    return launches
+
+
 def _events_ms(torch, fn, reps, warm=2):
     for _ in range(warm):
         fn()
@@ -726,6 +981,22 @@ def phase_timing(torch, m, inputs):
     return out
 
 
+def modules():
+    """The port's modules the phases use, as one namespace."""
+    import types
+
+    from consul_tpu_torch import bench, config, faults
+    from consul_tpu_torch.sim import (blackbox, coords, cuda_round, flight,
+                                      metrics, params, prng, round,
+                                      scenarios, state, topology)
+
+    return types.SimpleNamespace(
+        bench=bench, blackbox=blackbox, config=config, coords=coords,
+        cuda_round=cuda_round, faults=faults, flight=flight,
+        metrics=metrics, params=params, prng=prng, round=round,
+        scenarios=scenarios, state=state, topology=topology)
+
+
 def main() -> int:
     import torch
 
@@ -733,26 +1004,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device available; nothing was run",
               file=sys.stderr)
         return 2
-    import types
-
-    from consul_tpu_torch import bench, faults
-    from consul_tpu_torch.sim import (cuda_round, params, prng, round,
-                                      scenarios, state)
-    from consul_tpu_torch.utils import build
-
-    m = types.SimpleNamespace(bench=bench, cuda_round=cuda_round,
-                              faults=faults, params=params, prng=prng,
-                              round=round, scenarios=scenarios,
-                              state=state)
+    m = modules()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_env(torch, build, cuda_round)
+    from consul_tpu_torch.utils import build
+
+    phase_env(torch, build, m.cuda_round)
     checks, inputs = phase_check(torch, m, dev)
     headline, launches = phase_headline(torch, m, dev)
     chaos, chaos_launches = phase_chaos(torch, m, dev)
-    launches.update(chaos_launches)
+    for part in (chaos_launches, phase_observe(torch, m, dev)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
     timing = phase_timing(torch, m, inputs)
 
     source = "consul_tpu_torch/csrc/round_kernels.cu"

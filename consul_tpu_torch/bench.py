@@ -4,6 +4,7 @@
     python -m consul_tpu_torch.bench --profile  # + where the time goes
     python -m consul_tpu_torch.bench --smoke    # 65,536 nodes, CPU plain path
     python -m consul_tpu_torch.bench --chaos [--profile | --smoke]
+    python -m consul_tpu_torch.bench --coords [--smoke]
 
 The timed configuration is the JAX bench's (bench.py's
 ``gossip_rounds_per_sec_1M_nodes``): ``GossipConfig.lan()`` at 1% loss,
@@ -13,7 +14,12 @@ R=8 megakernel runner (``mega_kernel``, 512-round calls), best of three
 trials, each ending in ``torch.cuda.synchronize()`` and a fetched
 checksum. The full-model diagnostic (stats + slow-node model, the FULL
 variant) runs through both runners too, and its ``fd_report`` gives
-false positives, suspicions and refutes per node-round.
+false positives, suspicions and refutes per node-round. The full-model
+per-round runner is then timed in turns bare, with the flight recorder
+at ``flight.DEFAULT_RECORD_EVERY`` (``flight``) and with the black box
+on top (``blackbox``: ``default_tracked(n, p.blackbox_k)`` agents, ring
+``p.blackbox_ring``): rounds per second of each and its
+``overhead_frac`` against the bare runner over matched windows.
 
 ``--chaos`` runs the nine chaos classes of ``sim/scenarios.py`` (five
 honest FaultPlans, four byzantine) at 1,048,576 nodes through the fault
@@ -24,6 +30,11 @@ also traces the fault phase of three plan runs (a flapping plan, the
 same at ``fault_gain`` 0.5, a byzantine plan) and the frame building
 alone: the device time per round of the kernel, the fold and the
 frame.
+
+``--coords`` runs ``scenarios.run_coords`` (cold-start Vivaldi
+convergence through a partition and heal, RTT-aware probe deadlines, on
+the live engine) at 65,536 nodes on the card (``--smoke``: 4,096 on the
+CPU).
 
 Prints one JSON object on stdout. Without a card (and without
 ``--smoke``) it raises rather than running on the CPU.
@@ -42,11 +53,14 @@ from consul_tpu_torch.config import GossipConfig
 from consul_tpu_torch.faults import (compile_plan, fault_frame,
                                      plan_schedule, scale_plan)
 from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim.blackbox import default_tracked
 from consul_tpu_torch.sim.cuda_round import (LAUNCHES, make_run_rounds_cuda,
                                              reset_launches)
+from consul_tpu_torch.sim.flight import DEFAULT_RECORD_EVERY
 from consul_tpu_torch.sim.metrics import fd_report
 from consul_tpu_torch.sim.scenarios import (CHAOS_WARMUP_ROUNDS, chaos_params,
-                                            chaos_plans, run_chaos)
+                                            chaos_plans, run_chaos,
+                                            run_coords)
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import SimState, init_state
 from consul_tpu_torch.utils.platform import default_device, device_name
@@ -54,6 +68,8 @@ from consul_tpu_torch.utils.platform import default_device, device_name
 HEADLINE_N = 1_048_576
 SMOKE_N = 65_536
 CHAOS_SMOKE_N = 4_096
+COORDS_N = 65_536
+COORDS_SMOKE_N = 4_096
 MEGA_RPC = 8
 
 
@@ -94,6 +110,33 @@ def _best_of(run, state, key, base, iters, trials, dev):
         best = min(best, time.perf_counter() - t0)
         if not checksum > 0:
             raise RuntimeError(f"checksum {checksum} after a timed trial")
+    return best, state
+
+
+def recorder_runners(p: SimParams, rounds: int, n: int, dev):
+    """The full-model per-round runner bare, with the flight recorder at
+    the default stride, and with the black box on top, each as
+    ``run(state, key) -> state``; and the tracked ids."""
+    bare = make_run_rounds_cuda(p, rounds)
+    fl = make_run_rounds_cuda(p, rounds, flight_every=DEFAULT_RECORD_EVERY)
+    bb = make_run_rounds_cuda(p, rounds, flight_every=DEFAULT_RECORD_EVERY,
+                              blackbox=True)
+    tracked = default_tracked(n, p.blackbox_k, dev)
+    return {"bare": bare,
+            "flight": lambda s, k: fl(s, k)[0],
+            "blackbox": lambda s, k: bb(s, k, tracked=tracked)[0]}, tracked
+
+
+def _best_in_turns(runners: dict, state, key, base, iters, trials, dev):
+    """Best wall time of each runner over ``trials`` turns of ``iters``
+    calls (bare, flight, blackbox, bare, ...), each ending in a sync
+    and a fetched checksum: matched windows in one process."""
+    best = {name: float("inf") for name in runners}
+    for trial in range(trials):
+        for j, (name, run) in enumerate(runners.items()):
+            dt, state = _best_of(run, state, key,
+                                 base + 100 * trial + 10 * j, iters, 1, dev)
+            best[name] = min(best[name], dt)
     return best, state
 
 
@@ -152,6 +195,27 @@ def run_headline(device=None, smoke: bool = False) -> dict:
                         "rounds_per_sec": rounds / mfdt,
                         "us_per_round": mfdt / rounds * 1e6}
 
+    # the flight recorder and the black box on the full-model per-round
+    # runner, in turns with the bare one
+    runners, tracked = recorder_runners(p_diag, diag_chunk, n, dev)
+    rstate = clone_state(dstate)
+    for j, run in enumerate(runners.values()):
+        rstate = run(rstate, prng.fold_in(key, 4000 + j))   # warm-up
+    _sync(dev)
+    best, _ = _best_in_turns(runners, rstate, key, 4100, diag_iters, 3, dev)
+    rounds = diag_chunk * diag_iters
+    out["full_per_round"]["rounds_per_sec_in_turns"] = \
+        rounds / best["bare"]
+    out["flight"] = {"record_every": DEFAULT_RECORD_EVERY,
+                     "rounds_per_sec": rounds / best["flight"],
+                     "overhead_frac": best["flight"] / best["bare"] - 1.0}
+    out["blackbox"] = {"tracked": int(tracked.shape[0]),
+                       "ring_len": p_diag.blackbox_ring,
+                       "record_every": DEFAULT_RECORD_EVERY,
+                       "rounds_per_sec": rounds / best["blackbox"],
+                       "overhead_frac": best["blackbox"] / best["bare"]
+                       - 1.0}
+
     # FD quality of the per-round full-model run: its stats began at
     # zero when the diagnostic started
     diag_rounds = int(dstate.round_idx) - int(state.round_idx)
@@ -196,6 +260,20 @@ def run_chaos_suite(device=None, smoke: bool = False) -> dict:
         out["classes"][name] = rep
         del cp
     return out
+
+
+def run_coords_bench(device=None, smoke: bool = False) -> dict:
+    """``run_coords`` at ``COORDS_N`` nodes on the card (``smoke``:
+    ``COORDS_SMOKE_N`` on the CPU), with its wall time."""
+    dev = torch.device("cpu") if smoke else default_device(device)
+    n = COORDS_SMOKE_N if smoke else COORDS_N
+    t0 = time.perf_counter()
+    report, coords = run_coords(n=n, device=dev)
+    _sync(dev)
+    run_s = time.perf_counter() - t0
+    return {"device": device_name(dev), "n": n, "smoke": smoke,
+            "run_s": run_s, "rounds_per_sec": report["rounds"] / run_s,
+            "scenarios": {"coords": report}}
 
 
 def profile_plans(device=None) -> dict:
@@ -269,9 +347,11 @@ def _short_kernel_name(name: str) -> str:
 
 
 def profile_runners(device=None) -> dict:
-    """Where a stable headline run's time goes, from ``torch.profiler``:
-    for one call of each runner at the headline's chunk size, the wall
-    time (inflated by the profiler's own host cost), the device time by
+    """Where a headline run's time goes, from ``torch.profiler``: for one
+    call of each runner — the stable per-round and R=8 runners at the
+    headline's chunk size, and the full-model per-round runner bare,
+    with the flight recorder and with the black box — the wall time
+    (inflated by the profiler's own host cost), the device time by
     kernel name, the device's busy share of the span from its first
     kernel's start to its last one's end (1 minus the idle share), and
     the runtime calls in the window that make the host wait."""
@@ -282,12 +362,15 @@ def profile_runners(device=None) -> dict:
     if dev.type != "cuda":
         raise ValueError("profile_runners traces the card; it has no CPU "
                          "mode")
-    p = headline_params(HEADLINE_N)
+    p, p_diag = headline_params(HEADLINE_N), diag_params(HEADLINE_N)
     key = prng.key(0, device=dev)
+    recorders, _ = recorder_runners(p_diag, 200, HEADLINE_N, dev)
+    cases = [("per_round", make_run_rounds_cuda(p, 500), 500),
+             ("mega", make_run_rounds_cuda(p, 512,
+                                           rounds_per_call=MEGA_RPC), 512)]
+    cases += [(f"full_{name}", run, 200) for name, run in recorders.items()]
     out = {}
-    for name, rpc, rounds in (("per_round", 1, 500),
-                              ("mega", MEGA_RPC, 512)):
-        run = make_run_rounds_cuda(p, rounds, rounds_per_call=rpc)
+    for name, run, rounds in cases:
         state = run(init_state(HEADLINE_N, device=dev),
                     prng.fold_in(key, 1))   # warm-up
         _sync(dev)
@@ -360,11 +443,20 @@ def main(argv=None) -> int:
     ap.add_argument("--chaos", action="store_true",
                     help="run the nine chaos classes (fault and byz "
                          "kernel variants) instead of the headline")
+    ap.add_argument("--coords", action="store_true",
+                    help="run the coordinates scenario (Vivaldi "
+                         "convergence through a partition and heal)")
     args = ap.parse_args(argv)
     if args.smoke and args.profile:
         ap.error("--profile traces the card; it cannot run with --smoke")
+    if args.coords and (args.chaos or args.profile):
+        ap.error("--coords runs alone")
     reset_launches()
-    if args.chaos:
+    if args.coords:
+        res = run_coords_bench(smoke=args.smoke)
+        res["metric"] = ("coords_convergence_smoke" if args.smoke
+                         else "coords_convergence_65k_nodes")
+    elif args.chaos:
         res = run_chaos_suite(smoke=args.smoke)
         res["metric"] = ("chaos_detection_quality_smoke" if args.smoke
                          else "chaos_detection_quality_1M_nodes")

@@ -28,6 +28,12 @@ device, dtype, shape and contiguity, launches the kernel, counts the
 launch in ``LAUNCHES`` and raises if the launch failed — there is no
 fallback.
 
+The runner (``make_run_rounds_cuda``) also records what the JAX kernel
+runner records — flight rows, black-box rings and Vivaldi coordinates —
+from the kernels' output tensors with PyTorch ops between launches, as
+the JAX runner builds them outside its kernel; the kernels themselves
+are the same.
+
 Both kernels write a ``[partials_rows(rows), 18]`` table of per-block
 partial sums (8 population scalars, then the 10 SimStats counters): a
 grid of at most ``GRID_BLOCKS`` blocks walks tiles of ``TILE`` nodes, so
@@ -52,8 +58,11 @@ from typing import Optional, Sequence
 import torch
 
 from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
-                                     detection_gate, scale_plan)
-from consul_tpu_torch.sim import prng
+                                     active_phase, detection_gate,
+                                     plan_schedule, scale_plan)
+from consul_tpu_torch.sim import blackbox as blackbox_mod
+from consul_tpu_torch.sim import coords as coords_mod
+from consul_tpu_torch.sim import flight, prng, topology
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
                                         SCALAR_FLOORS, _cast_like,
@@ -458,14 +467,85 @@ def mega_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
 # ---------------------------------------------------------------- runner
 
 
+def _refuse(p: SimParams, R: int, plan, coords: bool,
+            flight_every: Optional[int], blackbox: bool) -> None:
+    """The combinations the JAX kernel runner refuses, for the same
+    reasons (pallas_round.py:858-915)."""
+    if R < 1:
+        raise ValueError(f"rounds_per_call must be >= 1: {R}")
+    if R > 1:
+        if plan is not None:
+            raise ValueError(
+                "the megakernel freezes its inputs for the whole call but "
+                "fault frames vary per round; run fault plans with "
+                "rounds_per_call=1")
+        if coords:
+            raise ValueError(
+                "coords updates run between kernel launches on per-round "
+                "probe pairs; the megakernel surfaces state only at call "
+                "boundaries — use rounds_per_call=1")
+    if flight_every is not None and not p.collect_stats:
+        raise ValueError(
+            "flight recording rides the kernel's stats lanes; build "
+            "SimParams with collect_stats=True")
+    if flight_every is not None and flight_every % R:
+        raise ValueError(
+            f"the megakernel surfaces state every rounds_per_call={R} "
+            f"rounds: flight stride {flight_every} must be a multiple of "
+            "it (registry.STALE_EMISSION_RULE, rpc playing stale_k)")
+    if blackbox and flight_every is None:
+        raise ValueError(
+            "the black-box tracer writes rings on the flight recorder's "
+            "recorded rounds; pass flight_every (stride 1 for full causal "
+            "timelines)")
+    if coords and p.coords_timeout:
+        raise ValueError(
+            "coords_timeout gates each probe's ack on its pair's RTT "
+            "inside the round body — the kernel's ack draw is internal, "
+            "so this combination would silently diverge; use the live "
+            "engine (round.run_rounds_coords / run_rounds_flight) for "
+            "RTT-aware timeout studies")
+
+
+def coord_ack_rate(sc: torch.Tensor) -> torch.Tensor:
+    """The population ack rate of the stale scalars ``sc`` a round
+    kernel consumed — the kernel runner's Vivaldi update gate (the
+    kernel's per-node ack draw stays in the kernel)."""
+    n_live, n_elig, n_up_elig, n_slow = sc[0], sc[1], sc[2], sc[3]
+    sbar = n_slow / torch.clamp_min(n_up_elig, 1e-9)
+    e_f = sc[4] / torch.clamp_min(n_live, 1e-9)
+    e_s = sc[5] / torch.clamp_min(n_live, 1e-9)
+    return (n_up_elig / n_elig) * (1.0 - ((1.0 - sbar) * e_f + sbar * e_s))
+
+
+def coord_round(coo: coords_mod.CoordState, topo: topology.Topology,
+                key: torch.Tensor, up: torch.Tensor, sc: torch.Tensor):
+    """One round's Vivaldi update over the kernel's output: explicit
+    pairs and their observed RTTs from ``split(key, 4)``, probers acking
+    at the population rate of the scalars ``sc`` the kernel consumed.
+    Returns (coords', CoordRoundAux)."""
+    n = up.shape[0]
+    k_pair, k_jit, k_dir, k_ack = prng.split(key, 4)
+    i_all = torch.arange(n, device=up.device)
+    pair_j = topology.sample_pairs(n, k_pair)
+    rtt_obs = topology.sample_rtt(topo, i_all, pair_j, k_jit)
+    acked = up & (prng.uniform(k_ack, n) < coord_ack_rate(sc))
+    coo2 = coords_mod.vivaldi_step(coo, None, pair_j, rtt_obs, k_dir,
+                                   acked & up[pair_j])
+    return coo2, coords_mod.CoordRoundAux(
+        pair_j=pair_j, drift=coords_mod.round_drift(coo, coo2))
+
+
 def make_run_rounds_cuda(p: SimParams, rounds: int,
                          rounds_per_call: int = 1, carry: bool = False,
                          plan: Optional[CompiledFaultPlan] = None,
                          coords: bool = False,
                          flight_every: Optional[int] = None,
                          blackbox: bool = False):
-    """The kernel hot loop: ``run(state, key, scalars0=None)`` -> state
-    (``(state, scalars)`` with ``carry=True``).
+    """The kernel hot loop: ``run(state, key, scalars0=None, coo=None,
+    topo=None, tracked=None, bb0=None)`` -> ``(state[, coords][,
+    trace][, blackbox][, scalars])``, the bare state when no option
+    adds to it.
 
     ``rounds_per_call=1`` launches ``round_kernel`` once per round and
     folds its partials into the next round's stale scalars;
@@ -473,8 +553,9 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     on scalars frozen for the call (the ``stale_k == R`` schedule).
     Per-round seeds are ``prng.round_seeds(key, state.round_idx,
     rounds)``, so a run cut at a call boundary and resumed with the
-    returned scalars (``scalars0=``) draws the same seeds as the uncut
-    run. Counters accumulate in int32 with an f32 latency lane.
+    returned scalars (``carry=True``, ``scalars0=``) draws the same
+    seeds as the uncut run. Counters accumulate in int32 with an f32
+    latency lane.
 
     ``plan`` (``faults.compile_plan`` on the state's device) threads a
     FaultPlan through the kernel: each round's ``fault_frame``, keyed by
@@ -483,25 +564,29 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     is not 1 the plan is blended once here (``scale_plan``), which gives
     every frame the bits of the reference's per-round ``scale_frame``.
 
-    The state's per-node tensors are updated IN PLACE — the stand-in
-    for JAX's buffer donation: the passed state and the returned one
-    share them. The coordinate, flight-recorder and black-box options
-    of the JAX runner belong to later slices of the port and are
-    refused by name."""
-    for name, val in (("coords", coords), ("flight_every", flight_every),
-                      ("blackbox", blackbox)):
-        if val is not None and val is not False:
-            raise ValueError(
-                f"make_run_rounds_cuda: {name}= is not supported yet — it "
-                "belongs to a later slice of the port")
+    ``flight_every=k`` arms the flight recorder: after the launch that
+    ends a window (and the run), a row is built from the updated packed
+    arrays with ``flight.flight_row``; its counter lanes are the delta of
+    the int32 run accumulator against its last-recorded snapshot, its
+    phase the plan's (host-side schedule). ``blackbox=True`` adds event
+    rings for the ``tracked`` ids (or resumes ``bb0``) on the same
+    rounds, with the frame's attack mask on byzantine plans. On the
+    megakernel rows and rings land on call boundaries only, stamped with
+    the call's last round, so k must be a multiple of R.
+
+    ``coords=True`` (per-round runner only) relaxes the CoordState
+    ``coo`` over the ``topo`` embedding after every launch
+    (``coord_round``, keyed by ``round_keys(fold_in(key,
+    prng.COORD_FOLD), state.round_idx, rounds)``); ``coord_metrics``
+    fills the coordinate columns on recorded rounds only.
+
+    With every option off the runner launches what it did before they
+    existed, with the same arguments. The state's per-node tensors are
+    updated IN PLACE — the stand-in for JAX's buffer donation: the
+    passed state and the returned one share them. The combinations the
+    JAX runner refuses are refused by name (``_refuse``)."""
     R = rounds_per_call
-    if R < 1:
-        raise ValueError(f"rounds_per_call must be >= 1: {R}")
-    if plan is not None and R > 1:
-        raise ValueError(
-            "the megakernel freezes its inputs for the whole call but "
-            "fault frames vary per round; run fault plans with "
-            "rounds_per_call=1")
+    _refuse(p, R, plan, coords, flight_every, blackbox)
     if rounds % R:
         raise ValueError(f"rounds={rounds} must be a multiple of "
                          f"rounds_per_call={R}")
@@ -517,13 +602,22 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     step = float(torch.tensor(float(R), dtype=torch.float32)
                  * torch.tensor(p.probe_interval, dtype=torch.float32))
     # the counter mask and the scalar floors, copied to each device once
-    # (a copy from host memory makes the host wait for the stream)
+    # (a copy from host memory makes the host wait)
     consts: dict = {}
+    record = flight_every is not None
 
-    def run(state: SimState, key: torch.Tensor, scalars0=None):
+    def run(state: SimState, key: torch.Tensor, scalars0=None, coo=None,
+            topo=None, tracked=None, bb0=None):
         if scalars0 is not None and not carry:
             raise ValueError("scalars0 needs a carry=True runner")
-        fxs = plan_frames(plan, state, rounds, p.fault_gain)
+        if coords and (coo is None or topo is None):
+            raise ValueError("a coords=True runner needs coo= (a "
+                             "CoordState) and topo= (a Topology)")
+        if blackbox and tracked is None and bb0 is None:
+            raise ValueError("blackbox=True runner needs a tracked id "
+                             "tensor (blackbox.default_tracked)")
+        sched = plan_schedule(plan) if plan is not None else None
+        fxs = plan_frames(plan, state, rounds, p.fault_gain, sched=sched)
         arrays = state.node_arrays()
         dev = arrays[0].device
         if scalars0 is None:
@@ -541,7 +635,21 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                 SCALAR_FLOORS, dtype=torch.float32, device=dev))
         keep_d, floors = consts[dev]
         t = state.t
+        if record or coords:
+            r0 = int(state.round_idx)
+        if record:
+            trace = flight.empty_trace(rounds, flight_every, dev)
+            prev = (acc_i.clone(), acc_lat.clone())
+            bb = None
+            if blackbox:
+                bb = bb0 if bb0 is not None else blackbox_mod.init_blackbox(
+                    state, tracked, p.blackbox_ring)
+        if coords:
+            ckeys = prng.round_keys(prng.fold_in(key.to(dev),
+                                                 prng.COORD_FOLD),
+                                    r0, rounds)
         for c, fx in zip(range(rounds // R), fxs):
+            sc_in = scalars
             if R == 1:
                 partials = round_kernel(arrays, scalars, seeds, c, p,
                                         out=buf, fx=fx)
@@ -557,6 +665,38 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                 stat = sums[N_SCALARS:]
                 acc_i += (stat * keep_d).to(torch.int32)
                 acc_lat += stat[LAT]
+            if coords:
+                coo, aux = coord_round(coo, topo, ckeys[c], arrays[3] < 0,
+                                       sc_in)
+            if not record:
+                continue
+            i_last = (c + 1) * R - 1   # the call's last round, run-local
+            ph = active_phase(plan, r0 + i_last, sched) \
+                if plan is not None else -1
+
+            def rec(carry):
+                (pi, pl), bbc = carry
+                up = arrays[3] < 0
+                crow = coords_mod.coord_metrics(coo, topo, aux) \
+                    if coords else None
+                # the window's delta as one vector (STATS_FIELDS order)
+                delta = (acc_i - pi).to(torch.float32)
+                delta[LAT] = acc_lat - pl
+                flight.record_row(trace, flight.flight_row(
+                    up=up, status=arrays[0], informed=arrays[2],
+                    local_health=arrays[7], incarnation=arrays[1], t=t,
+                    stats_delta=delta, phase=ph, coord_row=crow),
+                    i_last, flight_every)
+                if bbc is not None:
+                    bbc = blackbox_mod.record(
+                        bbc, round_idx=r0 + i_last, phase=ph,
+                        status=arrays[0], incarnation=arrays[1],
+                        susp_conf=arrays[6], up=up,
+                        attacked=None if fx is None else fx.attacked)
+                return (acc_i.clone(), acc_lat.clone()), bbc
+
+            prev, bb = flight.maybe_record((prev, bb), i_last, rounds,
+                                           flight_every, rec)
         st = state.stats
         if p.collect_stats:
             st = SimStats(**{
@@ -564,6 +704,13 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                 for i, f in enumerate(STATS_FIELDS)})
         out = SimState(*arrays, t=t, round_idx=state.round_idx + rounds,
                        stats=st)
-        return (out, scalars) if carry else out
+        res = (out, coo) if coords else (out,)
+        if record:
+            res = res + (trace,)
+        if blackbox:
+            res = res + (bb,)
+        if carry:
+            res = res + (scalars,)
+        return res[0] if len(res) == 1 else res
 
     return run

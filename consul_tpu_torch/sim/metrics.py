@@ -1,16 +1,24 @@
 """Failure-detector quality metrics from simulation runs.
 
-Port of ``fd_report`` / ``FDReport`` and ``PhaseReport`` /
-``phase_reports`` from the JAX package's ``consul_tpu/sim/metrics.py``:
-false positives, detection latency and the informed/live fractions of a
-finished run, and the same counters split by FaultPlan phase.
+Port of ``fd_report`` / ``FDReport``, ``PhaseReport`` /
+``phase_reports``, ``trace_report``, ``blackbox_report`` and
+``propagation_curve`` from the JAX package's ``consul_tpu/sim/
+metrics.py``: false positives, detection latency and the informed/live
+fractions of a finished run, the same counters split by FaultPlan phase
+(from a per-round stats trace or a flight trace), and the black box's
+event totals with their exact cross-check against the flight counters.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Optional
 
+import numpy as np
+import torch
+
+from consul_tpu_torch.sim import blackbox as blackbox_mod
+from consul_tpu_torch.sim.flight import FLIGHT_COLUMNS, trace_columns
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import SimState, SimStats
 
@@ -106,29 +114,151 @@ def _phase_quality(d: dict, lat: float, phase_s: float, n: int) -> dict:
     }
 
 
-def phase_reports(phase_end_stats: Sequence[SimStats], plan,
-                  p: SimParams) -> list[PhaseReport]:
-    """Per-phase detection-quality reports for a FaultPlan run from
-    plan round 0.
+def _leaf(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
-    ``phase_end_stats[i]`` is the cumulative SimStats after phase i's
-    last round — the only rows of a per-round trace the reference's
-    ``phase_reports`` reads, so a runner cut at the phase starts
-    supplies them without a per-round trace. Phases past the list are
-    omitted."""
+
+def phase_reports(stats_trace: SimStats, plan,
+                  p: SimParams) -> list[PhaseReport]:
+    """Per-phase detection-quality reports from a per-round CUMULATIVE
+    stats trace (``round.run_rounds_stats``, or
+    ``flight.stats_from_trace`` of a stride-1 flight trace) whose round 0
+    is plan round 0. Phases past the trace are omitted; a trace longer
+    than the plan credits the excess to the last phase."""
+    tr = SimStats(*[_leaf(x) for x in stats_trace])
+    total = int(tr.false_positives.shape[0])
     out: list[PhaseReport] = []
     prev = {f: 0.0 for f in _COUNTERS}
     prev_lat = 0.0
     names, starts = plan.phase_names(), plan.starts
-    for name, start, ph, st in zip(names, starts, plan.phases,
-                                   phase_end_stats):
-        cur = {f: float(getattr(st, f)) for f in _COUNTERS}
-        lat = float(st.detect_latency_sum)
+    for i, (name, start) in enumerate(zip(names, starts)):
+        if start >= total:
+            break
+        end = min(starts[i + 1] if i + 1 < len(starts) else total, total)
+        cur = {f: float(getattr(tr, f)[end - 1]) for f in _COUNTERS}
+        lat = float(tr.detect_latency_sum[end - 1])
         d = {f: int(cur[f] - prev[f]) for f in _COUNTERS}
         out.append(PhaseReport(
-            phase=name, start_round=start, rounds=ph.rounds,
+            phase=name, start_round=start, rounds=end - start,
             **_phase_quality(d, lat - prev_lat,
-                             ph.rounds * p.probe_interval, p.n),
+                             (end - start) * p.probe_interval, p.n),
             **d))
         prev, prev_lat = cur, lat
     return out
+
+
+def trace_report(trace, p: SimParams, plan=None, record_every: int = 1,
+                 rounds: Optional[int] = None) -> dict:
+    """Per-phase detection-latency / false-positive curves from a flight
+    trace. Counter columns are per-window deltas, so a phase's totals
+    are sums over its rows (a window straddling a phase boundary belongs
+    to the phase that holds its end). Without ``rounds`` the last
+    window's length is read off the t column."""
+    cols = trace_columns(trace)
+    n_rows = len(cols["t"])
+    if rounds is not None:
+        total = rounds
+    elif n_rows > 1:
+        last_w = int(round((cols["t"][-1] - cols["t"][-2])
+                           / p.probe_interval))
+        total = (n_rows - 1) * record_every + max(last_w, 1)
+    else:
+        total = n_rows * record_every
+    # the round each row records: its window's end
+    row_round = np.minimum((np.arange(n_rows) + 1) * record_every, total)
+    if plan is not None:
+        names, starts = plan.phase_names(), list(plan.starts)
+    else:
+        names, starts = ["run"], [0]
+    phases = []
+    for i, (name, start) in enumerate(zip(names, starts)):
+        if start >= total:
+            break
+        end = min(starts[i + 1] if i + 1 < len(starts) else total, total)
+        sel = (row_round > start) & (row_round <= end)
+        d = {f: int(cols[f][sel].sum()) for f in _COUNTERS}
+        lat = float(cols["detect_latency_sum"][sel].sum())
+        phases.append({
+            "phase": name, "start_round": int(start),
+            "rounds": int(end - start), **d,
+            **_phase_quality(d, lat, (end - start) * p.probe_interval,
+                             p.n),
+            "min_live_frac": (float(cols["live_frac"][sel].min())
+                              if sel.any() else 1.0),
+            "max_wrong_frac": (float(cols["wrong_frac"][sel].max())
+                               if sel.any() else 0.0),
+            "curve": {
+                "round": [int(r) for r in row_round[sel]],
+                "live_frac": [round(float(v), 6)
+                              for v in cols["live_frac"][sel]],
+                "wrong_frac": [round(float(v), 6)
+                               for v in cols["wrong_frac"][sel]],
+                "false_positives": [int(v)
+                                    for v in cols["false_positives"][sel]],
+                "rtt_err_med": [round(float(v), 6)
+                                for v in cols["rtt_err_med"][sel]],
+            },
+        })
+    return {"record_every": int(record_every), "rows": int(n_rows),
+            "rounds": int(total), "columns": list(FLIGHT_COLUMNS),
+            "phases": phases}
+
+
+def blackbox_report(bb, p: SimParams, trace=None,
+                    record_every: int = 1) -> dict:
+    """Decoded black-box summary: per-code event totals over the
+    tracked agents and ring-wrap accounting; when every agent was
+    tracked at stride 1 with nothing dropped and the run's flight trace
+    is given, the exact cross-check of ring totals against the flight
+    counter columns (``crosscheck_agree``)."""
+    timelines = blackbox_mod.decode_timeline(bb, p.probe_interval)
+    totals = blackbox_mod.event_totals(timelines)
+    dropped = sum(tl["dropped"] for tl in timelines.values())
+    out: dict = {
+        "tracked": len(timelines),
+        "ring_len": int(bb.ring.shape[1]),
+        "events": {k: v for k, v in totals.items() if v},
+        "dropped_events": dropped,
+    }
+    exhaustive = (len(timelines) == p.n and record_every == 1
+                  and dropped == 0)
+    if trace is not None and exhaustive:
+        cols = trace_columns(trace)
+
+        def total(*names):
+            return int(sum(cols[c].sum() for c in names))
+
+        pairs = {
+            "suspect_start": ("suspicions", total("suspicions")),
+            "refute": ("refutes", total("refutes")),
+            "crash": ("crashes", total("crashes")),
+            "rejoin": ("rejoins", total("rejoins")),
+            "leave": ("leaves", total("leaves")),
+            "declare_dead": ("false_positives+true_deaths",
+                             total("false_positives",
+                                   "true_deaths_declared")),
+            "attack_suspect_start": ("attack_suspicions",
+                                     total("attack_suspicions")),
+            "attack_false_positive": ("attack_false_positives",
+                                      total("attack_false_positives")),
+        }
+        out["crosscheck"] = {
+            ev: {"ring": totals[ev], "flight": flight_total,
+                 "column": col, "agree": totals[ev] == flight_total}
+            for ev, (col, flight_total) in pairs.items()}
+        out["crosscheck_agree"] = all(
+            c["agree"] for c in out["crosscheck"].values())
+    return out
+
+
+def propagation_curve(trace, probe_interval: float,
+                      threshold: float = 0.9999):
+    """From a per-round informed-fraction trace of one rumor: (the trace
+    as numpy, the seconds to reach ``threshold`` coverage, inf if
+    never)."""
+    tr = _leaf(trace)
+    hit = np.nonzero(tr >= threshold)[0]
+    t = float(hit[0] + 1) * probe_interval if hit.size else float("inf")
+    return tr, t

@@ -4,7 +4,9 @@ Two generators live here:
 
 * **threefry2x32**, bit-exact with JAX's default PRNG
   (``jax_threefry_partitionable=True``): ``key``, ``fold_in``, ``split``,
-  ``bits`` and ``uniform``, and on top of them the per-round streams
+  ``bits``, ``uniform`` and ``randint`` (and ``normal`` /
+  ``exponential``, exact up to the last bits of ``erfinv`` / ``log1p``),
+  and on top of them the per-round streams
   ``round_keys`` / ``round_seeds`` of the JAX package's
   ``sim/round.py``. A run seeded with the same base key therefore draws
   the same per-round kernel seeds in both packages, and a run cut at a
@@ -99,6 +101,69 @@ def uniform(k: torch.Tensor, n: int) -> torch.Tensor:
     return (bits(k, n) >> 9).to(torch.float32) * (2.0 ** -23)
 
 
+Shape = Union[int, tuple]
+
+
+def _shape(shape: Shape) -> tuple:
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def _numel(shape: tuple) -> int:
+    out = 1
+    for d in shape:
+        out *= d
+    return out
+
+
+def _uniform_shape(k: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.uniform(k, shape)``: element i of the flattened
+    shape takes word i (the partitionable stream counts row-major)."""
+    shape = _shape(shape)
+    return uniform(k, _numel(shape)).view(shape)
+
+
+#: ``jax.random.normal`` draws its uniform on [nextafter(-1, 0), 1): the
+#: low end in f32, and the width ``1 - lo`` as XLA rounds it in f32
+_NORMAL_LO = -1.0 + 2.0 ** -24
+_NORMAL_WIDTH = 2.0
+_SQRT2_F32 = float(torch.tensor(2.0 ** 0.5, dtype=torch.float32))
+
+
+def normal(k: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.normal(k, shape)`` in f32: sqrt(2)·erfinv(u) of the
+    uniform ``max(lo, f·(1 - lo) + lo)`` on [lo, 1), f the word's
+    [0, 1) float. The uniform is bit for bit; PyTorch's ``erfinv`` and
+    XLA's differ in the last bits (the tests bound them in ulps)."""
+    f = _uniform_shape(k, shape)
+    u = torch.clamp_min(f * _NORMAL_WIDTH + _NORMAL_LO, _NORMAL_LO)
+    return _SQRT2_F32 * torch.special.erfinv(u)
+
+
+def exponential(k: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.exponential(k, shape)`` in f32: ``-log1p(-u)`` of
+    the bit-exact uniform (the two libraries' ``log1p`` differ in the
+    last bits)."""
+    return -torch.log1p(-_uniform_shape(k, shape))
+
+
+def randint(k: torch.Tensor, shape: Shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval, int32)``, bit for
+    bit: two 32-bit words per element from ``split(k, 2)``, folded into
+    [minval, maxval) by the same wrapping uint32 remainders
+    ((hi % span) · m + lo % span) % span, where m = ((2^16 % span)^2
+    mod 2^32) % span — which wraps to 0 once span exceeds 2^16."""
+    shape = _shape(shape)
+    span = maxval - minval if maxval > minval else 1
+    mult = ((((2 ** 16) % span) ** 2) & MASK) % span
+    k1, k2 = split(k, 2)
+    count = _numel(shape)
+    hi, lo = bits(k1, count), bits(k2, count)
+    off = (((hi % span) * mult) & MASK) + lo % span
+    off = (off & MASK) % span
+    return (off + minval).to(torch.int32).view(shape)
+
+
 def round_keys(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
     """``[count, 2]`` per-round keys for ABSOLUTE rounds
     start..start+count-1: round r's key is ``fold_in(k, r)``, a pure
@@ -185,6 +250,9 @@ U01 = Callable[[int], torch.Tensor]
 #: the JAX engines key the byzantine replay draw (slot 5) by folding
 #: this constant into the round key, off the five split keys
 REPLAY_FOLD = 0xB12A
+#: and the coordinate draws (probe pairs, RTT jitter, Vivaldi direction,
+#: and the kernel runner's population ack gate) by folding this one
+COORD_FOLD = 0x5EED
 
 
 def threefry_u01(k: torch.Tensor, n: int) -> U01:

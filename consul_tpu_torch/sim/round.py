@@ -11,13 +11,24 @@ versions in ``cuda_round.py``, so they cannot drift:
   (last round's scalars in, next round's out of the same pass);
 * ``gossip_round`` / ``gossip_round_fast`` — one period on threefry
   draws keyed exactly as the JAX engines key theirs;
-* ``run_rounds`` / ``make_run_rounds_fast`` — the multi-round loops.
+* ``run_rounds`` / ``make_run_rounds_fast`` / ``make_run_rounds`` /
+  ``run_rounds_stats`` — the multi-round loops;
+* ``run_rounds_flight`` / ``run_rounds_coords`` — the live engine with
+  the flight recorder, the black box and Vivaldi coordinates riding it.
 
 Each takes an optional fault view (``fx=``, a ``faults.FaultFrame``) or
 plan (``plan=``, a ``faults.CompiledFaultPlan``), as its JAX twin does:
 the frame's per-node delivery multipliers, forced-slow mask and churn
 rates shape the round, and a byzantine frame adds forged acks, spurious
 suspicions and stale replays.
+
+With a ``coords``/``topo`` pair (``sim/coords.py``, ``sim/topology.py``)
+a round also draws explicit probe targets and their observed RTTs from
+``fold_in(key, prng.COORD_FOLD)`` (off the round's own five keys, so a
+run without coordinates draws exactly what it did before), relaxes the
+acked probers' coordinates and, with ``SimParams.coords_timeout``, makes
+each ack race an RTT-aware deadline. ``events=True`` surfaces the
+round's probe lifecycle (``blackbox.ProbeEvents``) for the black box.
 
 Per-node randomness comes from a caller-supplied source ``u01(slot)``
 (six slots: churn, slow, ack, pois, hear, and replay on byzantine
@@ -33,15 +44,18 @@ a few ulp of the platform's ``exp``/``log``.
 
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Iterator, Optional
 
 import torch
 
 from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
+                                     PlanSchedule, active_phase,
                                      detection_gate, fault_frame, ipow,
                                      plan_schedule, scale_frame)
-from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim import blackbox, flight, prng, topology
+from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import (ALIVE, ALIVE_AGE, CONF_MAX, DEAD,
                                         LEFT, SLOW_AGE, STATS_FIELDS,
@@ -144,7 +158,8 @@ def _ulps(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 def _round_body(vals, scal, p: SimParams, u01: prng.U01,
                 margin: Optional[list] = None,
                 fx: Optional[FaultFrame] = None,
-                kernel_sums: bool = False):
+                kernel_sums: bool = False, co=None,
+                sink: Optional[dict] = None):
     """ONE protocol period over per-node tensors — the single copy of
     the protocol body.
 
@@ -164,7 +179,13 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     ``scale_frame``). The XLA engines count forced-slow nodes in the
     n_slow scalar lane; the TPU kernel counts the stochastic slow mask
     only (pallas_round.py:389) — ``kernel_sums=True`` selects the
-    kernel's rule for the round kernels' plain versions."""
+    kernel's rule for the round kernels' plain versions.
+
+    ``co`` is ``(coords, topo, key)``: the coordinate state, the
+    topology and the round's threefry key (module docstring). ``sink``
+    (a dict) receives the round's ``"events"`` (``ProbeEvents``) and,
+    with ``co``, the relaxed ``"coords"`` and the ``"aux"``
+    (``coords.CoordRoundAux``)."""
     (status_in, inc_in, informed, age_in, slen_in, sttl_in, conf_in,
      lh_in) = vals
     n = p.n
@@ -235,12 +256,55 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
 
     g, pf_fast, pf_slow = pf_arrays(slow_eff, lh, sbar, n_live / n, p, fx)
 
+    # --------------------------------------------- Vivaldi probe pairs
+    timely = late_in = pair_j = rtt_obs = None
+    if co is not None:
+        coords, topo, key = co
+        k_pair, k_jit, k_dir, k_q = prng.split(
+            prng.fold_in(key, prng.COORD_FOLD), 4)
+        rows = status.shape[0]
+        i_all = torch.arange(rows, device=status.device)
+        pair_j = topology.sample_pairs(rows, k_pair)
+        rtt_obs = topology.sample_rtt(topo, i_all, pair_j, k_jit)
+        if p.coords_timeout:
+            # the ack must beat max(timeout, min(mult·estimate,
+            # interval))·(LH+1); the target side folds the chance that
+            # a random prober's deadline loses to this node's jittered
+            # RTT into its miss rate (1 - Phi(ln(d/rtt)/sigma))
+            def deadline(est, health):
+                return torch.clamp_min(torch.clamp_max(
+                    p.coord_timeout_mult * est, p.probe_interval),
+                    p.probe_timeout) * (health.to(_F32) + 1.0)
+
+            est = coords_mod.estimate_rtt(coords, i_all, pair_j)
+            timely = rtt_obs <= deadline(est, lh)
+            q_in = topology.sample_pairs(rows, k_q)
+            rtt_in = topology.true_rtt(topo, q_in, i_all)
+            dl_in = deadline(coords_mod.estimate_rtt(coords, q_in, i_all),
+                             lh[q_in])
+            sig = torch.clamp_min(topo.jitter_sigma, 1e-6)
+            z = torch.log(torch.clamp_min(dl_in, 1e-9)
+                          / torch.clamp_min(rtt_in, 1e-9)) / sig
+            late_in = 1.0 - torch.special.ndtr(z)
+
     # ------------------------------------------------- prober-side probe
     mix_i = (1.0 - sbar) * pf_fast + sbar * pf_slow
     p_ack = frac_up_elig * (1.0 - mix_i)
     u_ack = u01(U_ACK)
     ack = up & (u_ack < p_ack)
+    late = None
+    if timely is not None:
+        # a late ack is a missed deadline: the prober escalates
+        late = ack & ~timely
+        ack = ack & timely
     failed = up & ~ack
+    if co is not None:
+        # coordinates relax where the probe round trip completed
+        c2 = coords_mod.vivaldi_step(coords, None, pair_j, rtt_obs, k_dir,
+                                     ack & up[pair_j])
+        sink["coords"] = c2
+        sink["aux"] = coords_mod.CoordRoundAux(
+            pair_j=pair_j, drift=coords_mod.round_drift(coords, c2))
     if p.lifeguard:
         lh = torch.clamp(lh + failed.to(_I32) - ack.to(_I32), 0,
                          p.awareness_max)
@@ -259,6 +323,9 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     if fx is not None:
         # suspicion-weighted round-trip success
         base_fail = 1.0 - (1.0 - base_fail) * fx.suspw
+    if late_in is not None:
+        # RTT-timeout misses compose with loss as an independent leg
+        base_fail = 1.0 - (1.0 - base_fail) * (1.0 - late_in)
     p_fail_j = torch.where(up, base_fail, 1.0)
     if byz or p.corroboration_k > 0:
         # forged acks and k-of-m corroboration gate suspicion starts
@@ -364,6 +431,11 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
 
     age_out = torch.where(up, torch.where(slow, SLOW_AGE, ALIVE_AGE), age)
     outs = (status, inc, informed, age_out, slen, sttl, s_conf, lh)
+    if sink is not None:
+        sink["events"] = blackbox.ProbeEvents(
+            ack=ack, failed=failed, late=late, pair_j=pair_j,
+            rtt_us=None if rtt_obs is None
+            else (rtt_obs * 1e6).to(_I32))
 
     # ------------------------------------- per-node contribution lanes
     upf2 = up.to(_F32)
@@ -436,36 +508,64 @@ def clamp_scalars(sums: torch.Tensor,
 
 def round_core(state: SimState, scalars: Optional[torch.Tensor],
                p: SimParams, u01: prng.U01,
-               fx: Optional[FaultFrame] = None):
+               fx: Optional[FaultFrame] = None, coords=None, topo=None,
+               key: Optional[torch.Tensor] = None, events: bool = False):
     """ONE protocol period; returns ``(state', scalars')``.
 
     ``scalars=None`` is live mode (``scalars'`` is None);
     a stale [8] vector is stale mode, producing next round's scalars in
     the same pass. ``u01(slot)`` supplies each slot's [N] uniforms.
     ``fx`` is the round's fault view, blended by ``p.fault_gain`` here
-    as the reference's ``_round_core`` does."""
+    as the reference's ``_round_core`` does.
+
+    With ``coords`` (and ``topo`` and the round's threefry ``key``) or
+    ``events=True`` the return is the reference ``_round_core``'s
+    ``(state', scalars', coords', coords.CoordRoundAux, ProbeEvents)``,
+    None where an option is off."""
     if fx is not None and p.fault_gain != 1.0:
         fx = scale_frame(fx, p.fault_gain)
+    co = None
+    if coords is not None:
+        if topo is None or key is None:
+            raise ValueError("coords need a topology and the round key")
+        co = (coords, topo, key)
+    sink = {} if co is not None or events else None
     vals = state.node_arrays()
-    outs, lanes = _round_body(vals, scalars, p, u01, fx=fx)
+    outs, lanes = _round_body(vals, scalars, p, u01, fx=fx, co=co,
+                              sink=sink)
     st = _stats_add(state.stats, lanes) \
         if p.collect_stats else state.stats
     out = SimState(*_cast_like(outs, vals),
                    t=state.t + p.probe_interval,
                    round_idx=state.round_idx + 1, stats=st)
-    if scalars is None:
-        return out, None
-    sums = torch.stack([torch.sum(lane) for lane in lanes[:N_SCALARS]])
-    return out, clamp_scalars(sums)
+    sc = None
+    if scalars is not None:
+        sc = clamp_scalars(torch.stack([torch.sum(lane)
+                                        for lane in lanes[:N_SCALARS]]))
+    if sink is None:
+        return out, sc
+    return (out, sc, sink.get("coords"), sink.get("aux"),
+            sink["events"] if events else None)
 
 
 def gossip_round(state: SimState, key: torch.Tensor, p: SimParams,
-                 fx: Optional[FaultFrame] = None) -> SimState:
+                 fx: Optional[FaultFrame] = None, coords=None, topo=None,
+                 events: bool = False):
     """One period with LIVE population scalars, drawing from ``key``
-    exactly as the JAX engines draw (``prng.threefry_u01``)."""
-    out, _ = round_core(state, None, p,
-                        prng.threefry_u01(key, state.status.shape[0]), fx)
-    return out
+    exactly as the JAX engines draw (``prng.threefry_u01``). Returns the
+    state; with ``coords``/``topo``, ``(state, coords',
+    CoordRoundAux)``; ``events=True`` appends the round's
+    ``ProbeEvents``."""
+    res = round_core(state, None, p,
+                     prng.threefry_u01(key, state.status.shape[0]), fx,
+                     coords=coords, topo=topo, key=key, events=events)
+    if len(res) == 2:
+        return res[0]
+    out, _, c2, aux, ev = res
+    ret = (out,) if coords is None else (out, c2, aux)
+    if events:
+        ret = ret + (ev,)
+    return ret[0] if len(ret) == 1 else ret
 
 
 def gossip_round_fast(state: SimState, scalars: torch.Tensor,
@@ -477,17 +577,20 @@ def gossip_round_fast(state: SimState, scalars: torch.Tensor,
 
 
 def plan_frames(plan: Optional[CompiledFaultPlan], state: SimState,
-                rounds: int,
-                gain: float = 1.0) -> Iterator[Optional[FaultFrame]]:
+                rounds: int, gain: float = 1.0,
+                sched: Optional[PlanSchedule] = None
+                ) -> Iterator[Optional[FaultFrame]]:
     """An iterator over the fault view of each of the next ``rounds``
     rounds of ``state``, keyed by the absolute round (all None without a
     plan). Frames are built as they are taken, so a flapping phase's
     rewritten lanes never pile up; the phase lookup runs on the host
     from one read of the plan's schedule. ``gain`` is that of a plan
-    blended by ``scale_plan`` (see ``fault_frame``)."""
+    blended by ``scale_plan`` (see ``fault_frame``); ``sched`` is the
+    plan's schedule if the caller has read it."""
     if plan is None:
         return itertools.repeat(None, rounds)
-    sched, r0 = plan_schedule(plan), int(state.round_idx)
+    sched = plan_schedule(plan) if sched is None else sched
+    r0 = int(state.round_idx)
     return (fault_frame(plan, r0 + r, sched, gain) for r in range(rounds))
 
 
@@ -550,3 +653,117 @@ def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
         return (state, sc) if carry else state
 
     return run
+
+
+def make_run_rounds(p: SimParams, rounds: int):
+    """A pre-bound live-engine runner: ``run(state, key)`` -> state."""
+
+    def run(state: SimState, key: torch.Tensor) -> SimState:
+        return run_rounds(state, key, p, rounds)[0]
+
+    return run
+
+
+def run_rounds_stats(state: SimState, key: torch.Tensor, p: SimParams,
+                     rounds: int,
+                     plan: Optional[CompiledFaultPlan] = None):
+    """``run_rounds`` that also stacks the cumulative SimStats after
+    every round: returns (final, SimStats of [rounds] tensors) — what
+    ``metrics.phase_reports`` reads."""
+    keys = prng.round_keys(key, state.round_idx, rounds)
+    trace = []
+    for r, fx in enumerate(plan_frames(plan, state, rounds)):
+        state = gossip_round(state, keys[r], p, fx)
+        trace.append(state.stats)
+    return state, SimStats(*[torch.stack(leaf) for leaf in zip(*trace)])
+
+
+def run_rounds_coords(state: SimState, coords, topo, key: torch.Tensor,
+                      p: SimParams, rounds: int,
+                      plan: Optional[CompiledFaultPlan] = None):
+    """``rounds`` periods with Vivaldi coordinates riding the live
+    engine: returns (final, final coords, [rounds, 3] f32 trace of
+    ``coords.coord_metrics`` in ``flight.COORD_COLUMNS`` order)."""
+    keys = prng.round_keys(key, state.round_idx, rounds)
+    trace = []
+    for r, fx in enumerate(plan_frames(plan, state, rounds)):
+        state, coords, aux = gossip_round(state, keys[r], p, fx,
+                                          coords=coords, topo=topo)
+        trace.append(coords_mod.coord_metrics(coords, topo, aux))
+    return state, coords, torch.stack(trace)
+
+
+def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
+                      rounds: int, record_every: int = 1,
+                      plan: Optional[CompiledFaultPlan] = None,
+                      coords=None, topo=None,
+                      tracked: Optional[torch.Tensor] = None,
+                      ring_len: Optional[int] = None, bb0=None):
+    """``rounds`` live-engine periods with the flight recorder: returns
+    (final, trace), the trace ``[n_trace_rows(rounds, record_every),
+    flight.N_COLS]`` f32 (gauges at each window's end, counters the
+    window's SimStats delta). The draws are ``run_rounds``'s, so a key
+    gives the same run with or without the recorder.
+
+    A ``coords``/``topo`` pair rides the run and fills the coordinate
+    columns: the return becomes (final, final coords, trace).
+    ``tracked`` (a [K] int32 id tensor, e.g. ``blackbox.default_tracked``)
+    arms the black box — rings written on recorded rounds with the
+    live engine's probe events — and appends the final BlackboxState;
+    ``ring_len`` defaults to ``p.blackbox_ring``, and ``bb0`` resumes
+    from a captured ring set."""
+    if not p.collect_stats:
+        raise ValueError(
+            "the flight recorder's counter columns ride the SimStats "
+            "counters; build SimParams with collect_stats=True")
+    with_bb = tracked is not None or bb0 is not None
+    if bb0 is None and with_bb:
+        bb0 = blackbox.init_blackbox(state, tracked,
+                                     ring_len or p.blackbox_ring)
+    keys = prng.round_keys(key, state.round_idx, rounds)
+    sched = plan_schedule(plan) if plan is not None else None
+    r0 = int(state.round_idx)
+    buf = flight.empty_trace(rounds, record_every, state.status.device)
+    prev, bb, c = state.stats, bb0, coords
+    for i, fx in enumerate(plan_frames(plan, state, rounds, sched=sched)):
+        ph = active_phase(plan, r0 + i, sched) if plan is not None else -1
+        # the attack mask disarms with a zero gain, as the stats do
+        atk = None
+        if fx is not None and fx.attacked is not None:
+            atk = fx.attacked if p.fault_gain > 0.0 \
+                else torch.zeros_like(fx.attacked)
+        # events=True: the five-field return whatever the options
+        s2, _, c2, aux, ev = round_core(
+            state, None, p, prng.threefry_u01(keys[i], state.status.shape[0]),
+            fx, coords=c, topo=topo, key=keys[i], events=True)
+
+        def rec(carry):
+            pv, bbc = carry
+            crow = coords_mod.coord_metrics(c2, topo, aux) \
+                if coords is not None else None
+            flight.record_row(buf, flight.flight_row(
+                up=s2.up, status=s2.status, informed=s2.informed,
+                local_health=s2.local_health, incarnation=s2.incarnation,
+                t=s2.t, stats_delta=flight.stats_delta(s2.stats, pv),
+                phase=ph, coord_row=crow), i, record_every)
+            if with_bb:
+                bbc = blackbox.record(
+                    bbc, round_idx=r0 + i, phase=ph, status=s2.status,
+                    incarnation=s2.incarnation, susp_conf=s2.susp_conf,
+                    up=s2.up, probe=ev, indirect_checks=p.indirect_checks,
+                    attacked=atk)
+            return s2.stats, bbc
+
+        prev, bb = flight.maybe_record((prev, bb), i, rounds, record_every,
+                                       rec)
+        state, c = s2, c2
+    out = (state,) if coords is None else (state, c)
+    out = out + (buf,)
+    return out + (bb,) if with_bb else out
+
+
+def make_run_rounds_flight(p: SimParams, rounds: int,
+                           record_every: int = 1):
+    """A pre-bound ``run_rounds_flight``: ``run(state, key, ...)``."""
+    return functools.partial(run_rounds_flight, p=p, rounds=rounds,
+                             record_every=record_every)

@@ -80,6 +80,13 @@ class SimStats(NamedTuple):
             for f in SimStats._fields})
 
 
+def stats_vector(st: SimStats) -> torch.Tensor:
+    """SimStats as a [len(STATS_FIELDS)] f32 vector in STATS_FIELDS
+    order."""
+    return torch.stack([getattr(st, f).to(torch.float32)
+                        for f in STATS_FIELDS])
+
+
 class SimState(NamedTuple):
     """Struct-of-arrays cluster state; all [N] unless noted."""
 

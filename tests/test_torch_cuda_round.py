@@ -249,15 +249,20 @@ def test_maker_refusals():
     for kw, match in ((dict(rounds_per_call=0), ">= 1"),
                       (dict(rounds_per_call=8), "multiple of"),
                       (dict(plan=cp, rounds_per_call=4), "megakernel"),
-                      (dict(coords=True), "coords="),
-                      (dict(flight_every=8), "flight_every="),
-                      (dict(blackbox=True), "blackbox=")):
+                      (dict(coords=True, rounds_per_call=4),
+                       "coords updates run between kernel launches"),
+                      (dict(flight_every=8), "stats lanes"),
+                      (dict(blackbox=True), "pass flight_every")):
         with pytest.raises(ValueError, match=match):
             cr.make_run_rounds_cuda(STABLE, 60, **kw)
     run = cr.make_run_rounds_cuda(STABLE, 8)
     with pytest.raises(ValueError, match="carry=True"):
         run(tstate.init_state(N, device="cpu"), prng.key(0),
             scalars0=torch.ones(8))
+    # the options the runner takes now need their inputs at the call
+    with pytest.raises(ValueError, match="coo="):
+        cr.make_run_rounds_cuda(STABLE, 8, coords=True)(
+            tstate.init_state(N, device="cpu"), prng.key(0))
 
 
 def test_crash_detection_has_no_false_positives():

@@ -21,7 +21,7 @@
 * The kernel runner's plain path with a plan is held statistically
   against the reference fast path, ``run_chaos`` shows each chaos
   class's detection signature, and ``phase_reports`` equals the
-  reference's given the trace's rows at the phase ends.
+  reference's on the same per-round stats trace.
 """
 
 from __future__ import annotations
@@ -528,6 +528,10 @@ def test_gc_pause_false_positives_are_a_stale_scalar_property(ref):
 
 
 def test_phase_reports_match_reference_given_phase_end_rows(ref):
+    """``phase_reports`` takes the reference's per-round stats trace (the
+    rows at the phase ends are the ones it reads): the port's
+    ``run_rounds_stats`` trace and the reference's give the reference's
+    reports."""
     import jax
 
     from consul_tpu.sim import round as rround
@@ -544,14 +548,16 @@ def test_phase_reports_match_reference_given_phase_end_rows(ref):
                                        plan.total_rounds,
                                        plan=r_compile(rplan, n))
     trace = jax.device_get(trace)
-    ends = [tstate.SimStats(**{f: torch.tensor(np.asarray(
-        getattr(trace, f))[s + ph.rounds - 1])
-        for f in tstate.SimStats._fields})
-        for s, ph in zip(plan.starts, plan.phases)]
-    got = [r.to_dict() for r in phase_reports(ends, plan, tp)]
     want = [r.to_dict() for r in r_phase_reports(trace, rplan, rp)]
+    got = [r.to_dict() for r in phase_reports(trace, plan, tp)]
     assert got == want
+    _, ttrace = tround.run_rounds_stats(
+        tstate.init_state(n, device="cpu"), prng.key(2), tp,
+        plan.total_rounds, plan=tf.compile_plan(plan, n, "cpu"))
+    assert [r.to_dict() for r in phase_reports(ttrace, plan, tp)] == want
     assert want[1]["attack_false_positives"] > 0
     assert [r["phase"] for r in got] == ["warmup", "eclipse", "recover"]
-    # a shorter list reports only the phases it covers
-    assert len(phase_reports(ends[:2], plan, tp)) == 2
+    # a shorter trace reports only the phases it covers
+    short = tstate.SimStats(*[np.asarray(x)[:plan.starts[2]]
+                              for x in trace])
+    assert len(phase_reports(short, plan, tp)) == 2
