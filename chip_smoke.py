@@ -59,7 +59,28 @@ non-zero before the result line):
               µs of a coordinate round's parts: draws, ``vivaldi_step``,
               ``coord_metrics``; and the host µs and launches of one
               flight row and one black-box record.
-6. timing   — each kernel's time per launch (device time: CUDA events
+6. sweep    — the lane engine and the sweep engine, each run counted on
+              its own: (a) the lane engine (make_run_rounds_lanes) at
+              1,048,576 nodes on the full-model config, stale_k 1 and 4:
+              a 64-round warm-up, then 96 rounds with the flight
+              recorder at stride 4, resumed from the warm-up's carry;
+              the FD band holds over the 96 rounds, the column sums
+              equal the stats delta; wall µs per round of the run timed
+              alone, device µs per round from torch.profiler's busy
+              time of the same run traced. (b) The bench's lan grid at
+              full size through consul_tpu_torch.bench.run_sweep_class:
+              64 points x 65,536 nodes x 300 rounds, xla engine and
+              lanes engine; two points re-run alone (make_run_point)
+              and compared with their grid rows, bit for bit; the Pareto
+              winner, steady_s, scenario-rounds/s and peak device
+              memory. (c) The cuda engine at 1,048,576 nodes: a
+              4-point gossip_nodes grid of the lan autotune config, 96
+              rounds, R=8 (mega_kernel full) and R=1 (round_kernel
+              full), each point bit for bit make_run_rounds_cuda on its
+              concrete SimParams and key, launches counted exactly.
+              (d) run_byzantine_defense at 4,096 nodes, 200 rounds:
+              best_k >= 1 with an induced missed rate below k=0's.
+7. timing   — each kernel's time per launch (device time: CUDA events
               around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do; the
@@ -631,11 +652,11 @@ COORD_ROUNDS, COORD_STRIDE = 120, 10
 COORD_MED_BOUND = 0.3
 
 
-def recorder_failures(m, s0, out, trace, label) -> list:
+def recorder_failures(m, s0, out, trace, label, last_row=True) -> list:
     """What a recorded run breaks: column sums against the run's stats
     delta (counters exact, the latency lane within 1e-5 relative, the
-    sum of f32 window deltas), and the last row's gauges against
-    ``flight_row`` of the final state."""
+    sum of f32 window deltas), and (``last_row``) the last row's gauges
+    against ``flight_row`` of the final state."""
     fl, st = m.flight, m.state
     bad = []
     cols = fl.trace_columns(trace)
@@ -647,6 +668,8 @@ def recorder_failures(m, s0, out, trace, label) -> list:
         if not ok:
             bad.append(f"{label}: column {f} sums to {got}, stats moved "
                        f"{total}")
+    if not last_row:
+        return bad
     last = fl.flight_row(up=out.up, status=out.status,
                          informed=out.informed,
                          local_health=out.local_health,
@@ -856,6 +879,170 @@ def phase_observe(torch, m, dev):
     return launches
 
 
+LANE_KS, LANE_WARM, LANE_ROUNDS, LANE_STRIDE = (1, 4), 64, 96, 4
+SWEEP_SOLO_POINTS = (0, 37)
+CUDA_SWEEP_GRID = {"gossip_nodes": (2.0, 3.0, 4.0, 5.0)}
+CUDA_SWEEP_ROUNDS = 96
+
+
+def sweep_lanes(torch, m, dev, n=N, warm_rounds=LANE_WARM,
+                rounds=LANE_ROUNDS, stride=LANE_STRIDE):
+    """(a) the lane engine at ``n`` nodes; returns (report, failures)."""
+    out, bad = {}, []
+    key = m.prng.key(31, device=dev)
+    for k in LANE_KS:
+        p = m.bench.diag_params(n).with_(stale_k=k)
+        warm = m.round.make_run_rounds_lanes(p, warm_rounds, carry=True)
+        run = m.round.make_run_rounds_lanes(p, rounds, flight_every=stride,
+                                            carry=True)
+        s, lv = warm(m.state.init_state(n, device=dev), key)
+        s0 = m.bench.clone_state(s)
+        # the same run twice from the warm state: timed alone, then
+        # traced (the profiler's own host cost inflates its wall time)
+        t0 = time.perf_counter()
+        run(m.bench.clone_state(s0), m.prng.fold_in(key, 1),
+            lanes0=lv.clone())
+        m.bench._sync(torch.device(dev))
+        wall_us = (time.perf_counter() - t0) / rounds * 1e6
+        (fin, trace, _), prof = m.bench.profile_call(
+            lambda: run(s, m.prng.fold_in(key, 1), lanes0=lv), rounds,
+            torch.device(dev))
+        top = list(prof.get("device_us_per_round_by_kernel", {}).items())
+        label = f"lanes stale_k={k}"
+        bad += recorder_failures(m, s0, fin, trace, label, last_row=False)
+        d = {f: float(getattr(fin.stats, f)) - float(getattr(s0.stats, f))
+             for f in m.state.STATS_FIELDS}
+        nr = float(n) * rounds
+        fd = {"fp_per_node_round": d["false_positives"] / nr,
+              "suspicions_per_node_round": d["suspicions"] / nr,
+              "refutes_per_node_round": d["refutes"] / nr}
+        if fd["fp_per_node_round"] != 0 or not all(
+                FD_BAND[0] <= fd[x] / v <= FD_BAND[1]
+                for x, v in FD_REF.items()):
+            bad.append(f"{label}: outside the FD band ({FD_BAND} of "
+                       f"{FD_REF}, no false positive): {fd}")
+        out[f"stale_k={k}"] = {"rounds": rounds, "record_every": stride,
+                               "rows": int(trace.shape[0]), "fd": fd,
+                               "wall_us_per_round": wall_us,
+                               "profiled_wall_us_per_round":
+                                   prof["wall_us_per_round"],
+                               "device_us_per_round":
+                                   prof.get("device_busy_us", 0.0) / rounds,
+                               "device_us_per_round_top": dict(top[:5])}
+    return out, bad
+
+
+def _state_diffs(torch, a, b) -> dict:
+    """Per-field count of elements that differ between two states."""
+    out = {f: int((x != y).sum()) for f, x, y in
+           zip(a._fields[:8], a.node_arrays(), b.node_arrays())}
+    out.update({f: int(x != y) for f, x, y in
+                zip(a.stats._fields, a.stats, b.stats)})
+    out["t"] = int(a.t != b.t)
+    return {k: v for k, v in out.items() if v}
+
+
+def sweep_grid(torch, m, dev, n=None, rounds=None):
+    """(b) the bench's lan grid on the xla and lanes engines (at the
+    bench's size unless given); returns (report, failures)."""
+    out, bad = {}, []
+    n0, rounds0 = m.bench.SWEEP_SIZE
+    n, rounds = n or n0, rounds or rounds0
+    for engine in ("xla", "lanes"):
+        rep, result, key = m.bench.run_sweep_class("lan", n, rounds, dev,
+                                                   engine)
+        p = m.scenarios.autotune_params("lan", n)
+        solos = {}
+        for i in SWEEP_SOLO_POINTS:
+            st, _ = m.sweep.solo_reference(result, i, p, key, engine=engine,
+                                           device=dev)
+            row = m.sweep.take_point(result.states, i)
+            diffs = _state_diffs(torch, row, st)
+            solos[i] = {"bitwise": not diffs, "diffs": diffs}
+            if diffs:
+                bad.append(f"{engine} grid point {i} differs from its "
+                           f"one-point run: {diffs}")
+        rep["solo"] = solos
+        out[engine] = rep
+    return out, bad
+
+
+def sweep_cuda(torch, m, dev, n=N, rounds=CUDA_SWEEP_ROUNDS):
+    """(c) the cuda engine at ``n`` nodes; returns (report, failures,
+    launches). On the CPU the wrappers take the plain versions and
+    count nothing."""
+    cr = m.cuda_round
+    p = m.scenarios.autotune_params("lan", n)
+    axes = m.params.SweepAxes.of(**CUDA_SWEEP_GRID)
+    key = m.prng.key(9, device=dev)
+    out, bad, launches = {}, [], {}
+    on_card = torch.device(dev).type == "cuda"
+    for rpc, kname in ((MEGA_R, "mega_kernel/full"),
+                       (1, "round_kernel/full")):
+        cr.reset_launches()
+        t0 = time.perf_counter()
+        res = m.sweep.run_sweep(p, axes, rounds, key=key, engine="cuda",
+                                rounds_per_call=rpc, device=dev)
+        m.bench._sync(torch.device(dev))
+        wall = time.perf_counter() - t0
+        got = dict(cr.LAUNCHES)
+        want = {kname: axes.size * rounds // rpc} if on_card else {}
+        if got != want:
+            bad.append(f"cuda sweep R={rpc}: launched {got}, expected "
+                       f"{want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        diffs = {}
+        for i, pp in enumerate(res.points):
+            solo = cr.make_run_rounds_cuda(pp, rounds, rounds_per_call=rpc)(
+                m.state.init_state(n, device=dev), key)
+            d = _state_diffs(torch, m.sweep.take_point(res.states, i), solo)
+            if d:
+                diffs[i] = d
+        if diffs:
+            bad.append(f"cuda sweep R={rpc}: points differ from "
+                       f"make_run_rounds_cuda: {diffs}")
+        out[f"R={rpc}"] = {
+            "gossip_nodes": [pp.gossip_nodes for pp in res.points],
+            "rounds": rounds, "launches": got,
+            "bitwise": not diffs, "wall_s": wall,
+            "suspicions": res.states.stats.suspicions.tolist()}
+    return out, bad, launches
+
+
+def phase_sweep(torch, m, dev):
+    """The lane engine, the sweep engines and the defense sweep; only
+    the cuda engine launches kernels, each run counted on its own."""
+    cr = m.cuda_round
+    bad, counts = [], {}
+    cr.reset_launches()
+    lanes, lbad = sweep_lanes(torch, m, dev)
+    counts["lanes"] = dict(cr.LAUNCHES)
+    bad += lbad
+    cr.reset_launches()
+    grid, gbad = sweep_grid(torch, m, dev)
+    counts["grid"] = dict(cr.LAUNCHES)
+    bad += gbad
+    cuda, cbad, launches = sweep_cuda(torch, m, dev)
+    bad += cbad
+    cr.reset_launches()
+    defense = m.bench.run_defense_bench(dev)
+    counts["defense"] = dict(cr.LAUNCHES)
+    ind = defense["attack_induced_missed_rate"]
+    best = defense["ks"].index(defense["best_k"])
+    if not (defense["best_k"] >= 1 and ind[best] < ind[0]):
+        bad.append(f"defense: best_k {defense['best_k']}, induced missed "
+                   f"rates {ind}")
+    for k, v in counts.items():
+        if v:
+            bad.append(f"{k}: launched {v} kernels on a plain-PyTorch path")
+    if bad:
+        raise SmokeFailure("sweep: " + "; ".join(bad))
+    emit({"phase": "sweep", "lanes": lanes, "grid": grid, "cuda": cuda,
+          "defense": defense, "launches": launches})
+    return launches
+
+
 def _events_ms(torch, fn, reps, warm=2):
     for _ in range(warm):
         fn()
@@ -988,13 +1175,13 @@ def modules():
     from consul_tpu_torch import bench, config, faults
     from consul_tpu_torch.sim import (blackbox, coords, cuda_round, flight,
                                       metrics, params, prng, round,
-                                      scenarios, state, topology)
+                                      scenarios, state, sweep, topology)
 
     return types.SimpleNamespace(
         bench=bench, blackbox=blackbox, config=config, coords=coords,
         cuda_round=cuda_round, faults=faults, flight=flight,
         metrics=metrics, params=params, prng=prng, round=round,
-        scenarios=scenarios, state=state, topology=topology)
+        scenarios=scenarios, state=state, sweep=sweep, topology=topology)
 
 
 def main() -> int:
@@ -1015,7 +1202,8 @@ def main() -> int:
     checks, inputs = phase_check(torch, m, dev)
     headline, launches = phase_headline(torch, m, dev)
     chaos, chaos_launches = phase_chaos(torch, m, dev)
-    for part in (chaos_launches, phase_observe(torch, m, dev)):
+    for part in (chaos_launches, phase_observe(torch, m, dev),
+                 phase_sweep(torch, m, dev)):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     timing = phase_timing(torch, m, inputs)

@@ -5,6 +5,7 @@
     python -m consul_tpu_torch.bench --smoke    # 65,536 nodes, CPU plain path
     python -m consul_tpu_torch.bench --chaos [--profile | --smoke]
     python -m consul_tpu_torch.bench --coords [--smoke]
+    python -m consul_tpu_torch.bench --sweep [--smoke]
 
 The timed configuration is the JAX bench's (bench.py's
 ``gossip_rounds_per_sec_1M_nodes``): ``GossipConfig.lan()`` at 1% loss,
@@ -30,6 +31,21 @@ also traces the fault phase of three plan runs (a flapping plan, the
 same at ``fault_gain`` 0.5, a byzantine plan) and the frame building
 alone: the device time per round of the kernel, the fold and the
 frame.
+
+``--chaos`` also runs the corroboration_k defense sweep
+(``scenarios.run_byzantine_defense``) at the JAX bench's size: 4,096
+nodes, 200 rounds (``--smoke``: 1,024 and 100).
+
+``--sweep`` runs the sweep engine (``sim/sweep.py``) at the JAX bench's
+grid and sizes: ``scenarios.AUTOTUNE_GRID`` (64 points) over the lan,
+wan and lossy classes at 65,536 nodes, 300 rounds, xla engine
+(``--smoke``: 1,024 nodes, 100 rounds, on the CPU). Per class: the end-
+to-end seconds of the first call, the steady seconds (best of 2 more),
+scenarios and scenario-rounds per second, the peak device memory, the
+chosen constants and the Pareto front. With ``--profile`` it also traces
+``PROFILE_SWEEP_ROUNDS`` rounds of the lan grid on the xla and lanes
+engines: wall and device time per grid round, the device's busy share,
+the device time by kernel and the host-waiting runtime calls.
 
 ``--coords`` runs ``scenarios.run_coords`` (cold-start Vivaldi
 convergence through a partition and heal, RTT-aware probe deadlines, on
@@ -58,10 +74,15 @@ from consul_tpu_torch.sim.cuda_round import (LAUNCHES, make_run_rounds_cuda,
                                              reset_launches)
 from consul_tpu_torch.sim.flight import DEFAULT_RECORD_EVERY
 from consul_tpu_torch.sim.metrics import fd_report
-from consul_tpu_torch.sim.scenarios import (CHAOS_WARMUP_ROUNDS, chaos_params,
-                                            chaos_plans, run_chaos,
-                                            run_coords)
-from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim.metrics import sweep_report
+from consul_tpu_torch.sim.params import SimParams, SweepAxes, grid_params
+from consul_tpu_torch.sim.scenarios import (AUTOTUNE_GRID,
+                                            AUTOTUNE_TOPOLOGIES,
+                                            CHAOS_WARMUP_ROUNDS,
+                                            autotune_params, chaos_params,
+                                            chaos_plans, run_byzantine_defense,
+                                            run_chaos, run_coords)
+from consul_tpu_torch.sim.sweep import SweepResult, make_run_sweep
 from consul_tpu_torch.sim.state import SimState, init_state
 from consul_tpu_torch.utils.platform import default_device, device_name
 
@@ -71,6 +92,10 @@ CHAOS_SMOKE_N = 4_096
 COORDS_N = 65_536
 COORDS_SMOKE_N = 4_096
 MEGA_RPC = 8
+#: the JAX bench's sweep and defense sizes (its bench.py:1231-1233,
+#: :1370-1372): (nodes, rounds), then the --smoke sizes
+SWEEP_SIZE, SWEEP_SMOKE_SIZE = (65_536, 300), (1_024, 100)
+DEFENSE_SIZE, DEFENSE_SMOKE_SIZE = (4_096, 200), (1_024, 100)
 
 
 def headline_params(n: int) -> SimParams:
@@ -262,6 +287,132 @@ def run_chaos_suite(device=None, smoke: bool = False) -> dict:
     return out
 
 
+def run_defense_bench(device=None, smoke: bool = False) -> dict:
+    """``run_byzantine_defense`` at ``DEFENSE_SIZE`` (``smoke``:
+    ``DEFENSE_SMOKE_SIZE`` on the CPU), with its wall time."""
+    dev = torch.device("cpu") if smoke else default_device(device)
+    n, rounds = DEFENSE_SMOKE_SIZE if smoke else DEFENSE_SIZE
+    t0 = time.perf_counter()
+    rep = run_byzantine_defense(n=n, rounds=rounds, device=dev)
+    _sync(dev)
+    rep["run_s"] = time.perf_counter() - t0
+    return rep
+
+
+def run_sweep_class(topology: str, n: int, rounds: int, dev,
+                    engine: str = "xla"):
+    """One topology class of the sweep bench: the grid built, one call
+    (``end_to_end_s``), two more on new keys (``steady_s``, the best),
+    each ending in a sync; the peak device memory over the three.
+    Returns (report, the last call's SweepResult, its key)."""
+    dev = torch.device(dev)
+    p = autotune_params(topology, n)
+    tp, points = grid_params(p, SweepAxes.of(**AUTOTUNE_GRID), dev)
+    run = make_run_sweep(p, rounds, engine=engine, device=dev)
+    key = prng.key(0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    states, trace = run(tp, key)
+    _sync(dev)
+    e2e_s = time.perf_counter() - t0
+    steady_s = float("inf")
+    for trial in range(2):
+        k = prng.fold_in(key, trial + 1)
+        t0 = time.perf_counter()
+        states, trace = run(tp, k)
+        _sync(dev)
+        steady_s = min(steady_s, time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    result = SweepResult(states=states, trace=trace, tp=tp, points=points,
+                         rounds=rounds, flight_every=None)
+    rep = sweep_report(result)
+    g = rep["grid_size"]
+    out = {"grid_size": g, "engine": engine,
+           "end_to_end_s": e2e_s, "steady_s": steady_s,
+           "scenarios_per_sec": g / steady_s,
+           "scenario_rounds_per_sec": g * rounds / steady_s,
+           "peak_memory_bytes": peak,
+           "chosen": rep["winner"]["params"],
+           "winner": {k: rep["winner"][k] for k in
+                      ("point", "mean_detect_latency_s",
+                       "fp_per_node_hour", "msg_load")},
+           "pareto": [{k: v for k, v in rep["points"][i].items()
+                       if k in ("point", "params", "mean_detect_latency_s",
+                                "fp_per_node_hour", "msg_load")}
+                      for i in rep["pareto"]]}
+    return out, result, k
+
+
+def run_sweep_bench(device=None, smoke: bool = False, engine: str = "xla",
+                    classes=AUTOTUNE_TOPOLOGIES) -> dict:
+    """The sweep bench: ``run_sweep_class`` for each topology class at
+    ``SWEEP_SIZE`` (``smoke``: ``SWEEP_SMOKE_SIZE`` on the CPU)."""
+    dev = torch.device("cpu") if smoke else default_device(device)
+    n, rounds = SWEEP_SMOKE_SIZE if smoke else SWEEP_SIZE
+    return {"device": device_name(dev), "n": n, "rounds": rounds,
+            "smoke": smoke, "engine": engine,
+            "grid": {k: list(v) for k, v in AUTOTUNE_GRID.items()},
+            "objectives": ["mean_detect_latency_s", "fp_per_node_hour",
+                           "msg_load"],
+            "classes": {t: run_sweep_class(t, n, rounds, dev, engine)[0]
+                        for t in classes}}
+
+
+#: rounds of the lan grid each engine runs under the profiler
+PROFILE_SWEEP_ROUNDS = 20
+
+
+def profile_sweep(device=None, rounds: int = PROFILE_SWEEP_ROUNDS) -> dict:
+    """Where a grid round's time goes, from ``torch.profiler``: one call
+    of the lan grid (64 points at ``SWEEP_SIZE`` nodes, ``rounds``
+    rounds) per engine after an untraced warm-up call: wall and device
+    busy µs per grid round, the busy share, the ten kernels with the
+    most device time per round, and the host-waiting runtime calls."""
+    dev = default_device(device)
+    if dev.type != "cuda":
+        raise ValueError("profile_sweep traces the card; it has no CPU "
+                         "mode")
+    n = SWEEP_SIZE[0]
+    p = autotune_params("lan", n)
+    tp, _ = grid_params(p, SweepAxes.of(**AUTOTUNE_GRID), dev)
+    key = prng.key(0, device=dev)
+    out = {}
+    for engine in ("xla", "lanes"):
+        run = make_run_sweep(p, rounds, engine=engine, device=dev)
+        run(tp, key)
+        _sync(dev)
+        _, rep = profile_call(lambda: run(tp, key), rounds, dev)
+        top = rep.get("device_us_per_round_by_kernel", {})
+        rep["device_us_per_round_by_kernel"] = dict(list(top.items())[:10])
+        out[engine] = {"n": n, "grid_size": 64,
+                       "device_busy_us_per_round":
+                           rep.get("device_busy_us", 0.0) / rounds, **rep}
+    out["sum_order"] = sum_order_probe(dev, n)
+    return out
+
+
+def sum_order_probe(device, n: int, g: int = 64) -> dict:
+    """Does a row of a ``[g, n]`` f32 tensor sum to the same bits as the
+    row alone? For ``torch.sum(-1)`` the count of rows of 0..1 uniforms
+    whose grid sum differs from the one-row sum, and the largest
+    difference; for ``lanes.tree_sum`` (what the sweep engines use) the
+    same count, 0 by construction."""
+    from consul_tpu_torch.sim.lanes import tree_sum
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((g, n), generator=gen, device=device)
+    grid, rows = x.sum(-1), torch.stack([x[i:i + 1].sum(-1)[0]
+                                         for i in range(g)])
+    tgrid, trows = tree_sum(x), torch.stack([tree_sum(x[i:i + 1])[0]
+                                             for i in range(g)])
+    return {"g": g, "n": n,
+            "torch_sum_rows_differ": int((grid != rows).sum()),
+            "torch_sum_max_abs_diff": float((grid - rows).abs().max()),
+            "tree_sum_rows_differ": int((tgrid != trows).sum())}
+
+
 def run_coords_bench(device=None, smoke: bool = False) -> dict:
     """``run_coords`` at ``COORDS_N`` nodes on the card (``smoke``:
     ``COORDS_SMOKE_N`` on the CPU), with its wall time."""
@@ -283,9 +434,6 @@ def profile_plans(device=None) -> dict:
     ``eclipse`` class (byz variant), each after its warm-up phase; and,
     for each, the frames alone built for the same rounds (the device
     time per round of the flap schedule and the gain blend)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = default_device(device)
     if dev.type != "cuda":
         raise ValueError("profile_plans traces the card; it has no CPU "
@@ -307,34 +455,20 @@ def profile_plans(device=None) -> dict:
         # an untraced call on a copy first: frees the trace of set-up
         run(clone_state(state), key, scalars0=sc.clone())
         _sync(dev)
-
-        def spans_of(prof):
-            return sorted((e.time_range.start, e.time_range.end,
-                           _short_kernel_name(e.name))
-                          for e in prof.events()
-                          if e.device_type == DeviceType.CUDA)
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(state, key, scalars0=sc)
-            _sync(dev)
-            wall = time.perf_counter() - t0
+        _, rep = profile_call(lambda: run(state, key, scalars0=sc), rounds,
+                              dev)
         # the frames as the runner builds them: on the plan it blended
         # once when it was made
         cpf = cp if gain == 1.0 else scale_plan(cp, gain)
         sched = plan_schedule(cpf)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as fprof:
+
+        def frames():
             for r in range(CHAOS_WARMUP_ROUNDS,
                            CHAOS_WARMUP_ROUNDS + rounds):
                 fault_frame(cpf, r, sched, gain)
-            _sync(dev)
-        frame = device_breakdown(spans_of(fprof), rounds)
-        out[label] = {"rounds": rounds,
-                      "wall_us_per_round": wall / rounds * 1e6,
-                      **device_breakdown(spans_of(prof), rounds),
-                      "frame_device_us_per_round": (
+
+        _, frame = profile_call(frames, rounds, dev)
+        out[label] = {**rep, "frame_device_us_per_round": (
                           frame.get("device_busy_us", 0.0) / rounds)}
         del cp, cpf
     return out
@@ -355,9 +489,6 @@ def profile_runners(device=None) -> dict:
     kernel name, the device's busy share of the span from its first
     kernel's start to its last one's end (1 minus the idle share), and
     the runtime calls in the window that make the host wait."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev = default_device(device)
     if dev.type != "cuda":
         raise ValueError("profile_runners traces the card; it has no CPU "
@@ -374,21 +505,38 @@ def profile_runners(device=None) -> dict:
         state = run(init_state(HEADLINE_N, device=dev),
                     prng.fold_in(key, 1))   # warm-up
         _sync(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state = run(state, prng.fold_in(key, 2))
-            _sync(dev)
-            wall = time.perf_counter() - t0
-        spans = sorted((e.time_range.start, e.time_range.end,
-                        _short_kernel_name(e.name))
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        out[name] = {"rounds": rounds,
-                     "wall_us_per_round": wall / rounds * 1e6,
-                     **device_breakdown(spans, rounds),
-                     "host_waits": host_waits(prof)}
+        state, out[name] = profile_call(
+            lambda: run(state, prng.fold_in(key, 2)), rounds, dev)
     return out
+
+
+def profile_call(fn, rounds: int, dev: torch.device):
+    """One call of ``fn`` under ``torch.profiler``, closed by a device
+    sync: (fn's result, its report). The report holds the wall µs per
+    round (inflated by the profiler's own host cost), the device
+    kernels per round, ``device_breakdown`` of the device intervals by
+    short kernel name and ``host_waits``. On the CPU only host activity
+    is traced, and the breakdown says the device was not measured."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    _short_kernel_name(e.name))
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    return result, {"rounds": rounds,
+                    "wall_us_per_round": wall / rounds * 1e6,
+                    "kernels_per_round": len(spans) / rounds,
+                    **device_breakdown(spans, rounds),
+                    "host_waits": host_waits(prof)}
 
 
 #: CUDA runtime calls that make the host wait for the card: the syncs,
@@ -446,13 +594,21 @@ def main(argv=None) -> int:
     ap.add_argument("--coords", action="store_true",
                     help="run the coordinates scenario (Vivaldi "
                          "convergence through a partition and heal)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="run the 64-point gossip-constant sweep over the "
+                         "lan, wan and lossy classes")
     args = ap.parse_args(argv)
     if args.smoke and args.profile:
         ap.error("--profile traces the card; it cannot run with --smoke")
     if args.coords and (args.chaos or args.profile):
         ap.error("--coords runs alone")
+    if args.sweep and (args.chaos or args.coords):
+        ap.error("--sweep runs alone")
     reset_launches()
-    if args.coords:
+    if args.sweep:
+        res = run_sweep_bench(smoke=args.smoke)
+        res["metric"] = "param_sweep" + ("_smoke" if args.smoke else "")
+    elif args.coords:
         res = run_coords_bench(smoke=args.smoke)
         res["metric"] = ("coords_convergence_smoke" if args.smoke
                          else "coords_convergence_65k_nodes")
@@ -460,6 +616,7 @@ def main(argv=None) -> int:
         res = run_chaos_suite(smoke=args.smoke)
         res["metric"] = ("chaos_detection_quality_smoke" if args.smoke
                          else "chaos_detection_quality_1M_nodes")
+        res["corroboration_sweep"] = run_defense_bench(smoke=args.smoke)
     else:
         res = run_headline(smoke=args.smoke)
         res["metric"] = ("gossip_rounds_per_sec_smoke" if args.smoke
@@ -467,7 +624,7 @@ def main(argv=None) -> int:
     res["launches"] = dict(LAUNCHES)
     if args.profile:
         res["profile"] = profile_plans() if args.chaos \
-            else profile_runners()
+            else profile_sweep() if args.sweep else profile_runners()
     print(json.dumps(res))
     return 0
 

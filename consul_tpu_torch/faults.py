@@ -22,8 +22,8 @@ The tensor half replaces the reference's jnp half:
   round does not rewrite are views of the plan's phase rows;
   ``scale_plan`` blends a whole plan once for a runner with a fixed gain;
 * ``detection_gate`` (and ``_binom_tail_ge``) for a static
-  ``corroboration_k``; the traced-k branch belongs to the sweep engine,
-  which is not ported yet.
+  ``corroboration_k`` and for a swept one (a ``[G, 1]`` leaf of a
+  ``params.TracedParams``, where a grid may put k = 0 beside k >= 1).
 
 ``FaultInjector``, which drives the discrete host engine
 (``consul_tpu/gossip/transport.py``, no JAX), is not part of the port.
@@ -602,21 +602,31 @@ def active_phase(cp: CompiledFaultPlan, round_idx: int,
     return min(max(i, 0), len(starts) - 1)
 
 
-def scale_frame(fx: FaultFrame, gain: float) -> FaultFrame:
+def scale_frame(fx: FaultFrame, gain) -> FaultFrame:
     """Blend a round's fault view toward the no-fault identity:
     ``1 - gain*(1 - mult)`` for the delivery multipliers, ``gain*rate``
     for the churn and byzantine rates; the masks stay armed for any
-    positive gain and disarm at 0 (reference ``scale_frame``)."""
-    # a Python float operand is rounded to f32 once, as the reference's
-    # jnp.float32 gain is, and keeps PyTorch on its vectorized kernels
-    g = float(gain)
-    on = g > 0.0
+    positive gain and disarm at 0 (reference ``scale_frame``). ``gain``
+    is a float, or a swept ``[G, 1]`` f32 leaf: the frame's lanes then
+    come out ``[G, N]``, one row per grid point."""
+    if isinstance(gain, torch.Tensor):
+        g = gain.to(torch.float32)
+        on_t = g > 0.0
+
+        def mask(m):
+            return m & on_t
+    else:
+        # a Python float operand is rounded to f32 once, as the
+        # reference's jnp.float32 gain is, and keeps PyTorch on its
+        # vectorized kernels
+        g = float(gain)
+        on = g > 0.0
+
+        def mask(m):
+            return m if on else torch.zeros_like(m)
 
     def blend(m):
         return 1.0 - g * (1.0 - m)
-
-    def mask(m):
-        return m if on else torch.zeros_like(m)
 
     def rate(x):
         return None if x is None else g * x
@@ -695,9 +705,17 @@ def ipow(x: torch.Tensor, y: int) -> torch.Tensor:
     return acc
 
 
-def _binom_tail_ge(m: int, q: torch.Tensor, k: int) -> torch.Tensor:
-    """P(Binomial(m, q) >= k) elementwise, for static ints m and k; the
-    terms j < k never enter, and k <= 0 yields 1."""
+def _binom_tail_ge(m: int, q: torch.Tensor, k) -> torch.Tensor:
+    """P(Binomial(m, q) >= k) elementwise, for a static int m. For an
+    int k the terms j < k never enter, and k <= 0 yields 1; for a swept
+    int32 tensor k every term enters, masked to 0.0 where j < k (adding
+    an exact zero leaves each point's sum what the static k gives)."""
+    if isinstance(k, torch.Tensor):
+        total = torch.zeros_like(q)
+        for j in range(m + 1):
+            pmf = math.comb(m, j) * ipow(q, j) * ipow(1.0 - q, m - j)
+            total = total + torch.where(k <= j, pmf, 0.0)
+        return torch.clamp(total, 0.0, 1.0)
     total = torch.zeros_like(q)
     for j in range(max(k, 0), m + 1):
         total = total + math.comb(m, j) * ipow(q, j) * ipow(1.0 - q, m - j)
@@ -708,16 +726,23 @@ def detection_gate(up: torch.Tensor, fx: Optional[FaultFrame],
                    p) -> torch.Tensor:
     """Multiplier on the failed-probe (suspicion-start) rate: the
     ForgedAcks channel and the corroboration_k defense (reference
-    ``faults.detection_gate``, static k). k == 0: (1-af)^m on down
-    nodes, 1 on live ones; k >= 1: P(Binom(m, q) >= k) for every node,
-    q = p_direct·mid·(1-af)."""
+    ``faults.detection_gate``). k == 0: (1-af)^m on down nodes, 1 on
+    live ones; k >= 1: P(Binom(m, q) >= k) for every node,
+    q = p_direct·mid·(1-af). A swept k (``p.sweeps("corroboration_k")``)
+    selects the rule per grid point."""
     m = int(p.indirect_checks)
     dev = up.device
     one = torch.ones((), dtype=torch.float32, device=dev)
     af = fx.forge_ack if (fx is not None and fx.forge_ack is not None) \
         else torch.zeros((), dtype=torch.float32, device=dev)
-    if p.corroboration_k <= 0:
+    swept = p.sweeps("corroboration_k")
+    if not swept and p.corroboration_k <= 0:
         return torch.where(up, one, ipow(one - af, m))
     mid = fx.mid if fx is not None else one
     q = p.p_direct * mid * (one - af)
-    return _binom_tail_ge(m, q, int(p.corroboration_k))
+    if not swept:
+        return _binom_tail_ge(m, q, int(p.corroboration_k))
+    ck = p.corroboration_k
+    tail = _binom_tail_ge(m, q, torch.clamp_min(ck, 1))
+    return torch.where(ck >= 1, tail, torch.where(up, one,
+                                                  ipow(one - af, m)))

@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import registry
 from consul_tpu_torch.sim.state import (DEAD, STATS_FIELDS, SUSPECT,
                                         SimStats, stats_vector)
@@ -54,8 +55,11 @@ def n_trace_rows(rounds: int, record_every: int) -> int:
 
 
 def empty_trace(rounds: int, record_every: int,
-                device: DeviceLike = None) -> torch.Tensor:
-    return torch.zeros((n_trace_rows(rounds, record_every), N_COLS),
+                device: DeviceLike = None, lead: tuple = ()) -> torch.Tensor:
+    """A zeroed trace, ``lead + [n_rows, N_COLS]`` (``lead=(G,)``: one
+    trace per grid point)."""
+    return torch.zeros(tuple(lead) + (n_trace_rows(rounds, record_every),
+                                      N_COLS),
                        dtype=_F32, device=default_device(device))
 
 
@@ -96,11 +100,64 @@ def flight_row(*, up, status, informed, local_health, incarnation, t,
         sv.to(_F32), coord_row.to(_F32)])
 
 
+def row_from_lanes(lanes: torch.Tensor, n_pool: int, t, phase: int,
+                   stats_delta: SimStats) -> torch.Tensor:
+    """One trace row from a reduced lane vector (``registry.REDUCE_LANES``,
+    the lane engine's per-window output): the gauge means are the lane
+    numerators over the pool size, the max-health gauge decodes the
+    exceedance histogram, no per-node tensor is touched. A grid's
+    ``[K, G]`` lanes (``[G]`` clock and counters) give ``[G, N_COLS]``."""
+    lane = registry.LANE
+    inv = 1.0 / float(n_pool)
+    lead = tuple(lanes.shape[1:])
+    dev = lanes.device
+    gauges = torch.stack([
+        t.to(_F32).expand(lead),
+        lanes[lane["up_sum"]] * inv,
+        lanes[lane["informed_sum"]] * inv,
+        lanes[lane["suspect_sum"]] * inv,
+        lanes[lane["wrong_sum"]] * inv,
+        lanes[lane["lh_sum"]] * inv,
+        lanes_mod.max_lh_from_lanes(lanes),
+        lanes[lane["inc_sum"]],
+        torch.full(lead, float(phase), dtype=_F32, device=dev)], dim=-1)
+    sv = torch.stack([getattr(stats_delta, f).to(_F32).expand(lead)
+                      for f in STATS_FIELDS], dim=-1)
+    coord = torch.zeros(lead + (len(COORD_COLUMNS),), dtype=_F32,
+                        device=dev)
+    return torch.cat([gauges, sv, coord], dim=-1)
+
+
+def grid_flight_row(*, up, status, informed, local_health, incarnation, t,
+                    stats_delta: SimStats, phase: int) -> torch.Tensor:
+    """``flight_row`` of a grid state (``[G, N]`` lanes, ``[G]`` clock
+    and counters) -> ``[G, N_COLS]``: per-row sums by ``lanes.tree_sum``,
+    so a grid row is its one-point row bit for bit."""
+    dev = status.device
+    suspect = status == SUSPECT
+    wrong = up & (suspect | (status == DEAD))
+    lh = local_health.to(_F32)
+    means = lanes_mod.tree_sum(torch.stack([
+        up.to(_F32), informed, suspect.to(_F32), wrong.to(_F32), lh])) \
+        / float(status.shape[-1])
+    lead = tuple(t.shape)
+    gauges = torch.cat([
+        t.to(_F32).unsqueeze(0), means, torch.amax(lh, -1).unsqueeze(0),
+        lanes_mod.tree_sum(incarnation.to(_F32)).unsqueeze(0),
+        torch.full((1,) + lead, float(phase), dtype=_F32, device=dev)]).t()
+    sv = torch.stack([getattr(stats_delta, f).to(_F32)
+                      for f in STATS_FIELDS], dim=-1)
+    coord = torch.zeros(lead + (len(COORD_COLUMNS),), dtype=_F32,
+                        device=dev)
+    return torch.cat([gauges, sv, coord], dim=-1)
+
+
 def record_row(buf: torch.Tensor, row: torch.Tensor, i: int,
                record_every: int) -> torch.Tensor:
     """Write ``row`` (run-local round ``i``) into its decimation slot,
-    in place; a truncated last window lands in the last row."""
-    buf[min(i // record_every, buf.shape[0] - 1)] = row
+    in place; a truncated last window lands in the last row. A grid's
+    ``[G, n_rows, N_COLS]`` buffer takes a ``[G, N_COLS]`` row."""
+    buf[..., min(i // record_every, buf.shape[-2] - 1), :] = row
     return buf
 
 

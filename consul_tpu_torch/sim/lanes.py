@@ -1,0 +1,240 @@
+"""Fused reduction lanes: one reduction per round, in a fixed order.
+
+The port of the JAX package's ``consul_tpu/sim/lanes.py``. In the lane
+engine (``round.make_run_rounds_lanes``) a round's every population
+statistic — the eight stale scalars, the SimStats counters, the flight
+gauges' numerators and the local-health exceedance histogram — is a
+named row of one ``[N_LANES, ..., L]`` contribution stack
+(``registry.REDUCE_LANES``), and the round reduces it once.
+
+The reduction goes through a fixed ``LANE_BLOCKS``-wide block table:
+contributions reduce to per-block partials (a block is a contiguous
+``L / LANE_BLOCKS`` node range), then the table folds to the lane
+vector. Both stages add by pairwise halving (``tree_sum``): every sum is
+one fixed tree of f32 additions, whatever the leading (grid) shape and
+whatever the device, so a grid row of the sweep engine is bit for bit
+its one-point run on the card as on the host. XLA's order inside a
+block differs, so the port's f32 lanes agree with the reference's
+within a few ulp; the count lanes (sums of 0/1 below 2^24) are exact.
+
+Stacks, tables and lane vectors carry any leading shape after the lane
+axis: ``[K, L]`` for one run, ``[K, G, L]`` for a G-point grid, reduced
+to ``[K]`` / ``[K, G]``.
+
+Not ported: the reference's jax batching patch for its optimization
+barrier (no PyTorch meaning), and its mesh reducer and the shard
+offsets of the tables and the lane engine (with the mesh: one device
+is the shard at offset 0).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from consul_tpu_torch.sim import registry
+from consul_tpu_torch.sim.state import STATS_FIELDS, SimStats
+
+N_LANES = registry.N_REDUCE_LANES
+LANE = registry.LANE
+LANE_BLOCKS = registry.LANE_BLOCKS
+
+_N_SC = len(registry.LANE_SCALARS)
+_LAT = STATS_FIELDS.index("detect_latency_sum")
+#: the SimStats counter rows of a contribution stack: a staleness-k
+#: window sums exactly these rows per node over its k rounds
+STATS_SLICE = slice(_N_SC, _N_SC + len(STATS_FIELDS))
+_GAUGE0 = _N_SC + len(STATS_FIELDS)
+_HIST_SLICE = slice(_GAUGE0 + len(registry.LANE_GAUGES), N_LANES)
+
+#: floors of the stale scalars, applied after the reduction:
+#: n_elig >= 1, n_up_elig >= 1e-9, lfail_den >= 1e-9
+_FLOORS = (float("-inf"), 1.0, 1e-9, float("-inf"), float("-inf"),
+           float("-inf"), float("-inf"), 1e-9)
+
+
+def check_pool(n: int, blocks: int = LANE_BLOCKS) -> None:
+    if n % blocks:
+        raise ValueError(
+            f"lane engine pools must divide the {blocks}-wide block "
+            f"table evenly: n={n}")
+
+
+def check_flight_config(p, flight_every) -> None:
+    """The flight recorder's preconditions on the lane engine: counter
+    columns ride the SimStats lanes, so stats must be on; the
+    max_local_health gauge decodes the exceedance histogram, which
+    covers lh >= 1..len(LANE_LH_HIST); rows are emitted only on
+    reduction rounds, so the stride must be a multiple of stale_k
+    (registry.STALE_EMISSION_RULE)."""
+    if flight_every is None:
+        return
+    if not p.collect_stats:
+        raise ValueError(
+            "the flight recorder's counter columns ride the SimStats "
+            "lanes; build SimParams with collect_stats=True")
+    limit = len(registry.LANE_LH_HIST)
+    if p.awareness_max > limit:
+        raise ValueError(
+            f"the lane engine's flight max_local_health gauge covers "
+            f"awareness_max <= {limit} (registry.LANE_LH_HIST); got "
+            f"{p.awareness_max} — use the XLA run_rounds_flight "
+            "recorder for larger awareness ceilings")
+    if flight_every % p.stale_k:
+        raise ValueError(
+            f"flight rows are emitted only on reduction rounds: "
+            f"record stride {flight_every} must be a multiple of "
+            f"stale_k={p.stale_k} (registry.STALE_EMISSION_RULE)")
+
+
+def check_schedule(p, rounds: int, flight_every, overlap: bool) -> None:
+    """The staleness/overlap schedule's preconditions: ``stale_k`` a
+    positive int (a partial final window runs as its own reduction, so
+    any round count works) — except under overlap, whose drain needs
+    uniform windows; and overlap consumes each reduction a window late,
+    so flight rows (which need the synchronous reduction) are refused
+    with it."""
+    k = p.stale_k
+    if not isinstance(k, int) or k < 1:
+        raise ValueError(f"stale_k must be a positive int: {k!r}")
+    if overlap and rounds % k:
+        raise ValueError(
+            f"overlap needs uniform reduction windows: rounds={rounds} "
+            f"must be a multiple of stale_k={k}")
+    if overlap and flight_every is not None:
+        raise ValueError(
+            "overlap consumes each lane reduction one window late — "
+            "flight rows need the synchronous reduction; record with "
+            "overlap=False (the amortization still comes from stale_k)")
+    check_flight_config(p, flight_every)
+
+
+# -------------------------------------------------- fixed-order sums
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim by pairwise halving: element i adds element
+    i + h of the current length, and an odd length carries its last
+    element to the next step. Each output is one fixed tree of f32
+    additions, independent of the leading shape and of the device —
+    the sums a grid row and its one-point run share bit for bit."""
+    while x.shape[-1] > 1:
+        length = x.shape[-1]
+        h = length // 2
+        y = x[..., :h] + x[..., h:2 * h]
+        if length % 2:
+            y = torch.cat([y, x[..., 2 * h:]], dim=-1)
+        x = y
+    return x[..., 0]
+
+
+def row_sums(*xs: torch.Tensor) -> list:
+    """Each ``[..., N]`` tensor summed over its last dim, kept as
+    ``[..., 1]`` so it broadcasts back against the rows: the grid
+    engine's population reducer (one stacked ``tree_sum``)."""
+    shape = torch.broadcast_shapes(*(x.shape for x in xs))
+    out = tree_sum(torch.stack([x.expand(shape) for x in xs]))
+    return list(out.unsqueeze(-1))
+
+
+def _block_partials(stack: torch.Tensor, blocks: int) -> torch.Tensor:
+    """``[K, ..., L]`` -> ``[K, ..., blocks]`` contiguous-range partial
+    sums (inner length L // blocks)."""
+    return tree_sum(stack.reshape(*stack.shape[:-1], blocks,
+                                  stack.shape[-1] // blocks))
+
+
+class LaneReducer:
+    """A lane reduction split at the block-table seam: ``partials``
+    builds the ``[K, ..., LANE_BLOCKS]`` table (local work) and ``fold``
+    turns it into the lane vector; calling the reducer runs both. The
+    seam is the overlap schedule's: it carries the in-flight table and
+    folds it one window late."""
+
+    def partials(self, stack: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def fold(self, table: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def gather_table(self, table: torch.Tensor) -> torch.Tensor:
+        """The global block table from a local one (a checkpoint's
+        capture of the overlap carry): the identity on one device."""
+        raise NotImplementedError
+
+    def __call__(self, stack: torch.Tensor) -> torch.Tensor:
+        return self.fold(self.partials(stack))
+
+
+class _SingleDeviceReducer(LaneReducer):
+    """One device: ``[K, ..., L]`` -> ``[K, ..., blocks]`` -> ``[K, ...]``.
+
+    ``blocks`` defaults to the digest-pinned ``LANE_BLOCKS``; other
+    widths (registry.AUTOTUNE_LANE_BLOCKS) sum in another order, so
+    their output conforms statistically, not bitwise."""
+
+    def __init__(self, blocks: int = LANE_BLOCKS) -> None:
+        self.blocks = blocks
+
+    def partials(self, stack: torch.Tensor) -> torch.Tensor:
+        return _block_partials(stack, self.blocks)
+
+    def fold(self, table: torch.Tensor) -> torch.Tensor:
+        return tree_sum(table)
+
+    def gather_table(self, table: torch.Tensor) -> torch.Tensor:
+        return table
+
+
+#: the single-device reducer every caller passes by default
+reduce_lanes_single = _SingleDeviceReducer()
+
+
+def seed_table(lanes0: torch.Tensor) -> torch.Tensor:
+    """A block table whose ``fold`` is exactly ``lanes0``: the overlap
+    schedule's first in-flight carry (column 0 holds the values, zeros
+    elsewhere, so the fold adds only exact zeros). The reference places
+    them on the shard at global offset 0; one device is that shard."""
+    table = torch.zeros(lanes0.shape + (LANE_BLOCKS,), dtype=torch.float32,
+                        device=lanes0.device)
+    table[..., 0] = lanes0
+    return table
+
+
+def carry_table(table0: torch.Tensor) -> torch.Tensor:
+    """A checkpoint's global in-flight table for a resumed overlap scan
+    (the shard at offset 0 carries all of it: on one device, a copy)."""
+    return table0.to(torch.float32).clone()
+
+
+# ------------------------------------------------------- lane consumers
+
+
+def scalars_from_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """The stale population scalars (``[8, ...]``, round.N_SCALARS
+    layout) from a reduced lane vector, floors applied after the
+    reduction."""
+    s = lanes[:_N_SC]
+    floors = _floors.get(s.device)
+    if floors is None:
+        # made once per device: a copy from host memory makes the host
+        # wait for the card
+        floors = _floors[s.device] = torch.tensor(
+            _FLOORS, dtype=torch.float32, device=s.device)
+    return torch.maximum(s, floors.view((_N_SC,) + (1,) * (s.dim() - 1)))
+
+
+_floors: dict = {}
+
+
+def stats_delta_from_lanes(lanes: torch.Tensor) -> SimStats:
+    """The window's SimStats delta from the reduced lane vector: the
+    counter lanes as int32 (exact: sums of 0/1), latency a true f32
+    sum."""
+    d = lanes[STATS_SLICE]
+    return SimStats(**{f: d[i] if i == _LAT else d[i].to(torch.int32)
+                       for i, f in enumerate(STATS_FIELDS)})
+
+
+def max_lh_from_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """Cluster max local health from the exceedance-count lanes."""
+    return (lanes[_HIST_SLICE] > 0.0).to(torch.float32).sum(0)

@@ -1,12 +1,14 @@
 """Failure-detector quality metrics from simulation runs.
 
 Port of ``fd_report`` / ``FDReport``, ``PhaseReport`` /
-``phase_reports``, ``trace_report``, ``blackbox_report`` and
-``propagation_curve`` from the JAX package's ``consul_tpu/sim/
-metrics.py``: false positives, detection latency and the informed/live
-fractions of a finished run, the same counters split by FaultPlan phase
-(from a per-round stats trace or a flight trace), and the black box's
-event totals with their exact cross-check against the flight counters.
+``phase_reports``, ``trace_report``, ``blackbox_report``,
+``propagation_curve`` and the sweep reports (``message_load``,
+``pareto_front``, ``sweep_report``) from the JAX package's
+``consul_tpu/sim/metrics.py``: false positives, detection latency and
+the informed/live fractions of a finished run, the same counters split
+by FaultPlan phase (from a per-round stats trace or a flight trace),
+the black box's event totals with their exact cross-check against the
+flight counters, and a sweep's Pareto ranking.
 """
 
 from __future__ import annotations
@@ -262,3 +264,119 @@ def propagation_curve(trace, probe_interval: float,
     hit = np.nonzero(tr >= threshold)[0]
     t = float(hit[0] + 1) * probe_interval if hit.size else float("inf")
     return tr, t
+
+
+# ------------------------------------------------------------- sweeps
+
+
+def message_load(p: SimParams) -> float:
+    """Expected protocol messages per node per round, analytic from the
+    point's constants: the direct probe's round trip (2), the indirect
+    fan-out a direct miss triggers (4 legs per ping-req, plus the 2-leg
+    TCP fallback when on), and the piggyback gossip fan-out."""
+    miss = 1.0 - p.p_direct
+    indirect = 4.0 * p.indirect_checks + (2.0 if p.tcp_fallback else 0.0)
+    return 2.0 + miss * indirect + p.gossip_nodes * p.gossip_ticks_per_round
+
+
+def pareto_front(rows: list, keys: tuple) -> list:
+    """Indices of the non-dominated rows, minimizing every key (None
+    reads as +inf)."""
+    def val(r, k):
+        v = r[k]
+        return float("inf") if v is None else float(v)
+
+    out = []
+    for i, a in enumerate(rows):
+        dominated = False
+        for j, b in enumerate(rows):
+            if i == j:
+                continue
+            if all(val(b, k) <= val(a, k) for k in keys) and \
+                    any(val(b, k) < val(a, k) for k in keys):
+                dominated = True
+                break
+        if not dominated:
+            out.append(i)
+    return out
+
+
+#: the sweep's quality axes, all minimized
+SWEEP_OBJECTIVES = ("mean_detect_latency_s", "fp_per_node_hour",
+                    "msg_load")
+
+
+def sweep_report(result, fp_budget: float = 1.0) -> dict:
+    """Pareto-rank a sweep (``sweep.SweepResult``) on detection latency,
+    false-positive rate and message load (reference ``sweep_report``).
+
+    The ``[G]`` counters, clocks and live fractions come off the device
+    in one copy (f64, exact for int32 and f32). The winner is the front
+    point with the lowest latency within ``fp_budget`` false positives
+    per node-hour, else the lowest-FP front point; a point that declared
+    no real death has latency None and never wins."""
+    from consul_tpu_torch.sim.params import SWEEPABLE_FIELDS
+
+    states = result.states
+    st = states.stats
+    fields = list(SimStats._fields)
+    host = torch.stack(
+        [getattr(st, f).to(torch.float64) for f in fields]
+        + [states.t.to(torch.float64),
+           (states.down_age < 0).to(torch.float64).mean(-1)]).cpu().numpy()
+    col = {f: host[i] for i, f in enumerate(fields)}
+    sim_s, live = host[len(fields)], host[len(fields) + 1]
+    swept = sorted(k for k in result.tp.leaves if k in SWEEPABLE_FIELDS)
+    rows: list = []
+    for i, pp in enumerate(result.points):
+        tdd = int(col["true_deaths_declared"][i])
+        fp = int(col["false_positives"][i])
+        crashes = int(col["crashes"][i])
+        node_hours = pp.n * float(sim_s[i]) / 3600.0
+        lat = (float(col["detect_latency_sum"][i]) / tdd if tdd else None)
+        rows.append({
+            "point": i,
+            "params": {k: getattr(pp, k) for k in swept},
+            "mean_detect_latency_s": lat,
+            "fp_per_node_hour": (fp / node_hours if node_hours > 0
+                                 else 0.0),
+            "msg_load": round(message_load(pp), 4),
+            "false_positives": fp,
+            "true_deaths_declared": tdd,
+            "suspicions": int(col["suspicions"][i]),
+            "refutes": int(col["refutes"][i]),
+            "crashes": crashes,
+            "missed_detections": max(crashes - tdd, 0),
+            "missed_detection_rate": (max(crashes - tdd, 0) / crashes
+                                      if crashes else 0.0),
+            "attack_suspicions": int(col["attack_suspicions"][i]),
+            "attack_false_positives": int(
+                col["attack_false_positives"][i]),
+            "live_fraction": float(live[i]),
+        })
+    front = pareto_front(rows, SWEEP_OBJECTIVES)
+    for i in front:
+        rows[i]["pareto"] = True
+    eligible = [i for i in front
+                if rows[i]["mean_detect_latency_s"] is not None
+                and rows[i]["fp_per_node_hour"] <= fp_budget]
+    if eligible:
+        winner = min(eligible,
+                     key=lambda i: (rows[i]["mean_detect_latency_s"],
+                                    rows[i]["msg_load"]))
+    else:
+        measured = [i for i in front
+                    if rows[i]["mean_detect_latency_s"] is not None]
+        pool = measured or front
+        winner = min(pool, key=lambda i: (rows[i]["fp_per_node_hour"],
+                                          rows[i]["msg_load"]))
+    return {
+        "grid_size": len(rows),
+        "rounds": result.rounds,
+        "swept": swept,
+        "objectives": list(SWEEP_OBJECTIVES),
+        "fp_budget_per_node_hour": fp_budget,
+        "pareto": front,
+        "winner": rows[winner],
+        "points": rows,
+    }

@@ -4,15 +4,29 @@ The port's copy of ``SimParams`` from the JAX package's
 ``consul_tpu/sim/params.py``: the same fields, the same derived
 properties (folded on the host in f64, then cast once to f32 where the
 round body consumes them), ``from_gossip_config`` and
-``baseline_configs``. The traced sweep view (``TracedParams`` /
-``grid_params``) belongs to the sweep slice of the port and is not here.
+``baseline_configs``, and the sweep view: ``SweepAxes`` names a grid of
+sweepable constants, ``grid_params`` lifts it into a ``TracedParams``
+whose swept fields (and the derived properties that depend on them,
+folded per point on the host in f64 and cast once) are ``[G, 1]``
+tensors. The grid is an explicit leading dimension: a grid state is
+``[G, N]``, so every leaf broadcasts against it in the round body.
+
+The round bodies gate Python control flow through ``enabled()`` /
+``sweeps()`` (plain truthiness for ``SimParams``; leaf presence for a
+``TracedParams``), never through the truth of a leaf.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Any, Mapping, Sequence, Union
+
+import numpy as np
+import torch
 
 from consul_tpu_torch.config import GossipConfig
+from consul_tpu_torch.sim import registry
+from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
 
 @dataclass(frozen=True)
@@ -180,6 +194,10 @@ class SimParams:
         """Is any of these features active (plain truthiness)?"""
         return any(bool(getattr(self, n)) for n in names)
 
+    def sweeps(self, *names: str) -> bool:
+        """Is any of these fields a sweep leaf? Never, on SimParams."""
+        return False
+
     # --- the round kernels' variant switches ---------------------------
 
     @property
@@ -220,3 +238,201 @@ def baseline_configs() -> dict[str, SimParams]:
         ),
         "1m-lan": SimParams.from_gossip_config(lan, n=1_000_000, loss=0.01),
     }
+
+
+# ---------------------------------------------------------------- sweep
+#
+# SweepAxes -> grid_params -> TracedParams: the parameter grid as data.
+
+#: SimParams fields that may become sweep leaves
+SWEEPABLE_FIELDS = registry.SWEEP_AXES
+
+#: derived property -> the sweepable fields it depends on
+DERIVED_DEPS: dict = dict(registry.SWEEP_DERIVED)
+
+_INT_LEAVES = frozenset(registry.SWEEP_INT_LEAVES)
+
+
+class TracedParams:
+    """A SimParams view whose sweepable scalars are tensors.
+
+    Attribute reads hit ``leaves`` first (``[G, 1]`` tensors for a grid,
+    ``[1, 1]`` for one point of it), then fall through to the static
+    dataclass. A derived property whose dependencies are swept must
+    arrive as a leaf (``grid_params`` ships them); reading one that is
+    missing raises instead of silently using the static value.
+    ``point`` marks the one-point view ``point_params`` makes, which
+    ``sweep.make_run_point`` takes and ``make_run_sweep`` refuses."""
+
+    __slots__ = ("static", "leaves", "point")
+
+    def __init__(self, static: SimParams, leaves: Mapping[str, Any],
+                 point: bool = False) -> None:
+        unknown = [k for k in leaves
+                   if k not in SWEEPABLE_FIELDS and k not in DERIVED_DEPS]
+        if unknown:
+            raise ValueError(
+                f"not sweepable leaves: {sorted(unknown)} (sweepable "
+                f"fields: {', '.join(SWEEPABLE_FIELDS)}; derived: "
+                f"{', '.join(DERIVED_DEPS)})")
+        self.static = static
+        self.leaves = dict(leaves)
+        self.point = point
+
+    def __getattr__(self, name: str):
+        # only reached when `name` is not a slot, method or property
+        leaves = object.__getattribute__(self, "leaves")
+        if name in leaves:
+            return leaves[name]
+        deps = DERIVED_DEPS.get(name)
+        if deps and any(d in leaves for d in deps):
+            raise AttributeError(
+                f"derived SimParams.{name} depends on swept "
+                f"{sorted(set(deps) & set(leaves))} but was not "
+                "precomputed as a leaf — build TracedParams via "
+                "grid_params, which ships host-f64 derived leaves")
+        return getattr(object.__getattribute__(self, "static"), name)
+
+    def enabled(self, *names: str) -> bool:
+        """True for any swept field whatever its values (every point
+        shares one program), else the static field's truth."""
+        return any(n in self.leaves or bool(getattr(self.static, n))
+                   for n in names)
+
+    def sweeps(self, *names: str) -> bool:
+        return any(n in self.leaves for n in names)
+
+    @property
+    def has_churn(self) -> bool:
+        return self.enabled("fail_per_round", "leave_per_round",
+                            "rejoin_per_round")
+
+    @property
+    def grid_shape(self) -> tuple:
+        """``(G,)`` for a grid, ``()`` for one point or no leaves."""
+        if self.point:
+            return ()
+        for v in self.leaves.values():
+            return (int(v.shape[0]),)
+        return ()
+
+    def __repr__(self) -> str:
+        return (f"TracedParams(n={self.static.n}, "
+                f"leaves={sorted(self.leaves)}, point={self.point})")
+
+
+@dataclass(frozen=True)
+class SweepAxes:
+    """A named parameter grid: ``axes`` is an ordered (field, values)
+    tuple; the grid is their cartesian product, first axis slowest.
+    Only ``registry.SWEEP_AXES`` fields are accepted: the others shape
+    the program (tensor shapes, Python branches) and must be the same
+    across a grid, and are refused with that reason."""
+
+    axes: tuple
+
+    def __post_init__(self):
+        axes = tuple((name, tuple(float(v) for v in values))
+                     for name, values in self.axes)
+        for name, values in axes:
+            if name not in SWEEPABLE_FIELDS:
+                hint = ("a STATIC field — it affects compiled shapes "
+                        "or Python branches, so it cannot vary inside "
+                        "one compiled grid"
+                        if name in SimParams.__dataclass_fields__
+                        else "not a SimParams field")
+                raise ValueError(
+                    f"cannot sweep {name!r}: {hint}. Sweepable: "
+                    f"{', '.join(SWEEPABLE_FIELDS)}")
+            if not values:
+                raise ValueError(f"sweep axis {name!r} has no values")
+        object.__setattr__(self, "axes", axes)
+
+    @staticmethod
+    def of(**axes: Sequence[float]) -> "SweepAxes":
+        return SweepAxes(tuple(axes.items()))
+
+    @property
+    def size(self) -> int:
+        out = 1
+        for _, values in self.axes:
+            out *= len(values)
+        return out
+
+    def points(self) -> list:
+        """The grid as a list of {field: value} dicts (product order)."""
+        out: list = [{}]
+        for name, values in self.axes:
+            out = [{**pt, name: v} for pt in out for v in values]
+        return out
+
+
+GridSpec = Union[SweepAxes, Sequence[Mapping[str, float]]]
+
+#: int-valued SimParams fields a float sweep value must round-trip to
+_INT_FIELDS = frozenset(
+    name for name, f in SimParams.__dataclass_fields__.items()
+    if f.type in ("int", int))
+
+
+def _point_param(base: SimParams, pt: Mapping[str, float]) -> SimParams:
+    kw = {}
+    for name, v in pt.items():
+        if name in _INT_FIELDS:
+            iv = int(round(v))
+            if iv != v:
+                raise ValueError(
+                    f"sweep axis {name!r} is integer-valued: {v}")
+            v = iv
+        kw[name] = v
+    return base.with_(**kw)
+
+
+def grid_params(p: SimParams, grid: GridSpec, device: DeviceLike = None
+                ) -> tuple:
+    """Build the grid on ``device`` (the card unless the caller passes
+    ``"cpu"``): (TracedParams with ``[G, 1]`` leaves, the G concrete
+    per-point SimParams).
+
+    Every swept field becomes a leaf, and so does every derived
+    property whose dependencies are swept, computed per point by the
+    concrete SimParams' own property in f64 on the host and cast once:
+    to int32 for ``registry.SWEEP_INT_LEAVES`` and int fields, to f32
+    otherwise. The point list is the host-side mirror (reports, winner
+    selection, per-point runs)."""
+    dev = default_device(device)
+    if isinstance(grid, SweepAxes):
+        pts = grid.points()
+    else:
+        pts = [dict(pt) for pt in grid]
+        if not pts:
+            raise ValueError("empty sweep grid")
+        keys = set(pts[0])
+        for pt in pts:
+            if set(pt) != keys:
+                raise ValueError(
+                    "every sweep grid point must set the same fields: "
+                    f"{sorted(keys)} vs {sorted(pt)}")
+        # route through SweepAxes validation for the field names
+        SweepAxes(tuple((k, (0.0,)) for k in sorted(keys)))
+    swept = sorted(set().union(*pts)) if pts else []
+    points = [_point_param(p, pt) for pt in pts]
+    leaf_names = list(swept) + [
+        d for d, deps in DERIVED_DEPS.items()
+        if any(dep in swept for dep in deps)]
+    leaves = {}
+    for name in leaf_names:
+        dtype = torch.int32 if name in _INT_LEAVES or name in _INT_FIELDS \
+            else torch.float32
+        host = np.asarray([getattr(pp, name) for pp in points], np.float64)
+        leaves[name] = torch.from_numpy(host).to(dtype).view(-1, 1).to(dev)
+    return TracedParams(p, leaves), points
+
+
+def point_params(tp: TracedParams, i: int) -> TracedParams:
+    """Grid point ``i`` as a one-point TracedParams (``[1, 1]`` leaves):
+    what ``sweep.make_run_point`` runs, the same code on a grid of
+    one."""
+    return TracedParams(tp.static,
+                        {k: v[i:i + 1] for k, v in tp.leaves.items()},
+                        point=True)

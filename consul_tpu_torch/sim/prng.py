@@ -8,7 +8,9 @@ Two generators live here:
   ``exponential``, exact up to the last bits of ``erfinv`` / ``log1p``),
   and on top of them the per-round streams
   ``round_keys`` / ``round_seeds`` of the JAX package's
-  ``sim/round.py``. A run seeded with the same base key therefore draws
+  ``sim/round.py`` and the lane engine's global-index stream
+  ``u01_global`` (its ``sim/lanes.py``). A run seeded with the same
+  base key therefore draws
   the same per-round kernel seeds in both packages, and a run cut at a
   call boundary resumes seed for seed (round ``r``'s key is
   ``fold_in(base, r)``, independent of how the run is cut).
@@ -66,10 +68,19 @@ def key(seed: int, device=None) -> torch.Tensor:
                          seed & MASK], dtype=torch.int64, device=device)
 
 
+def _on(x, device) -> torch.Tensor:
+    """``x`` as an int64 tensor on ``device``. A Python int is written by
+    a fill: a copy from host memory would make the host wait for the
+    card."""
+    if isinstance(x, int):
+        return torch.full((), x, dtype=torch.int64, device=device)
+    return torch.as_tensor(x, device=device).to(torch.int64)
+
+
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: a new key from ``k`` and uint32 ``data``
     (a 1-D ``data`` tensor gives a ``[len, 2]`` stack of keys)."""
-    d = torch.as_tensor(data, device=k.device).to(torch.int64) & MASK
+    d = _on(data, k.device) & MASK
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
 
@@ -168,7 +179,7 @@ def round_keys(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
     """``[count, 2]`` per-round keys for ABSOLUTE rounds
     start..start+count-1: round r's key is ``fold_in(k, r)``, a pure
     function of the base key and the absolute round index."""
-    idx = torch.as_tensor(start, device=k.device).to(torch.int64) \
+    idx = _on(start, k.device) \
         + torch.arange(count, dtype=torch.int64, device=k.device)
     return fold_in(k, idx)
 
@@ -266,6 +277,32 @@ def threefry_u01(k: torch.Tensor, n: int) -> U01:
         if slot == 5:
             return uniform(fold_in(k, REPLAY_FOLD), n)
         return uniform(keys[slot], n)
+
+    return u01
+
+
+def u01_global(k: torch.Tensor, offset: Start, length: int) -> torch.Tensor:
+    """The lane engine's ``[length]`` uniforms keyed by (key, GLOBAL node
+    index): one threefry2x32 evaluation per node on the counter pair
+    ``(0, offset + i)``, word 0, top 24 bits — so node i draws the same
+    value whatever slice of the pool is computed (reference
+    ``lanes.u01_global``). Not ``uniform``: a different stream."""
+    idx = (_on(offset, k.device)
+           + torch.arange(length, dtype=torch.int64, device=k.device)) \
+        & MASK
+    y0, _ = threefry2x32(k[0], k[1], torch.zeros_like(idx), idx)
+    return _u01_of(y0)
+
+
+def global_u01(k: torch.Tensor, offset: Start, n: int) -> U01:
+    """The lane engine's draws for one round over nodes offset..offset+
+    n-1: slots 0-4 from ``split(k, 5)``, slot 5 (byzantine replay) from
+    ``fold_in(k, REPLAY_FOLD)``, each through ``u01_global``."""
+    keys = split(k, 5)
+
+    def u01(slot: int) -> torch.Tensor:
+        kk = fold_in(k, REPLAY_FOLD) if slot == 5 else keys[slot]
+        return u01_global(kk, offset, n)
 
     return u01
 

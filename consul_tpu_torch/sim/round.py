@@ -14,7 +14,14 @@ versions in ``cuda_round.py``, so they cannot drift:
 * ``run_rounds`` / ``make_run_rounds_fast`` / ``make_run_rounds`` /
   ``run_rounds_stats`` — the multi-round loops;
 * ``run_rounds_flight`` / ``run_rounds_coords`` — the live engine with
-  the flight recorder, the black box and Vivaldi coordinates riding it.
+  the flight recorder, the black box and Vivaldi coordinates riding it;
+* ``make_run_rounds_lanes`` — the exact lane engine: the body in lane
+  mode on global-index draws, one fixed-order reduction per staleness-k
+  window (``sim/lanes.py``), bit for bit resumable from its carry.
+
+The live engine and the lane engine also run a grid of constants
+(``sim/sweep.py``): ``[G, N]`` lanes and a ``params.TracedParams`` whose
+swept leaves are ``[G, 1]``.
 
 Each takes an optional fault view (``fx=``, a ``faults.FaultFrame``) or
 plan (``plan=``, a ``faults.CompiledFaultPlan``), as its JAX twin does:
@@ -55,6 +62,7 @@ from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
                                      detection_gate, fault_frame, ipow,
                                      plan_schedule, scale_frame)
 from consul_tpu_torch.sim import blackbox, flight, prng, topology
+from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import (ALIVE, ALIVE_AGE, CONF_MAX, DEAD,
@@ -86,13 +94,49 @@ _I32 = torch.int32
 
 
 def _shrink(c: torch.Tensor, p: SimParams) -> torch.Tensor:
-    """Normalized Lifeguard timeout shrink factor for c confirmations."""
-    if not p.lifeguard or p.suspicion_max_s <= p.suspicion_min_s:
+    """Normalized Lifeguard timeout shrink factor for c confirmations.
+    With swept suspicion constants the degenerate max <= min case folds
+    into the formula (shrink_r >= 1 makes it return ones), so no Python
+    comparison touches a leaf."""
+    if not p.lifeguard:
         return torch.ones_like(c, dtype=_F32)
-    den = torch.log(torch.tensor(float(p.confirmation_k), dtype=_F32,
-                                 device=c.device) + 1.0)
+    if not p.sweeps("suspicion_mult", "suspicion_max_timeout_mult",
+                    "probe_interval") \
+            and p.suspicion_max_s <= p.suspicion_min_s:
+        return torch.ones_like(c, dtype=_F32)
+    ck = p.confirmation_k
+    if isinstance(ck, torch.Tensor):
+        den = torch.log(ck.to(_F32) + 1.0)
+    else:
+        den = torch.log(torch.tensor(float(ck), dtype=_F32,
+                                     device=c.device) + 1.0)
     frac = torch.log(c.to(_F32) + 1.0) / den
-    return torch.clamp_min(1.0 - p.shrink_omr * frac, p.shrink_r)
+    x = 1.0 - p.shrink_omr * frac
+    if isinstance(p.shrink_r, torch.Tensor):
+        return torch.maximum(x, p.shrink_r)
+    return torch.clamp_min(x, p.shrink_r)
+
+
+def _clamp_lh(x: torch.Tensor, p: SimParams) -> torch.Tensor:
+    """Local health clipped to [0, awareness_max] (a swept ceiling is an
+    int32 leaf)."""
+    if isinstance(p.awareness_max, torch.Tensor):
+        return torch.minimum(torch.clamp_min(x, 0), p.awareness_max)
+    return torch.clamp(x, 0, p.awareness_max)
+
+
+def _sums(reduce, *xs: torch.Tensor) -> list:
+    """Population sums: ``torch.sum`` of each (0-d results) without a
+    reducer, else ``reduce(*xs)`` (the grid engine's per-row sums)."""
+    if reduce is None:
+        return [torch.sum(x) for x in xs]
+    return reduce(*xs)
+
+
+def _per_point(v, like: torch.Tensor):
+    """A swept ``[G, 1]`` leaf shaped as the grid's per-point scalars
+    (``like``: ``[G]``); a float as it is."""
+    return v.reshape(like.shape) if isinstance(v, torch.Tensor) else v
 
 
 def _trunc_poisson(u: torch.Tensor, lam: torch.Tensor, kmax: int = 4,
@@ -130,7 +174,8 @@ def pf_arrays(slow: torch.Tensor, lh: torch.Tensor, sbar, live_frac,
     def noack_given(gj_val):
         # a 0-d CPU tensor enters a CUDA op as a scalar: no host-to-device
         # copy, which would make the host wait
-        gj = torch.tensor(gj_val, dtype=_F32)
+        gj = gj_val.to(_F32) if isinstance(gj_val, torch.Tensor) \
+            else torch.tensor(gj_val, dtype=_F32)
         ge_i = g + (1.0 - g) * patience
         ge_j = gj + (1.0 - gj) * patience
         pair2 = ipow(ge_i * ge_j, 2)
@@ -159,7 +204,8 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
                 margin: Optional[list] = None,
                 fx: Optional[FaultFrame] = None,
                 kernel_sums: bool = False, co=None,
-                sink: Optional[dict] = None):
+                sink: Optional[dict] = None, reduce=None,
+                lane_mode: bool = False):
     """ONE protocol period over per-node tensors — the single copy of
     the protocol body.
 
@@ -185,7 +231,17 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     topology and the round's threefry key (module docstring). ``sink``
     (a dict) receives the round's ``"events"`` (``ProbeEvents``) and,
     with ``co``, the relaxed ``"coords"`` and the ``"aux"``
-    (``coords.CoordRoundAux``)."""
+    (``coords.CoordRoundAux``).
+
+    A grid (``p`` a ``params.TracedParams``) runs ``[G, N]`` lanes with
+    ``[G, 1]`` leaves and stale scalars ``[8, G, 1]``; live-mode
+    population sums then go through ``reduce(*xs)`` (per-row sums kept
+    ``[G, 1]``, ``lanes.row_sums``) instead of ``torch.sum``.
+
+    ``lane_mode`` (the lane engine) writes the counter lanes whatever
+    ``collect_stats``, and appends the flight gauges' numerators and the
+    local-health exceedance histogram: the ``registry.REDUCE_LANES``
+    rows."""
     (status_in, inc_in, informed, age_in, slen_in, sttl_in, conf_in,
      lh_in) = vals
     n = p.n
@@ -245,10 +301,12 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     elig = (status == ALIVE) | (status == SUSPECT)
     eligf = elig.to(_F32)
     if scal is None:
-        n_live = torch.sum(upf)
-        n_elig = torch.clamp_min(torch.sum(eligf), 1.0)
-        n_up_elig = torch.clamp_min(torch.sum(upf * eligf), 1e-9)
-        sbar = torch.sum((slow_eff & up & elig).to(_F32)) / n_up_elig
+        n_live, s_elig, s_up_elig, s_slow = _sums(
+            reduce, upf, eligf, upf * eligf,
+            (slow_eff & up & elig).to(_F32))
+        n_elig = torch.clamp_min(s_elig, 1.0)
+        n_up_elig = torch.clamp_min(s_up_elig, 1e-9)
+        sbar = s_slow / n_up_elig
     else:
         n_live, n_elig, n_up_elig = scal[0], scal[1], scal[2]
         sbar = scal[3] / n_up_elig
@@ -306,15 +364,13 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         sink["aux"] = coords_mod.CoordRoundAux(
             pair_j=pair_j, drift=coords_mod.round_drift(coords, c2))
     if p.lifeguard:
-        lh = torch.clamp(lh + failed.to(_I32) - ack.to(_I32), 0,
-                         p.awareness_max)
+        lh = _clamp_lh(lh + failed.to(_I32) - ack.to(_I32), p)
 
     # --------------------------------------------- target-side suspicion
     if scal is None:
-        e_pf_fast = torch.sum(upf * pf_fast) / torch.clamp_min(n_live,
-                                                                1e-9)
-        e_pf_slow = torch.sum(upf * pf_slow) / torch.clamp_min(n_live,
-                                                                1e-9)
+        s_fast, s_slow = _sums(reduce, upf * pf_fast, upf * pf_slow)
+        e_pf_fast = s_fast / torch.clamp_min(n_live, 1e-9)
+        e_pf_slow = s_slow / torch.clamp_min(n_live, 1e-9)
     else:
         e_pf_fast = scal[4] / torch.clamp_min(n_live, 1e-9)
         e_pf_slow = scal[5] / torch.clamp_min(n_live, 1e-9)
@@ -327,7 +383,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         # RTT-timeout misses compose with loss as an independent leg
         base_fail = 1.0 - (1.0 - base_fail) * (1.0 - late_in)
     p_fail_j = torch.where(up, base_fail, 1.0)
-    if byz or p.corroboration_k > 0:
+    if byz or p.sweeps("corroboration_k") or p.corroboration_k > 0:
         # forged acks and k-of-m corroboration gate suspicion starts
         p_fail_j = p_fail_j * detection_gate(up, fx, p)
     lam_fail = probe_rate * p_fail_j * eligf
@@ -341,8 +397,9 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     # mean Lifeguard (LH+1) scale of failing probers
     if scal is None:
         w_fail = upf * (1.0 - p_ack)
-        lfail_num = torch.sum(w_fail * (lh.to(_F32) + 1.0))
-        lfail_den = torch.clamp_min(torch.sum(w_fail), 1e-9)
+        lfail_num, s_den = _sums(reduce, w_fail * (lh.to(_F32) + 1.0),
+                                 w_fail)
+        lfail_den = torch.clamp_min(s_den, 1e-9)
     else:
         lfail_num, lfail_den = scal[6], scal[7]
     if p.lifeguard:
@@ -399,7 +456,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     s_conf = torch.where(refute, 0, s_conf)
     new_rumor = new_rumor | refute
     if p.lifeguard:
-        lh = torch.clamp(lh + refute.to(_I32), 0, p.awareness_max)
+        lh = _clamp_lh(lh + refute.to(_I32), p)
 
     if byz:
         # stale replays force live victims into incarnation bumps
@@ -446,7 +503,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     lanes = [upf2, elig2f, upf2 * elig2f, (slow_sum & up & elig2).to(_F32),
              upf2 * pf_fast, upf2 * pf_slow,
              w_fail2 * (lh.to(_F32) + 1.0), w_fail2]
-    if p.collect_stats:
+    if p.collect_stats or lane_mode:
         tp = declare & ~up
 
         def f(m):
@@ -459,6 +516,13 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
                   if byz else [None, None])
     else:
         lanes += [None] * N_STATS
+    if lane_mode:
+        # the flight gauges' numerators and the lh exceedance histogram
+        # (registry.LANE_GAUGES, LANE_LH_HIST), post-round
+        lanes += [upf2, informed, (status == SUSPECT).to(_F32),
+                  (up & ((status == SUSPECT) | (status == DEAD))).to(_F32),
+                  lh.to(_F32), inc.to(_F32)]
+        lanes += [(lh >= k).to(_F32) for k in range(1, 9)]
 
     if margin is not None:
         inf = torch.full_like(informed, float("inf"))
@@ -482,14 +546,20 @@ def _cast_like(outs, vals):
     return tuple(o.to(v.dtype) for o, v in zip(outs, vals))
 
 
-def _stats_add(st: SimStats, lanes) -> SimStats:
-    """Fold one round's counter lanes into the cumulative SimStats."""
+def _stats_add(st: SimStats, lanes, reduce=None) -> SimStats:
+    """Fold one round's counter lanes into the cumulative SimStats; with
+    a grid reducer, per point (``[G]`` leaves) from one stacked sum."""
+    live = [(f, lanes[N_SCALARS + i]) for i, f in enumerate(STATS_FIELDS)
+            if lanes[N_SCALARS + i] is not None]
+    if reduce is not None:
+        sums = reduce(*[lane for _, lane in live]) if live else []
+        deltas = {f: d[..., 0] if f == STATS_FIELDS[LAT]
+                  else d[..., 0].to(_I32) for (f, _), d in zip(live, sums)}
+        return st._replace(**{f: getattr(st, f) + d
+                              for f, d in deltas.items()})
     deltas = {}
-    for i, f in enumerate(STATS_FIELDS):
-        lane = lanes[N_SCALARS + i]
-        if lane is None:
-            continue
-        if i == LAT:
+    for f, lane in live:
+        if f == STATS_FIELDS[LAT]:
             deltas[f] = torch.sum(lane)
         else:
             deltas[f] = torch.sum(lane.to(_I32)).to(_I32)
@@ -509,7 +579,8 @@ def clamp_scalars(sums: torch.Tensor,
 def round_core(state: SimState, scalars: Optional[torch.Tensor],
                p: SimParams, u01: prng.U01,
                fx: Optional[FaultFrame] = None, coords=None, topo=None,
-               key: Optional[torch.Tensor] = None, events: bool = False):
+               key: Optional[torch.Tensor] = None, events: bool = False,
+               reduce=None):
     """ONE protocol period; returns ``(state', scalars')``.
 
     ``scalars=None`` is live mode (``scalars'`` is None);
@@ -521,8 +592,14 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
     With ``coords`` (and ``topo`` and the round's threefry ``key``) or
     ``events=True`` the return is the reference ``_round_core``'s
     ``(state', scalars', coords', coords.CoordRoundAux, ProbeEvents)``,
-    None where an option is off."""
-    if fx is not None and p.fault_gain != 1.0:
+    None where an option is off.
+
+    A grid state (``[G, N]`` lanes, ``[G]`` clock and counters) runs in
+    live mode with ``p`` a ``params.TracedParams`` and ``reduce`` the
+    per-row reducer (``lanes.row_sums``)."""
+    if reduce is not None and scalars is not None:
+        raise ValueError("a grid reducer runs the live engine only")
+    if fx is not None and (p.sweeps("fault_gain") or p.fault_gain != 1.0):
         fx = scale_frame(fx, p.fault_gain)
     co = None
     if coords is not None:
@@ -532,11 +609,11 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
     sink = {} if co is not None or events else None
     vals = state.node_arrays()
     outs, lanes = _round_body(vals, scalars, p, u01, fx=fx, co=co,
-                              sink=sink)
-    st = _stats_add(state.stats, lanes) \
+                              sink=sink, reduce=reduce)
+    st = _stats_add(state.stats, lanes, reduce) \
         if p.collect_stats else state.stats
     out = SimState(*_cast_like(outs, vals),
-                   t=state.t + p.probe_interval,
+                   t=state.t + _per_point(p.probe_interval, state.t),
                    round_idx=state.round_idx + 1, stats=st)
     sc = None
     if scalars is not None:
@@ -767,3 +844,288 @@ def make_run_rounds_flight(p: SimParams, rounds: int,
     """A pre-bound ``run_rounds_flight``: ``run(state, key, ...)``."""
     return functools.partial(run_rounds_flight, p=p, rounds=rounds,
                              record_every=record_every)
+
+
+# ----------------------------------------------------- fused lane engine
+#
+# The reference's exact lane engine (its round.py:766-1152): the round
+# body in lane mode on the global-index draws (prng.u01_global), one
+# fixed-order reduction of the [N_REDUCE_LANES, ..., L] contribution
+# stack per staleness-k window (sim/lanes.py), stats and flight rows
+# from the reduced lane vector. Windows are Python loops here; the state
+# is carried across rounds as new tensors and written into the input's
+# per-node tensors at the end of a run (the stand-in for JAX's buffer
+# donation). Every function takes one run ([N] lanes, SimParams) or a
+# grid ([G, N] lanes, params.TracedParams) alike.
+
+
+def _start_round(state: SimState) -> int:
+    """The run's first absolute round (one host read; a grid's points
+    share it)."""
+    return int(state.round_idx.reshape(-1)[0])
+
+
+def _grid_scalars(sc: torch.Tensor) -> torch.Tensor:
+    """Stale scalars as the body indexes them: ``[8]``, or ``[8, G, 1]``
+    for a grid's ``[8, G]``."""
+    return sc if sc.dim() == 1 else sc.unsqueeze(-1)
+
+
+def _lane_contributions(state: SimState, scalars: torch.Tensor,
+                        key: torch.Tensor, p: SimParams,
+                        fx: Optional[FaultFrame] = None):
+    """One period in lane mode without the reduction: (state', the
+    round's ``[N_REDUCE_LANES, ..., L]`` contribution stack). Stats stay
+    on the state untouched; the caller applies the reduced deltas."""
+    rows = state.status.shape[-1]
+    if fx is not None and (p.sweeps("fault_gain") or p.fault_gain != 1.0):
+        fx = scale_frame(fx, p.fault_gain)
+    vals = state.node_arrays()
+    outs, lanes = _round_body(vals, _grid_scalars(scalars), p,
+                              prng.global_u01(key, 0, rows),
+                              fx=fx, lane_mode=True)
+    out = SimState(*_cast_like(outs, vals),
+                   t=state.t + _per_point(p.probe_interval, state.t),
+                   round_idx=state.round_idx + 1, stats=state.stats)
+    shape = outs[2].shape
+    zeros = torch.zeros(shape, dtype=_F32, device=outs[2].device)
+    stack = torch.stack([zeros if lane is None else lane.expand(shape)
+                         for lane in lanes])
+    return out, stack
+
+
+def _add_stats(st: SimStats, delta: SimStats) -> SimStats:
+    return SimStats(*[a + b for a, b in zip(st, delta)])
+
+
+def gossip_round_lanes(state: SimState, lanes_prev: torch.Tensor,
+                       key: torch.Tensor, p: SimParams, *, lane_reducer,
+                       fx: Optional[FaultFrame] = None):
+    """One period on the fused lane plan (the stale_k = 1 schedule):
+    stale scalars from ``lanes_prev``, one ``lane_reducer`` call on the
+    round's stack. Returns (state', lanes'): the reduced lane vector
+    feeds the next round's scalars and carries this round's stats delta
+    and flight gauge numerators."""
+    out, stack = _lane_contributions(
+        state, lanes_mod.scalars_from_lanes(lanes_prev), key, p, fx)
+    lanes = lane_reducer(stack)
+    if p.collect_stats:
+        out = out._replace(stats=_add_stats(
+            out.stats, lanes_mod.stats_delta_from_lanes(lanes)))
+    return out, lanes
+
+
+def _lane_window(state: SimState, lanes_prev: torch.Tensor, keys_k,
+                 frames, p: SimParams, k: int):
+    """A staleness-k window: k periods on scalars frozen from
+    ``lanes_prev``, no reduction inside. Returns (state', stack): the
+    stack's instantaneous rows (scalars, gauges, histogram) are the last
+    round's, its SimStats rows the per-node sum over the k rounds (so
+    the reduced counters are the window's exact totals). ``frames`` is
+    each round's fault view (or None)."""
+    scalars = lanes_mod.scalars_from_lanes(lanes_prev)
+    s, pend, stack = state, None, None
+    for j in range(k):
+        s, stack = _lane_contributions(s, scalars, keys_k[j], p,
+                                       frames[j])
+        if p.collect_stats:
+            rows = stack[lanes_mod.STATS_SLICE]
+            pend = rows if j == 0 else pend + rows
+    if p.collect_stats and k > 1:
+        stack[lanes_mod.STATS_SLICE] = pend
+    return s, stack
+
+
+def init_lanes(state: SimState, p: SimParams, lane_reducer) -> torch.Tensor:
+    """The exact first-round lane vector (``init_scalars``' math through
+    the lane reducer): population counts first, then the pf / Lifeguard
+    sums that need sbar; every other lane zero."""
+    up, status, slow, lh = (state.up, state.status, state.slow,
+                            state.local_health)
+    upf = up.to(_F32)
+    elig = (status == ALIVE) | (status == SUSPECT)
+    eligf = elig.to(_F32)
+    a = lane_reducer(torch.stack([upf, eligf, upf * eligf,
+                                  (slow & up & elig).to(_F32)]))
+    ag = _grid_scalars(a)
+    n_live = ag[0]
+    n_elig = torch.clamp_min(ag[1], 1.0)
+    n_up_elig = torch.clamp_min(ag[2], 1e-9)
+    sbar = ag[3] / n_up_elig
+    _, pf_fast, pf_slow = pf_arrays(slow, lh, sbar, n_live / p.n, p)
+    mix = (1.0 - sbar) * pf_fast + sbar * pf_slow
+    p_ack = (n_up_elig / n_elig) * (1.0 - mix)
+    w_fail = upf * (1.0 - p_ack)
+    b = lane_reducer(torch.stack([
+        upf * pf_fast, upf * pf_slow,
+        w_fail * (lh.to(_F32) + 1.0), w_fail]))
+    lanes = torch.zeros((lanes_mod.N_LANES,) + tuple(a.shape[1:]),
+                        dtype=_F32, device=a.device)
+    lanes[0:4] = a
+    lanes[4:8] = b
+    return lanes
+
+
+def _apply_lane_stats(s: SimState, lv: torch.Tensor,
+                      p: SimParams) -> SimState:
+    """Fold a reduced lane vector's stats delta into the carried
+    SimStats."""
+    if not p.collect_stats:
+        return s
+    return s._replace(stats=_add_stats(
+        s.stats, lanes_mod.stats_delta_from_lanes(lv)))
+
+
+def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
+               rounds: int, flight_every: Optional[int], lane_reducer, *,
+               overlap: bool = False, lanes0=None,
+               table0=None, return_carry: bool = False):
+    """The lane engine's loop: ceil(rounds / stale_k) windows, each
+    ending in one reduction (a partial final window ends in its own).
+    Flight rows come from the reduced lane vector
+    (``flight.row_from_lanes``) on window ends that close a stride and
+    at the run's end.
+
+    ``overlap=True`` carries the pre-fold block table and folds it one
+    window late (window m consumes window m-2's reduction); the first
+    fold consumes ``lanes.seed_table(lanes0)``, and a drain fold after
+    the loop lands the last window's stats.
+
+    The checkpoint seam: ``return_carry`` appends the lane vector (and
+    under overlap the undrained global table, the drain skipped — a
+    resumed chain ends with ``drain_overlap``); ``lanes0`` / ``table0``
+    resume from them, bit for bit."""
+    k = p.stale_k
+    with_flight = flight_every is not None
+    if lanes0 is None:
+        lanes0 = init_lanes(state, p, lane_reducer)
+    sched = plan_schedule(cp) if cp is not None else None
+    r0 = _start_round(state) if (cp is not None or with_flight) else 0
+
+    def frames(i0, count):
+        if cp is None:
+            return [None] * count
+        return [fault_frame(cp, r0 + i0 + j, sched) for j in range(count)]
+
+    n_super, rem = divmod(rounds, k)
+    if overlap:
+        s, lv_ready = state, lanes0
+        table = (lanes_mod.seed_table(lanes0) if table0 is None
+                 else lanes_mod.carry_table(table0))
+        for m in range(n_super):
+            lv_new = lane_reducer.fold(table)
+            s = _apply_lane_stats(s, lv_new, p)
+            s, stack = _lane_window(s, lv_ready, keys[m * k:(m + 1) * k],
+                                    frames(m * k, k), p, k)
+            lv_ready, table = lv_new, lane_reducer.partials(stack)
+        if return_carry:
+            return s, lv_ready, lane_reducer.gather_table(table)
+        return _apply_lane_stats(s, lane_reducer.fold(table), p)
+
+    dev = state.status.device
+    lead = tuple(state.status.shape[:-1])
+    buf = flight.empty_trace(rounds, flight_every, dev, lead=lead) \
+        if with_flight else None
+    prev = state.stats
+    s, lv = state, lanes0
+    for i0 in range(0, rounds, k):
+        count = min(k, rounds - i0)
+        s, stack = _lane_window(s, lv, keys[i0:i0 + count],
+                                frames(i0, count), p, count)
+        lv = lane_reducer(stack)
+        s = _apply_lane_stats(s, lv, p)
+        if with_flight:
+            i = i0 + count - 1
+
+            def rec(pv, s2=s, lv2=lv, i=i):
+                ph = active_phase(cp, r0 + i, sched) if cp is not None \
+                    else -1
+                flight.record_row(buf, flight.row_from_lanes(
+                    lv2, p.n, s2.t, ph, flight.stats_delta(s2.stats, pv)),
+                    i, flight_every)
+                return s2.stats
+
+            prev = flight.maybe_record(prev, i, rounds, flight_every, rec)
+    out = (s, buf) if with_flight else (s,)
+    if return_carry:
+        out = out + (lv,)
+    return out[0] if len(out) == 1 else out
+
+
+def drain_overlap(state: SimState, table: torch.Tensor, p: SimParams,
+                  lane_reducer=None) -> SimState:
+    """Finish a checkpoint-cut overlap chain: fold the captured global
+    in-flight table into the state's stats (the straight runner's drain
+    after its loop)."""
+    if lane_reducer is None:
+        lane_reducer = lanes_mod.reduce_lanes_single
+    return _apply_lane_stats(state, lane_reducer.fold(table), p)
+
+
+def _write_back(state: SimState, final: SimState) -> SimState:
+    """Write ``final``'s per-node tensors into ``state``'s (updated in
+    place, as the kernel runner's) and return the final state on them."""
+    for a, b in zip(state.node_arrays(), final.node_arrays()):
+        a.copy_(b)
+    return SimState(*state.node_arrays(), t=final.t,
+                    round_idx=final.round_idx, stats=final.stats)
+
+
+def make_run_rounds_lanes(p: SimParams, rounds: int,
+                          flight_every: Optional[int] = None,
+                          plan: Optional[CompiledFaultPlan] = None,
+                          overlap: bool = False, carry: bool = False,
+                          lane_blocks: Optional[int] = None):
+    """The single-device lane engine: ``run(state, key, cp=None,
+    lanes0=None, table0=None)`` -> state, or ``(state, trace)`` with
+    ``flight_every``, with the carry appended under ``carry=True`` (the
+    lane vector; under overlap the undrained table too). The exact
+    engine the mesh will wrap, at every ``p.stale_k`` and under the
+    ``overlap`` (one-reduction-late) schedule.
+
+    Round keys are ``round_keys(key, state.round_idx, rounds)``, draws
+    ``prng.global_u01``: a run cut at a window boundary and resumed
+    with the returned carry (``lanes0=``, ``table0=``, then
+    ``drain_overlap``) is bit for bit the uncut run. ``plan`` (or a
+    per-call ``cp``) shapes each round with its ``fault_frame``. The
+    state's per-node tensors are updated in place. The reference's
+    ``unroll`` (an HLO-audit knob) is left out: a Python loop has
+    nothing to unroll."""
+    if lane_blocks is not None and lane_blocks != lanes_mod.LANE_BLOCKS:
+        if overlap:
+            raise ValueError(
+                "lane_blocks overrides are single-device synchronous "
+                "only (seed_table/carry_table are keyed to the pinned "
+                f"LANE_BLOCKS={lanes_mod.LANE_BLOCKS}); run overlap "
+                "at the default width")
+        reducer = lanes_mod._SingleDeviceReducer(lane_blocks)
+    else:
+        reducer = lanes_mod.reduce_lanes_single
+    lanes_mod.check_pool(p.n, reducer.blocks)
+    lanes_mod.check_schedule(p, rounds, flight_every, overlap)
+
+    def run(state: SimState, key: torch.Tensor,
+            cp: Optional[CompiledFaultPlan] = None, lanes0=None,
+            table0=None):
+        if cp is not None and plan is None:
+            raise ValueError("this runner was built without a fault "
+                             "plan; rebuild with plan= to inject one")
+        if (lanes0 is not None or table0 is not None) and not carry:
+            raise ValueError("resume carries need a carry=True runner "
+                             "(the checkpoint seam is symmetric: what "
+                             "it returns is what it accepts)")
+        if table0 is not None and not overlap:
+            raise ValueError("table0 is the overlap schedule's "
+                             "in-flight carry; this runner is "
+                             "synchronous")
+        keys = prng.round_keys(key.to(state.status.device),
+                               state.round_idx, rounds)
+        out = _lane_scan(state, keys, cp if cp is not None else plan, p,
+                         rounds, flight_every, reducer,
+                         overlap=overlap, lanes0=lanes0, table0=table0,
+                         return_carry=carry)
+        if isinstance(out, SimState):
+            return _write_back(state, out)
+        return (_write_back(state, out[0]),) + tuple(out[1:])
+
+    return run

@@ -8,9 +8,12 @@ four byzantine), ``BYZANTINE_CHAOS``, the phase lengths, and
 detection quality and curves from its flight trace, with the black box
 on request; ``coords_plan`` and ``run_coords``, the cold-start Vivaldi
 convergence through a partition and heal on the live engine
-(``round.run_rounds_flight``) with RTT-aware probe deadlines. The
-BASELINE scenarios, the checkpointed options and
-``run_byzantine_defense`` are not ported yet.
+(``round.run_rounds_flight``) with RTT-aware probe deadlines;
+``run_byzantine_defense``, the corroboration_k sweep against a
+ForgedAcks attack; the autotuner (``AUTOTUNE_GRID`` over the
+``AUTOTUNE_TOPOLOGIES`` classes, ``run_autotune``,
+``run_autotune_suite``) on the sweep engine (``sim/sweep.py``); and
+``run_baseline_config``. The checkpointed options are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,10 +33,12 @@ from consul_tpu_torch.sim.blackbox import default_tracked
 from consul_tpu_torch.sim.coords import init_coords
 from consul_tpu_torch.sim.cuda_round import make_run_rounds_cuda
 from consul_tpu_torch.sim.flight import stats_from_trace, trace_columns
-from consul_tpu_torch.sim.metrics import (blackbox_report, phase_reports,
+from consul_tpu_torch.sim.metrics import (blackbox_report, fd_report,
+                                          phase_reports, sweep_report,
                                           trace_report)
-from consul_tpu_torch.sim.params import SimParams
-from consul_tpu_torch.sim.round import run_rounds_flight
+from consul_tpu_torch.sim.params import SimParams, SweepAxes, baseline_configs
+from consul_tpu_torch.sim.round import run_rounds, run_rounds_flight
+from consul_tpu_torch.sim.sweep import run_sweep
 from consul_tpu_torch.sim.state import (DEAD, SUSPECT, check_saturation,
                                         init_state)
 from consul_tpu_torch.sim.topology import TopologyParams, make_topology
@@ -269,3 +274,159 @@ def run_coords(n: int = 4096, seed: int = 0,
         "final_live_fraction": float(state.up.to(torch.float32).mean()),
     }
     return report, coords
+
+
+# ------------------------------------------------- byzantine defense
+#
+# The corroboration_k defense sweep: one sweep runs every k against a
+# ForgedAcks attack hiding a crashing victim set, a second honest sweep
+# prices the defense — missed detections under attack against honest
+# detection latency, per k.
+
+BYZ_DEFENSE_KS = (0, 1, 2, 3)
+
+
+def run_byzantine_defense(n: int = 1024, rounds: int = 120, seed: int = 0,
+                          ks=BYZ_DEFENSE_KS, engine: str = "xla",
+                          device: DeviceLike = None) -> dict[str, Any]:
+    """Sweep ``SimParams.corroboration_k`` against a ForgedAcks attack
+    (reference ``run_byzantine_defense``): baseline churn kills nodes
+    everywhere, and adversaries forge acks for a quarter-pool victim
+    set at 0.9 relay coverage. Two sweeps over the k axis — the plan
+    armed, then honest — give per k the attack's missed-detection rate,
+    the honest detection latency and the FP rates; the report names
+    the k with the lowest attack-induced missed rate (ties to the lower
+    k), its defense factor against k = 0 and the honest latency ratio
+    it costs."""
+    dev = default_device(device)
+    p = SimParams.from_gossip_config(
+        GossipConfig.lan(), n=n, tcp_fallback=False, loss=0.05,
+        fail_per_round=0.003)
+    vic = (0, n // 4)
+    adv = (n - max(1, n // 8), n)
+    plan = FaultPlan(phases=(
+        Phase(rounds=rounds,
+              faults=(ForgedAcks(adversaries=adv, victims=vic,
+                                 coverage=0.9),),
+              name="forged"),))
+    cp = compile_plan(plan, n, dev)
+    axes = SweepAxes.of(corroboration_k=[float(k) for k in ks])
+    attack = sweep_report(run_sweep(p, axes, rounds, seed=seed, plan=cp,
+                                    engine=engine, device=dev))
+    honest = sweep_report(run_sweep(p, axes, rounds, seed=seed,
+                                    engine=engine, device=dev))
+
+    def col(rep, key):
+        return [r[key] for r in rep["points"]]
+
+    a_missed = col(attack, "missed_detection_rate")
+    h_missed = col(honest, "missed_detection_rate")
+    h_lat = col(honest, "mean_detect_latency_s")
+    # the attack-INDUCED missed rate: the honest run misses only the
+    # recently crashed tail (suspicions pending at the run's end)
+    induced = [max(a - h, 0.0) for a, h in zip(a_missed, h_missed)]
+    best = min(range(len(ks)), key=lambda i: (induced[i], ks[i]))
+    base = induced[0] if induced[0] > 0 else 1.0
+    return {
+        "scenario": "byzantine_defense",
+        "n": n, "rounds": rounds, "engine": engine,
+        "ks": list(ks),
+        "victims": list(vic), "adversaries": list(adv),
+        "coverage": 0.9,
+        "attack_missed_detection_rate": a_missed,
+        "attack_induced_missed_rate": induced,
+        "attack_mean_detect_latency_s": col(
+            attack, "mean_detect_latency_s"),
+        "attack_fp_per_node_hour": col(attack, "fp_per_node_hour"),
+        "attack_suspicions": col(attack, "attack_suspicions"),
+        "honest_missed_detection_rate": h_missed,
+        "honest_mean_detect_latency_s": h_lat,
+        "honest_fp_per_node_hour": col(honest, "fp_per_node_hour"),
+        "best_k": int(ks[best]),
+        # None: the defense removed the attack-induced excess entirely
+        "defense_factor": (base / induced[best]
+                           if induced[best] > 0 else None),
+        "induced_eliminated": induced[best] == 0.0,
+        "honest_latency_ratio": (h_lat[best] / h_lat[0]
+                                 if h_lat[0] else None),
+    }
+
+
+# ----------------------------------------------------------- autotune
+#
+# The parameter-sweep autotuner: one runner runs a 64-point grid of
+# gossip constants per topology class, and the Pareto report picks the
+# constants with the lowest detection latency within a false-positive
+# budget at the lowest message load.
+
+#: the topology classes the tuner optimizes for
+AUTOTUNE_TOPOLOGIES = ("lan", "wan", "lossy")
+
+#: the 4 x 4 x 4 = 64-point grid: dissemination fan-out, suspicion
+#: timer multiplier (down to 1, below memberlist's default of 4, where
+#: the latency / false-positive trade-off appears), gossip tick period
+AUTOTUNE_GRID = {
+    "gossip_nodes": (2.0, 3.0, 4.0, 5.0),
+    "suspicion_mult": (1.0, 2.0, 4.0, 6.0),
+    "gossip_interval": (0.1, 0.2, 0.35, 0.5),
+}
+
+
+def autotune_params(topology: str, n: int) -> SimParams:
+    """The base SimParams a topology class is tuned against:
+    memberlist's DefaultLANConfig at 1% (lan) or 10% (lossy) loss, its
+    DefaultWANConfig at 3% (wan); churn enough to measure detection."""
+    crash = 0.002
+    common = dict(n=n, tcp_fallback=False, fail_per_round=crash,
+                  rejoin_per_round=crash * 10.0)
+    if topology == "lan":
+        return SimParams.from_gossip_config(GossipConfig.lan(),
+                                            loss=0.01, **common)
+    if topology == "wan":
+        return SimParams.from_gossip_config(GossipConfig.wan(),
+                                            loss=0.03, **common)
+    if topology == "lossy":
+        return SimParams.from_gossip_config(GossipConfig.lan(),
+                                            loss=0.10, **common)
+    raise ValueError(f"unknown autotune topology {topology!r} "
+                     f"(expected one of {AUTOTUNE_TOPOLOGIES})")
+
+
+def run_autotune(topology: str = "lan", n: int = 1024, rounds: int = 150,
+                 seed: int = 0, grid: Optional[dict] = None,
+                 fp_budget: float = 1.0, engine: str = "xla",
+                 device: DeviceLike = None) -> dict[str, Any]:
+    """Sweep the gossip constants for one topology class and pick the
+    winner: the sweep report plus the chosen constants under
+    ``"chosen"``."""
+    p = autotune_params(topology, n)
+    axes = SweepAxes.of(**(grid if grid is not None else AUTOTUNE_GRID))
+    result = run_sweep(p, axes, rounds, seed=seed, engine=engine,
+                       device=device)
+    report = sweep_report(result, fp_budget=fp_budget)
+    report["scenario"] = "autotune"
+    report["topology"] = topology
+    report["n"] = n
+    report["engine"] = engine
+    report["chosen"] = dict(report["winner"]["params"])
+    return report
+
+
+def run_autotune_suite(n: int = 1024, rounds: int = 150, seed: int = 0,
+                       device: DeviceLike = None) -> dict[str, Any]:
+    """Every topology class once: the per-class constants table."""
+    return {t: run_autotune(t, n=n, rounds=rounds, seed=seed,
+                            device=device)
+            for t in AUTOTUNE_TOPOLOGIES}
+
+
+def run_baseline_config(name: str, rounds: int = 300, seed: int = 0,
+                        device: DeviceLike = None) -> dict[str, Any]:
+    """Run one of the named BASELINE configs on the live engine and
+    report FD quality."""
+    dev = default_device(device)
+    p = baseline_configs()[name]
+    state, _ = run_rounds(init_state(p.n, device=dev),
+                          prng.key(seed, device=dev), p, rounds)
+    return {"config": name, "rounds": rounds,
+            **fd_report(state, p).to_dict()}

@@ -422,6 +422,16 @@ def test_device_breakdown_unions_overlapping_intervals():
     assert "not measured" in bench.device_breakdown([], 1)["device"]
 
 
+def test_profile_call_on_the_cpu_traces_the_host_only():
+    x = torch.arange(8.0)
+    out, rep = bench.profile_call(lambda: x.sum(), 4, torch.device("cpu"))
+    assert float(out) == 28.0
+    assert rep["rounds"] == 4 and rep["wall_us_per_round"] > 0
+    assert rep["kernels_per_round"] == 0
+    assert "not measured" in rep["device"]
+    assert rep["host_waits"] == {}
+
+
 # ----------------------------------------------------- fault variants
 
 
@@ -631,3 +641,33 @@ def test_runner_with_a_byzantine_plan_on_the_card(cuda):
     assert dict(cr.LAUNCHES) == {"round_kernel/byz": plan.total_rounds}
     assert int(out.stats.attack_suspicions) > 0
     assert int(out.stats.crashes) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpc", [1, 8])
+def test_cuda_sweep_engine_is_the_per_point_runner_on_the_card(cuda, rpc):
+    """The sweep's cuda engine launches exactly one kernel per point and
+    call, and each grid row is bit for bit ``make_run_rounds_cuda`` on
+    the point's concrete SimParams and the same key."""
+    from consul_tpu_torch.sim import params as tparams
+    from consul_tpu_torch.sim import sweep
+    from consul_tpu_torch.sim.scenarios import autotune_params
+
+    n, rounds = 65_536, 32
+    p = autotune_params("lan", n)
+    axes = tparams.SweepAxes.of(gossip_nodes=[2, 3, 4, 5])
+    key = prng.key(9, device=cuda)
+    cr.reset_launches()
+    res = sweep.run_sweep(p, axes, rounds, key=key, engine="cuda",
+                          rounds_per_call=rpc, device=cuda)
+    torch.cuda.synchronize()
+    kind = "mega_kernel/full" if rpc > 1 else "round_kernel/full"
+    assert dict(cr.LAUNCHES) == {kind: 4 * rounds // rpc}
+    for i, pp in enumerate(res.points):
+        st = cr.make_run_rounds_cuda(pp, rounds, rounds_per_call=rpc)(
+            tstate.init_state(n, device=cuda), key)
+        row = sweep.take_point(res.states, i)
+        for f in tstate.NODE_FIELDS:
+            assert torch.equal(getattr(row, f), getattr(st, f)), (i, f)
+        for a, b in zip(row.stats, st.stats):
+            assert torch.equal(a, b)
