@@ -80,7 +80,30 @@ non-zero before the result line):
               concrete SimParams and key, launches counted exactly.
               (d) run_byzantine_defense at 4,096 nodes, 200 rounds:
               best_k >= 1 with an induced missed rate below k=0's.
-7. timing   — each kernel's time per launch (device time: CUDA events
+7. resume   — checkpoints through the entry points, each run counted on
+              its own, every comparison exact: (a) the lane engine at
+              1,048,576 nodes (full-model config, stale_k 4, flight
+              stride 4, 96 rounds) straight, then through
+              checkpoint.run_resumable(engine="lanes", chunk=32) cut by
+              a guard after the first chunk and resumed from its files:
+              state, stats and trace bit for bit; (b) the kernel runner
+              as engine "cuda" at 1,048,576 nodes, the stable config at
+              R=1 and the full config at R=8 (flight stride 8), 96
+              rounds each, cut the same way: bit for bit, exactly 96
+              round_kernel and 12 mega_kernel launches over both
+              segments; (c) run_chaos(ckpt_dir=...) at 1,048,576 nodes
+              on churn_burst (fault variant, black box on) and
+              forged_acks (byz variant), cut at round 32 (inside the
+              fault phase) and resumed: the report equals the plain
+              run's, state, trace and rings bit for bit, launches
+              exactly the rounds; (d) the newest file of (a) torn to
+              2/3 of its size: ``latest`` falls back to the one before
+              and the finished run is still bit for bit; (e)
+              partition_heal at BASELINE config 5's sizes (3 DCs x 3
+              servers, 10,000 LAN nodes per DC, 120 partition rounds)
+              with the reference test's signature. Prints wall seconds
+              per part, file bytes, and snapshot, save and load ms.
+8. timing   — each kernel's time per launch (device time: CUDA events
               around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do; the
@@ -94,10 +117,12 @@ Then the ``kernels`` line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 #: H100 SXM peaks: HBM3 bandwidth and f32 arithmetic outside the tensor
@@ -933,13 +958,19 @@ def sweep_lanes(torch, m, dev, n=N, warm_rounds=LANE_WARM,
 
 
 def _state_diffs(torch, a, b) -> dict:
-    """Per-field count of elements that differ between two states."""
-    out = {f: int((x != y).sum()) for f, x, y in
-           zip(a._fields[:8], a.node_arrays(), b.node_arrays())}
-    out.update({f: int(x != y) for f, x, y in
-                zip(a.stats._fields, a.stats, b.stats)})
-    out["t"] = int(a.t != b.t)
-    return {k: v for k, v in out.items() if v}
+    """Per-field count of elements that differ between two states (-1
+    where the dtypes or shapes differ)."""
+    pairs = [(f, getattr(a, f), getattr(b, f)) for f in a._fields
+             if f != "stats"]
+    pairs += [(f, x, y) for f, x, y in zip(a.stats._fields, a.stats,
+                                           b.stats)]
+    out = {}
+    for f, x, y in pairs:
+        if x.dtype != y.dtype or x.shape != y.shape:
+            out[f] = -1
+        elif bool((x != y).any()):
+            out[f] = int((x != y).sum())
+    return out
 
 
 def sweep_grid(torch, m, dev, n=None, rounds=None):
@@ -1040,6 +1071,276 @@ def phase_sweep(torch, m, dev):
         raise SmokeFailure("sweep: " + "; ".join(bad))
     emit({"phase": "sweep", "lanes": lanes, "grid": grid, "cuda": cuda,
           "defense": defense, "launches": launches})
+    return launches
+
+
+RESUME_ROUNDS, RESUME_CHUNK, RESUME_STRIDE = 96, 32, 4
+RESUME_CUDA_STRIDE = 8
+#: (class, black box) of the checkpointed chaos runs: the fault and the
+#: byz variant
+RESUME_CHAOS = (("churn_burst", True), ("forged_acks", False))
+
+
+class TripAfter:
+    """A preemption guard that reads as tripped from its (k+1)-th poll
+    on (``run_resumable`` polls once before each chunk)."""
+
+    def __init__(self, k: int):
+        self.k, self.polls = k, 0
+
+    @property
+    def preempted(self) -> bool:
+        self.polls += 1
+        return self.polls > self.k
+
+
+def _trace_diffs(want, got) -> int:
+    """Elements of two traces (tensors or host arrays) that differ; -1
+    for another shape or dtype."""
+    a, b = (x.detach().cpu().numpy() if hasattr(x, "detach") else x
+            for x in (want, got))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    return int((a != b).sum())
+
+
+def _ring_diffs(a, b) -> dict:
+    """Per-field count of differing elements of two BlackboxStates."""
+    out = {}
+    for f, x, y in zip(a._fields, a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            out[f] = -1
+        elif bool((x != y).any()):
+            out[f] = int((x != y).sum())
+    return out
+
+
+def _sync_ms(torch, dev, t0) -> float:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def resume_lanes(torch, m, dev, root, n=N, rounds=RESUME_ROUNDS,
+                 chunk=RESUME_CHUNK, stride=RESUME_STRIDE):
+    """(a) the lane engine cut after one chunk, saved, resumed from its
+    files; snapshot, save and load timed on its last file; (d) that
+    file torn, the resume falling back. Returns (report, failures)."""
+    ck = m.checkpoint
+    p = m.bench.diag_params(n).with_(stale_k=4)
+    key = m.prng.key(41, device=dev)
+    bad = []
+    t0 = time.perf_counter()
+    s_want, tr_want = m.round.make_run_rounds_lanes(
+        p, rounds, flight_every=stride)(m.state.init_state(n, device=dev),
+                                        key)
+    straight_ms = _sync_ms(torch, dev, t0)
+    d = os.path.join(root, "lanes")
+    kw = dict(engine="lanes", flight_every=stride, chunk=chunk, ckpt_dir=d,
+              device=dev)
+    t0 = time.perf_counter()
+    cut = ck.run_resumable(p, rounds, key, guard=TripAfter(1), **kw)
+    cut_ms = _sync_ms(torch, dev, t0)
+    t0 = time.perf_counter()
+    done = ck.run_resumable(p, rounds, key, resume=True, **kw)
+    resume_ms = _sync_ms(torch, dev, t0)
+    if not (cut.preempted and cut.rounds_done == chunk
+            and done.resumed_from == chunk and done.rounds_done == rounds):
+        bad.append(f"lanes: cut at {cut.rounds_done}, resumed from "
+                   f"{done.resumed_from} to {done.rounds_done}")
+    diffs = _state_diffs(torch, s_want, done.state)
+    tdiff = _trace_diffs(tr_want, done.trace)
+    if diffs or tdiff:
+        bad.append(f"lanes: resumed run differs: {diffs}, trace {tdiff}")
+    files = sorted(f for f in os.listdir(d) if f.endswith(ck.SUFFIX))
+    newest = os.path.join(d, files[-1])
+    size = os.path.getsize(newest)
+    t0 = time.perf_counter()
+    snap = ck.load(newest, p=p)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ck.save(os.path.join(root, "lanes_copy"), snap)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ck.snapshot(p, key, done.state, engine="lanes", total_rounds=rounds,
+                lanes=snap.lanes(dev), flight=done.trace,
+                record_every=stride)
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    out = {"n": n, "rounds": rounds, "chunk": chunk, "record_every": stride,
+           "stale_k": p.stale_k, "bitwise": not (diffs or tdiff),
+           "files": files, "file_bytes": size,
+           "state_bytes": m.state.state_bytes(done.state),
+           "snapshot_ms": snapshot_ms, "save_ms": save_ms,
+           "load_ms": load_ms, "straight_s": straight_ms / 1e3,
+           "cut_s": cut_ms / 1e3, "resume_s": resume_ms / 1e3}
+
+    # (d) the newest file torn: the resume falls back past it
+    if len(files) < 2:
+        return out, {}, bad + [f"torn: one file ({files}) has nothing to "
+                               "fall back to: run three chunks or more"]
+    with open(newest, "r+b") as f:
+        f.truncate(size * 2 // 3)
+    t0 = time.perf_counter()
+    torn = ck.run_resumable(p, rounds, key, resume=True, **kw)
+    torn_ms = _sync_ms(torch, dev, t0)
+    diffs = _state_diffs(torch, s_want, torn.state)
+    tdiff = _trace_diffs(tr_want, torn.trace)
+    prev = int(files[-2][6:16])
+    if torn.fallbacks != [newest] or torn.resumed_from != prev:
+        bad.append(f"torn: fell back past {torn.fallbacks} to "
+                   f"{torn.resumed_from}, expected [{newest}] and {prev}")
+    if diffs or tdiff:
+        bad.append(f"torn: resumed run differs: {diffs}, trace {tdiff}")
+    torn_out = {"torn_file": files[-1], "torn_to_bytes": size * 2 // 3,
+                "fallbacks": [os.path.basename(x) for x in torn.fallbacks],
+                "resumed_from": torn.resumed_from,
+                "bitwise": not (diffs or tdiff), "wall_s": torn_ms / 1e3}
+    return out, torn_out, bad
+
+
+def resume_cuda(torch, m, dev, root, n=N, rounds=RESUME_ROUNDS,
+                chunk=RESUME_CHUNK):
+    """(b) the kernel runner as a resumable engine: the stable config at
+    R=1, the full config at R=8 with flight rows. Returns (report,
+    failures, launches); on the CPU the wrappers launch nothing."""
+    ck, cr, b = m.checkpoint, m.cuda_round, m.bench
+    on_card = torch.device(dev).type == "cuda"
+    key = m.prng.key(43, device=dev)
+    out, bad, launches = {}, [], {}
+    for label, p, rpc, stride, kname in (
+            ("stable R=1", b.headline_params(n), 1, None,
+             "round_kernel/stable"),
+            ("full R=8", b.diag_params(n), MEGA_R, RESUME_CUDA_STRIDE,
+             "mega_kernel/full")):
+        res = cr.make_run_rounds_cuda(p, rounds, rounds_per_call=rpc,
+                                      flight_every=stride)(
+            m.state.init_state(n, device=dev), key)
+        s_want, tr_want = (res, None) if stride is None else res
+        d = os.path.join(root, f"cuda_R{rpc}")
+        kw = dict(engine="cuda", rounds_per_call=rpc, flight_every=stride,
+                  chunk=chunk, ckpt_dir=d, device=dev)
+        cr.reset_launches()
+        t0 = time.perf_counter()
+        cut = ck.run_resumable(p, rounds, key, guard=TripAfter(1), **kw)
+        done = ck.run_resumable(p, rounds, key, resume=True, **kw)
+        wall_ms = _sync_ms(torch, dev, t0)
+        got = dict(cr.LAUNCHES)
+        want = {kname: rounds // rpc} if on_card else {}
+        if got != want:
+            bad.append(f"cuda {label}: launched {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        diffs = _state_diffs(torch, s_want, done.state)
+        tdiff = 0 if stride is None else _trace_diffs(tr_want, done.trace)
+        if not (cut.preempted and cut.rounds_done == chunk
+                and done.resumed_from == chunk):
+            bad.append(f"cuda {label}: cut at {cut.rounds_done}, resumed "
+                       f"from {done.resumed_from}")
+        if diffs or tdiff:
+            bad.append(f"cuda {label}: resumed run differs: {diffs}, "
+                       f"trace {tdiff}")
+        out[label] = {"rounds": rounds, "chunk": chunk,
+                      "record_every": stride, "launches": got,
+                      "bitwise": not (diffs or tdiff),
+                      "file_bytes": os.path.getsize(cut.checkpoint_path),
+                      "wall_s": wall_ms / 1e3}
+    return out, bad, launches
+
+
+def resume_chaos(torch, m, dev, root, n=N, chunk=RESUME_CHUNK):
+    """(c) run_chaos cut inside the fault phase and resumed against the
+    plain run: the report equal, state, trace and rings bit for bit,
+    one fault or byz launch per round over both segments. Returns
+    (report, failures, launches)."""
+    sc, cr = m.scenarios, m.cuda_round
+    on_card = torch.device(dev).type == "cuda"
+    out, bad, launches = {}, [], {}
+    for name, bb in RESUME_CHAOS:
+        plan = sc.chaos_plans(n)[name]
+        cp = m.faults.compile_plan(plan, n, dev)
+        want = sc.chaos_outputs(name, n, device=dev, cp=cp, blackbox=bb)
+        rep_want = sc.chaos_report(name, n, want)
+        d = os.path.join(root, f"chaos_{name}")
+        cr.reset_launches()
+        t0 = time.perf_counter()
+        stub = sc.run_chaos(name, n, device=dev, cp=cp, blackbox=bb,
+                            ckpt_dir=d, guard=TripAfter(1), chunk=chunk)
+        got = sc.chaos_outputs(name, n, device=dev, cp=cp, blackbox=bb,
+                               ckpt_dir=d, resume=True, chunk=chunk)
+        wall_ms = _sync_ms(torch, dev, t0)
+        n_launch = dict(cr.LAUNCHES)
+        kname = "round_kernel/" + ("byz" if name in sc.BYZANTINE_CHAOS
+                                   else "fault")
+        expect = {kname: plan.total_rounds} if on_card else {}
+        if n_launch != expect:
+            bad.append(f"chaos {name}: launched {n_launch}, expected "
+                       f"{expect}")
+        for k, v in n_launch.items():
+            launches[k] = launches.get(k, 0) + v
+        fault_start = plan.starts[1]
+        if not (stub.get("preempted") and stub["rounds_done"] == chunk
+                and fault_start < chunk < plan.starts[2]):
+            bad.append(f"chaos {name}: not cut inside the fault phase: "
+                       f"{stub}")
+        rep = sc.chaos_report(name, n, got)
+        same_report = json.dumps(rep, sort_keys=True) == json.dumps(
+            rep_want, sort_keys=True)
+        diffs = _state_diffs(torch, want[0], got[0])
+        tdiff = _trace_diffs(want[1], got[1])
+        rings = _ring_diffs(want[2], got[2]) if bb else {}
+        if not same_report or diffs or tdiff or rings:
+            bad.append(f"chaos {name}: resumed run differs: report "
+                       f"equal {same_report}, state {diffs}, trace "
+                       f"{tdiff}, rings {rings}")
+        out[name] = {"n": n, "rounds": plan.total_rounds,
+                     "cut_at": stub.get("rounds_done"), "blackbox": bb,
+                     "launches": n_launch, "report_equal": same_report,
+                     "bitwise": not (diffs or tdiff or rings),
+                     "file_bytes": os.path.getsize(stub["checkpoint"]),
+                     "wall_s": wall_ms / 1e3}
+    return out, bad, launches
+
+
+def resume_partition(torch, m, dev, **kw):
+    """(e) partition_heal (BASELINE config 5's sizes unless given) and
+    the reference test's signature. Returns (report, failures)."""
+    t0 = time.perf_counter()
+    rep = m.scenarios.partition_heal(device=dev, **kw).to_dict()
+    rep["wall_s"] = _sync_ms(torch, dev, t0) / 1e3
+    ok = (rep["detected_cross_dc_failures"] == rep["servers_per_dc"]
+          and rep["false_positives_during_partition"] == 0
+          and rep["healed_recovery_rounds"] > 0
+          and rep["lan_false_positives"] == 0)
+    return rep, [] if ok else [f"partition_heal signature: {rep}"]
+
+
+def phase_resume(torch, m, dev, root):
+    """Checkpoints at full size, each run counted on its own; files
+    under ``root``. Returns the kernels' launches."""
+    cr = m.cuda_round
+    bad, plain_launches = [], {}
+    cr.reset_launches()
+    lanes, torn, b = resume_lanes(torch, m, dev, root)
+    bad += b
+    plain_launches["lanes"] = dict(cr.LAUNCHES)
+    cuda, b, launches = resume_cuda(torch, m, dev, root)
+    bad += b
+    chaos, b, chaos_launches = resume_chaos(torch, m, dev, root)
+    bad += b
+    for k, v in chaos_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    cr.reset_launches()
+    heal, b = resume_partition(torch, m, dev)
+    bad += b
+    plain_launches["partition_heal"] = dict(cr.LAUNCHES)
+    for k, v in plain_launches.items():
+        if v:
+            bad.append(f"{k}: launched {v} kernels on a plain-PyTorch path")
+    if bad:
+        raise SmokeFailure("resume: " + "; ".join(bad))
+    emit({"phase": "resume", "nvidia_smi": nvidia_smi(), "lanes": lanes,
+          "cuda": cuda, "chaos": chaos, "torn": torn,
+          "partition_heal": heal, "launches": launches})
     return launches
 
 
@@ -1173,15 +1474,17 @@ def modules():
     import types
 
     from consul_tpu_torch import bench, config, faults
-    from consul_tpu_torch.sim import (blackbox, coords, cuda_round, flight,
-                                      metrics, params, prng, round,
-                                      scenarios, state, sweep, topology)
+    from consul_tpu_torch.sim import (blackbox, checkpoint, coords,
+                                      cuda_round, flight, metrics, params,
+                                      prng, round, scenarios, state, sweep,
+                                      topology)
 
     return types.SimpleNamespace(
-        bench=bench, blackbox=blackbox, config=config, coords=coords,
-        cuda_round=cuda_round, faults=faults, flight=flight,
-        metrics=metrics, params=params, prng=prng, round=round,
-        scenarios=scenarios, state=state, sweep=sweep, topology=topology)
+        bench=bench, blackbox=blackbox, checkpoint=checkpoint,
+        config=config, coords=coords, cuda_round=cuda_round, faults=faults,
+        flight=flight, metrics=metrics, params=params, prng=prng,
+        round=round, scenarios=scenarios, state=state, sweep=sweep,
+        topology=topology)
 
 
 def main() -> int:
@@ -1202,8 +1505,11 @@ def main() -> int:
     checks, inputs = phase_check(torch, m, dev)
     headline, launches = phase_headline(torch, m, dev)
     chaos, chaos_launches = phase_chaos(torch, m, dev)
-    for part in (chaos_launches, phase_observe(torch, m, dev),
-                 phase_sweep(torch, m, dev)):
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
+        parts = (chaos_launches, phase_observe(torch, m, dev),
+                 phase_sweep(torch, m, dev),
+                 phase_resume(torch, m, dev, root))
+    for part in parts:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     timing = phase_timing(torch, m, inputs)

@@ -6,6 +6,8 @@
     python -m consul_tpu_torch.bench --chaos [--profile | --smoke]
     python -m consul_tpu_torch.bench --coords [--smoke]
     python -m consul_tpu_torch.bench --sweep [--smoke]
+    python -m consul_tpu_torch.bench --chaos|--sweep [--smoke] \
+        --ckpt-dir D [--resume]
 
 The timed configuration is the JAX bench's (bench.py's
 ``gossip_rounds_per_sec_1M_nodes``): ``GossipConfig.lan()`` at 1% loss,
@@ -47,6 +49,13 @@ chosen constants and the Pareto front. With ``--profile`` it also traces
 engines: wall and device time per grid round, the device's busy share,
 the device time by kernel and the host-waiting runtime calls.
 
+``--chaos`` and ``--sweep`` take ``--ckpt-dir D [--resume]``: SIGTERM or
+SIGINT saves (the chaos class in flight at its last chunk, finished
+classes and the defense sweep in ``ProgressManifest`` records under D)
+and prints a ``"preempted": true`` JSON envelope with the ``resume``
+command, exiting ``checkpoint.PREEMPTED_RC``; ``--resume`` replays the
+finished units and resumes the one in flight, bit for bit.
+
 ``--coords`` runs ``scenarios.run_coords`` (cold-start Vivaldi
 convergence through a partition and heal, RTT-aware probe deadlines, on
 the live engine) at 65,536 nodes on the card (``--smoke``: 4,096 on the
@@ -62,6 +71,7 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -69,7 +79,10 @@ from consul_tpu_torch.config import GossipConfig
 from consul_tpu_torch.faults import (compile_plan, fault_frame,
                                      plan_schedule, scale_plan)
 from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim import scenarios
 from consul_tpu_torch.sim.blackbox import default_tracked
+from consul_tpu_torch.sim.checkpoint import (PREEMPTED_RC, PreemptionGuard,
+                                             ProgressManifest)
 from consul_tpu_torch.sim.cuda_round import (LAUNCHES, make_run_rounds_cuda,
                                              reset_launches)
 from consul_tpu_torch.sim.flight import DEFAULT_RECORD_EVERY
@@ -257,18 +270,47 @@ def run_headline(device=None, smoke: bool = False) -> dict:
     return out
 
 
-def run_chaos_suite(device=None, smoke: bool = False) -> dict:
+def _resume_cmd(mode: str, smoke: bool, ckpt_dir: str) -> str:
+    return (f"python -m consul_tpu_torch.bench --{mode}"
+            f"{' --smoke' if smoke else ''} --ckpt-dir {ckpt_dir} --resume")
+
+
+def _preempted(out: dict, mode: str, at: str, ckpt_dir: str) -> dict:
+    """The envelope of a preempted invocation: what finished, where it
+    stopped and the command that finishes it."""
+    done = [k for k, v in out["classes"].items()
+            if not (isinstance(v, dict) and v.get("preempted"))]
+    return {**out, "preempted": True, "preempted_class": at,
+            "completed": done,
+            "resume": _resume_cmd(mode, out["smoke"], ckpt_dir)}
+
+
+def run_chaos_suite(device=None, smoke: bool = False,
+                    ckpt_dir: Optional[str] = None,
+                    guard: Optional[PreemptionGuard] = None,
+                    resume: bool = False) -> dict:
     """Every chaos class at ``HEADLINE_N`` nodes (``smoke``:
     ``CHAOS_SMOKE_N`` on the CPU). Per class: ``run_chaos``'s report,
     the host seconds ``compile_plan`` took, and the rounds per second
     of the run (runner calls and report reads, ending in a sync). Each
     class runs twice from the same seed, which gives the same report:
     the first run builds the kernels and loads PyTorch's, and only the
-    second is timed."""
+    second is timed.
+
+    With ``ckpt_dir`` (or a ``guard``) the suite is
+    ``scenarios.run_chaos_suite``'s checkpointed run instead: one
+    untimed run per class, preemptible; a preempted suite returns the
+    ``_preempted`` envelope."""
     dev = torch.device("cpu") if smoke else default_device(device)
     n = CHAOS_SMOKE_N if smoke else HEADLINE_N
     out = {"device": device_name(dev), "n": n, "smoke": smoke,
            "classes": {}}
+    if ckpt_dir or guard is not None:
+        suite = scenarios.run_chaos_suite(n, device=dev, ckpt_dir=ckpt_dir,
+                                          guard=guard, resume=resume)
+        at = suite.pop("preempted", None)
+        out["classes"] = suite
+        return _preempted(out, "chaos", at, ckpt_dir) if at else out
     for name, plan in chaos_plans(n).items():
         t0 = time.perf_counter()
         cp = compile_plan(plan, n, dev)
@@ -285,6 +327,32 @@ def run_chaos_suite(device=None, smoke: bool = False) -> dict:
         out["classes"][name] = rep
         del cp
     return out
+
+
+def run_chaos_bench(smoke: bool = False, ckpt_dir: Optional[str] = None,
+                    guard: Optional[PreemptionGuard] = None,
+                    resume: bool = False) -> dict:
+    """``--chaos``: the chaos suite, then the defense sweep under
+    ``"corroboration_sweep"``. With ``ckpt_dir`` the defense sweep is
+    the ``byz_defense`` unit of the bench's own manifest
+    (``bench.json`` under ``ckpt_dir``), replayed under ``resume``."""
+    res = run_chaos_suite(smoke=smoke, ckpt_dir=ckpt_dir, guard=guard,
+                          resume=resume)
+    if res.get("preempted"):
+        return res
+    manifest = ProgressManifest(
+        ckpt_dir, name="bench.json",
+        config={"mode": "chaos", "smoke": smoke, "n": res["n"]}) \
+        if ckpt_dir else None
+    if manifest is not None and resume and manifest.done("byz_defense"):
+        res["corroboration_sweep"] = manifest.result("byz_defense")
+    elif guard is not None and guard.preempted:
+        return _preempted(res, "chaos", "byz_defense", ckpt_dir)
+    else:
+        res["corroboration_sweep"] = run_defense_bench(smoke=smoke)
+        if manifest is not None:
+            manifest.mark("byz_defense", res["corroboration_sweep"])
+    return res
 
 
 def run_defense_bench(device=None, smoke: bool = False) -> dict:
@@ -346,18 +414,37 @@ def run_sweep_class(topology: str, n: int, rounds: int, dev,
 
 
 def run_sweep_bench(device=None, smoke: bool = False, engine: str = "xla",
-                    classes=AUTOTUNE_TOPOLOGIES) -> dict:
+                    classes=AUTOTUNE_TOPOLOGIES,
+                    ckpt_dir: Optional[str] = None,
+                    guard: Optional[PreemptionGuard] = None,
+                    resume: bool = False) -> dict:
     """The sweep bench: ``run_sweep_class`` for each topology class at
-    ``SWEEP_SIZE`` (``smoke``: ``SWEEP_SMOKE_SIZE`` on the CPU)."""
+    ``SWEEP_SIZE`` (``smoke``: ``SWEEP_SMOKE_SIZE`` on the CPU). With
+    ``ckpt_dir`` each class is a unit of a ``ProgressManifest``
+    (replayed under ``resume``), and a tripped ``guard`` stops between
+    classes with the ``_preempted`` envelope."""
     dev = torch.device("cpu") if smoke else default_device(device)
     n, rounds = SWEEP_SMOKE_SIZE if smoke else SWEEP_SIZE
-    return {"device": device_name(dev), "n": n, "rounds": rounds,
-            "smoke": smoke, "engine": engine,
-            "grid": {k: list(v) for k, v in AUTOTUNE_GRID.items()},
-            "objectives": ["mean_detect_latency_s", "fp_per_node_hour",
-                           "msg_load"],
-            "classes": {t: run_sweep_class(t, n, rounds, dev, engine)[0]
-                        for t in classes}}
+    out = {"device": device_name(dev), "n": n, "rounds": rounds,
+           "smoke": smoke, "engine": engine,
+           "grid": {k: list(v) for k, v in AUTOTUNE_GRID.items()},
+           "objectives": ["mean_detect_latency_s", "fp_per_node_hour",
+                          "msg_load"],
+           "classes": {}}
+    manifest = ProgressManifest(
+        ckpt_dir, config={"mode": "sweep", "smoke": smoke, "n": n,
+                          "rounds": rounds, "engine": engine}) \
+        if ckpt_dir else None
+    for t in classes:
+        if manifest is not None and resume and manifest.done(t):
+            out["classes"][t] = manifest.result(t)
+            continue
+        if guard is not None and guard.preempted:
+            return _preempted(out, "sweep", t, ckpt_dir)
+        out["classes"][t] = run_sweep_class(t, n, rounds, dev, engine)[0]
+        if manifest is not None:
+            manifest.mark(t, out["classes"][t])
+    return out
 
 
 #: rounds of the lan grid each engine runs under the profiler
@@ -597,7 +684,19 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="run the 64-point gossip-constant sweep over the "
                          "lan, wan and lossy classes")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="with --chaos or --sweep: checkpoint and progress "
+                         "directory; SIGTERM/SIGINT saves and exits "
+                         f"{PREEMPTED_RC}")
+    ap.add_argument("--resume", action="store_true",
+                    help="with --ckpt-dir: finish a preempted invocation")
     args = ap.parse_args(argv)
+    if args.ckpt_dir and not (args.chaos or args.sweep):
+        ap.error("--ckpt-dir applies to --chaos and --sweep")
+    if args.ckpt_dir and args.profile:
+        ap.error("--profile traces a whole run; it cannot be checkpointed")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume needs --ckpt-dir")
     if args.smoke and args.profile:
         ap.error("--profile traces the card; it cannot run with --smoke")
     if args.coords and (args.chaos or args.profile):
@@ -605,28 +704,31 @@ def main(argv=None) -> int:
     if args.sweep and (args.chaos or args.coords):
         ap.error("--sweep runs alone")
     reset_launches()
+    guard = PreemptionGuard().install() if args.ckpt_dir else None
+    ck = dict(ckpt_dir=args.ckpt_dir, guard=guard, resume=args.resume)
     if args.sweep:
-        res = run_sweep_bench(smoke=args.smoke)
+        res = run_sweep_bench(smoke=args.smoke, **ck)
         res["metric"] = "param_sweep" + ("_smoke" if args.smoke else "")
     elif args.coords:
         res = run_coords_bench(smoke=args.smoke)
         res["metric"] = ("coords_convergence_smoke" if args.smoke
                          else "coords_convergence_65k_nodes")
     elif args.chaos:
-        res = run_chaos_suite(smoke=args.smoke)
+        res = run_chaos_bench(smoke=args.smoke, **ck)
         res["metric"] = ("chaos_detection_quality_smoke" if args.smoke
                          else "chaos_detection_quality_1M_nodes")
-        res["corroboration_sweep"] = run_defense_bench(smoke=args.smoke)
     else:
         res = run_headline(smoke=args.smoke)
         res["metric"] = ("gossip_rounds_per_sec_smoke" if args.smoke
                          else "gossip_rounds_per_sec_1M_nodes")
+    if guard is not None:
+        guard.uninstall()
     res["launches"] = dict(LAUNCHES)
     if args.profile:
         res["profile"] = profile_plans() if args.chaos \
             else profile_sweep() if args.sweep else profile_runners()
     print(json.dumps(res))
-    return 0
+    return PREEMPTED_RC if res.get("preempted") else 0
 
 
 if __name__ == "__main__":

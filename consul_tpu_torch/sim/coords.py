@@ -27,6 +27,7 @@ import torch
 
 from consul_tpu_torch.faults import ipow
 from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim.lanes import tree_sum
 from consul_tpu_torch.sim.topology import Topology, true_rtt
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
@@ -83,10 +84,11 @@ def _row_distance(vec_a, h_a, vec_b, h_b) -> torch.Tensor:
 
 def estimate_rtt(coords: CoordState, i, j) -> torch.Tensor:
     """RTT estimate (s) for index batches i, j: the raw distance plus
-    both adjustments, unless that is not positive."""
-    dist = _row_distance(coords.vec[i], coords.height[i],
-                         coords.vec[j], coords.height[j])
-    adjusted = dist + coords.adjustment[i] + coords.adjustment[j]
+    both adjustments, unless that is not positive. A grid's coordinates
+    (``[G, N, ...]``) give one estimate per point."""
+    dist = _row_distance(coords.vec[..., i, :], coords.height[..., i],
+                         coords.vec[..., j, :], coords.height[..., j])
+    adjusted = dist + coords.adjustment[..., i] + coords.adjustment[..., j]
     return torch.where(adjusted > 0, adjusted, dist)
 
 
@@ -107,15 +109,20 @@ def vivaldi_step(coords: CoordState, i, j, rtt_s: torch.Tensor,
     """One batched update: node ``i[k]`` relaxes toward ``j[k]`` at the
     measured ``rtt_s[k]`` seconds. ``i`` holds unique rows, or is None
     for every row in order (no scatter). Rows with ``upd`` false or a
-    non-positive RTT keep their coordinate."""
+    non-positive RTT keep their coordinate. With ``i`` None the
+    coordinates may be a grid's (``[G, N, ...]``, one set per point):
+    every point relaxes over the same pairs and draws."""
     full = i is None
     dev = coords.vec.device
-    idx = torch.arange(coords.vec.shape[0], device=dev) if full \
+    n, dims = coords.vec.shape[-2:]
+    idx = torch.arange(n, device=dev) if full \
         else torch.as_tensor(i, device=dev).to(torch.int64)
-    vec_i, h_i, e_i = coords.vec[idx], coords.height[idx], coords.error[idx]
-    vec_j, h_j, e_j = coords.vec[j], coords.height[j], coords.error[j]
-    samples_i = coords.adj_samples[idx]
-    adj_idx_i = coords.adj_idx[idx]
+    vec_i = coords.vec[..., idx, :]
+    h_i, e_i = coords.height[..., idx], coords.error[..., idx]
+    vec_j = coords.vec[..., j, :]
+    h_j, e_j = coords.height[..., j], coords.error[..., j]
+    samples_i = coords.adj_samples[..., idx, :]
+    adj_idx_i = coords.adj_idx[..., idx]
 
     rtt = rtt_s.to(_F32)
     live = rtt > 0
@@ -136,7 +143,8 @@ def vivaldi_step(coords: CoordState, i, j, rtt_s: torch.Tensor,
     # unit vector away from j; coincident points take a random one
     coincident = mag <= ZERO_THRESHOLD
     safe_mag = torch.where(coincident, 1.0, mag)
-    rv = prng.uniform(key, vec_i.numel()).view(vec_i.shape) - 0.5
+    rows = vec_i.shape[-2]
+    rv = prng.uniform(key, rows * dims).view(rows, dims) - 0.5
     rmag = torch.sqrt(torch.sum(rv * rv, dim=-1))
     rv = rv / torch.where(rmag > 0, rmag, 1.0)[..., None]
     unit = torch.where(coincident[..., None], rv, diff / safe_mag[..., None])
@@ -159,7 +167,7 @@ def vivaldi_step(coords: CoordState, i, j, rtt_s: torch.Tensor,
                               adj_idx_i)
 
     def merge(new, old):
-        return torch.where(upd if new.dim() == 1 else upd[..., None],
+        return torch.where(upd if new.dim() == upd.dim() else upd[..., None],
                            new, old)
 
     vec = merge(new_vec, vec_i)
@@ -196,9 +204,14 @@ class CoordRoundAux(NamedTuple):
 
 
 def round_drift(prev: CoordState, cur: CoordState) -> torch.Tensor:
-    """Mean position moved between two states (seconds)."""
+    """Mean position moved between two states (seconds); ``[G]`` for a
+    grid's coordinates, each mean a ``lanes.tree_sum`` so a grid row is
+    its one-point run bit for bit."""
     d = cur.vec - prev.vec
-    return torch.mean(torch.sqrt(torch.sum(d * d, dim=-1)))
+    moved = torch.sqrt(torch.sum(d * d, dim=-1))
+    if moved.dim() == 1:
+        return torch.mean(moved)
+    return tree_sum(moved) / float(moved.shape[-1])
 
 
 def _percentiles(x: torch.Tensor, qs: Sequence[float]) -> list:
@@ -206,8 +219,8 @@ def _percentiles(x: torch.Tensor, qs: Sequence[float]) -> list:
     one sort: the positions and weights are the reference's f32 values,
     folded on the host, so only the two gathers and the blend run on
     the device (and nothing makes the host wait)."""
-    s = torch.sort(x.reshape(-1)).values
-    n = np.float32(s.numel())
+    s = torch.sort(x, dim=-1).values
+    n = np.float32(s.shape[-1])
     one = np.float32(1.0)
     out = []
     for q in qs:
@@ -217,24 +230,25 @@ def _percentiles(x: torch.Tensor, qs: Sequence[float]) -> list:
         w_lo = np.float32(one - w_hi)
         lo_i = int(min(max(lo, 0), n - 1))
         hi_i = int(min(max(hi, 0), n - 1))
-        out.append(s[lo_i] * float(w_lo) + s[hi_i] * float(w_hi))
+        out.append(s[..., lo_i] * float(w_lo) + s[..., hi_i] * float(w_hi))
     return out
 
 
 def coord_metrics(cur: CoordState, topo: Topology,
                   aux: CoordRoundAux) -> torch.Tensor:
     """[3] f32 quality row of one round's pairs (i = arange(N), targets
-    ``aux.pair_j``): median and p99 relative RTT-estimate error against
-    the no-jitter truth, and the round's mean drift. One sort serves
-    both percentiles (``torch.quantile`` would sort twice and refuses
-    inputs above 2^24 elements; 1,048,576 nodes is 2^20)."""
-    n = cur.vec.shape[0]
+    ``aux.pair_j``; ``[G, 3]`` for a grid's coordinates): median and p99
+    relative RTT-estimate error against the no-jitter truth, and the
+    round's mean drift. One sort serves both percentiles
+    (``torch.quantile`` would sort twice and refuses inputs above 2^24
+    elements; 1,048,576 nodes is 2^20)."""
+    n = cur.vec.shape[-2]
     i = torch.arange(n, device=cur.vec.device)
     est = estimate_rtt(cur, i, aux.pair_j)
     truth = true_rtt(topo, i, aux.pair_j)
     rel = torch.abs(est - truth) / torch.clamp_min(truth, 1e-9)
     med, p99 = _percentiles(rel, (50.0, 99.0))
-    return torch.stack([med, p99, aux.drift.to(_F32)])
+    return torch.stack([med, p99, aux.drift.to(_F32)], dim=-1)
 
 
 def coordinate_updates(coords: CoordState, count: Optional[int] = None,

@@ -555,7 +555,8 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     rounds)``, so a run cut at a call boundary and resumed with the
     returned scalars (``carry=True``, ``scalars0=``) draws the same
     seeds as the uncut run. Counters accumulate in int32 with an f32
-    latency lane.
+    latency lane, starting from the state's own counters (so a resumed
+    run adds in the uncut run's order).
 
     ``plan`` (``faults.compile_plan`` on the state's device) threads a
     FaultPlan through the kernel: each round's ``fault_frame``, keyed by
@@ -628,8 +629,14 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
         rows = arrays[0].shape[0]
         buf = torch.empty((partials_rows(rows), N_LANES),
                           dtype=torch.float32, device=dev)
-        acc_i = torch.zeros(N_STATS, dtype=torch.int32, device=dev)
-        acc_lat = torch.zeros((), dtype=torch.float32, device=dev)
+        # the accumulators start from the state's counters, so a run cut
+        # at a call boundary and resumed adds the latency lane in the
+        # order of the uncut run
+        st0 = state.stats
+        acc_i = torch.stack([torch.zeros((), dtype=torch.int32, device=dev)
+                             if i == LAT else getattr(st0, f).to(torch.int32)
+                             for i, f in enumerate(STATS_FIELDS)])
+        acc_lat = st0.detect_latency_sum.to(torch.float32).clone()
         if dev not in consts:
             consts[dev] = (keep.to(dev), torch.tensor(
                 SCALAR_FLOORS, dtype=torch.float32, device=dev))
@@ -699,9 +706,8 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                                            flight_every, rec)
         st = state.stats
         if p.collect_stats:
-            st = SimStats(**{
-                f: getattr(st, f) + (acc_lat if i == LAT else acc_i[i])
-                for i, f in enumerate(STATS_FIELDS)})
+            st = SimStats(**{f: acc_lat if i == LAT else acc_i[i].clone()
+                             for i, f in enumerate(STATS_FIELDS)})
         out = SimState(*arrays, t=t, round_idx=state.round_idx + rounds,
                        stats=st)
         res = (out, coo) if coords else (out,)

@@ -129,10 +129,13 @@ def row_from_lanes(lanes: torch.Tensor, n_pool: int, t, phase: int,
 
 
 def grid_flight_row(*, up, status, informed, local_health, incarnation, t,
-                    stats_delta: SimStats, phase: int) -> torch.Tensor:
+                    stats_delta: SimStats, phase: int,
+                    coord_row: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """``flight_row`` of a grid state (``[G, N]`` lanes, ``[G]`` clock
     and counters) -> ``[G, N_COLS]``: per-row sums by ``lanes.tree_sum``,
-    so a grid row is its one-point row bit for bit."""
+    so a grid row is its one-point row bit for bit. ``coord_row`` is the
+    grid's ``[G, 3]`` ``coords.coord_metrics`` or None (zeros)."""
     dev = status.device
     suspect = status == SUSPECT
     wrong = up & (suspect | (status == DEAD))
@@ -147,9 +150,10 @@ def grid_flight_row(*, up, status, informed, local_health, incarnation, t,
         torch.full((1,) + lead, float(phase), dtype=_F32, device=dev)]).t()
     sv = torch.stack([getattr(stats_delta, f).to(_F32)
                       for f in STATS_FIELDS], dim=-1)
-    coord = torch.zeros(lead + (len(COORD_COLUMNS),), dtype=_F32,
-                        device=dev)
-    return torch.cat([gauges, sv, coord], dim=-1)
+    if coord_row is None:
+        coord_row = torch.zeros(lead + (len(COORD_COLUMNS),), dtype=_F32,
+                                device=dev)
+    return torch.cat([gauges, sv, coord_row.to(_F32)], dim=-1)
 
 
 def record_row(buf: torch.Tensor, row: torch.Tensor, i: int,

@@ -320,7 +320,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         coords, topo, key = co
         k_pair, k_jit, k_dir, k_q = prng.split(
             prng.fold_in(key, prng.COORD_FOLD), 4)
-        rows = status.shape[0]
+        rows = status.shape[-1]
         i_all = torch.arange(rows, device=status.device)
         pair_j = topology.sample_pairs(rows, k_pair)
         rtt_obs = topology.sample_rtt(topo, i_all, pair_j, k_jit)
@@ -339,7 +339,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
             q_in = topology.sample_pairs(rows, k_q)
             rtt_in = topology.true_rtt(topo, q_in, i_all)
             dl_in = deadline(coords_mod.estimate_rtt(coords, q_in, i_all),
-                             lh[q_in])
+                             lh[..., q_in])
             sig = torch.clamp_min(topo.jitter_sigma, 1e-6)
             z = torch.log(torch.clamp_min(dl_in, 1e-9)
                           / torch.clamp_min(rtt_in, 1e-9)) / sig
@@ -359,7 +359,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     if co is not None:
         # coordinates relax where the probe round trip completed
         c2 = coords_mod.vivaldi_step(coords, None, pair_j, rtt_obs, k_dir,
-                                     ack & up[pair_j])
+                                     ack & up[..., pair_j])
         sink["coords"] = c2
         sink["aux"] = coords_mod.CoordRoundAux(
             pair_j=pair_j, drift=coords_mod.round_drift(coords, c2))

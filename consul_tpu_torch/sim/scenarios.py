@@ -1,23 +1,28 @@
-"""The chaos suite and the coordinates scenario.
+"""The BASELINE scenarios, the chaos suite and the coordinates scenario.
 
-Port of the chaos and coordinates parts of the JAX package's
-``consul_tpu/sim/scenarios.py``: ``chaos_plans`` (five honest classes,
-four byzantine), ``BYZANTINE_CHAOS``, the phase lengths, and
-``run_chaos``, which runs one class through the kernel runner
-(``make_run_rounds_cuda(plan=, flight_every=1)``) and reports per-phase
-detection quality and curves from its flight trace, with the black box
-on request; ``coords_plan`` and ``run_coords``, the cold-start Vivaldi
+Port of the JAX package's ``consul_tpu/sim/scenarios.py``:
+``partition_heal`` (BASELINE config 5: a WAN partition of DC 0 and the
+heal, on the live engine); ``chaos_plans`` (five honest classes, four
+byzantine), ``BYZANTINE_CHAOS``, the phase lengths, and ``run_chaos``,
+which runs one class through the kernel runner
+(``make_run_rounds_cuda(plan=, flight_every=1)``, or checkpointed
+through ``checkpoint.run_resumable(engine="cuda")``) and reports
+per-phase detection quality and curves from its flight trace, with the
+black box on request; ``run_chaos_suite`` with its ``ProgressManifest``;
+``coords_plan`` and ``run_coords``, the cold-start Vivaldi
 convergence through a partition and heal on the live engine
 (``round.run_rounds_flight``) with RTT-aware probe deadlines;
 ``run_byzantine_defense``, the corroboration_k sweep against a
 ForgedAcks attack; the autotuner (``AUTOTUNE_GRID`` over the
 ``AUTOTUNE_TOPOLOGIES`` classes, ``run_autotune``,
 ``run_autotune_suite``) on the sweep engine (``sim/sweep.py``); and
-``run_baseline_config``. The checkpointed options are not ported yet.
+``run_baseline_config``.
 """
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
@@ -28,6 +33,7 @@ from consul_tpu_torch.faults import (ChurnBurst, CompiledFaultPlan, Eclipse,
                                      Partition, Phase, SlowNodes,
                                      SpuriousSuspicion, StaleReplay,
                                      compile_plan)
+from consul_tpu_torch.sim import checkpoint as checkpoint_mod
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.blackbox import default_tracked
 from consul_tpu_torch.sim.coords import init_coords
@@ -39,10 +45,98 @@ from consul_tpu_torch.sim.metrics import (blackbox_report, fd_report,
 from consul_tpu_torch.sim.params import SimParams, SweepAxes, baseline_configs
 from consul_tpu_torch.sim.round import run_rounds, run_rounds_flight
 from consul_tpu_torch.sim.sweep import run_sweep
-from consul_tpu_torch.sim.state import (DEAD, SUSPECT, check_saturation,
-                                        init_state)
+from consul_tpu_torch.sim.state import (ALIVE, DEAD, SUSPECT,
+                                        check_saturation, init_state)
 from consul_tpu_torch.sim.topology import TopologyParams, make_topology
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
+
+# ------------------------------------------------------ partition-heal
+#
+# BASELINE config 5, the multi-DC federation scenario. Each DC is an
+# independent LAN gossip pool and only servers join the cross-DC WAN
+# pool, so the massive LAN pools run as per-DC simulations and the WAN
+# server mesh is small; the partition is ``faults.Partition`` on it.
+
+
+@dataclass
+class PartitionHealReport:
+    n_dcs: int
+    servers_per_dc: int
+    lan_nodes_per_dc: int
+    partition_rounds: int
+    detected_cross_dc_failures: int   # WAN members declared dead
+    false_positives_during_partition: int
+    healed_recovery_rounds: float     # rounds until all WAN members alive
+    lan_false_positives: int          # LAN pools must be unaffected
+
+    def to_dict(self) -> dict[str, Any]:
+        return dict(self.__dict__)
+
+
+def partition_heal(n_dcs: int = 3, servers_per_dc: int = 3,
+                   lan_nodes_per_dc: int = 10_000,
+                   partition_rounds: int = 120, seed: int = 0,
+                   device: DeviceLike = None) -> PartitionHealReport:
+    """BASELINE config 5 on the live engine: a WAN partition between DC
+    0 and the rest, then the heal. The quorum side must declare DC 0's
+    servers failed during the partition (DC 0 stays up, but its probes
+    and refutations cannot cross the cut), they must recover after the
+    heal, and the per-DC LAN pools must stay clean."""
+    dev = default_device(device)
+    n_wan = n_dcs * servers_per_dc
+    if n_wan < 6:
+        raise ValueError(
+            f"WAN pool too small for the mean-field model: {n_wan} < 6")
+    p_wan = SimParams.from_gossip_config(GossipConfig.wan(), n=n_wan)
+    state = init_state(p_wan.n, device=dev)
+    key = prng.key(seed, device=dev)
+    dc0 = torch.arange(p_wan.n, device=dev) < servers_per_dc
+    # every DC0<->rest leg drops while DC0 stays up; the trailing quiet
+    # phase holds for every round past the plan's end (the heal loop)
+    plan = FaultPlan(phases=(
+        Phase(rounds=partition_rounds,
+              faults=(Partition(a=(0, servers_per_dc),
+                                b=(servers_per_dc, n_wan)),),
+              name="partition"),
+        Phase(rounds=10, name="heal"),
+    ))
+    cp = compile_plan(plan, n_wan, dev)
+    state, _ = run_rounds(state, key, p_wan, partition_rounds, plan=cp)
+    during = fd_report(state, p_wan)
+    dead0 = (state.status == DEAD) & dc0
+    detected = int(dead0.sum())
+    # the stats count DC0's declarations as false positives (its members
+    # ARE up); during a partition those are the correct detections
+    fp_during = max(0, during.false_positives
+                    - int((dead0 & state.up).sum()))
+
+    # heal: DC0 refutes with bumped incarnations once gossip flows
+    recovery = None
+    for chunk in range(40):
+        state, _ = run_rounds(state, prng.fold_in(key, chunk), p_wan, 10,
+                              plan=cp)
+        if bool(((state.status == ALIVE) | ~dc0).all()):
+            recovery = (chunk + 1) * 10
+            break
+
+    lan_fp = 0
+    p_lan = SimParams.from_gossip_config(GossipConfig.lan(),
+                                         n=lan_nodes_per_dc, loss=0.01)
+    for dc in range(n_dcs):
+        s, _ = run_rounds(init_state(p_lan.n, device=dev),
+                          prng.fold_in(key, 1000 + dc), p_lan,
+                          partition_rounds)
+        lan_fp += int(s.stats.false_positives)
+
+    return PartitionHealReport(
+        n_dcs=n_dcs, servers_per_dc=servers_per_dc,
+        lan_nodes_per_dc=lan_nodes_per_dc,
+        partition_rounds=partition_rounds,
+        detected_cross_dc_failures=detected,
+        false_positives_during_partition=fp_during,
+        healed_recovery_rounds=float(recovery or -1),
+        lan_false_positives=lan_fp)
+
 
 # ------------------------------------------------------------------ chaos
 #
@@ -163,35 +257,47 @@ def chaos_params(n: int) -> SimParams:
                                         tcp_fallback=False)
 
 
-def run_chaos(name: str, n: int = 4096, seed: int = 0,
-              device: DeviceLike = None,
-              cp: Optional[CompiledFaultPlan] = None,
-              p: Optional[SimParams] = None,
-              blackbox: bool = False) -> dict[str, Any]:
-    """Run ONE chaos class through the kernel runner and report
-    per-phase detection quality.
-
-    The run rides the flight recorder at stride 1: the one trace feeds
-    the per-phase counters (``phase_reports`` on ``stats_from_trace``)
-    and the per-round curves (``trace_report``). ``blackbox=True``
-    tracks ``p.blackbox_k`` evenly spaced agents on the same run and
-    adds their decoded event totals (with the exact ring-against-flight
-    cross-check when every agent is tracked) under ``"blackbox"``.
-    ``p`` defaults to ``chaos_params(n)``; ``cp`` is the class's
-    compiled plan if the caller has one (``compile_plan(
-    chaos_plans(n)[name], n, device)``), else it is compiled here."""
+def chaos_outputs(name: str, n: int = 4096, seed: int = 0,
+                  device: DeviceLike = None,
+                  cp: Optional[CompiledFaultPlan] = None,
+                  p: Optional[SimParams] = None, blackbox: bool = False,
+                  ckpt_dir: Optional[str] = None, guard=None,
+                  resume: bool = False, chunk: Optional[int] = None):
+    """The run behind ``run_chaos``: ``(state, trace, BlackboxState or
+    None)``, or the preempted stub dict of a checkpointed run that a
+    guard cut (the arguments are ``run_chaos``'s)."""
     plan = chaos_plans(n)[name]
     if p is None:
         p = chaos_params(n)
     dev = default_device(device)
     if cp is None:
         cp = compile_plan(plan, n, dev)
-    run = make_run_rounds_cuda(p, plan.total_rounds, plan=cp,
-                               flight_every=1, blackbox=blackbox)
     tracked = default_tracked(n, p.blackbox_k, dev) if blackbox else None
-    out = run(init_state(n, device=dev), prng.key(seed, device=dev),
-              tracked=tracked)
-    state, trace = out[:2]
+    key = prng.key(seed, device=dev)
+    if not ckpt_dir and guard is None:
+        run = make_run_rounds_cuda(p, plan.total_rounds, plan=cp,
+                                   flight_every=1, blackbox=blackbox)
+        out = run(init_state(n, device=dev), key, tracked=tracked)
+        return out[0], out[1], out[2] if blackbox else None
+    rr = checkpoint_mod.run_resumable(
+        p, plan.total_rounds, key, engine="cuda", plan=cp, flight_every=1,
+        tracked=tracked, chunk=chunk, ckpt_dir=ckpt_dir, guard=guard,
+        resume=resume, device=dev)
+    if rr.preempted:
+        return {"scenario": name, "n": n, "preempted": True,
+                "rounds_done": rr.rounds_done, "rounds": plan.total_rounds,
+                "checkpoint": rr.checkpoint_path}
+    return rr.state, rr.trace, rr.blackbox
+
+
+def chaos_report(name: str, n: int, outputs,
+                 p: Optional[SimParams] = None) -> dict[str, Any]:
+    """``run_chaos``'s report of ``chaos_outputs``' ``(state, trace,
+    blackbox)``."""
+    plan = chaos_plans(n)[name]
+    if p is None:
+        p = chaos_params(n)
+    state, trace, bb = outputs
     # a ChurnBurst that saturated an int16 lane must fail here, not
     # publish a silently corrupt report
     check_saturation(state)
@@ -203,11 +309,81 @@ def run_chaos(name: str, n: int = 4096, seed: int = 0,
             stats_from_trace(trace), plan, p)],
         "flight": trace_report(trace, p, plan=plan,
                                rounds=plan.total_rounds),
-        **({"blackbox": blackbox_report(out[2], p, trace=trace)}
-           if blackbox else {}),
+        **({"blackbox": blackbox_report(bb, p, trace=trace)}
+           if bb is not None else {}),
         "final_live_fraction": float(up.to(torch.float32).mean()),
         "final_wrongly_dead": int(wrongly.sum()),
     }
+
+
+def run_chaos(name: str, n: int = 4096, seed: int = 0,
+              device: DeviceLike = None,
+              cp: Optional[CompiledFaultPlan] = None,
+              p: Optional[SimParams] = None,
+              blackbox: bool = False,
+              ckpt_dir: Optional[str] = None,
+              guard=None, resume: bool = False,
+              chunk: Optional[int] = None) -> dict[str, Any]:
+    """Run ONE chaos class through the kernel runner and report
+    per-phase detection quality.
+
+    The run rides the flight recorder at stride 1: the one trace feeds
+    the per-phase counters (``phase_reports`` on ``stats_from_trace``)
+    and the per-round curves (``trace_report``). ``blackbox=True``
+    tracks ``p.blackbox_k`` evenly spaced agents on the same run and
+    adds their decoded event totals (with the exact ring-against-flight
+    cross-check when every agent is tracked) under ``"blackbox"``.
+    ``p`` defaults to ``chaos_params(n)``; ``cp`` is the class's
+    compiled plan if the caller has one (``compile_plan(
+    chaos_plans(n)[name], n, device)``), else it is compiled here.
+
+    With ``ckpt_dir`` or ``guard`` the run goes through
+    ``checkpoint.run_resumable(engine="cuda")`` in ``chunk``-round
+    pieces — the same kernels and the same run bit for bit — saving a
+    rotating checkpoint per chunk. A tripped guard returns a
+    ``{"preempted": True, ...}`` stub instead of a report; ``resume``
+    restarts from the newest loadable file, and the finished report
+    equals an uninterrupted run's."""
+    out = chaos_outputs(name, n=n, seed=seed, device=device, cp=cp, p=p,
+                        blackbox=blackbox, ckpt_dir=ckpt_dir, guard=guard,
+                        resume=resume, chunk=chunk)
+    if isinstance(out, dict):
+        return out
+    return chaos_report(name, n, out, p)
+
+
+def run_chaos_suite(n: int = 4096, seed: int = 0, device: DeviceLike = None,
+                    ckpt_dir: Optional[str] = None, guard=None,
+                    resume: bool = False) -> dict[str, Any]:
+    """Every chaos class once. With ``ckpt_dir`` the suite survives
+    preemption two levels deep: a ``ProgressManifest`` records each
+    finished class's report (replayed only under ``resume``: a plain
+    run measures again), and the class in flight checkpoints per chunk
+    in its own subdirectory. A tripped guard returns the partial suite
+    with ``"preempted"`` naming the class it stopped in."""
+    dev = default_device(device)
+    if not ckpt_dir and guard is None:
+        return {name: run_chaos(name, n=n, seed=seed, device=dev)
+                for name in chaos_plans(n)}
+    manifest = (checkpoint_mod.ProgressManifest(
+        ckpt_dir, config={"mode": "chaos", "n": n, "seed": seed})
+        if ckpt_dir else None)
+    out: dict[str, Any] = {}
+    for name in chaos_plans(n):
+        if manifest is not None and resume and manifest.done(name):
+            out[name] = manifest.result(name)
+            continue
+        rep = run_chaos(
+            name, n=n, seed=seed, device=dev,
+            ckpt_dir=os.path.join(ckpt_dir, name) if ckpt_dir else None,
+            guard=guard, resume=resume)
+        out[name] = rep
+        if rep.get("preempted"):
+            out["preempted"] = name
+            return out
+        if manifest is not None:
+            manifest.mark(name, rep)
+    return out
 
 
 # ------------------------------------------------------------- coords

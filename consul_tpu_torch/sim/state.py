@@ -183,11 +183,17 @@ SATURATING_FIELDS = (("incarnation", TICK_MAX),
                      ("susp_len", TICK_MAX))
 
 
+def saturated_fields(get_max) -> list:
+    """Names of the saturated lanes; ``get_max(field)`` returns the
+    lane's max as a host int (``checkpoint.snapshot`` reads its arrays
+    already fetched to the host)."""
+    return [f for f, cap in SATURATING_FIELDS if get_max(f) >= cap]
+
+
 def check_saturation(state: SimState) -> None:
     """Refuse-by-name guard over the saturating narrow stores (one small
     device fetch per checked field)."""
-    saturated = [f for f, cap in SATURATING_FIELDS
-                 if int(getattr(state, f).max()) >= cap]
+    saturated = saturated_fields(lambda f: int(getattr(state, f).max()))
     if saturated:
         raise SaturationError(
             f"packed state saturated: {', '.join(saturated)} hit the "

@@ -17,8 +17,13 @@ f32 additions whatever G is.
 Engines:
 
 * ``"xla"`` — the live engine (``round.round_core``) with per-row sums,
-  the flight recorder (one trace per point) and a fault plan shared by
-  the grid, whose intensity a swept ``fault_gain`` scales per point;
+  the flight recorder (one trace per point), a fault plan shared by
+  the grid, whose intensity a swept ``fault_gain`` scales per point,
+  and Vivaldi coordinates (``coords=True``): one coordinate set per
+  point over a shared ground-truth ``topo``, the trace's coordinate
+  columns ``coords.coord_metrics`` per grid row, and
+  ``coord_timeout_mult`` / ``probe_timeout`` real axes under
+  ``coords_timeout``;
 * ``"lanes"`` — the lane engine's loop (``round._lane_scan``) at the
   grid-wide ``p.stale_k``;
 * ``"cuda"`` — the counterpart of the JAX ``"pallas"`` engine: a loop
@@ -29,9 +34,6 @@ Engines:
   exists to put kernel schedules in the same reports, not for grid
   throughput. It refuses fault plans (the megakernel freezes its inputs
   per call) and coordinates, as the JAX engine does.
-
-Not ported: coordinate sweeps (``coords=True``, the reference's XLA
-engine with Vivaldi per point).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 
 from consul_tpu_torch.faults import (CompiledFaultPlan, active_phase,
                                      fault_frame, plan_schedule)
+from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim import flight, prng
 from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim.params import (GridSpec, SimParams, TracedParams,
@@ -56,10 +59,12 @@ ENGINES = ("xla", "lanes", "cuda")
 
 
 def _xla_scan(state: SimState, tp, keys: torch.Tensor, rounds: int,
-              flight_every: Optional[int], cp):
+              flight_every: Optional[int], cp, coords=None, topo=None):
     """A grid's run on the live engine: ``round_core`` with the per-row
     reducer, and a flight row per point where a stride closes (as
-    ``round.run_rounds_flight`` records)."""
+    ``round.run_rounds_flight`` records). ``coords`` (``[G, N, ...]``
+    CoordState) relaxes over ``topo`` each round and fills the rows'
+    coordinate columns."""
     rows = state.status.shape[-1]
     sched = plan_schedule(cp) if cp is not None else None
     r0 = _start_round(state) if cp is not None else 0
@@ -67,21 +72,30 @@ def _xla_scan(state: SimState, tp, keys: torch.Tensor, rounds: int,
                              lead=tuple(state.status.shape[:-1])) \
         if flight_every is not None else None
     prev = state.stats
-    s = state
+    s, c = state, coords
     for i in range(rounds):
         fx = fault_frame(cp, r0 + i, sched) if cp is not None else None
-        s, _ = round_core(s, None, tp, prng.threefry_u01(keys[i], rows), fx,
-                          reduce=lanes_mod.row_sums)
+        u01 = prng.threefry_u01(keys[i], rows)
+        aux = None
+        if coords is None:
+            s, _ = round_core(s, None, tp, u01, fx,
+                              reduce=lanes_mod.row_sums)
+        else:
+            s, _, c, aux, _ = round_core(s, None, tp, u01, fx, coords=c,
+                                         topo=topo, key=keys[i],
+                                         reduce=lanes_mod.row_sums)
         if flight_every is not None:
-            def rec(pv, s2=s, i=i):
+            def rec(pv, s2=s, c2=c, aux=aux, i=i):
                 ph = active_phase(cp, r0 + i, sched) if cp is not None \
                     else -1
+                crow = coords_mod.coord_metrics(c2, topo, aux) \
+                    if coords is not None else None
                 flight.record_row(buf, flight.grid_flight_row(
                     up=s2.up, status=s2.status, informed=s2.informed,
                     local_health=s2.local_health,
                     incarnation=s2.incarnation, t=s2.t,
                     stats_delta=flight.stats_delta(s2.stats, pv),
-                    phase=ph), i, flight_every)
+                    phase=ph, coord_row=crow), i, flight_every)
                 return s2.stats
 
             prev = flight.maybe_record(prev, i, rounds, flight_every, rec)
@@ -89,15 +103,18 @@ def _xla_scan(state: SimState, tp, keys: torch.Tensor, rounds: int,
 
 
 def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
-               engine: str, coords: bool = False):
+               engine: str, coords: bool = False, topo=None):
     """The grid runner ``(state, tp, keys, cp) -> (state, trace|None)``:
-    ONE function serves the grid and the one-point run."""
+    ONE function serves the grid and the one-point run; with ``coords``
+    every point starts from ``init_coords`` and relaxes over ``topo``."""
     if engine not in ENGINES:
         raise ValueError(f"unknown sweep engine {engine!r} "
                          f"(expected one of {ENGINES})")
-    if coords:
-        raise ValueError("coords sweeps run on the XLA engine only, and "
-                         "consul_tpu_torch has not ported them")
+    if coords and engine != "xla":
+        raise ValueError("coords sweeps run on the XLA engine only")
+    if coords and topo is None:
+        raise ValueError("coords=True needs the ground-truth topo "
+                         "(sim/topology.make_topology)")
     if engine == "cuda":
         raise ValueError(
             "the cuda engine runs each point through make_run_rounds_cuda "
@@ -115,7 +132,14 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
         return solo
 
     def solo(state, tp, keys, cp):
-        return _xla_scan(state, tp, keys, rounds, flight_every, cp)
+        c0 = None
+        if coords:
+            lead = tuple(state.status.shape[:-1])
+            c0 = coords_mod.CoordState(*[
+                x.repeat(lead + (1,) * x.dim()) for x in
+                coords_mod.init_coords(p.n, device=state.status.device)])
+        return _xla_scan(state, tp, keys, rounds, flight_every, cp,
+                         coords=c0, topo=topo)
 
     return solo
 
@@ -206,7 +230,7 @@ def _make_cuda_sweep(p: SimParams, rounds: int, flight_every: Optional[int],
 def make_run_sweep(p: SimParams, rounds: int, *,
                    flight_every: Optional[int] = None,
                    plan: Optional[CompiledFaultPlan] = None,
-                   engine: str = "xla", coords: bool = False,
+                   engine: str = "xla", coords: bool = False, topo=None,
                    rounds_per_call: int = 1, device: DeviceLike = None):
     """The grid runner: ``run(tp, key) -> (states, trace)``, ``tp`` a
     ``[G]``-leaved TracedParams (``grid_params``), ``states`` the
@@ -217,9 +241,11 @@ def make_run_sweep(p: SimParams, rounds: int, *,
     ``device`` (the card unless the caller passes ``"cpu"``), as must
     ``tp``, ``key`` and ``plan``.
 
-    ``engine="lanes"`` honours ``p.stale_k`` (grid-wide);
-    ``engine="cuda"`` runs the kernels at ``rounds_per_call`` point by
-    point (``run(tp, key, points=None)``)."""
+    ``coords=True`` (xla engine) threads Vivaldi coordinates, one set
+    per point, over the ground-truth ``topo``; ``engine="lanes"``
+    honours ``p.stale_k`` (grid-wide); ``engine="cuda"`` runs the
+    kernels at ``rounds_per_call`` point by point (``run(tp, key,
+    points=None)``)."""
     dev = default_device(device)
     if engine == "cuda":
         if coords:
@@ -239,7 +265,7 @@ def make_run_sweep(p: SimParams, rounds: int, *,
         raise ValueError("flight recording rides the SimStats "
                          "counters; build SimParams with "
                          "collect_stats=True")
-    solo = _make_solo(p, rounds, flight_every, engine, coords)
+    solo = _make_solo(p, rounds, flight_every, engine, coords, topo)
 
     def run(tp: TracedParams, key: torch.Tensor):
         if not tp.grid_shape:
@@ -258,14 +284,14 @@ def make_run_sweep(p: SimParams, rounds: int, *,
 def make_run_point(p: SimParams, rounds: int, *,
                    flight_every: Optional[int] = None,
                    plan: Optional[CompiledFaultPlan] = None,
-                   engine: str = "xla", coords: bool = False,
+                   engine: str = "xla", coords: bool = False, topo=None,
                    device: DeviceLike = None):
     """The one-point runner: ``run(tp_point, key) -> (state, trace)`` for
     ``point_params(tp, i)``: the grid runner's code on a grid of one,
     returned unbatched (``[N]`` lanes, ``[rows, N_COLS]`` trace) — the
     bit-for-bit oracle of a grid row."""
     dev = default_device(device)
-    solo = _make_solo(p, rounds, flight_every, engine, coords)
+    solo = _make_solo(p, rounds, flight_every, engine, coords, topo)
 
     def run(tp: TracedParams, key: torch.Tensor):
         if tp.grid_shape or not tp.point:
@@ -293,7 +319,7 @@ def run_sweep(p: SimParams, grid: GridSpec, rounds: int,
               key: Optional[torch.Tensor] = None, seed: int = 0, *,
               flight_every: Optional[int] = None,
               plan: Optional[CompiledFaultPlan] = None,
-              engine: str = "xla", coords: bool = False,
+              engine: str = "xla", coords: bool = False, topo=None,
               rounds_per_call: int = 1,
               device: DeviceLike = None) -> SweepResult:
     """Build the grid (``grid_params``), check every point's lane
@@ -306,7 +332,7 @@ def run_sweep(p: SimParams, grid: GridSpec, rounds: int,
         for pp in points:
             lanes_mod.check_flight_config(pp, flight_every)
     run = make_run_sweep(p, rounds, flight_every=flight_every, plan=plan,
-                         engine=engine, coords=coords,
+                         engine=engine, coords=coords, topo=topo,
                          rounds_per_call=rounds_per_call, device=dev)
     if key is None:
         key = prng.key(seed, device=dev)
