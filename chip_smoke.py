@@ -20,13 +20,14 @@ non-zero before the result line):
               frame of an all-primitive honest plan, one byz-variant
               launch on a frame of the four byzantine primitives with
               corroboration_k=2 (both on the chaos suite's config, and
-              again on the full one), and one R=8 mega_kernel launch per
-              honest variant, each held against its plain PyTorch
-              version on the same inputs (int lanes exact — at most 2
-              nodes may differ, each only where a decision's margin is
-              under 4 ulp; informed within 4 ulp; partial sums, on
-              every block that holds no such node: counter lanes exact,
-              scalar lanes within 1e-5 relative + 1e-4).
+              again on the full one), and one R=8 and one R=4
+              mega_kernel launch per honest variant, each held against
+              its plain PyTorch version on the same inputs (int lanes
+              exact — at most 2 nodes may differ, each only where a
+              decision's margin is under 4 ulp; informed within 4 ulp;
+              partial sums, on every block that holds no such node:
+              counter lanes exact, scalar lanes within 1e-5 relative +
+              1e-4).
 3. headline — the main path through the user entry points
               (consul_tpu_torch.bench.run_headline: per-round and R=8
               runners on the stable and full configs, best of 3), its
@@ -103,7 +104,24 @@ non-zero before the result line):
               servers, 10,000 LAN nodes per DC, 120 partition rounds)
               with the reference test's signature. Prints wall seconds
               per part, file bytes, and snapshot, save and load ms.
-8. timing   — each kernel's time per launch (device time: CUDA events
+8. tune     — the cost model and the autotuner through their entry
+              points at 1,048,576 nodes, each run counted on its own:
+              (a) measure_bandwidth (copy, triad; no peak above 1.05 x
+              3,350 GB/s); (b) roofline_table on the full-model config,
+              24 rounds, best of 3: all 9 rows measured, the kernel
+              runner's at R=1/4/8 launching exactly round_kernel/full
+              and mega_kernel/full (a warm-up and 3 timed calls) and
+              counting kernel_bound's bytes a round; (c) autotune on the
+              headline config, 48 rounds, best of 3: all 15 points, the
+              kernel runner's launching exactly round_kernel/stable and
+              mega_kernel/stable; the winner saved, read back by
+              cached_winner, built by tuned_runner and run from a fresh
+              state bit for bit equal to its engine's runner built
+              directly; (d) the TUNE and PROFILE payloads validated,
+              written by the bench's _record_next and read back by
+              load_ledger, one history row each. Records and the cache
+              go to a temporary directory under build/.
+9. timing   — each kernel's time per launch (device time: CUDA events
               around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do; the
@@ -125,52 +143,11 @@ import sys
 import tempfile
 import time
 
-#: H100 SXM peaks: HBM3 bandwidth and f32 arithmetic outside the tensor
-#: cores (67 TFLOP/s, NVIDIA data sheet), and 32-bit integer
-#: arithmetic, which the data sheet does not give: 64 INT32 lanes on
-#: each of the 132 SMs (H100 white paper) at the 1.98 GHz boost clock.
-#: Integer and f32 operations run on separate lanes, so the bound by
-#: operations is the larger of the two types' times. The operation
-#: counts below model only a part of the body (``kernel_bound``), so
-#: that bound is a lower bound, and a low one where the body's
-#: uncounted control flow dominates (the megakernel).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-
-#: integer operations of one Philox4x32-10 call on the card, which gives
-#: four words: per round two widening multiplies and two three-input
-#: xors. The key schedule depends only on seeds[r] and is shared by
-#: every call, so no call pays for it.
-PHILOX_INT_OPS = 10 * (2 + 2)
-#: integer operations to make a uniform of one word: the shift and the
-#: int->float conversion
-DRAW_INT_OPS = 2
-#: f32 operations that every node does in a period, whatever its state,
-#: where the no-ack and Poisson terms are per node (the fault and byz
-#: variants; counted from node_round in round_kernels.cu): two no-ack
-#: evaluations (13 each), the ack mix and test (6), the truncated
-#: Poisson's rate, exp and four terms (20), the 8 scalar lanes (8). The
-#: suspicion timeouts, refutation, epidemic growth, patience, slow and
-#: stats terms are left out: their count depends on the data, so the
-#: bound does not claim them.
-BODY_F32_OPS = 2 * 13 + 6 + 20 + 8
-#: the same in the honest variants, which read the no-ack terms, p_ack
-#: and the Poisson thresholds from the block's tables: the ack test (1),
-#: four threshold compares (4), the miss weight 1 - p_ack (1) and the 8
-#: scalar lanes (8)
-TABLE_BODY_F32_OPS = 1 + 4 + 1 + 8
-#: f32 operations a fault frame adds to every node's period: the four
-#: churn-rate sums, the round trip and relay factor (2), their three
-#: products in each no-ack evaluation (6), the suspicion-weighted miss
-#: (3). A byzantine frame adds the spurious-suspicion arrivals (2). The
-#: detection gate, the refutation and growth factors are left out, like
-#: the other data-dependent terms.
-FAULT_F32_OPS = 4 + 2 + 6 + 3
-BYZ_F32_OPS = 2
-
 N = 1_048_576
 MEGA_R = 8
+#: the megakernel's other depth, which the roofline ladder and the
+#: autotuner run
+TUNE_R = 4
 MAX_INT_MISMATCH = 2
 MARGIN_ULPS = 4.0
 INFORMED_ULPS = 4
@@ -463,8 +440,11 @@ def phase_check(torch, m, dev):
             ("round_kernel/byz slow+tcp", p_full.with_(corroboration_k=2),
              False, fx_byz),
             ("mega_kernel/stable", p_stable, True, None),
-            ("mega_kernel/full", p_full, True, None)):
-        results[name] = compare(torch, m, name, arrays, scal, seeds, p,
+            ("mega_kernel/full", p_full, True, None),
+            (f"mega_kernel/stable R={TUNE_R}", p_stable, True, None),
+            (f"mega_kernel/full R={TUNE_R}", p_full, True, None)):
+        r_seeds = seeds[:TUNE_R] if name.endswith(f"R={TUNE_R}") else seeds
+        results[name] = compare(torch, m, name, arrays, scal, r_seeds, p,
                                 mega, fx)
     emit({"phase": "check", "n": N, "ok": True,
           "compile_plan_s": compile_s, "kernels": list(results.values())})
@@ -563,80 +543,6 @@ def chaos_failures(suite: dict) -> list:
          and sr["true_deaths_declared"] >= 0.5 * sr["crashes"],
          f"stale_replay: detection blocked ({sr})")
     return bad
-
-
-def kernel_bound(p, arrays, rounds=1, fx=None, out=None) -> dict:
-    """The least time one launch of ``rounds`` periods on ``arrays``
-    could take: the larger of its bytes (each input read once, each
-    output written once: state, fault frame, scalars, seeds, partials)
-    over the HBM rate and its modelled operations, integer ones over
-    ``INT32_OPS_PER_S`` and f32 ones over ``F32_OPS_PER_S``: a lower
-    bound, since the model counts the random draws and the f32 body
-    terms named below, not the loads' unpacking, the branches and the
-    state updates.
-
-    Philox calls counted, as this input needs them: call 0 of every
-    node and round (it serves churn, slow, ack and Poisson), and on a
-    byzantine frame call 1 of every live node whose replay pressure is
-    positive; the call 1 of wrongly suspected nodes (refutation) is left
-    out. Draws, each a shift and a conversion: every node's Poisson
-    draw, every node's churn and slow draws where those models are on (a
-    fault frame always draws churn), the ack draw of every live node and
-    the replay draws above. The honest variants read their no-ack and
-    Poisson terms from tables (``TABLE_BODY_F32_OPS``), the fault ones
-    compute them per node (``BODY_F32_OPS``). Liveness moves only under
-    churn: the live count comes from the input without churn, and from
-    ``out``
-    (the plain version's output on this input: liveness is final once
-    churn is drawn) for a single fault round; a churn config without a
-    frame is refused."""
-    from consul_tpu_torch.sim import cuda_round as cr
-
-    if fx is None and p.has_churn:
-        raise ValueError("kernel_bound counts live nodes from the input, "
-                         "which churn would change within the call")
-    if fx is not None and (rounds != 1 or out is None):
-        raise ValueError("a fault frame shapes one round: pass rounds=1 "
-                         "and the plain version's output as out=")
-    rows = arrays[0].shape[0]
-    age = arrays[3]
-    node_bytes = sum(a.element_size() for a in arrays)
-    mutable = p.age_mutable or fx is not None
-    written = node_bytes - (0 if mutable else age.element_size())
-    frame_bytes = 0
-    if fx is not None:
-        lanes = [a for a in fx if a is not None and a.dim() == 1]
-        frame_bytes = sum(a.element_size() for a in lanes)
-    state_bytes = rows * (node_bytes + written)
-    nbytes = state_bytes + rows * frame_bytes + 4 * cr.N_SCALARS \
-        + 4 * rounds + 4 * cr.N_LANES * cr.partials_rows(rows) \
-        + (4 if fx is not None else 0)
-    calls = rows
-    if fx is None:
-        draws = rows * (1 + int(p.enabled("slow_per_round"))) \
-            + int((age < 0).sum())
-        f32_ops = rounds * rows * TABLE_BODY_F32_OPS
-    else:
-        up = out[3] < 0
-        draws = rows * (2 + int(p.enabled("slow_per_round"))) \
-            + int(up.sum())
-        per_node = BODY_F32_OPS + FAULT_F32_OPS
-        if fx.attacked is not None:
-            replays = int((up & (fx.replay > 0)).sum())
-            calls += replays
-            draws += replays
-            per_node += BYZ_F32_OPS
-        f32_ops = rows * per_node
-    int_ops = rounds * (calls * PHILOX_INT_OPS + draws * DRAW_INT_OPS)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
-    return {"bytes": nbytes, "state_bytes": state_bytes,
-            "frame_bytes": rows * frame_bytes,
-            "philox_calls": rounds * calls, "draws": rounds * draws,
-            "int32_ops": int_ops, "f32_ops": f32_ops,
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def phase_chaos(torch, m, dev):
@@ -1344,6 +1250,199 @@ def phase_resume(torch, m, dev, root):
     return launches
 
 
+#: no H100 SXM streams above its 3,350 GB/s; a copy or triad reading
+#: more than 5% above it timed something other than HBM
+PEAK_GBPS_CEILING = 1.05 * 3350
+#: the kernel runner's rows, which a CPU rehearsal records as skipped
+CUDA_CONFIGS = ("cuda", "cuda-x4", "cuda-x8")
+
+
+def tune_launches(rows, rounds, reps, variant) -> dict:
+    """The launches ``measure_config``'s kernel-runner rows make: a
+    warm-up call and ``reps`` timed calls of ``rounds`` rounds each,
+    ``rounds / R`` launches a call (R=1 ``round_kernel``, else
+    ``mega_kernel``)."""
+    want = {}
+    for row in rows:
+        if row["engine"] != "cuda" or "skipped" in row:
+            continue
+        r = row["rounds_per_call"]
+        name = f"{'round' if r == 1 else 'mega'}_kernel/{variant}"
+        want[name] = want.get(name, 0) + (1 + reps) * rounds // r
+    return want
+
+
+def _skip_failures(rows, on_card, label) -> list:
+    """On the card no row may be skipped; off it exactly the kernel
+    runner's rows are."""
+    skipped = {r["config"] for r in rows if "skipped" in r}
+    want = set() if on_card else set(CUDA_CONFIGS)
+    if skipped != want:
+        return [f"{label}: skipped {sorted(skipped)}, expected "
+                f"{sorted(want)}: "
+                + "; ".join(r["skipped"] for r in rows if "skipped" in r)]
+    return []
+
+
+def tune_roofline(torch, m, dev, n=N, rounds=None, reps=None):
+    """(a) ``measure_bandwidth`` and (b) ``roofline_table`` on the
+    full-model configuration; the kernel runner's rows launch exactly
+    ``tune_launches`` and count ``kernel_bound``'s bytes per round.
+    Returns (report, failures, launches, the table)."""
+    cm, cr = m.costmodel, m.cuda_round
+    d_rounds, d_reps = m.bench.ROOFLINE_DEPTH
+    rounds, reps = rounds or d_rounds, reps or d_reps
+    on_card = torch.device(dev).type == "cuda"
+    bad = []
+    bw = cm.measure_bandwidth(device=dev)
+    if on_card and bw["peak_gbps"] > PEAK_GBPS_CEILING:
+        bad.append(f"bandwidth: {bw['peak_gbps']} GB/s is above "
+                   f"{PEAK_GBPS_CEILING:.0f}")
+    p = m.bench.diag_params(n)
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    table = cm.roofline_table(p, rounds=rounds, reps=reps, bandwidth=bw,
+                              device=dev)
+    wall = time.perf_counter() - t0
+    got = dict(cr.LAUNCHES)
+    want = tune_launches(table["rows"], rounds, reps, "full")
+    if got != want:
+        bad.append(f"roofline launched {got}, expected {want}")
+    bad += _skip_failures(table["rows"], on_card, "roofline")
+    arrays = m.state.init_state(n, device=dev).node_arrays()
+    for row in table["rows"]:
+        if row["engine"] != "cuda" or "skipped" in row:
+            continue
+        r = row["rounds_per_call"]
+        count = cm.kernel_bound(p, arrays, r)["bytes"] / r
+        if abs(row["bytes_measured"] - count) > 0.1:
+            bad.append(f"{row['config']}: counted {row['bytes_measured']}"
+                       f" B a round, kernel_bound gives {count}")
+    keys = ("config", "ms_per_round", "rounds_per_sec", "bytes_model",
+            "bytes_measured", "model_vs_measured", "flagged",
+            "flops_measured", "temp_bytes_measured", "achieved_gbps",
+            "util", "skipped")
+    rows = [{k: r[k] for k in keys if k in r} for r in table["rows"]]
+    return ({"n": n, "rounds": rounds, "reps": reps, "bandwidth": bw,
+             "rows": rows, "flags": table["flags"], "wall_s": wall,
+             "launches": got}, bad, got, table)
+
+
+def direct_runner(m, p, winner, rounds):
+    """The runner of a winner's engine and cadence, built from its
+    factory without the autotuner."""
+    e, k = winner["engine"], winner["stale_k"]
+    if e == "cuda":
+        return m.cuda_round.make_run_rounds_cuda(
+            p, rounds, rounds_per_call=winner["rounds_per_call"])
+    if e == "fast":
+        return m.round.make_run_rounds_fast(p, rounds)
+    if e == "xla":
+        return m.round.make_run_rounds(p, rounds)
+    return m.round.make_run_rounds_lanes(
+        p.with_(stale_k=k), rounds, overlap=e == "overlap",
+        lane_blocks=winner["lane_blocks"] if e == "lanes" else None)
+
+
+def tune_autotune(torch, m, dev, root, n=N, rounds=None, reps=None):
+    """(c) ``autotune`` on the headline configuration: 15 rows, the
+    kernel runner's launching exactly ``tune_launches``; the winner
+    saved, read back by ``cached_winner`` and built by ``tuned_runner``,
+    whose run from a copy of a fresh state equals the directly built
+    runner's bit for bit. Returns (record, report, failures,
+    launches)."""
+    cr, at = m.cuda_round, m.autotune
+    d_rounds, d_reps = m.bench.AUTOTUNE_DEPTH
+    rounds, reps = rounds or d_rounds, reps or d_reps
+    on_card = torch.device(dev).type == "cuda"
+    bad = []
+    p = m.bench.headline_params(n)
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    rec = at.autotune(p, rounds=rounds, reps=reps, device=dev,
+                      metric="autotune_rounds_per_sec_1M_nodes"
+                      if n == N else "autotune_rounds_per_sec_smoke")
+    wall = time.perf_counter() - t0
+    got = dict(cr.LAUNCHES)
+    want = tune_launches(rec["rows"], rounds, reps, "stable")
+    if got != want:
+        bad.append(f"autotune launched {got}, expected {want}")
+    if len(rec["rows"]) != 15:
+        bad.append(f"autotune swept {len(rec['rows'])} points, not 15")
+    bad += _skip_failures(rec["rows"], on_card, "autotune")
+    winner = rec["winner"]
+    at.save_winner(root, rec["platform"], n, winner)
+    back = at.cached_winner(root, torch.device(dev).type, n)
+    if back != winner:
+        bad.append(f"cached winner {back} is not the tuned {winner}")
+    s0 = m.state.init_state(n, device=dev)
+    key = m.prng.key(51, device=dev)
+    cr.reset_launches()
+    tuned = at.tuned_runner(p, back, rounds)(m.bench.clone_state(s0), key)
+    direct = direct_runner(m, p, winner, rounds)(
+        m.bench.clone_state(s0), key)
+    check_launches = dict(cr.LAUNCHES)
+    diffs = _state_diffs(torch, tuned, direct)
+    if diffs:
+        bad.append(f"tuned runner differs from the direct one: {diffs}")
+    r = winner["rounds_per_call"]
+    want_t = {f"{'round' if r == 1 else 'mega'}_kernel/stable":
+              2 * rounds // r} if winner["engine"] == "cuda" and on_card         else {}
+    if check_launches != want_t:
+        bad.append(f"tuned check launched {check_launches}, expected "
+                   f"{want_t}")
+    for k, v in check_launches.items():
+        got[k] = got.get(k, 0) + v
+    rows = [{k: row[k] for k in ("config", "rounds_per_sec",
+                                 "ms_per_round", "skipped") if k in row}
+            for row in rec["rows"]]
+    return rec, {"n": n, "rounds": rounds, "reps": reps, "rows": rows,
+                 "winner": winner, "tuned_bitwise": not diffs,
+                 "wall_s": wall}, bad, got
+
+
+def tune_records(m, root, rec, profile_env) -> tuple:
+    """(d) The TUNE and PROFILE payloads validated, written by the
+    bench's ``_record_next``, read back by ``load_ledger``: one history
+    row each. Returns (history rows, failures)."""
+    cm = m.costmodel
+    bad = []
+    for family, payload in (("TUNE", rec), ("PROFILE", profile_env)):
+        try:
+            cm.validate_record(f"{family}_r01.json", payload)
+        except cm.LedgerError as e:
+            bad.append(f"{family} payload refused: {e}")
+        if m.bench._record_next(family, payload, root) is None:
+            bad.append(f"{family} was not recorded")
+    rows = cm.history_rows(cm.load_ledger(root))
+    if sorted(r["family"] for r in rows) != ["PROFILE", "TUNE"]:
+        bad.append(f"history rows {rows}, expected one PROFILE and one "
+                   "TUNE")
+    return rows, bad
+
+
+def phase_tune(torch, m, dev, root, headline):
+    """The cost model, the roofline ladder, the autotuner and the
+    records at full size, each run counted on its own; records and the
+    winner cache under ``root``. Returns the kernels' launches."""
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    roof, bad, rl, table = tune_roofline(torch, m, dev)
+    rec, tune, b, tl = tune_autotune(torch, m, dev, root)
+    bad += b
+    tune["launches"] = tl
+    launches = {k: rl.get(k, 0) + tl.get(k, 0) for k in {**rl, **tl}}
+    history, b = tune_records(m, root, rec,
+                              m.bench.profile_record(headline, table))
+    bad += b
+    if bad:
+        raise SmokeFailure("tune: " + "; ".join(bad))
+    emit({"phase": "tune", "nvidia_smi": nvidia_smi(), "roofline": roof,
+          "autotune": tune, "history": history,
+          "wall_s": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def _events_ms(torch, fn, reps, warm=2):
     for _ in range(warm):
         fn()
@@ -1458,7 +1557,8 @@ def time_kernels(torch, m, inputs) -> dict:
                 cr.block_round_ref(arrays, scal, seeds[0], p, fx=fx)
         out[name] = {**launch_times(torch, kern, reps),
                      "plain_ms": _events_ms(torch, plain, 3, warm=1),
-                     **kernel_bound(p, arrays, rounds, fx=fx, out=ref_out),
+                     **m.costmodel.kernel_bound(p, arrays, rounds, fx=fx,
+                                                out=ref_out),
                      "rounds_per_launch": rounds}
     return out
 
@@ -1474,14 +1574,15 @@ def modules():
     import types
 
     from consul_tpu_torch import bench, config, faults
-    from consul_tpu_torch.sim import (blackbox, checkpoint, coords,
-                                      cuda_round, flight, metrics, params,
-                                      prng, round, scenarios, state, sweep,
-                                      topology)
+    from consul_tpu_torch.sim import (autotune, blackbox, checkpoint, coords,
+                                      costmodel, cuda_round, flight, metrics,
+                                      params, prng, round, scenarios, state,
+                                      sweep, topology)
 
     return types.SimpleNamespace(
-        bench=bench, blackbox=blackbox, checkpoint=checkpoint,
-        config=config, coords=coords, cuda_round=cuda_round, faults=faults,
+        autotune=autotune, bench=bench, blackbox=blackbox,
+        checkpoint=checkpoint, config=config, coords=coords,
+        costmodel=costmodel, cuda_round=cuda_round, faults=faults,
         flight=flight, metrics=metrics, params=params, prng=prng,
         round=round, scenarios=scenarios, state=state, sweep=sweep,
         topology=topology)
@@ -1508,7 +1609,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
         parts = (chaos_launches, phase_observe(torch, m, dev),
                  phase_sweep(torch, m, dev),
-                 phase_resume(torch, m, dev, root))
+                 phase_resume(torch, m, dev, root),
+                 phase_tune(torch, m, dev, os.path.join(root, "records"),
+                            headline))
     for part in parts:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
@@ -1527,7 +1630,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces[name.split("/")[0]],
             "launches": launches[name],
-            "max_abs_err": checks[name]["max_abs_err"],
+            "max_abs_err": max(c["max_abs_err"] for c in (
+                checks[name], checks.get(f"{name} R={TUNE_R}")) if c),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})

@@ -8,6 +8,10 @@
     python -m consul_tpu_torch.bench --sweep [--smoke]
     python -m consul_tpu_torch.bench --chaos|--sweep [--smoke] \
         --ckpt-dir D [--resume]
+    python -m consul_tpu_torch.bench --autotune [--smoke]
+    python -m consul_tpu_torch.bench --history
+    python -m consul_tpu_torch.bench --check-regression [--smoke] \
+        [--family BENCH|PROFILE] [--metric NAME]
 
 The timed configuration is the JAX bench's (bench.py's
 ``gossip_rounds_per_sec_1M_nodes``): ``GossipConfig.lan()`` at 1% loss,
@@ -61,6 +65,30 @@ convergence through a partition and heal, RTT-aware probe deadlines, on
 the live engine) at 65,536 nodes on the card (``--smoke``: 4,096 on the
 CPU).
 
+``--profile`` on the headline also runs the roofline ladder
+(``costmodel.roofline_table``: xla, fast, lanes at stale_k 1/2/4, overlap
+and the kernel runner at R 1/4/8 on the full-model configuration, 24
+rounds, best of 3, against a measured copy/triad peak) and records the
+envelope as the next ``PROFILE_r<NN>.json`` when at least 6 rows
+measured.
+
+``--autotune`` times the autotuner's 15 points (``sim/autotune.py``) on
+the headline configuration at 1,048,576 nodes, 48 rounds, best of 3
+(``--smoke``: 65,536 nodes, 24 rounds, on the CPU, where the kernel
+runner's points are skipped), records the payload as the next
+``TUNE_r<NN>.json`` and caches the winner under ``{device type}/n{n}``.
+The headline then times the cached winner next to its fixed runners,
+names it under ``"tuned"`` and headlines the faster; a corrupt cache is
+an error. ``--history`` prints one row per record; ``--check-regression``
+re-measures the headline (``--family BENCH``) or the newest PROFILE's
+best-utilisation row (``--family PROFILE``) and holds five samples
+against the latest record under the median+IQR refusal band: exit 0 for
+pass or unstable, 1 for a regression, 2 when no record exists.
+
+Records and the winner cache live in ``consul_tpu_torch/records/``, or
+in ``$CONSUL_TPU_TORCH_RECORD_ROOT``; never in the repository's root,
+whose ``*_r*.json`` records are the JAX package's.
+
 Prints one JSON object on stdout. Without a card (and without
 ``--smoke``) it raises rather than running on the CPU.
 """
@@ -69,7 +97,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -78,7 +109,8 @@ import torch
 from consul_tpu_torch.config import GossipConfig
 from consul_tpu_torch.faults import (compile_plan, fault_frame,
                                      plan_schedule, scale_plan)
-from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim import autotune as autotune_mod
+from consul_tpu_torch.sim import costmodel, prng, registry
 from consul_tpu_torch.sim import scenarios
 from consul_tpu_torch.sim.blackbox import default_tracked
 from consul_tpu_torch.sim.checkpoint import (PREEMPTED_RC, PreemptionGuard,
@@ -178,9 +210,14 @@ def _best_in_turns(runners: dict, state, key, base, iters, trials, dev):
     return best, state
 
 
-def run_headline(device=None, smoke: bool = False) -> dict:
+def run_headline(device=None, smoke: bool = False,
+                 root: Optional[str] = None) -> dict:
     """Time both runners on both configurations; returns the result
-    dict (rates are rounds per second of the whole cluster)."""
+    dict (rates are rounds per second of the whole cluster). When the
+    winner cache under ``root`` (the record root by default) holds a
+    winner for this device type and n, it is timed too (``"tuned"``)
+    and headlines if faster; ``kernel`` names the runner that set the
+    headline."""
     dev = torch.device("cpu") if smoke else default_device(device)
     n = SMOKE_N if smoke else HEADLINE_N
     p, p_diag = headline_params(n), diag_params(n)
@@ -265,9 +302,42 @@ def run_headline(device=None, smoke: bool = False) -> dict:
                  "refutes_per_node_round": rep.refutes / node_rounds,
                  "live_fraction": rep.live_fraction,
                  "mean_informed": rep.mean_informed}
-    out["rounds_per_sec"] = max(out["per_round"]["rounds_per_sec"],
-                                out["mega"]["rounds_per_sec"])
+    best = max((out["per_round"]["rounds_per_sec"], "round_kernel/stable"),
+               (out["mega"]["rounds_per_sec"],
+                f"mega_kernel/stable-x{MEGA_RPC}"))
+    tuned = tuned_tier(p, state, key, chunk, iters, trials, dev,
+                       root or _record_root())
+    if tuned is not None:
+        out["tuned"] = tuned
+        best = max(best, (tuned["rounds_per_sec"],
+                          f"tuned-{tuned['config']}"))
+    out["rounds_per_sec"], out["kernel"] = best
+    out.update(metric=("gossip_rounds_per_sec_smoke" if smoke
+                       else "gossip_rounds_per_sec_1M_nodes"),
+               value=out["rounds_per_sec"], unit="rounds/s",
+               vs_baseline=None, platform=dev.type)
     return out
+
+
+def tuned_tier(p: SimParams, state: SimState, key, chunk: int, iters: int,
+               trials: int, dev, root: str) -> Optional[dict]:
+    """The cached autotune winner for (device type, n), timed like the
+    fixed runners from a copy of ``state``: {config, source,
+    rounds_per_sec}, or None when this pair was never tuned. A corrupt
+    cache raises ``AutotuneCacheError``."""
+    winner = autotune_mod.cached_winner(root, dev.type, p.n)
+    if winner is None:
+        return None
+    cadence = max(int(winner["stale_k"]), int(winner["rounds_per_call"]))
+    tchunk = chunk if chunk % cadence == 0 \
+        else cadence * max(1, chunk // cadence)
+    run = autotune_mod.tuned_runner(p, winner, tchunk)
+    tstate = run(clone_state(state), prng.fold_in(key, 5000))
+    _sync(dev)
+    dt, _ = _best_of(run, tstate, key, 5001, iters, trials, dev)
+    return {"config": winner["config"],
+            "source": autotune_mod.cache_key(dev.type, p.n),
+            "rounds_per_sec": tchunk * iters / dt}
 
 
 def _resume_cmd(mode: str, smoke: bool, ckpt_dir: str) -> str:
@@ -666,6 +736,273 @@ def device_breakdown(spans, rounds: int) -> dict:
     }
 
 
+# --------------------------------------------------- records and modes
+
+#: where records and the winner cache go unless the environment says
+RECORD_ROOT_ENV = "CONSUL_TPU_TORCH_RECORD_ROOT"
+#: the families --check-regression can measure again
+GUARDED_FAMILIES = ("BENCH", "PROFILE")
+#: the roofline ladder's and the autotuner's depths, (rounds, reps)
+ROOFLINE_DEPTH = (24, 3)
+AUTOTUNE_DEPTH, AUTOTUNE_SMOKE_DEPTH = (48, 3), (24, 3)
+REGRESSION_SAMPLES = 5
+
+
+def _record_root() -> str:
+    """``$CONSUL_TPU_TORCH_RECORD_ROOT``, else ``consul_tpu_torch/records``
+    — never the repository's root, whose records the JAX package loads."""
+    return os.environ.get(RECORD_ROOT_ENV) or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "records")
+
+
+def load_records(root: str) -> list:
+    """``costmodel.load_ledger`` of ``root``; a root not made yet holds
+    no records."""
+    return costmodel.load_ledger(root) if os.path.isdir(root) else []
+
+
+def _record_next(family: str, payload: dict,
+                 root: Optional[str] = None) -> Optional[str]:
+    """Record ``payload`` as the next ``<family>_r<NN>.json`` under
+    ``root`` (the record root by default) — the one writer of every
+    family. It validates first (a payload the ledger would refuse is
+    reported on stderr, not written: returns None), then writes
+    atomically (tmp + rename)."""
+    root = root or _record_root()
+    os.makedirs(root, exist_ok=True)
+    taken = [int(m.group(1)) for fn in os.listdir(root)
+             for m in [re.match(rf"{family}_r(\d+)\.json$", fn)] if m]
+    name = f"{family}_r{max(taken, default=0) + 1:02d}.json"
+    try:
+        costmodel.validate_record(name, payload)
+    except costmodel.LedgerError as e:
+        print(f"{family} NOT recorded (would fail the ledger): {e}",
+              file=sys.stderr)
+        return None
+    path = os.path.join(root, name)
+    fd, tmp = tempfile.mkstemp(dir=root, prefix=name + ".")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(payload, f, indent=1)
+            f.write("\n")
+        os.chmod(tmp, 0o644)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    print(f"{family} recorded: {path}", file=sys.stderr)
+    return path
+
+
+def run_history(root: Optional[str] = None) -> int:
+    """``--history``: one trajectory row per record under ``root``. Exit
+    code 0, 1 when a record fails validation (named), 2 when there is
+    none."""
+    root = root or _record_root()
+    try:
+        records = load_records(root)
+    except costmodel.LedgerError as e:
+        print(f"recorded-artifact validation failed: {e}", file=sys.stderr)
+        return 1
+    if not records:
+        print(f"no recorded *_r*.json artifacts under {root}",
+              file=sys.stderr)
+        return 2
+    print(costmodel.format_history(costmodel.history_rows(records)))
+    print(f"\n{len(records)} records, "
+          f"{len({r['family'] for r in records})} families (root: {root})")
+    return 0
+
+
+def _loadavg_1m():
+    try:
+        return round(os.getloadavg()[0], 2)
+    except OSError:
+        return None
+
+
+def headline_samples(smoke: bool) -> list:
+    """Fresh headline samples for ``--check-regression --family BENCH``:
+    ``REGRESSION_SAMPLES`` turns of one call each of the per-round and
+    the R=8 runner on the headline configuration (their chunks), each
+    sample the faster turn's rounds/s — the headline's own rule, one
+    sample per turn, not best-of."""
+    dev = torch.device("cpu") if smoke else default_device()
+    n = SMOKE_N if smoke else HEADLINE_N
+    p = headline_params(n)
+    runs = ((make_run_rounds_cuda(p, 10 if smoke else 500), 10 if smoke
+             else 500),
+            (make_run_rounds_cuda(p, 16 if smoke else 512,
+                                  rounds_per_call=MEGA_RPC),
+             16 if smoke else 512))
+    key = prng.key(0, device=dev)
+    state = init_state(n, device=dev)
+    for run, _ in runs:
+        state = run(state, prng.fold_in(key, 1))   # warm-up
+    _sync(dev)
+    samples = []
+    for trial in range(REGRESSION_SAMPLES):
+        rates = []
+        for j, (run, rounds) in enumerate(runs):
+            dt, state = _best_of(run, state, key, 100 * trial + 10 * j,
+                                 1, 1, dev)
+            rates.append(rounds / dt)
+        samples.append(max(rates))
+    return samples
+
+
+def profile_samples(base: dict, smoke: bool) -> tuple:
+    """Fresh utilisation samples (percent) for ``--check-regression
+    --family PROFILE``: the recorded best-utilisation row's config on
+    the full-model configuration, ``REGRESSION_SAMPLES`` reps against a
+    fresh bandwidth peak. Returns (samples, bandwidth)."""
+    dev = torch.device("cpu") if smoke else default_device()
+    n = SMOKE_N if smoke else HEADLINE_N
+    p = diag_params(n)
+    engine = base["engine"]
+    if engine in ("lanes", "overlap"):
+        p = p.with_(stale_k=int(base["stale_k"]))
+    cadence = max(int(base["stale_k"]), int(base["rounds_per_call"]))
+    rounds = ROOFLINE_DEPTH[0]
+    if rounds % cadence:
+        rounds = cadence * max(1, rounds // cadence)
+    bw = costmodel.measure_bandwidth(device=dev)
+    row = costmodel.measure_config(
+        p, rounds=rounds, engine=engine,
+        rounds_per_call=int(base["rounds_per_call"]),
+        lane_blocks=base["lane_blocks"] if engine == "lanes" else None,
+        reps=REGRESSION_SAMPLES, peak_gbps=bw["peak_gbps"],
+        return_samples=True, device=dev)
+    bytes_eff = row["bytes_measured"] or row["bytes_model"]
+    return ([bytes_eff / (ms / 1e3) / 1e9 / bw["peak_gbps"] * 100.0
+             for ms in row["samples_ms_per_round"]], bw)
+
+
+def run_check_regression(smoke: bool, family: str = "BENCH",
+                         metric: Optional[str] = None,
+                         root: Optional[str] = None) -> int:
+    """``--check-regression``: fresh samples against the latest record
+    of the metric under ``costmodel.check_regression``'s band. Returns
+    the exit code: 0 pass or unstable, 1 regression (or a broken
+    record), 2 no record to compare with (checked before measuring) or
+    a metric this family does not measure."""
+    root = root or _record_root()
+    try:
+        records = load_records(root)
+    except costmodel.LedgerError as e:
+        print(f"recorded-artifact validation failed: {e}", file=sys.stderr)
+        return 1
+    if family == "PROFILE":
+        if metric not in (None, "roofline_best_util_pct"):
+            print(f"--family PROFILE measures 'roofline_best_util_pct', "
+                  f"not {metric!r}", file=sys.stderr)
+            return 2
+        metric = "roofline_best_util_pct"
+        base = costmodel.latest_profile_util(records)
+        if base is None:
+            print(f"--check-regression --family PROFILE: no recorded "
+                  f"roofline utilisation under {root}; a baseline is "
+                  "never fabricated", file=sys.stderr)
+            return 2
+        if base["smoke"] != smoke:
+            print(f"the recorded roofline ({base['file']}) was measured "
+                  f"{'with' if base['smoke'] else 'without'} --smoke; "
+                  "run the same workload", file=sys.stderr)
+            return 2
+        samples, bw = profile_samples(base, smoke)
+        res = costmodel.check_regression(samples, base["util"] * 100.0)
+        res = {"metric": metric, "config": base["config"],
+               "platform": bw["platform"], "device": bw["device"],
+               "peak_gbps": bw["peak_gbps"], **res}
+    else:
+        expected = ("gossip_rounds_per_sec_smoke" if smoke
+                    else "gossip_rounds_per_sec_1M_nodes")
+        if metric not in (None, expected):
+            print(f"--family BENCH {'with' if smoke else 'without'} "
+                  f"--smoke measures {expected!r}; it cannot compare "
+                  f"that with {metric!r}", file=sys.stderr)
+            return 2
+        metric = expected
+        base = costmodel.latest_metric(records, metric)
+        if base is None:
+            print(f"--check-regression: no recorded value of {metric!r} "
+                  f"under {root}; a baseline is never fabricated",
+                  file=sys.stderr)
+            return 2
+        res = {"metric": metric,
+               **costmodel.check_regression(headline_samples(smoke),
+                                            base["value"])}
+    print(json.dumps({**res, "baseline_file": base["file"],
+                      "loadavg_1m": _loadavg_1m()}))
+    return 1 if res["verdict"] == "regression" else 0
+
+
+def run_autotune(smoke: bool, root: Optional[str] = None) -> dict:
+    """``--autotune``: the autotuner's 15 points on the headline
+    configuration at ``HEADLINE_N`` (``smoke``: ``SMOKE_N`` on the CPU),
+    the ladder on stderr, the payload recorded as the next TUNE record
+    and the winner cached under ``{device type}/n{n}``."""
+    dev = torch.device("cpu") if smoke else default_device()
+    n = SMOKE_N if smoke else HEADLINE_N
+    rounds, reps = AUTOTUNE_SMOKE_DEPTH if smoke else AUTOTUNE_DEPTH
+    metric = ("autotune_rounds_per_sec_smoke" if smoke
+              else "autotune_rounds_per_sec_1M_nodes")
+    rec = autotune_mod.autotune(headline_params(n), rounds=rounds,
+                                reps=reps, metric=metric, device=dev)
+    rec.update(device=device_name(dev), loadavg_1m=_loadavg_1m())
+    for row in rec["rows"]:
+        print(f"  {row['config']:<14} " + (
+            f"skipped: {row['skipped'][:60]}" if "skipped" in row else
+            f"{row['rounds_per_sec']:>11,.1f} r/s "
+            f"({row['ms_per_round']:.4f} ms/round)"), file=sys.stderr)
+    root = root or _record_root()
+    _record_next("TUNE", rec, root)
+    path = autotune_mod.save_winner(root, rec["platform"], n,
+                                    rec["winner"])
+    print(f"winner {rec['winner']['config']} cached: {path} "
+          f"[{autotune_mod.cache_key(rec['platform'], n)}]",
+          file=sys.stderr)
+    return rec
+
+
+def print_roofline(roofline: dict) -> None:
+    """The roofline ladder as a table on stderr."""
+    bw = roofline["bandwidth"]
+    print(f"roofline peak: {bw['peak_gbps']} GB/s (copy {bw['copy_gbps']}, "
+          f"triad {bw['triad_gbps']}; {bw['mbytes']} MB f32, "
+          f"{bw['device']})", file=sys.stderr)
+    for r in roofline["rows"]:
+        if "skipped" in r:
+            print(f"  {r['config']:<12} skipped: {r['skipped'][:64]}",
+                  file=sys.stderr)
+            continue
+        meas = ("-" if r["bytes_measured"] is None
+                else f"{r['bytes_measured'] / 1e6:.2f}")
+        util = "-" if r["util"] is None else f"{r['util']:.1%}"
+        print(f"  {r['config']:<12} {r['ms_per_round']:>9.4f} ms "
+              f"{r['bytes_model'] / 1e6:>9.2f} MB model {meas:>9} MB "
+              f"counted {r['achieved_gbps']:>8.2f} GB/s {util:>6}"
+              + (" FLAGGED" if r["flagged"] else ""), file=sys.stderr)
+
+
+def profile_record(headline: dict, roofline: dict) -> dict:
+    """The PROFILE envelope of a headline run and its roofline ladder;
+    it claims the schema version only when at least 6 rows measured."""
+    env = {k: headline[k] for k in ("metric", "value", "unit",
+                                    "vs_baseline", "kernel", "platform",
+                                    "device", "n")}
+    env.update(loadavg_1m=_loadavg_1m(),
+               full_model_rounds_per_sec=headline["full_per_round"][
+                   "rounds_per_sec"],
+               profile={"roofline": roofline})
+    if sum(1 for r in roofline["rows"] if "skipped" not in r) >= 6:
+        env["schema"] = registry.PROFILE_SCHEMA_VERSION
+    return env
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="SWIM rounds/s of consul_tpu_torch at 1,048,576 nodes")
@@ -690,7 +1027,25 @@ def main(argv=None) -> int:
                          f"{PREEMPTED_RC}")
     ap.add_argument("--resume", action="store_true",
                     help="with --ckpt-dir: finish a preempted invocation")
+    ap.add_argument("--autotune", action="store_true",
+                    help="time the autotuner's 15 runner configs, record "
+                         "TUNE and cache the winner")
+    ap.add_argument("--history", action="store_true",
+                    help="print one row per record under the record root")
+    ap.add_argument("--check-regression", action="store_true",
+                    help="measure again and compare with the latest "
+                         "record (exit 1 on a regression, 2 without one)")
+    ap.add_argument("--family", default=None,
+                    help="with --check-regression: "
+                         + " or ".join(GUARDED_FAMILIES))
+    ap.add_argument("--metric", default=None,
+                    help="with --check-regression: the recorded metric")
     args = ap.parse_args(argv)
+    modes = [m for m in ("chaos", "coords", "sweep", "autotune", "history",
+                         "check_regression") if getattr(args, m)]
+    if len(modes) > 1:
+        ap.error(f"--{' and --'.join(modes)} are modes of their own: "
+                 "run one at a time".replace("_", "-"))
     if args.ckpt_dir and not (args.chaos or args.sweep):
         ap.error("--ckpt-dir applies to --chaos and --sweep")
     if args.ckpt_dir and args.profile:
@@ -699,14 +1054,25 @@ def main(argv=None) -> int:
         ap.error("--resume needs --ckpt-dir")
     if args.smoke and args.profile:
         ap.error("--profile traces the card; it cannot run with --smoke")
-    if args.coords and (args.chaos or args.profile):
-        ap.error("--coords runs alone")
-    if args.sweep and (args.chaos or args.coords):
-        ap.error("--sweep runs alone")
+    if args.profile and (args.coords or args.autotune or args.history
+                         or args.check_regression):
+        ap.error("--profile applies to the headline, --chaos and --sweep")
+    if (args.family or args.metric) and not args.check_regression:
+        ap.error("--family and --metric apply to --check-regression only")
+    if args.family not in (None,) + GUARDED_FAMILIES:
+        ap.error(f"--family must be one of {'/'.join(GUARDED_FAMILIES)}, "
+                 f"got {args.family!r}")
+    if args.history:
+        return run_history()
+    if args.check_regression:
+        return run_check_regression(args.smoke, args.family or "BENCH",
+                                    args.metric)
     reset_launches()
     guard = PreemptionGuard().install() if args.ckpt_dir else None
     ck = dict(ckpt_dir=args.ckpt_dir, guard=guard, resume=args.resume)
-    if args.sweep:
+    if args.autotune:
+        res = run_autotune(args.smoke)
+    elif args.sweep:
         res = run_sweep_bench(smoke=args.smoke, **ck)
         res["metric"] = "param_sweep" + ("_smoke" if args.smoke else "")
     elif args.coords:
@@ -719,15 +1085,27 @@ def main(argv=None) -> int:
                          else "chaos_detection_quality_1M_nodes")
     else:
         res = run_headline(smoke=args.smoke)
-        res["metric"] = ("gossip_rounds_per_sec_smoke" if args.smoke
-                         else "gossip_rounds_per_sec_1M_nodes")
     if guard is not None:
         guard.uninstall()
     res["launches"] = dict(LAUNCHES)
+    roofline = None
     if args.profile:
         res["profile"] = profile_plans() if args.chaos \
             else profile_sweep() if args.sweep else profile_runners()
+        if not (args.chaos or args.sweep):
+            rounds, reps = ROOFLINE_DEPTH
+            roofline = costmodel.roofline_table(
+                diag_params(HEADLINE_N), rounds=rounds, reps=reps)
+            print_roofline(roofline)
+            res["profile"]["roofline"] = roofline
     print(json.dumps(res))
+    if roofline is not None:
+        env = profile_record(res, roofline)
+        if "schema" in env:
+            _record_next("PROFILE", env)
+        else:
+            print("PROFILE not recorded: fewer than 6 roofline rows "
+                  "measured", file=sys.stderr)
     return PREEMPTED_RC if res.get("preempted") else 0
 
 

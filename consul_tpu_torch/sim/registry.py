@@ -173,6 +173,15 @@ RAFT_SHARD_STAGE_PREFIX = "raft.shard."
 RAFT_SHARD_KEYS = ("commit_p50_ms", "commit_p99_ms", "commit_batches",
                    "stage_p50_ms", "stage_share_p50", "coverage_p50",
                    "commit_batch", "apply_batch")
+
+
+def raft_shard_stages(shard_id: int) -> tuple:
+    """The commit-pipeline stage names of one consensus group: every
+    RAFT_STAGES entry re-rooted under ``raft.shard.<id>.``."""
+    p = f"{RAFT_SHARD_STAGE_PREFIX}{int(shard_id)}."
+    return tuple(p + s.split("raft.", 1)[1] for s in RAFT_STAGES)
+
+
 AUTOTUNE_WINNER_KEYS = ("config", "engine", "stale_k",
                         "rounds_per_call", "lane_blocks",
                         "rounds_per_sec")

@@ -21,6 +21,7 @@ import torch
 import chip_smoke
 from consul_tpu_torch import bench
 from consul_tpu_torch import faults as tfaults
+from consul_tpu_torch.sim import costmodel
 from consul_tpu_torch.sim import cuda_round as cr
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim import round as tround
@@ -313,7 +314,7 @@ def test_kernel_bound_counts_the_fault_frame():
     for name, frame_b in (("fault", 29), ("byz", 42)):
         fx = _frame(name, n)
         out, _ = cr.block_round_ref(arrays, scal, seed, FULL, fx=fx)
-        c = chip_smoke.kernel_bound(FULL, arrays, fx=fx, out=out)
+        c = costmodel.kernel_bound(FULL, arrays, fx=fx, out=out)
         # state read 15 B and written 15 B (a fault round stores
         # down_age), the frame read once, plus mid, scalars, seed,
         # partials: 61,865,984 / 75,497,472 B of node lanes at 1M
@@ -329,38 +330,36 @@ def test_kernel_bound_counts_the_fault_frame():
             draws += replays
             calls += replays
         assert c["philox_calls"] == calls and c["draws"] == draws
-        assert c["int32_ops"] == calls * chip_smoke.PHILOX_INT_OPS \
-            + draws * chip_smoke.DRAW_INT_OPS
+        assert c["int32_ops"] == calls * costmodel.PHILOX_INT_OPS \
+            + draws * costmodel.DRAW_INT_OPS
         assert c["bound_by"] == "bytes"
     with pytest.raises(ValueError, match="out="):
-        chip_smoke.kernel_bound(FULL, arrays, fx=fx)
+        costmodel.kernel_bound(FULL, arrays, fx=fx)
 
 
 def test_kernel_cost_counts_the_bytes_of_one_call():
-    import chip_smoke
-
     n = 1_048_576
     s = tstate.with_crashed(tstate.init_state(n, device="cpu"),
                             torch.arange(0, n, 4))
     arrays = s.node_arrays()
-    c = chip_smoke.kernel_bound(bench.headline_params(n), arrays)
+    c = costmodel.kernel_bound(bench.headline_params(n), arrays)
     assert c["state_bytes"] == 29_360_128
     assert c["bytes"] == 29_360_128 + 4 * 8 + 4 + 4 * 18 * 528
     # one Philox call per node; every node's Poisson draw and the 3/4
     # live nodes' ack draws
-    assert c["int32_ops"] == n * chip_smoke.PHILOX_INT_OPS \
-        + (n + 3 * n // 4) * chip_smoke.DRAW_INT_OPS
+    assert c["int32_ops"] == n * costmodel.PHILOX_INT_OPS \
+        + (n + 3 * n // 4) * costmodel.DRAW_INT_OPS
     assert c["bound_by"] == "bytes"
-    c = chip_smoke.kernel_bound(bench.diag_params(n), arrays, 8)
+    c = costmodel.kernel_bound(bench.diag_params(n), arrays, 8)
     assert c["state_bytes"] == 31_457_280
     assert c["int32_ops"] == 8 * (n * 40 + (2 * n + 3 * n // 4) * 2)
-    assert c["f32_ops"] == 8 * n * chip_smoke.TABLE_BODY_F32_OPS
+    assert c["f32_ops"] == 8 * n * costmodel.TABLE_BODY_F32_OPS
     # 8 rounds of draws on the INT32 lanes outlast the call's bytes
     assert c["ops_ms"] == pytest.approx(
-        c["int32_ops"] / chip_smoke.INT32_OPS_PER_S * 1e3)
+        c["int32_ops"] / costmodel.INT32_OPS_PER_S * 1e3)
     assert c["bound_by"] == "operations"
     with pytest.raises(ValueError, match="churn"):
-        chip_smoke.kernel_bound(CHURN, arrays)
+        costmodel.kernel_bound(CHURN, arrays)
 
 
 def test_kernel_report_parsers():

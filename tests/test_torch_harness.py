@@ -120,7 +120,8 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_sources()
     assert len(files) > 10 and all(f.exists() for f in files)
-    assert {"lanes.py", "sweep.py"} <= {f.name for f in files}
+    assert {"lanes.py", "sweep.py", "costmodel.py", "autotune.py"} <= \
+        {f.name for f in files}
     bad = []
     for f in files:
         for mod in _imports(f):
