@@ -104,7 +104,32 @@ non-zero before the result line):
               servers, 10,000 LAN nodes per DC, 120 partition rounds)
               with the reference test's signature. Prints wall seconds
               per part, file bytes, and snapshot, save and load ms.
-8. tune     — the cost model and the autotuner through their entry
+8. mesh     — the sharded lane engine and the per-viewer tier on
+              torch.distributed (no kernel; every part plain PyTorch,
+              each timed on its own): (a) a world of 1 on NCCL at
+              1,048,576 nodes on the full-model config, 96 rounds at
+              stale_k 1, 4 and 4 with overlap, bit for bit the single-
+              device lane engine on the same card with exactly 2 + one
+              collective per window (+ the drain); (b) a gloo world of 2
+              with both ranks on the card at 1,048,576 nodes, dc 1 and
+              2 at stale_k 4, the gathered state bit for bit the
+              single-device run, and the per-DC pools (524,288 a DC,
+              stats off, 64 crashes in DC 0): DC 0 bit for bit the
+              single-device engine on its pool, DC 1 untouched; the
+              device type each collective's tensors were on; (c) the
+              stale_k 4 run cut at round 48 on that world, saved by
+              checkpoint.snapshot_mesh, loaded and finished on one
+              device: bit for bit the straight run; (d) the dense views
+              at 4,096 on the card: 120 quiet rounds (no false positive,
+              no divergence), 8 crashes and 70 rounds (all detected, no
+              false positive), a 2,048/2,048 partition for 60 rounds
+              then healed in 30-round chunks until the views converge
+              (at most 300), with wall and profiler-busy µs per round
+              and peak memory; (e) the sharded views at 4,096 on the
+              gloo world: the all_to_all and pmax exchanges bit for bit
+              over 35 rounds; (f) graft_entry.dryrun_multichip(2) on the
+              card.
+9. tune     — the cost model and the autotuner through their entry
               points at 1,048,576 nodes, each run counted on its own:
               (a) measure_bandwidth (copy, triad; no peak above 1.05 x
               3,350 GB/s); (b) roofline_table on the full-model config,
@@ -121,7 +146,7 @@ non-zero before the result line):
               written by the bench's _record_next and read back by
               load_ledger, one history row each. Records and the cache
               go to a temporary directory under build/.
-9. timing   — each kernel's time per launch (device time: CUDA events
+10. timing  — each kernel's time per launch (device time: CUDA events
               around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do; the
@@ -1443,6 +1468,329 @@ def phase_tune(torch, m, dev, root, headline):
     return launches
 
 
+# ------------------------------------------------------------- mesh
+
+MESH_ROUNDS = 96
+MESH_CUT = 48
+MESH_KS = ((1, False), (4, False), (4, True))
+MESH_CRASHED = 64
+VIEWS_N = 4096
+VIEWS_CRASHED = 8
+#: rounds of the views runs: quiet, after the crashes, partitioned; the
+#: heal runs in chunks until the views converge, at most VIEWS_HEAL_MAX
+VIEWS_ROUNDS = (120, 70, 60)
+VIEWS_HEAL_CHUNK, VIEWS_HEAL_MAX = 30, 300
+VIEWS_SHARDED_ROUNDS = 35
+VIEWS_PROFILE_ROUNDS = 5
+
+
+def _wall_ms(torch, fn):
+    """``fn()`` and its wall ms, closed by a device sync (a CPU
+    rehearsal has none)."""
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _coll_report(M) -> dict:
+    return {"counts": dict(M.COLLECTIVES),
+            "tensor_devices": {k: sorted(v)
+                               for k, v in M.COLLECTIVE_DEVICES.items()}}
+
+
+def _mesh_nccl_rank(mesh, n, rounds):
+    """(a) one NCCL rank: the sharded runner beside the single-device
+    lane engine on the same card, per schedule; compared on the card."""
+    import torch
+
+    from consul_tpu_torch import bench
+    from consul_tpu_torch.sim import mesh as M
+    from consul_tpu_torch.sim import prng, round as R, state as S
+
+    key = prng.key(51, mesh.device)
+    out = {}
+    for k, overlap in MESH_KS:
+        p = bench.diag_params(n).with_(stale_k=k)
+        single = R.make_run_rounds_lanes(p, rounds, overlap=overlap)
+        sharded = M.make_sharded_run(p, rounds, mesh, overlap=overlap)
+        want, lane_ms = _wall_ms(torch, lambda: single(
+            S.init_state(n, device=mesh.device), key))
+        M.reset_collectives()
+        got, mesh_ms = _wall_ms(torch, lambda: sharded(
+            M.init_sharded_state(n, mesh), key))
+        out[f"stale_k={k}" + ("+overlap" if overlap else "")] = {
+            "diffs": _state_diffs(torch, want, got),
+            "windows_plus_init": bench.mesh_windows(rounds, k, overlap),
+            **_coll_report(M),
+            "mesh_ms_per_round": mesh_ms / rounds,
+            "lanes_ms_per_round": lane_ms / rounds}
+    return out
+
+
+def _mesh_gloo_rank(mesh, n, rounds, cut, root, views_n):
+    """(b), (c), (e) on one of two gloo ranks on the card: the gathered
+    sharded runs at dc 1 and 2, the per-DC pools, the cut, and the
+    sharded views' two exchanges."""
+    import torch
+
+    from consul_tpu_torch import bench
+    from consul_tpu_torch.sim import checkpoint as ck
+    from consul_tpu_torch.sim import mesh as M
+    from consul_tpu_torch.sim import prng, views as V
+    from consul_tpu_torch.sim.params import SimParams
+
+    dev = mesh.device
+    key = prng.key(51, dev)
+    p = bench.diag_params(n).with_(stale_k=4)
+    out = {}
+    meshes = {1: mesh, 2: M.make_mesh(dc=2, device=dev)}
+    for dc, mm in meshes.items():
+        M.reset_collectives()
+        s, ms = _wall_ms(torch, lambda: M.make_sharded_run(p, rounds, mm)(
+            M.init_sharded_state(n, mm), key))
+        out[f"dc={dc}"] = {"ms_per_round": ms / rounds, **_coll_report(M),
+                           "state": M.gather_state(s, mm)}
+        del s
+    # per-DC pools of n/2, stats off; DC 0 (rank 0) loses its first nodes
+    pm = bench.headline_params(n // 2)
+    mm = meshes[2]
+    s = M.init_sharded_state(n, mm)
+    if mm.rank == 0:
+        s = s._replace(down_age=s.down_age.clone())
+        s.down_age[:MESH_CRASHED] = 0
+    M.reset_collectives()
+    s, ms = _wall_ms(torch, lambda: M.make_multidc_run(pm, rounds, mm)(
+        s, prng.key(52, dev)))
+    out["multidc"] = {"ms_per_round": ms / rounds, **_coll_report(M),
+                      "state": M.gather_state(s, mm)}
+    del s
+    # (c) the cut: rounds 0..cut of the stale_k 4 run, saved by rank 0
+    lead, lv = M.make_sharded_run(p, cut, mesh, carry=True)(
+        M.init_sharded_state(n, mesh), key)
+    snap = ck.snapshot_mesh(p, key, lead, mesh, total_rounds=rounds,
+                            lanes=lv)
+    out["ckpt"] = None if snap is None else ck.save(root, snap)
+    del lead
+    # (e) the views' exchanges, from the same keys
+    pv = SimParams(n=views_n, loss=0.10, fail_per_round=0.005)
+    runs = {}
+    for ex in ("all_to_all", "pmax"):
+        rnd, init = V.make_sharded_views_round(pv, mesh, exchange=ex)
+        st, k = init(), prng.key(61, dev)
+        M.reset_collectives()
+        t0 = time.perf_counter()
+        for _ in range(VIEWS_SHARDED_ROUNDS):
+            k, kk = prng.split(k, 2)
+            st = rnd(st, kk)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs[ex] = (st, (time.perf_counter() - t0) * 1e3
+                    / VIEWS_SHARDED_ROUNDS, _coll_report(M))
+    (a, a_ms, a_coll), (b, b_ms, b_coll) = runs.values()
+    out["views"] = {
+        "diffs": {f: int((x != y).sum()) for f, x, y in zip(
+            V.ViewState._fields, a, b) if f != "stats"
+            and bool((x != y).any())},
+        "stats_equal": all(bool(x == y) for x, y in zip(a.stats, b.stats)),
+        "round": int(a.round), "refutes": int(a.stats.refutes),
+        "susp_incidents": int(a.stats.susp_incidents),
+        "all_to_all_ms_per_round": a_ms, "pmax_ms_per_round": b_ms,
+        "all_to_all": a_coll, "pmax": b_coll}
+    return out
+
+
+def mesh_nccl(torch, m, n=N, rounds=MESH_ROUNDS, backend="nccl",
+              device="cuda"):
+    """(a) a world of 1 on NCCL at n nodes."""
+    (res,), ms = _wall_ms(torch, lambda: m.mesh.launch(
+        1, _mesh_nccl_rank, backend=backend, device=device,
+        args=(n, rounds)))
+    bad = []
+    for name, r in res.items():
+        want = {"all_reduce_sum": r["windows_plus_init"]}
+        if r["diffs"] or r["counts"] != want:
+            bad.append(f"nccl {name}: diffs {r['diffs']}, collectives "
+                       f"{r['counts']} (want {want})")
+    return {"n": n, "rounds": rounds, "launch_wall_s": ms / 1e3,
+            "runs": res}, bad
+
+
+def mesh_gloo(torch, m, dev, root, n=N, rounds=MESH_ROUNDS, cut=MESH_CUT,
+              views_n=VIEWS_N):
+    """(b) gloo world 2 on the one card at n nodes, dc 1 and 2 and the
+    per-DC pools; (c) the mesh -> one-device restore; (e) the sharded
+    views' exchanges."""
+    ranks, ms = _wall_ms(torch, lambda: m.mesh.launch(
+        2, _mesh_gloo_rank, backend="gloo", device=torch.device(dev).type,
+        args=(n, rounds, cut, root, views_n)))
+    r0, bad = ranks[0], []
+    key = m.prng.key(51, dev)
+    p = m.bench.diag_params(n).with_(stale_k=4)
+    want, lane_ms = _wall_ms(torch, lambda: m.round.make_run_rounds_lanes(
+        p, rounds)(m.state.init_state(n, device=dev), key))
+    host = m.state.to_numpy(want)
+    out = {"n": n, "rounds": rounds, "launch_wall_s": ms / 1e3,
+           "lanes_ms_per_round": lane_ms / rounds}
+    for dc in (1, 2):
+        r = r0[f"dc={dc}"]
+        diffs = _np_diffs(host, r["state"])
+        windows = m.bench.mesh_windows(rounds, 4, False)
+        if diffs or r["counts"] != {"all_reduce_sum": windows}:
+            bad.append(f"gloo dc={dc}: diffs {diffs}, collectives "
+                       f"{r['counts']}")
+        out[f"dc={dc}"] = {k: v for k, v in r.items() if k != "state"}
+    # per-DC pools: DC 0 alone is the single-device engine on n/2 nodes
+    pm = m.bench.headline_params(n // 2)
+    s0 = m.state.init_state(n // 2, device=dev)
+    s0.down_age[:MESH_CRASHED] = 0
+    dc0 = m.state.to_numpy(m.round.make_run_rounds_lanes(pm, rounds)(
+        s0, m.prng.key(52, dev)))
+    whole = r0["multidc"]["state"]
+    half = n // 2
+    dc0_diffs = _np_diffs(dc0, whole, rows=slice(0, half))
+    dead0 = int((whole.status[:half] == m.state.DEAD).sum())
+    dead1 = int((whole.status[half:] == m.state.DEAD).sum())
+    down1 = int((whole.down_age[half:] >= 0).sum())
+    mcounts = r0["multidc"]["counts"]
+    if mcounts != {"all_reduce_sum": 2 + rounds}:
+        bad.append(f"multidc: collectives {mcounts}")
+    if dc0_diffs or dead0 != MESH_CRASHED or dead1 or down1:
+        bad.append(f"multidc: DC 0 vs one device {dc0_diffs}, DC 0 dead "
+                   f"{dead0} (want {MESH_CRASHED}), DC 1 dead {dead1}, "
+                   f"down {down1}")
+    out["multidc"] = {"per_dc": half, "dc0_bitwise_single_device":
+                      not dc0_diffs, "dc0_dead": dead0, "dc1_dead": dead1,
+                      **{k: v for k, v in r0["multidc"].items()
+                         if k != "state"}}
+    # (c) restore the mesh cut on one device and finish
+    snap = m.checkpoint.load(r0["ckpt"], p=p)
+    fin, _ = m.round.make_run_rounds_lanes(p, rounds - cut, carry=True)(
+        snap.state(dev), snap.key(dev), lanes0=snap.lanes(dev))
+    cdiffs = _state_diffs(torch, want, fin)
+    if snap.round_cursor != cut or cdiffs:
+        bad.append(f"mesh cut at {snap.round_cursor}: resumed on one "
+                   f"device differs {cdiffs}")
+    out["restore"] = {"cut": snap.round_cursor, "world": 2,
+                      "bitwise": not cdiffs,
+                      "file_bytes": os.path.getsize(r0["ckpt"])}
+    v = r0["views"]
+    if v["diffs"] or not v["stats_equal"] or \
+            v["round"] != VIEWS_SHARDED_ROUNDS:
+        bad.append(f"sharded views: all_to_all and pmax differ {v}")
+    out["views"] = v
+    return out, bad
+
+
+def _np_diffs(want, got, rows=slice(None)) -> dict:
+    """Per-field count of differing elements of numpy states (``rows``
+    of ``got``'s node arrays); stats compared unless rows are cut."""
+    out = {}
+    for f in want._fields:
+        if f == "stats":
+            if rows == slice(None):
+                out.update({g: 1 for g, x, y in zip(
+                    want.stats._fields, want.stats, got.stats) if x != y})
+            continue
+        y = getattr(got, f)
+        y = y[rows] if y.ndim else y
+        x = getattr(want, f)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            out[f] = -1
+        elif (x != y).any():
+            out[f] = int((x != y).sum())
+    return out
+
+
+def views_single(torch, m, dev, n=VIEWS_N, rounds=VIEWS_ROUNDS):
+    """(d) the dense tier on the card: quiet, crashes, partition and
+    heal, with wall and profiler-busy time per round and peak memory."""
+    V = m.views
+    p = m.params.SimParams(n=n, loss=0.01)
+    quiet, crash_r, part_r = rounds
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    st, wall = _wall_ms(torch, lambda: V.run_views(
+        V.init_views(n, device=dev), m.prng.key(71, dev), p, quiet))
+    out, bad = {"n": n, "quiet": V.view_metrics(st)}, []
+    if out["quiet"]["fp_rate"] or out["quiet"]["view_divergence"]:
+        bad.append(f"views quiet: {out['quiet']}")
+    up = st.up.clone()
+    up[:VIEWS_CRASHED] = False
+    down = st.down_round.clone()
+    down[:VIEWS_CRASHED] = st.round
+    st, ms = _wall_ms(torch, lambda: V.run_views(
+        st._replace(up=up, down_round=down), m.prng.key(72, dev), p,
+        crash_r))
+    wall += ms
+    out["crashed"] = V.view_metrics(st)
+    if out["crashed"]["detected_frac"] != 1.0 or out["crashed"]["fp_rate"]:
+        bad.append(f"views crash: {out['crashed']}")
+    st = V.init_views(n, device=dev)._replace(
+        reach=V.partition_reach(n, n // 2, dev))
+    st, ms = _wall_ms(torch, lambda: V.run_views(st, m.prng.key(73, dev),
+                                                 p, part_r))
+    wall += ms
+    out["partitioned"] = V.view_metrics(st)
+    st = st._replace(reach=torch.ones_like(st.reach))
+    heal, key = 0, m.prng.key(74, dev)
+    while heal < VIEWS_HEAL_MAX:
+        st, ms = _wall_ms(torch, lambda: V.run_views(
+            st, m.prng.fold_in(key, heal), p, VIEWS_HEAL_CHUNK))
+        wall += ms
+        heal += VIEWS_HEAL_CHUNK
+        if V.view_metrics(st)["view_divergence"] == 0.0:
+            break
+    out["healed"] = V.view_metrics(st)
+    out["heal_rounds"] = heal
+    if out["healed"]["view_divergence"] or out["healed"]["fp_rate"]:
+        bad.append(f"views heal after {heal} rounds: {out['healed']}")
+    rounds = quiet + crash_r + part_r + heal
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated() \
+        if on_card else None
+    out["wall_ms_per_round"] = wall / rounds
+    _, prof = m.bench.profile_call(lambda: V.run_views(
+        st, m.prng.key(75, dev), p, VIEWS_PROFILE_ROUNDS),
+        VIEWS_PROFILE_ROUNDS, torch.device(dev))
+    out["profiled"] = {
+        "rounds": VIEWS_PROFILE_ROUNDS,
+        "wall_us_per_round": prof["wall_us_per_round"],
+        "device_busy_us_per_round": prof.get("device_busy_us", 0.0)
+        / VIEWS_PROFILE_ROUNDS,
+        "kernels_per_round": prof["kernels_per_round"],
+        "device_us_per_round_top": dict(list(prof.get(
+            "device_us_per_round_by_kernel", {}).items())[:6])}
+    return out, bad
+
+
+def phase_mesh(torch, m, dev, root):
+    """The sharded lane engine, the mesh restore and the views tier,
+    each part timed on its own; files under ``root``. Launches no
+    kernel: every part is plain PyTorch."""
+    cr = m.cuda_round
+    cr.reset_launches()
+    out, bad = {}, []
+    for name, fn in (("nccl", lambda: mesh_nccl(torch, m)),
+                     ("gloo", lambda: mesh_gloo(torch, m, dev, root)),
+                     ("views", lambda: views_single(torch, m, dev))):
+        (res, b), ms = _wall_ms(torch, fn)
+        res["wall_s"] = ms / 1e3
+        out[name], bad = res, bad + b
+        print(f"mesh: {name} {ms / 1e3:.1f} s", file=sys.stderr, flush=True)
+    rows, ms = _wall_ms(torch, lambda: m.graft_entry.dryrun_multichip(2))
+    out["dryrun"] = {"ranks": rows, "wall_s": ms / 1e3}
+    if [r["views_rounds"] for r in rows] != [2, 2]:
+        bad.append(f"dryrun_multichip(2): {rows}")
+    if any(cr.LAUNCHES.values()):
+        bad.append(f"mesh: launched kernels {dict(cr.LAUNCHES)} on a "
+                   "plain-PyTorch path")
+    if bad:
+        raise SmokeFailure("mesh: " + "; ".join(bad))
+    emit({"phase": "mesh", "nvidia_smi": nvidia_smi(), **out})
+
+
 def _events_ms(torch, fn, reps, warm=2):
     for _ in range(warm):
         fn()
@@ -1573,19 +1921,20 @@ def modules():
     """The port's modules the phases use, as one namespace."""
     import types
 
-    from consul_tpu_torch import bench, config, faults
+    from consul_tpu_torch import bench, config, faults, graft_entry
     from consul_tpu_torch.sim import (autotune, blackbox, checkpoint, coords,
-                                      costmodel, cuda_round, flight, metrics,
-                                      params, prng, round, scenarios, state,
-                                      sweep, topology)
+                                      costmodel, cuda_round, flight, mesh,
+                                      metrics, params, prng, round,
+                                      scenarios, state, sweep, topology,
+                                      views)
 
     return types.SimpleNamespace(
         autotune=autotune, bench=bench, blackbox=blackbox,
         checkpoint=checkpoint, config=config, coords=coords,
         costmodel=costmodel, cuda_round=cuda_round, faults=faults,
-        flight=flight, metrics=metrics, params=params, prng=prng,
-        round=round, scenarios=scenarios, state=state, sweep=sweep,
-        topology=topology)
+        flight=flight, graft_entry=graft_entry, mesh=mesh, metrics=metrics,
+        params=params, prng=prng, round=round, scenarios=scenarios,
+        state=state, sweep=sweep, topology=topology, views=views)
 
 
 def main() -> int:
@@ -1609,9 +1958,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
         parts = (chaos_launches, phase_observe(torch, m, dev),
                  phase_sweep(torch, m, dev),
-                 phase_resume(torch, m, dev, root),
-                 phase_tune(torch, m, dev, os.path.join(root, "records"),
-                            headline))
+                 phase_resume(torch, m, dev, root))
+        phase_mesh(torch, m, dev, os.path.join(root, "mesh"))
+        parts += (phase_tune(torch, m, dev, os.path.join(root, "records"),
+                             headline),)
     for part in parts:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v

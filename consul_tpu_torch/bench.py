@@ -9,6 +9,7 @@
     python -m consul_tpu_torch.bench --chaos|--sweep [--smoke] \
         --ckpt-dir D [--resume]
     python -m consul_tpu_torch.bench --autotune [--smoke]
+    python -m consul_tpu_torch.bench --mesh [--smoke]
     python -m consul_tpu_torch.bench --history
     python -m consul_tpu_torch.bench --check-regression [--smoke] \
         [--family BENCH|PROFILE] [--metric NAME]
@@ -85,6 +86,20 @@ best-utilisation row (``--family PROFILE``) and holds five samples
 against the latest record under the median+IQR refusal band: exit 0 for
 pass or unstable, 1 for a regression, 2 when no record exists.
 
+``--mesh`` times the sharded lane engine (``sim/mesh.py``) on the
+headline configuration at a fixed population per rank, over worlds of
+launched ranks, each rung ``MESH_ROUNDS`` rounds a call, best of 3 after
+a warm-up, timed inside every rank and set by the slowest: on the card,
+a world of 1 on NCCL at 131,072 and 1,048,576 nodes with the stale_k
+ladder {1, 2, 4, 8} and overlap at 8, and gloo worlds of 1 and 2 (both
+ranks on the one card: ``"shared_card": true`` — a correctness layout,
+not a scaling figure) at stale_k 1 and 4 (``--smoke``: gloo on the CPU
+at worlds 1, 2 and 4, 8,192 nodes per rank). Each row's
+``weak_scaling_efficiency`` is its rounds/s over the world-1 row of the
+same backend, size and schedule, as measured; ``collectives`` is the
+run's count (2 + one per window, + 1 under overlap), asserted. The
+payload is recorded as the next MULTICHIP record.
+
 Records and the winner cache live in ``consul_tpu_torch/records/``, or
 in ``$CONSUL_TPU_TORCH_RECORD_ROOT``; never in the repository's root,
 whose ``*_r*.json`` records are the JAX package's.
@@ -111,6 +126,7 @@ from consul_tpu_torch.faults import (compile_plan, fault_frame,
                                      plan_schedule, scale_plan)
 from consul_tpu_torch.sim import autotune as autotune_mod
 from consul_tpu_torch.sim import costmodel, prng, registry
+from consul_tpu_torch.sim import mesh as mesh_mod
 from consul_tpu_torch.sim import scenarios
 from consul_tpu_torch.sim.blackbox import default_tracked
 from consul_tpu_torch.sim.checkpoint import (PREEMPTED_RC, PreemptionGuard,
@@ -968,6 +984,109 @@ def run_autotune(smoke: bool, root: Optional[str] = None) -> dict:
     return rec
 
 
+#: --mesh: per-rank populations, rounds a call, and the rungs each
+#: (backend, world) launch runs as (stale_k, overlap)
+MESH_SIZES, MESH_SMOKE_SIZES = (131_072, 1_048_576), (8_192,)
+MESH_ROUNDS, MESH_SMOKE_ROUNDS = 96, 48
+MESH_KS = tuple((k, False) for k in registry.STALE_KS) + (
+    (registry.STALE_KS[-1], True),)
+MESH_SHARED_KS = ((1, False), (4, False))
+MESH_SMOKE_WORLDS = (1, 2, 4)
+MESH_TRIALS = 3
+
+
+def mesh_windows(rounds: int, k: int, overlap: bool) -> int:
+    """Collectives of one mesh run: the two staged init reductions, one
+    per window (a partial last window has its own), and the drain under
+    overlap."""
+    return 2 + -(-rounds // k) + (1 if overlap else 0)
+
+
+def _mesh_rungs(mesh, rungs, rounds: int, trials: int) -> list:
+    """One launched rank of ``--mesh``: for each (n per rank, stale_k,
+    overlap) rung, a warm-up call and ``trials`` timed calls of the
+    sharded runner on the headline configuration; returns per rung the
+    best wall seconds (a sync and a fetched checksum end each call) and
+    the collectives of one call."""
+    dev = mesh.device
+    key = prng.key(0, dev)
+    out = []
+    for n_rank, k, overlap in rungs:
+        n = n_rank * mesh.world
+        p = headline_params(n).with_(stale_k=k)
+        run = mesh_mod.make_sharded_run(p, rounds, mesh, overlap=overlap)
+        state = mesh_mod.init_sharded_state(n, mesh)
+        state = run(state, prng.fold_in(key, 1))
+        _sync(dev)
+        mesh_mod.reset_collectives()
+        best, state = _best_of(run, state, key, 10, 1, trials, dev)
+        out.append({"wall_s": best, "collectives":
+                    sum(mesh_mod.COLLECTIVES.values()) // trials})
+    return out
+
+
+def run_mesh_bench(smoke: bool = False) -> dict:
+    """``--mesh``: the sharded engine's ladder (see the module
+    docstring); records the payload as the next MULTICHIP record."""
+    if smoke:
+        dev = torch.device("cpu")
+        sizes, rounds = MESH_SMOKE_SIZES, MESH_SMOKE_ROUNDS
+        launches = [("gloo", w, False, ((1, False), (4, False), (4, True)))
+                    for w in MESH_SMOKE_WORLDS]
+    else:
+        dev = default_device()
+        sizes, rounds = MESH_SIZES, MESH_ROUNDS
+        launches = [("nccl", 1, False, MESH_KS),
+                    ("gloo", 1, False, MESH_SHARED_KS),
+                    ("gloo", 2, True, MESH_SHARED_KS)]
+    rows = []
+    for backend, world, shared, ks in launches:
+        rungs = [(n, k, ov) for n in sizes for k, ov in ks]
+        ranks = mesh_mod.launch(world, _mesh_rungs, backend=backend,
+                                device=dev.type, args=(rungs, rounds,
+                                                       MESH_TRIALS))
+        for i, (n, k, ov) in enumerate(rungs):
+            walls = [r[i]["wall_s"] for r in ranks]
+            coll = ranks[0][i]["collectives"]
+            want = mesh_windows(rounds, k, ov)
+            if coll != want:
+                raise RuntimeError(f"{backend} world {world} n {n} k {k} "
+                                   f"overlap {ov}: {coll} collectives a "
+                                   f"run, want {want}")
+            worst = max(walls)
+            rows.append({
+                "devices": world, "n": n * world, "n_per_rank": n,
+                "backend": backend, "shared_card": shared,
+                "stale_k": k, "overlap": ov, "loadavg_1m": _loadavg_1m(),
+                "rounds_per_sec": rounds / worst,
+                "ms_per_round": worst / rounds * 1e3,
+                "dev_ms_min": min(walls) / rounds * 1e3,
+                "dev_ms_max": worst / rounds * 1e3,
+                "dev_skew": worst / min(walls),
+                "collectives": coll})
+    for row in rows:
+        base = next(r for r in rows if r["devices"] == 1
+                    and r["backend"] == row["backend"]
+                    and r["n_per_rank"] == row["n_per_rank"]
+                    and r["stale_k"] == row["stale_k"]
+                    and r["overlap"] == row["overlap"])
+        row["weak_scaling_efficiency"] = \
+            row["rounds_per_sec"] / base["rounds_per_sec"]
+        print(f"  {row['backend']:<4} x{row['devices']} "
+              f"{row['n_per_rank']:>9,}/rank k={row['stale_k']}"
+              f"{'+ov' if row['overlap'] else '   '} "
+              f"{row['rounds_per_sec']:>9,.1f} r/s "
+              f"eff {row['weak_scaling_efficiency']:.3f}"
+              + (" (shared card)" if row["shared_card"] else ""),
+              file=sys.stderr)
+    rec = {"metric": "mesh_weak_scaling" + ("_smoke" if smoke else ""),
+           "platform": dev.type, "device": device_name(dev),
+           "rounds_per_chunk": rounds, "trials": MESH_TRIALS,
+           "ladder": rows}
+    _record_next("MULTICHIP", rec)
+    return rec
+
+
 def print_roofline(roofline: dict) -> None:
     """The roofline ladder as a table on stderr."""
     bw = roofline["bandwidth"]
@@ -1030,6 +1149,9 @@ def main(argv=None) -> int:
     ap.add_argument("--autotune", action="store_true",
                     help="time the autotuner's 15 runner configs, record "
                          "TUNE and cache the winner")
+    ap.add_argument("--mesh", action="store_true",
+                    help="time the sharded lane engine over launched "
+                         "worlds and record MULTICHIP")
     ap.add_argument("--history", action="store_true",
                     help="print one row per record under the record root")
     ap.add_argument("--check-regression", action="store_true",
@@ -1041,8 +1163,9 @@ def main(argv=None) -> int:
     ap.add_argument("--metric", default=None,
                     help="with --check-regression: the recorded metric")
     args = ap.parse_args(argv)
-    modes = [m for m in ("chaos", "coords", "sweep", "autotune", "history",
-                         "check_regression") if getattr(args, m)]
+    modes = [m for m in ("chaos", "coords", "sweep", "autotune", "mesh",
+                         "history", "check_regression")
+             if getattr(args, m)]
     if len(modes) > 1:
         ap.error(f"--{' and --'.join(modes)} are modes of their own: "
                  "run one at a time".replace("_", "-"))
@@ -1054,8 +1177,8 @@ def main(argv=None) -> int:
         ap.error("--resume needs --ckpt-dir")
     if args.smoke and args.profile:
         ap.error("--profile traces the card; it cannot run with --smoke")
-    if args.profile and (args.coords or args.autotune or args.history
-                         or args.check_regression):
+    if args.profile and (args.coords or args.autotune or args.mesh
+                         or args.history or args.check_regression):
         ap.error("--profile applies to the headline, --chaos and --sweep")
     if (args.family or args.metric) and not args.check_regression:
         ap.error("--family and --metric apply to --check-regression only")
@@ -1072,6 +1195,8 @@ def main(argv=None) -> int:
     ck = dict(ckpt_dir=args.ckpt_dir, guard=guard, resume=args.resume)
     if args.autotune:
         res = run_autotune(args.smoke)
+    elif args.mesh:
+        res = run_mesh_bench(args.smoke)
     elif args.sweep:
         res = run_sweep_bench(smoke=args.smoke, **ck)
         res["metric"] = "param_sweep" + ("_smoke" if args.smoke else "")

@@ -16,6 +16,7 @@ The tensor half replaces the reference's jnp half:
   ``starts``; byzantine leaves only for a byzantine plan);
 * ``plan_digest`` — the same 16-hex fingerprint as the reference's for
   the same plan (checkpoints key on it);
+* ``shard_plan`` — a mesh rank's columns of a plan;
 * ``active_phase``, ``fault_frame`` and ``scale_frame`` — one round's
   view. The round index is a Python int here: the phase lookup runs on
   the host from a ``PlanSchedule`` read once per run, and the lanes a
@@ -685,6 +686,19 @@ def fault_frame(cp: CompiledFaultPlan, round_idx: int,
         crash_p=crash_p, rejoin_p=rejoin_p, leave_p=cp.leave_p[ph],
         forge_ack=take(cp.forge_ack), spur_susp=take(cp.spur_susp),
         replay=take(cp.replay), attacked=take(cp.attacked))
+
+
+def shard_plan(cp: CompiledFaultPlan, lo: int,
+               hi: int) -> CompiledFaultPlan:
+    """A mesh rank's view of a plan: the ``[P, N]`` phase tensors sliced
+    to nodes ``[lo, hi)`` along the node axis (views, no copy), ``starts``
+    and ``mid`` whole (the reference's ``mesh._plan_specs``). The
+    byzantine leaves stay None on an honest plan. ``fault_frame`` of the
+    shard reads the rank's columns."""
+    return CompiledFaultPlan(*[
+        leaf if leaf is None or name in ("starts", "mid")
+        else leaf[:, lo:hi]
+        for name, leaf in zip(CompiledFaultPlan._fields, cp)])
 
 
 # ------------------------------------------------ detection gate

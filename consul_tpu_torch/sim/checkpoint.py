@@ -32,6 +32,11 @@ reads the other's files: the base key is stored as its two uint32 words
 (the port's key is int64 ``[2]`` holding them), 0-d leaves stay 0-d,
 and every array keeps the reference's dtype.
 
+A mesh run (``sim/mesh.py``, ``carry=True``) is cut by
+``snapshot_mesh``: the ranks' slices gathered on rank 0 and snapshotted
+as the lane engine's; ``load`` on one device then finishes the straight
+single-device run bit for bit.
+
 ``PreemptionGuard`` turns SIGTERM/SIGINT into a flag ``run_resumable``
 polls between chunks; a preempted run saves and returns
 ``preempted=True``, and the benches exit with ``PREEMPTED_RC``.
@@ -58,6 +63,7 @@ import torch
 
 from consul_tpu_torch.faults import plan_digest as _plan_digest
 from consul_tpu_torch.sim import registry
+from consul_tpu_torch.sim.mesh import Mesh, gather_state
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import (SaturationError, SimState, SimStats,
                                         saturated_fields)
@@ -250,6 +256,21 @@ def snapshot(p: SimParams, key: torch.Tensor, state: SimState, *,
         engine=engine, round_cursor=cursor, total_rounds=total_rounds,
         base_key=_np(key).astype(np.uint32), params=params_fields(p),
         plan_digest=_plan_digest(plan), arrays=arrays)
+
+
+def snapshot_mesh(p: SimParams, key: torch.Tensor, state: SimState,
+                  mesh: Mesh, **kw) -> Optional[Snapshot]:
+    """A mesh run's cut: the ranks' slices gathered (``mesh.
+    gather_state``), then ``snapshot`` of the whole state on rank 0 —
+    ``None`` on the others. Every rank must call it. The carry a
+    ``carry=True`` mesh runner returns is already global (the lane
+    vector is an all-reduce's product; the overlap table is gathered),
+    so the file is the single-device engine's and resumes on any device
+    count, one device included, bit for bit."""
+    whole = gather_state(state, mesh)
+    if whole is None:
+        return None
+    return snapshot(p, key, whole, engine="lanes", **kw)
 
 
 # --------------------------------------------------------- file format

@@ -21,10 +21,18 @@ Stacks, tables and lane vectors carry any leading shape after the lane
 axis: ``[K, L]`` for one run, ``[K, G, L]`` for a G-point grid, reduced
 to ``[K]`` / ``[K, G]``.
 
+On a mesh (``sim/mesh.py``) each rank holds a contiguous slice of the
+pool. ``mesh_lane_reducer`` puts the rank's block partials into its own
+columns of a zero ``[K, LANE_BLOCKS]`` table and ``fold`` all-reduces
+the table (SUM, over the reduction scope's process group: the window's
+one collective), then folds it exactly as one device does. The sum is
+exact: every column has one owner and the other ranks add +0.0, and
+``_block_partials`` writes no -0.0 (it adds +0.0 to every partial, the
+one value for which ``x + 0.0`` is not ``x``). So the mesh's lane
+vectors equal one device's bit for bit, whatever the world size.
+
 Not ported: the reference's jax batching patch for its optimization
-barrier (no PyTorch meaning), and its mesh reducer and the shard
-offsets of the tables and the lane engine (with the mesh: one device
-is the shard at offset 0).
+barrier (no PyTorch meaning).
 """
 
 from __future__ import annotations
@@ -138,9 +146,11 @@ def row_sums(*xs: torch.Tensor) -> list:
 
 def _block_partials(stack: torch.Tensor, blocks: int) -> torch.Tensor:
     """``[K, ..., L]`` -> ``[K, ..., blocks]`` contiguous-range partial
-    sums (inner length L // blocks)."""
+    sums (inner length L // blocks). Adding +0.0 turns a -0.0 partial
+    into +0.0 and leaves every other value as it is, so a table summed
+    with zero tables (the mesh's all-reduce) keeps every bit."""
     return tree_sum(stack.reshape(*stack.shape[:-1], blocks,
-                                  stack.shape[-1] // blocks))
+                                  stack.shape[-1] // blocks)) + 0.0
 
 
 class LaneReducer:
@@ -160,6 +170,17 @@ class LaneReducer:
         """The global block table from a local one (a checkpoint's
         capture of the overlap carry): the identity on one device."""
         raise NotImplementedError
+
+    def fold_start(self, table: torch.Tensor):
+        """Start ``fold(table)`` and return a handle for
+        ``fold_finish``: the overlap schedule starts a window's fold
+        before the next window's work and finishes it after. ``table``
+        must not be written in between. On one device nothing is in
+        flight."""
+        return table
+
+    def fold_finish(self, handle) -> torch.Tensor:
+        return self.fold(handle)
 
     def __call__(self, stack: torch.Tensor) -> torch.Tensor:
         return self.fold(self.partials(stack))
@@ -189,21 +210,77 @@ class _SingleDeviceReducer(LaneReducer):
 reduce_lanes_single = _SingleDeviceReducer()
 
 
-def seed_table(lanes0: torch.Tensor) -> torch.Tensor:
+class _MeshReducer(LaneReducer):
+    """The lane reducer of one rank of a mesh: ``partials`` writes the
+    rank's ``LANE_BLOCKS / scope_shards`` block partials into its own
+    columns of a zero ``[K, LANE_BLOCKS]`` table, ``fold`` all-reduces
+    the table over the scope's group (the window's one collective) and
+    folds it as one device does. ``collectives`` is the mesh's counted
+    collective layer (``sim/mesh.py``)."""
+
+    def __init__(self, collectives, group, scope_index: int,
+                 scope_shards: int):
+        if LANE_BLOCKS % scope_shards:
+            raise ValueError(
+                f"device count {scope_shards} must divide "
+                f"LANE_BLOCKS={LANE_BLOCKS}")
+        self.coll = collectives
+        self.group = group
+        self.per = LANE_BLOCKS // scope_shards
+        self.col0 = scope_index * self.per
+
+    def partials(self, stack: torch.Tensor) -> torch.Tensor:
+        part = _block_partials(stack, self.per)
+        table = torch.zeros(part.shape[:-1] + (LANE_BLOCKS,),
+                            dtype=torch.float32, device=part.device)
+        table[..., self.col0:self.col0 + self.per] = part
+        return table
+
+    def gather_table(self, table: torch.Tensor) -> torch.Tensor:
+        # each column has one owner and the others hold +0.0: the sum
+        # places the owners' values exactly
+        return self.coll.all_reduce_sum(table.clone(), self.group)
+
+    def fold(self, table: torch.Tensor) -> torch.Tensor:
+        return tree_sum(self.gather_table(table))
+
+    def fold_start(self, table: torch.Tensor):
+        return self.coll.all_reduce_sum(table.clone(), self.group,
+                                        async_op=True)
+
+    def fold_finish(self, handle) -> torch.Tensor:
+        return tree_sum(handle.wait())
+
+
+def mesh_lane_reducer(collectives, group, scope_index: int,
+                      scope_shards: int) -> LaneReducer:
+    """The lane reducer of one mesh rank (see ``_MeshReducer``):
+    ``scope_shards`` ranks share the reduction scope (all of them for
+    the global pool, one DC's for per-DC pools), and this rank is
+    ``scope_index`` among them; the count must divide ``LANE_BLOCKS``."""
+    return _MeshReducer(collectives, group, scope_index, scope_shards)
+
+
+def seed_table(lanes0: torch.Tensor, shard_offset: int = 0) -> torch.Tensor:
     """A block table whose ``fold`` is exactly ``lanes0``: the overlap
-    schedule's first in-flight carry (column 0 holds the values, zeros
-    elsewhere, so the fold adds only exact zeros). The reference places
-    them on the shard at global offset 0; one device is that shard."""
+    schedule's first in-flight carry. Only the shard at global offset 0
+    holds the values, in column 0; every other entry is +0.0, so the
+    mesh's sum and the fold add only exact zeros."""
     table = torch.zeros(lanes0.shape + (LANE_BLOCKS,), dtype=torch.float32,
                         device=lanes0.device)
-    table[..., 0] = lanes0
+    if shard_offset == 0:
+        table[..., 0] = lanes0
     return table
 
 
-def carry_table(table0: torch.Tensor) -> torch.Tensor:
-    """A checkpoint's global in-flight table for a resumed overlap scan
-    (the shard at offset 0 carries all of it: on one device, a copy)."""
-    return table0.to(torch.float32).clone()
+def carry_table(table0: torch.Tensor, shard_offset: int = 0) -> torch.Tensor:
+    """A checkpoint's global in-flight table for a resumed overlap scan:
+    the shard at global offset 0 carries all of it, every other shard
+    zeros, so the mesh's sum reassembles ``table0`` on any device count
+    (one device: a copy)."""
+    if shard_offset == 0:
+        return table0.to(torch.float32).clone()
+    return torch.zeros_like(table0, dtype=torch.float32)
 
 
 # ------------------------------------------------------- lane consumers

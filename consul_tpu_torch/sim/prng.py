@@ -4,7 +4,7 @@ Two generators live here:
 
 * **threefry2x32**, bit-exact with JAX's default PRNG
   (``jax_threefry_partitionable=True``): ``key``, ``fold_in``, ``split``,
-  ``bits``, ``uniform`` and ``randint`` (and ``normal`` /
+  ``bits``, ``uniform`` (any shape, with bounds) and ``randint`` (and ``normal`` /
   ``exponential``, exact up to the last bits of ``erfinv`` / ``log1p``),
   and on top of them the per-round streams
   ``round_keys`` / ``round_seeds`` of the JAX package's
@@ -22,13 +22,15 @@ Two generators live here:
   ``s & 3`` of the call on counter ``(node, s >> 2, 0, 0)``.
 
 Words are carried in int64 tensors holding values in [0, 2^32), masked
-after every add and shift (PyTorch on the CPU has no ``<<`` for uint32).
-Multiplications split one factor into 16-bit halves so no product
-leaves int64's range.
+after every add and shift (PyTorch on the CPU has no ``<<`` for uint32);
+threefry's rounds run on int32 words, whose adds wrap as uint32's do.
+Philox's multiplications split one factor into 16-bit halves so no
+product leaves int64's range.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Union
 
 import torch
@@ -43,23 +45,38 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & MASK
+def _i32(x) -> torch.Tensor:
+    """uint32 words (int64 tensors or ints) as int32 two's complement."""
+    return torch.as_tensor(x).to(torch.int32)
+
+
+def _threefry_i32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds on int32 two's-complement words,
+    updated in place: an int32 add wraps mod 2^32 as the uint32 add
+    does, and a rotation is ``(x << r) | ((x >> (32 - r)) & (2^r - 1))``
+    (the mask clears the arithmetic shift's sign copies) — a quarter of
+    an int64 version's memory traffic and about a sixth of its time on
+    the CPU. Returns the two words as int32."""
+    k0, k1 = _i32(k0), _i32(k1)
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    y0, y1 = torch.broadcast_tensors(_i32(x0) + k0, _i32(x1) + k1)
+    y0, y1 = y0.clone(), y1.clone()
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            y0.add_(y1)
+            hi = y1 << r
+            y1.bitwise_right_shift_(32 - r).bitwise_and_(
+                (1 << r) - 1).bitwise_or_(hi).bitwise_xor_(y0)
+        y0.add_(ks[(i + 1) % 3])
+        y1.add_(ks[(i + 2) % 3] + (i + 1))
+    return y0, y1
 
 
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds on broadcastable int64 word tensors;
-    returns the two output words."""
-    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
-    x0 = (x0 + k0) & MASK
-    x1 = (x1 + k1) & MASK
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK
-    return x0, x1
+    returns the two output words (int64 in [0, 2^32))."""
+    y0, y1 = _threefry_i32(k0, k1, x0, x1)
+    return y0.to(torch.int64) & MASK, y1.to(torch.int64) & MASK
 
 
 def key(seed: int, device=None) -> torch.Tensor:
@@ -86,9 +103,10 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
 
 
 def split(k: torch.Tensor, num: int) -> torch.Tensor:
-    """``jax.random.split(k, num)`` -> ``[num, 2]`` keys."""
+    """``jax.random.split(k, num)`` -> ``[num, 2]`` keys; a ``[..., 2]``
+    key stack splits each key: ``[..., num, 2]``."""
     i = torch.arange(num, dtype=torch.int64, device=k.device)
-    y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(i), i)
+    y0, y1 = threefry2x32(k[..., 0, None], k[..., 1, None], 0, i)
     return torch.stack([y0, y1], dim=-1)
 
 
@@ -105,13 +123,6 @@ def bits(k: torch.Tensor, n: int = 0) -> torch.Tensor:
     return y0 ^ y1
 
 
-def uniform(k: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.uniform(k, (n,))`` in f32, bit for bit: the top 23
-    bits of each word as the mantissa of a float in [1, 2), minus one —
-    which is exactly ``(word >> 9) * 2**-23``."""
-    return (bits(k, n) >> 9).to(torch.float32) * (2.0 ** -23)
-
-
 Shape = Union[int, tuple]
 
 
@@ -126,11 +137,34 @@ def _numel(shape: tuple) -> int:
     return out
 
 
-def _uniform_shape(k: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """``jax.random.uniform(k, shape)``: element i of the flattened
-    shape takes word i (the partitionable stream counts row-major)."""
+def uniform(k: torch.Tensor, shape: Shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, minval=, maxval=)`` in f32, bit for
+    bit. Element i of the flattened shape takes word i (the partitionable
+    stream counts row-major); its top 23 bits are the mantissa of a
+    float in [1, 2), minus one — exactly ``(word >> 9) * 2**-23`` — then
+    scaled as JAX does: ``max(lo, f * (hi - lo) + lo)`` with the bounds
+    and their difference rounded to f32. XLA fuses the multiply-add
+    (one rounding); here the product is exact in f64 and the sum is
+    rounded to f64, then to f32 — or, for a power-of-two width (the
+    views' picks: [1e-9, 1) has width 1), exact in f32. The counter is
+    int32, so a draw holds fewer than 2^31 words. A ``[..., 2]`` key
+    stack draws for each key: ``[..., *shape]``."""
     shape = _shape(shape)
-    return uniform(k, _numel(shape)).view(shape)
+    j = torch.arange(_numel(shape), dtype=torch.int32, device=k.device)
+    y0, y1 = _threefry_i32(k[..., 0, None], k[..., 1, None], 0, j)
+    f = ((y0 ^ y1) >> 9 & 0x7FFFFF).to(torch.float32) * (2.0 ** -23)
+    if (minval, maxval) != (0.0, 1.0):
+        lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
+        width = torch.tensor(maxval, dtype=torch.float32,
+                             device=k.device) - lo
+        if math.frexp(float(width))[0] == 0.5:
+            # a power-of-two width: f * width is exact, one rounding
+            f = f * width + lo
+        else:
+            f = (f.double() * width.double() + lo.double()).float()
+        f = torch.maximum(f, lo)
+    return f.view(tuple(k.shape[:-1]) + shape)
 
 
 #: ``jax.random.normal`` draws its uniform on [nextafter(-1, 0), 1): the
@@ -145,7 +179,7 @@ def normal(k: torch.Tensor, shape: Shape) -> torch.Tensor:
     uniform ``max(lo, f·(1 - lo) + lo)`` on [lo, 1), f the word's
     [0, 1) float. The uniform is bit for bit; PyTorch's ``erfinv`` and
     XLA's differ in the last bits (the tests bound them in ulps)."""
-    f = _uniform_shape(k, shape)
+    f = uniform(k, shape)
     u = torch.clamp_min(f * _NORMAL_WIDTH + _NORMAL_LO, _NORMAL_LO)
     return _SQRT2_F32 * torch.special.erfinv(u)
 
@@ -154,7 +188,7 @@ def exponential(k: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``jax.random.exponential(k, shape)`` in f32: ``-log1p(-u)`` of
     the bit-exact uniform (the two libraries' ``log1p`` differ in the
     last bits)."""
-    return -torch.log1p(-_uniform_shape(k, shape))
+    return -torch.log1p(-uniform(k, shape))
 
 
 def randint(k: torch.Tensor, shape: Shape, minval: int,

@@ -873,16 +873,19 @@ def _grid_scalars(sc: torch.Tensor) -> torch.Tensor:
 
 def _lane_contributions(state: SimState, scalars: torch.Tensor,
                         key: torch.Tensor, p: SimParams,
-                        fx: Optional[FaultFrame] = None):
+                        fx: Optional[FaultFrame] = None,
+                        shard_offset: int = 0):
     """One period in lane mode without the reduction: (state', the
     round's ``[N_REDUCE_LANES, ..., L]`` contribution stack). Stats stay
-    on the state untouched; the caller applies the reduced deltas."""
+    on the state untouched; the caller applies the reduced deltas.
+    ``shard_offset`` is the global index of the state's first row (a
+    mesh rank's slice): node i draws the same word on any sharding."""
     rows = state.status.shape[-1]
     if fx is not None and (p.sweeps("fault_gain") or p.fault_gain != 1.0):
         fx = scale_frame(fx, p.fault_gain)
     vals = state.node_arrays()
     outs, lanes = _round_body(vals, _grid_scalars(scalars), p,
-                              prng.global_u01(key, 0, rows),
+                              prng.global_u01(key, shard_offset, rows),
                               fx=fx, lane_mode=True)
     out = SimState(*_cast_like(outs, vals),
                    t=state.t + _per_point(p.probe_interval, state.t),
@@ -916,7 +919,7 @@ def gossip_round_lanes(state: SimState, lanes_prev: torch.Tensor,
 
 
 def _lane_window(state: SimState, lanes_prev: torch.Tensor, keys_k,
-                 frames, p: SimParams, k: int):
+                 frames, p: SimParams, k: int, shard_offset: int = 0):
     """A staleness-k window: k periods on scalars frozen from
     ``lanes_prev``, no reduction inside. Returns (state', stack): the
     stack's instantaneous rows (scalars, gauges, histogram) are the last
@@ -927,7 +930,7 @@ def _lane_window(state: SimState, lanes_prev: torch.Tensor, keys_k,
     s, pend, stack = state, None, None
     for j in range(k):
         s, stack = _lane_contributions(s, scalars, keys_k[j], p,
-                                       frames[j])
+                                       frames[j], shard_offset)
         if p.collect_stats:
             rows = stack[lanes_mod.STATS_SLICE]
             pend = rows if j == 0 else pend + rows
@@ -978,7 +981,7 @@ def _apply_lane_stats(s: SimState, lv: torch.Tensor,
 
 def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
                rounds: int, flight_every: Optional[int], lane_reducer, *,
-               overlap: bool = False, lanes0=None,
+               shard_offset: int = 0, overlap: bool = False, lanes0=None,
                table0=None, return_carry: bool = False):
     """The lane engine's loop: ceil(rounds / stale_k) windows, each
     ending in one reduction (a partial final window ends in its own).
@@ -989,7 +992,14 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     ``overlap=True`` carries the pre-fold block table and folds it one
     window late (window m consumes window m-2's reduction); the first
     fold consumes ``lanes.seed_table(lanes0)``, and a drain fold after
-    the loop lands the last window's stats.
+    the loop lands the last window's stats. Each fold starts before the
+    window's rounds and finishes after them (``fold_start`` /
+    ``fold_finish``: on a mesh the all-reduce is in flight meanwhile);
+    its stats land after the window, which leaves them as they were
+    (a window does not touch the stats).
+
+    ``shard_offset`` is the global index of the state's first row: one
+    device is the shard at offset 0; a mesh rank passes its slice's.
 
     The checkpoint seam: ``return_carry`` appends the lane vector (and
     under overlap the undrained global table, the drain skipped — a
@@ -1010,13 +1020,15 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     n_super, rem = divmod(rounds, k)
     if overlap:
         s, lv_ready = state, lanes0
-        table = (lanes_mod.seed_table(lanes0) if table0 is None
-                 else lanes_mod.carry_table(table0))
+        table = (lanes_mod.seed_table(lanes0, shard_offset)
+                 if table0 is None
+                 else lanes_mod.carry_table(table0, shard_offset))
         for m in range(n_super):
-            lv_new = lane_reducer.fold(table)
-            s = _apply_lane_stats(s, lv_new, p)
+            pending = lane_reducer.fold_start(table)
             s, stack = _lane_window(s, lv_ready, keys[m * k:(m + 1) * k],
-                                    frames(m * k, k), p, k)
+                                    frames(m * k, k), p, k, shard_offset)
+            lv_new = lane_reducer.fold_finish(pending)
+            s = _apply_lane_stats(s, lv_new, p)
             lv_ready, table = lv_new, lane_reducer.partials(stack)
         if return_carry:
             return s, lv_ready, lane_reducer.gather_table(table)
@@ -1031,7 +1043,7 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     for i0 in range(0, rounds, k):
         count = min(k, rounds - i0)
         s, stack = _lane_window(s, lv, keys[i0:i0 + count],
-                                frames(i0, count), p, count)
+                                frames(i0, count), p, count, shard_offset)
         lv = lane_reducer(stack)
         s = _apply_lane_stats(s, lv, p)
         if with_flight:

@@ -122,7 +122,7 @@ def test_normal_and_exponential_within_ulps(ref, shape):
                           jax.random.exponential(kj, shape)) <= EXP_ULPS
         # the uniform under both is bit for bit
         np.testing.assert_array_equal(
-            prng._uniform_shape(k, shape).numpy(),
+            prng.uniform(k, shape).numpy(),
             np.asarray(jax.random.uniform(kj, shape)))
 
 

@@ -20,6 +20,11 @@ Every port test module imports this one, which pins PyTorch's CPU ops
 to one thread: under pytest-xdist several workers share the host's
 cores, and OpenMP thread pools that each spin on every core slow the
 port's tests by orders of magnitude.
+
+``run_world`` starts a gloo world of CPU ranks through the port's
+launcher (``consul_tpu_torch.sim.mesh.launch``) with a per-test join
+timeout, so a hung rank fails its test instead of eating the suite's
+time limit. Each rank runs with one CPU thread.
 """
 
 from __future__ import annotations
@@ -34,6 +39,20 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 torch.set_num_threads(1)
+
+#: seconds a test's gloo world may take, rank start-up included
+WORLD_TIMEOUT_S = 240.0
+
+
+def run_world(world: int, fn, *args, dc: int = 1,
+              timeout: float = WORLD_TIMEOUT_S) -> list:
+    """``fn(mesh, *args)`` on ``world`` gloo ranks on the CPU (``fn`` a
+    module-level function); the ranks' results in rank order, tensors as
+    numpy arrays. A rank that fails or hangs fails the test."""
+    from consul_tpu_torch.sim.mesh import launch
+
+    return launch(world, fn, backend="gloo", device="cpu", dc=dc,
+                  args=args, timeout=timeout)
 
 
 def load_reference():
@@ -120,7 +139,8 @@ def _imports(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_sources()
     assert len(files) > 10 and all(f.exists() for f in files)
-    assert {"lanes.py", "sweep.py", "costmodel.py", "autotune.py"} <= \
+    assert {"lanes.py", "sweep.py", "costmodel.py", "autotune.py",
+            "mesh.py", "views.py", "graft_entry.py"} <= \
         {f.name for f in files}
     bad = []
     for f in files:
