@@ -43,7 +43,7 @@ non-zero before the result line):
               twice: an untimed warm-up, then the timed run), counted
               on its own: every round of an honest class is a fault
               launch, of a byzantine class a byz launch. Each class's
-              detection signature is asserted (see ``CHAOS_SIGNATURES``).
+              detection signature is asserted (see ``class_failures``).
 5. observe  — the recorders through the kernel runner, each run counted
               on its own: at 1,048,576 nodes on the full-model config,
               200 per-round rounds with the flight recorder at stride 10
@@ -146,7 +146,28 @@ non-zero before the result line):
               written by the bench's _record_next and read back by
               load_ledger, one history row each. Records and the cache
               go to a temporary directory under build/.
-10. timing  — each kernel's time per launch (device time: CUDA events
+10. seams   — the entry points and seams (cli.py, sim/twin.py,
+              graft_entry.py), each part counted on its own: (a) the
+              CLI's default mode in this process (``cli.main(["agent",
+              "-dev", "-gossip-sim", "gpu", "-gossip-sim-nodes",
+              "1048576"])``): exactly 100 full round launches, no false
+              positive, suspicions and refutes per node-round under
+              ``CLI_FD_CEILING`` of FD_REF (see there), the telemetry
+              registry's sim.<counter> totals and sim.fd.* gauges equal
+              to the report; (b) its chaos mode on churn_burst at
+              1,048,576 nodes: the class's signature, one fault launch a
+              round; (c) the twin's sim half (twin.SimHalf) on
+              twin_plan(1,048,576), 88 rounds in chunks of 8 with the
+              per-chunk host copy of status, incarnation and down_age,
+              checkpointed into a temporary directory, then
+              resume_digest_proof from the mid cut: true, exactly 88 +
+              (rounds after the cut) fault launches; prints the sim
+              wall, the host-copy ms and transitions per chunk and the
+              file bytes (no agent is built on the card);
+              (d) graft_entry.entry(): one round at 65,536 nodes,
+              round_idx 1; (e) cli.capture_flight_trace(64, 20): its
+              columns and one row a round.
+11. timing  — each kernel's time per launch (device time: CUDA events
               around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do; the
@@ -159,7 +180,10 @@ Then the ``kernels`` line, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
 import pathlib
 import re
@@ -518,10 +542,10 @@ def phase_headline(torch, m, dev):
     return res, launches
 
 
-def chaos_failures(suite: dict) -> list:
-    """The chaos classes' detection signatures that ``suite`` (bench's
-    ``run_chaos_suite`` classes) breaks: the chaos-suite and byzantine
-    tests of the JAX package (tests/test_faults.py:285-298,
+def class_failures(name: str, rep: dict) -> list:
+    """The detection signature of one chaos class that ``rep``
+    (``run_chaos``'s report) breaks: the chaos-suite and byzantine tests
+    of the JAX package (tests/test_faults.py:285-298,
     tests/test_byzantine.py:284-315). The reference's live-scalar engine
     also declares no gc_pause node; the stale-scalar engines, its own
     fast path included, do declare some, so that one is not asserted."""
@@ -531,43 +555,51 @@ def chaos_failures(suite: dict) -> list:
         if not ok:
             bad.append(what)
 
-    for name, rep in suite.items():
-        ph = rep["phases"]
-        want([x["phase"] for x in ph] == ["warmup", name, "recover"],
-             f"{name}: phases {[x['phase'] for x in ph]}")
-        want(ph[0]["suspicions"] == 0 and ph[0]["false_positives"] == 0
-             and ph[0]["attack_suspicions"] == 0,
-             f"{name}: the warm-up is not quiet")
-        want(rep["final_wrongly_dead"] == 0,
-             f"{name}: {rep['final_wrongly_dead']} wrongly dead at the end")
-        want(rep["final_live_fraction"] > 0.95,
-             f"{name}: live fraction {rep['final_live_fraction']}")
-    f = {name: rep["phases"][1] for name, rep in suite.items()}
-    want(f["asym_partition"]["suspicions"] > 0, "asym_partition: no "
-         "suspicions")
-    want(f["per_node_loss"]["refutes"] > 0, "per_node_loss: no refutes")
-    want(f["gc_pause"]["suspicions"] > 0, "gc_pause: no suspicions")
-    want(f["flapping"]["crashes"] > 0, "flapping: no crashes")
-    want(f["churn_burst"]["crashes"] > 0, "churn_burst: no crashes")
-    fa = f["forged_acks"]
-    want(fa["crashes"] > 0 and fa["true_deaths_declared"]
-         <= 0.1 * fa["crashes"],
-         f"forged_acks: detection not suppressed ({fa['crashes']} crashes,"
-         f" {fa['true_deaths_declared']} declared)")
-    ss = f["spurious_suspicion"]
-    want(100 < ss["attack_suspicions"] <= ss["suspicions"]
-         and ss["refutes"] >= 0.9 * ss["suspicions"]
-         and ss["false_positives"] == ss["attack_false_positives"] == 0,
-         f"spurious_suspicion: {ss}")
-    ec = f["eclipse"]
-    want(ec["false_positives"] > 0
-         and ec["attack_false_positives"] == ec["false_positives"],
-         f"eclipse: {ec}")
-    sr = f["stale_replay"]
-    want(sr["crashes"] > 0
-         and sr["true_deaths_declared"] >= 0.5 * sr["crashes"],
-         f"stale_replay: detection blocked ({sr})")
+    ph = rep["phases"]
+    want([x["phase"] for x in ph] == ["warmup", name, "recover"],
+         f"{name}: phases {[x['phase'] for x in ph]}")
+    want(ph[0]["suspicions"] == 0 and ph[0]["false_positives"] == 0
+         and ph[0]["attack_suspicions"] == 0,
+         f"{name}: the warm-up is not quiet")
+    want(rep["final_wrongly_dead"] == 0,
+         f"{name}: {rep['final_wrongly_dead']} wrongly dead at the end")
+    want(rep["final_live_fraction"] > 0.95,
+         f"{name}: live fraction {rep['final_live_fraction']}")
+    f = ph[1]
+    if name == "asym_partition":
+        want(f["suspicions"] > 0, "asym_partition: no suspicions")
+    elif name == "per_node_loss":
+        want(f["refutes"] > 0, "per_node_loss: no refutes")
+    elif name == "gc_pause":
+        want(f["suspicions"] > 0, "gc_pause: no suspicions")
+    elif name in ("flapping", "churn_burst"):
+        want(f["crashes"] > 0, f"{name}: no crashes")
+    elif name == "forged_acks":
+        want(f["crashes"] > 0 and f["true_deaths_declared"]
+             <= 0.1 * f["crashes"],
+             f"forged_acks: detection not suppressed ({f['crashes']} "
+             f"crashes, {f['true_deaths_declared']} declared)")
+    elif name == "spurious_suspicion":
+        want(100 < f["attack_suspicions"] <= f["suspicions"]
+             and f["refutes"] >= 0.9 * f["suspicions"]
+             and f["false_positives"] == f["attack_false_positives"] == 0,
+             f"spurious_suspicion: {f}")
+    elif name == "eclipse":
+        want(f["false_positives"] > 0
+             and f["attack_false_positives"] == f["false_positives"],
+             f"eclipse: {f}")
+    elif name == "stale_replay":
+        want(f["crashes"] > 0
+             and f["true_deaths_declared"] >= 0.5 * f["crashes"],
+             f"stale_replay: detection blocked ({f})")
     return bad
+
+
+def chaos_failures(suite: dict) -> list:
+    """The detection signatures (``class_failures``) that ``suite``
+    (bench's ``run_chaos_suite`` classes) breaks."""
+    return [b for name, rep in suite.items()
+            for b in class_failures(name, rep)]
 
 
 def phase_chaos(torch, m, dev):
@@ -1791,6 +1823,228 @@ def phase_mesh(torch, m, dev, root):
     emit({"phase": "mesh", "nvidia_smi": nvidia_smi(), **out})
 
 
+#: the CLI's default mode runs the agent's dev gossip timing with TCP
+#: fallback on and no slow-node model, where the reference reports no
+#: suspicion at all (0 at 4,096 and 65,536 nodes, CPU); FD_REF is the
+#: diagnostic configuration's (TCP fallback off, slow nodes on). Its
+#: suspicions and refutes per node-round must stay under this share of
+#: FD_REF's, with no false positive
+CLI_FD_CEILING = 0.01
+SEAMS_CHAOS = "churn_burst"
+SEAMS_TWIN_CHUNK = 8
+SEAMS_TRACE = (64, 20)
+#: the counters the flight publisher sums into sim.<counter>
+REPORT_COUNTERS = ("false_positives", "refutes", "suspicions",
+                   "true_deaths_declared", "crashes", "rejoins", "leaves")
+
+
+def cli_report(m, argv) -> tuple:
+    """``cli.main(argv)`` in this process: (exit code, its JSON report)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = m.cli.main(argv)
+    text = buf.getvalue()
+    if text.startswith("==>"):
+        text = text.split("\n", 1)[1]
+    return rc, json.loads(text)
+
+
+def _platform(torch, dev) -> str:
+    return "gpu" if torch.device(dev).type == "cuda" else "cpu"
+
+
+def seams_cli(torch, m, dev, n=N):
+    """(a) the CLI's default mode through ``cli.main`` at n nodes: 100
+    full round launches, no false positive, suspicions and refutes under
+    ``CLI_FD_CEILING`` of FD_REF, and the registry's ``sim.<counter>``
+    totals and ``sim.fd.*`` gauges equal to the report. Returns (report,
+    failures, launches); on the CPU the wrappers launch nothing."""
+    cr, reg = m.cuda_round, m.telemetry.default
+    reg.reset()
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    rc, rep = cli_report(m, ["agent", "-dev", "-gossip-sim",
+                             _platform(torch, dev), "-gossip-sim-nodes",
+                             str(n)])
+    wall_s = time.perf_counter() - t0
+    launches = dict(cr.LAUNCHES)
+    if rc != 0 or "gossip_sim_error" in rep:
+        return {"rc": rc, **rep}, [f"cli default mode: rc {rc}, {rep}"], \
+            launches
+    bad = []
+    on_card = torch.device(dev).type == "cuda"
+    want = {"round_kernel/full": m.cli.SIM_ROUNDS} if on_card else {}
+    if launches != want:
+        bad.append(f"cli default mode launched {launches}, expected {want}")
+    node_rounds = n * rep["rounds"]
+    rates = {f"{k}_per_node_round": rep[k] / node_rounds
+             for k in ("suspicions", "refutes")}
+    if rep["false_positives"] or rep["rounds"] != m.cli.SIM_ROUNDS \
+            or any(v > CLI_FD_CEILING * FD_REF[k] for k, v in rates.items()):
+        bad.append(f"cli default mode FD quality: {rep} ({rates})")
+    snap = reg.snapshot()
+    counters = {c["Name"]: c["Count"] for c in snap["Counters"]}
+    gauges = {g["Name"]: g["Value"] for g in snap["Gauges"]}
+    pre = f"{reg.prefix}.sim."
+    off = {k: (counters.get(pre + k, 0.0), rep[k]) for k in REPORT_COUNTERS
+           if counters.get(pre + k, 0.0) != rep[k]}
+    off.update({k: (gauges.get(f"{pre}fd.{k}"), v) for k, v in rep.items()
+                if k != "rounds_per_sec" and gauges.get(f"{pre}fd.{k}")
+                != float(v)})
+    if off:
+        bad.append(f"cli registry differs from the report: {off}")
+    return {"n": n, "wall_s": wall_s, "report": rep, **rates,
+            "registry_counters": {k: v for k, v in counters.items()
+                                  if k.startswith(pre)},
+            "launches": launches}, bad, launches
+
+
+def seams_chaos(torch, m, dev, n=N, name=SEAMS_CHAOS):
+    """(b) the CLI's chaos mode on one honest class: its signature
+    (``class_failures``) and one fault launch a round."""
+    cr = m.cuda_round
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    rc, rep = cli_report(m, ["agent", "-dev", "-gossip-sim",
+                             _platform(torch, dev), "-gossip-sim-nodes",
+                             str(n), "-gossip-sim-chaos", name])
+    wall_s = time.perf_counter() - t0
+    launches = dict(cr.LAUNCHES)
+    if rc != 0 or "gossip_sim_error" in rep:
+        return {"rc": rc, **rep}, [f"cli chaos mode: rc {rc}, {rep}"], \
+            launches
+    want = {"round_kernel/fault": rep["rounds"]} \
+        if torch.device(dev).type == "cuda" else {}
+    bad = class_failures(name, rep)
+    if launches != want:
+        bad.append(f"cli chaos mode launched {launches}, expected {want}")
+    rep.pop("flight", None)
+    return {"class": name, "wall_s": wall_s, "report": rep,
+            "launches": launches}, bad, launches
+
+
+def seams_twin(torch, m, dev, root, n=N, chunk=SEAMS_TWIN_CHUNK):
+    """(c) the twin's sim half (``twin.SimHalf``) on the full soak plan
+    at n nodes in chunks of ``chunk``, checkpointed under ``root``, with
+    the per-chunk host copy of the three lanes the provider reads (the
+    set-up — ``compile_plan`` and the state — and each chunk's wall,
+    rounds, save and copy, timed apart); then
+    ``resume_digest_proof`` from the mid cut. One fault launch per round
+    of the soak and of the proof's rerun. No agent is built here."""
+    tw, cr = m.twin, m.cuda_round
+    plan = tw.twin_plan(n)
+    rounds = plan.total_rounds
+    d = os.path.join(root, "twin")
+    cr.reset_launches()
+    t0 = time.perf_counter()
+    sim = tw.SimHalf(n, plan, seed=0, chunk=chunk, ckpt_dir=d, device=dev)
+    setup_s = time.perf_counter() - t0
+    prev = tw.host_lanes(sim.state)
+    host_ms, moved, chunk_ms = [], [], []
+    t1 = time.perf_counter()
+    for _, state in sim.chunks():
+        t2 = time.perf_counter()
+        lanes = tw.host_lanes(state)
+        host_ms.append((time.perf_counter() - t2) * 1e3)
+        chunk_ms.append((time.perf_counter() - t1) * 1e3)
+        moved.append(int(((lanes[0] != prev[0]) |
+                          (lanes[1] != prev[1])).sum()))
+        prev = lanes
+        t1 = time.perf_counter()
+    sim_wall_s = time.perf_counter() - t0
+    digest = tw._state_digest(sim.state)
+    t2 = time.perf_counter()
+    proof = tw.resume_digest_proof(sim.mid_cut(), sim.p, sim.cp, digest,
+                                   device=dev)
+    proof_s = time.perf_counter() - t2
+    launches = dict(cr.LAUNCHES)
+    after_mid = rounds - sim.mid_cursor
+    want = {"round_kernel/fault": rounds + after_mid} \
+        if torch.device(dev).type == "cuda" else {}
+    st = sim.state.stats
+    stats = {f: int(getattr(st, f)) for f in
+             ("crashes", "rejoins", "false_positives", "refutes")}
+    bad = []
+    if launches != want:
+        bad.append(f"twin sim half launched {launches}, expected {want}")
+    if not proof or sim.cursor != rounds or stats["crashes"] <= 0:
+        bad.append(f"twin sim half: resume proof {proof}, cursor "
+                   f"{sim.cursor}/{rounds}, stats {stats}")
+    files = sorted(f for f in os.listdir(d) if f.endswith(".ckpt"))
+    return {"n": n, "rounds": rounds, "chunk": chunk,
+            "mid_cursor": sim.mid_cursor, "sim_wall_s": sim_wall_s,
+            "setup_s": setup_s, "chunk_ms": chunk_ms,
+            "host_copy_ms": host_ms, "transitions_per_chunk": moved,
+            "file_bytes": os.path.getsize(os.path.join(d, files[-1])),
+            "files": files, "resume_digest_equal": proof,
+            "resume_s": proof_s, "sim_digest": digest,
+            "plan_digest": sim.plan_digest, "sim_stats": stats,
+            "agent": "not built: the agent half (consul_tpu.agent on an "
+                     "in-memory network) is the control plane's",
+            "launches": launches}, bad, launches
+
+
+def seams_entry(torch, m, dev):
+    """(d) ``graft_entry.entry()``: one live-engine round at 65,536
+    nodes (plain PyTorch: no kernel launch)."""
+    cr = m.cuda_round
+    cr.reset_launches()
+    fn, (state, key) = m.graft_entry.entry(device=dev)
+    t0 = time.perf_counter()
+    out = fn(state, key)
+    rep = {"n": int(out.status.shape[0]), "round_idx": int(out.round_idx),
+           "wall_s": time.perf_counter() - t0,
+           "informed_finite": bool(torch.isfinite(out.informed).all())}
+    bad = [] if (rep["round_idx"] == 1 and rep["informed_finite"]
+                 and rep["n"] == m.graft_entry.ENTRY_N
+                 and not cr.LAUNCHES) else [f"graft entry: {rep}, "
+                                            f"launches {dict(cr.LAUNCHES)}"]
+    return rep, bad, {}
+
+
+def seams_trace(torch, m, dev, nodes=SEAMS_TRACE[0], rounds=SEAMS_TRACE[1]):
+    """(e) ``cli.capture_flight_trace`` on the device: its columns, one
+    finite row a round and the black box's tracked sample."""
+    cr = m.cuda_round
+    cr.reset_launches()
+    cap = m.cli.capture_flight_trace(nodes, rounds, device=dev)
+    rows = cap["rows"]
+    rep = {"n": nodes, "rounds": rounds, "columns": len(cap["columns"]),
+           "rows": len(rows), "tracked": cap["blackbox"]["tracked"],
+           "events": cap["blackbox"]["events"]}
+    ok = (cap["columns"] == list(m.flight.FLIGHT_COLUMNS)
+          and len(rows) == rounds
+          and all(len(r) == len(cap["columns"]) for r in rows)
+          and all(math.isfinite(x) for r in rows for x in r)
+          and rep["tracked"] == min(m.params.SimParams(n=nodes).blackbox_k,
+                                    nodes)
+          and not cr.LAUNCHES)
+    return rep, [] if ok else [f"flight trace capture: {rep}"], {}
+
+
+def phase_seams(torch, m, dev, root):
+    """The entry points and seams, each part counted on its own."""
+    out, bad, launches = {}, [], {}
+    for name, part in (
+            ("cli", lambda: seams_cli(torch, m, dev)),
+            ("chaos", lambda: seams_chaos(torch, m, dev)),
+            ("twin", lambda: seams_twin(torch, m, dev, root)),
+            ("entry", lambda: seams_entry(torch, m, dev)),
+            ("trace", lambda: seams_trace(torch, m, dev))):
+        t0 = time.perf_counter()
+        out[name], b, got = part()
+        bad += b
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"seams: {name} {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+    if bad:
+        raise SmokeFailure("seams: " + "; ".join(bad))
+    emit({"phase": "seams", "nvidia_smi": nvidia_smi(), **out,
+          "launches": launches})
+    return launches
+
+
 def _events_ms(torch, fn, reps, warm=2):
     for _ in range(warm):
         fn()
@@ -1921,20 +2175,22 @@ def modules():
     """The port's modules the phases use, as one namespace."""
     import types
 
-    from consul_tpu_torch import bench, config, faults, graft_entry
+    from consul_tpu_torch import bench, cli, config, faults, graft_entry
     from consul_tpu_torch.sim import (autotune, blackbox, checkpoint, coords,
                                       costmodel, cuda_round, flight, mesh,
                                       metrics, params, prng, round,
                                       scenarios, state, sweep, topology,
-                                      views)
+                                      twin, views)
+    from consul_tpu_torch.utils import telemetry
 
     return types.SimpleNamespace(
         autotune=autotune, bench=bench, blackbox=blackbox,
-        checkpoint=checkpoint, config=config, coords=coords,
+        checkpoint=checkpoint, cli=cli, config=config, coords=coords,
         costmodel=costmodel, cuda_round=cuda_round, faults=faults,
         flight=flight, graft_entry=graft_entry, mesh=mesh, metrics=metrics,
         params=params, prng=prng, round=round, scenarios=scenarios,
-        state=state, sweep=sweep, topology=topology, views=views)
+        state=state, sweep=sweep, telemetry=telemetry, topology=topology,
+        twin=twin, views=views)
 
 
 def main() -> int:
@@ -1961,7 +2217,8 @@ def main() -> int:
                  phase_resume(torch, m, dev, root))
         phase_mesh(torch, m, dev, os.path.join(root, "mesh"))
         parts += (phase_tune(torch, m, dev, os.path.join(root, "records"),
-                             headline),)
+                             headline),
+                  phase_seams(torch, m, dev, root))
     for part in parts:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v

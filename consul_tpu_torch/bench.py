@@ -100,6 +100,12 @@ same backend, size and schedule, as measured; ``collectives`` is the
 run's count (2 + one per window, + 1 under overlap), asserted. The
 payload is recorded as the next MULTICHIP record.
 
+The digital twin has two library functions and no flag, because its
+agent half is the control plane's and the caller builds it:
+``run_twin_bench`` runs the soak ladder (``sim/twin.py``) and records a
+full run as the next TWIN record, and ``check_twin_regression`` re-runs
+the newest TWIN record's smoke guard under the same band.
+
 Records and the winner cache live in ``consul_tpu_torch/records/``, or
 in ``$CONSUL_TPU_TORCH_RECORD_ROOT``; never in the repository's root,
 whose ``*_r*.json`` records are the JAX package's.
@@ -128,6 +134,7 @@ from consul_tpu_torch.sim import autotune as autotune_mod
 from consul_tpu_torch.sim import costmodel, prng, registry
 from consul_tpu_torch.sim import mesh as mesh_mod
 from consul_tpu_torch.sim import scenarios
+from consul_tpu_torch.sim import twin as twin_mod
 from consul_tpu_torch.sim.blackbox import default_tracked
 from consul_tpu_torch.sim.checkpoint import (PREEMPTED_RC, PreemptionGuard,
                                              ProgressManifest)
@@ -982,6 +989,160 @@ def run_autotune(smoke: bool, root: Optional[str] = None) -> dict:
           f"[{autotune_mod.cache_key(rec['platform'], n)}]",
           file=sys.stderr)
     return rec
+
+
+
+#: --family TWIN's metric: 1000 / converge_rounds of the smoke guard
+TWIN_METRIC = "twin_converge_speed"
+#: wall seconds a full-ladder twin rung may take (projected from the
+#: rung before it, linear in n) before it is skipped
+TWIN_BUDGET_ENV = "CONSUL_TPU_TORCH_TWIN_RUNG_BUDGET_S"
+
+
+def run_twin_bench(smoke: bool, build, load, ckpt_dir: Optional[str] = None,
+                   resume: bool = False, samples: int = 3,
+                   guard: Optional[PreemptionGuard] = None) -> dict:
+    """The digital-twin soak ladder (``sim/twin.py``) for a caller who
+    can build the agent half (``build``, ``load``: see
+    ``twin.run_twin_soak``). The ladder is ``twin.TWIN_LADDER`` on the
+    card (``smoke``: ``TWIN_SMOKE_N`` on the CPU); a rung projected from
+    the last measured one to exceed the rung budget (120 s smoke, else
+    ``$CONSUL_TPU_TORCH_TWIN_RUNG_BUDGET_S`` or 900 s) is an honest
+    skip naming why, as is one that runs out of memory. Then
+    ``samples`` smoke-guard soaks give the ``smoke_guard`` envelope the
+    TWIN regression guard compares with.
+
+    With ``ckpt_dir`` each rung checkpoints under ``ckpt_dir/n<N>`` and
+    a ``ProgressManifest`` keeps the finished rungs; a tripped guard
+    (``guard``, else a SIGTERM/SIGINT guard installed here) returns
+    ``{"preempted": True, ...}`` and ``resume`` finishes the ladder. A
+    full (not smoke) payload with a measured rung is recorded as the
+    next TWIN record under the record root."""
+    dev = torch.device("cpu") if smoke else default_device()
+    metric = "twin_soak" + ("_smoke" if smoke else "")
+    ladder = [twin_mod.TWIN_SMOKE_N] if smoke else list(twin_mod.TWIN_LADDER)
+    budget_s = 120.0 if smoke else float(
+        os.environ.get(TWIN_BUDGET_ENV, "900"))
+    own_guard = guard is None
+    if own_guard:
+        guard = PreemptionGuard().install()
+    manifest = ProgressManifest(
+        ckpt_dir, name="twin-progress.json",
+        config={"smoke": smoke, "ladder": ladder}) if ckpt_dir else None
+    rungs: list = []
+    prev: Optional[dict] = None   # the last MEASURED rung
+    preempted_at = None
+    try:
+        for n in ladder:
+            unit = f"n{n}"
+            if manifest is not None and manifest.done(unit):
+                rungs.append(manifest.result(unit))
+                if not rungs[-1].get("skipped"):
+                    prev = rungs[-1]
+                continue
+            if guard.preempted:
+                preempted_at = n
+                break
+            if prev is not None:
+                used = prev.get("join_s", 0) + prev.get("soak_wall_s", 0)
+                projected = used * (n / max(prev["n"], 1))
+                if projected > budget_s:
+                    rung = {"n": n, "skipped": True,
+                            "reason": f"projected {projected:.0f}s wall "
+                                      f"from the n={prev['n']} rung's "
+                                      f"{used:.0f}s exceeds the "
+                                      f"{budget_s:.0f}s rung budget"}
+                    rungs.append(rung)
+                    if manifest is not None:
+                        manifest.mark(unit, rung)
+                    print(f"twin rung n={n}: SKIPPED ({rung['reason']})",
+                          file=sys.stderr)
+                    continue
+            try:
+                rung = twin_mod.run_twin_soak(
+                    n, build, load, seed=0, guard=guard,
+                    ckpt_dir=os.path.join(ckpt_dir, unit) if ckpt_dir
+                    else None, resume=resume, device=dev,
+                    progress=lambda msg: print(f"twin {msg}",
+                                               file=sys.stderr))
+            except (MemoryError, torch.cuda.OutOfMemoryError):
+                rung = {"n": n, "skipped": True,
+                        "reason": "out of memory building the twin"}
+            if rung.get("preempted"):
+                preempted_at = n
+                break
+            rungs.append(rung)
+            if manifest is not None and not rung.get("skipped"):
+                manifest.mark(unit, rung)
+            if not rung.get("skipped"):
+                prev = rung
+    finally:
+        if own_guard:
+            guard.uninstall()
+    if preempted_at is not None:
+        return {"metric": metric, "preempted": True,
+                "preempted_rung": preempted_at, "ladder": rungs}
+    print("twin: measuring the smoke-guard envelope", file=sys.stderr)
+    payload = {
+        "metric": metric, "platform": dev.type,
+        "device": device_name(dev), "loadavg_1m": _loadavg_1m(),
+        "smoke": smoke, "ladder": rungs,
+        "smoke_guard": twin_mod.smoke_guard_samples(
+            build, load, samples=samples,
+            n=min(twin_mod.TWIN_SMOKE_N, min(ladder)), device=dev)}
+    # a smoke ladder checks the workflow; only full runs are records
+    if not smoke and any(not r.get("skipped") for r in rungs):
+        _record_next("TWIN", payload)
+    return payload
+
+
+def check_twin_regression(records: list, build, load, smoke: bool,
+                          samples: int = 3,
+                          metric: Optional[str] = None) -> int:
+    """The TWIN regression guard: re-run the newest TWIN record's
+    smoke-guard workload (same n and rounds) ``samples`` times and hold
+    its convergence speed (``TWIN_METRIC``, higher is better) against
+    the record under ``costmodel.check_regression``'s band. Prints one
+    JSON line; returns 0 pass or unstable, 1 regression (a sample that
+    never converged is one), 2 no baseline, a workload that no longer
+    matches it, or another metric."""
+    if metric not in (None, TWIN_METRIC):
+        print(f"--family TWIN guards {TWIN_METRIC!r} (1000/converge_rounds "
+              f"of the recorded smoke-guard workload); it cannot measure "
+              f"{metric!r}", file=sys.stderr)
+        return 2
+    base = costmodel.latest_twin_guard(records)
+    if base is None:
+        print("--family TWIN: no recorded TWIN record with a smoke_guard; "
+              "a baseline is never fabricated", file=sys.stderr)
+        return 2
+    plan = twin_mod.smoke_guard_plan(base["n"])
+    if plan.total_rounds != base["rounds"]:
+        print(f"--family TWIN: the recorded smoke_guard ran "
+              f"{base['rounds']} rounds but today's guard plan has "
+              f"{plan.total_rounds}; the workloads no longer match",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cpu") if smoke else default_device()
+    speeds = []
+    for i in range(samples):
+        rung = twin_mod.run_twin_soak(base["n"], build, load, seed=100 + i,
+                                      plan=plan, load_clients=2,
+                                      serve_http=False, device=dev)
+        if rung["member_view_err_post_heal"] > twin_mod.CONVERGE_TOL:
+            print(json.dumps({
+                "metric": TWIN_METRIC, "verdict": "regression",
+                "reason": "fresh sample never converged (view err "
+                          f"{rung['member_view_err_post_heal']})",
+                "baseline_file": base["file"]}))
+            return 1
+        speeds.append(1000.0 / max(rung["converge_rounds"], 1))
+    res = costmodel.check_regression(
+        speeds, 1000.0 / max(base["converge_rounds"], 1))
+    print(json.dumps({"metric": TWIN_METRIC, "platform": dev.type,
+                      "loadavg_1m": _loadavg_1m(),
+                      "baseline_file": base["file"], **res}))
+    return 1 if res["verdict"] == "regression" else 0
 
 
 #: --mesh: per-rank populations, rounds a call, and the rungs each

@@ -1,6 +1,11 @@
-"""The port's twin of the JAX package's multi-device dry run.
+"""The port's twins of the JAX package's entry points in __graft_entry__.py.
 
     python -m consul_tpu_torch.graft_entry [N_DEVICES] [--device cpu]
+
+``entry()`` is the counterpart of ``__graft_entry__.entry``: ``(fn,
+args)`` with ``fn(state, key)`` one ``round.gossip_round`` over 65,536
+nodes at ``SimParams(n=65_536, loss=0.01)`` and ``args`` the initial
+state and ``prng.key(0)`` on the card (or the ``device`` given).
 
 ``dryrun_multichip(n_devices)`` is the counterpart of
 ``__graft_entry__.dryrun_multichip``: ``n_devices`` ranks (gloo, on the
@@ -22,8 +27,25 @@ import sys
 from consul_tpu_torch.sim import mesh as mesh_mod
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim.round import gossip_round
+from consul_tpu_torch.sim.state import init_state
 from consul_tpu_torch.sim.views import make_sharded_views_round
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
+
+#: entry()'s population
+ENTRY_N = 65_536
+
+
+def entry(device: DeviceLike = None):
+    """(fn, example_args): one SWIM gossip round over ``ENTRY_N`` virtual
+    members, the flagship workload's inner loop."""
+    dev = default_device(device)
+    p = SimParams(n=ENTRY_N, loss=0.01)
+
+    def fn(state, key):
+        return gossip_round(state, key, p)
+
+    return fn, (init_state(p.n, device=dev), prng.key(0, device=dev))
 
 
 def _dryrun_rank(mesh: mesh_mod.Mesh, n_devices: int) -> dict:

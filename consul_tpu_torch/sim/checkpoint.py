@@ -207,12 +207,16 @@ def snapshot(p: SimParams, key: torch.Tensor, state: SimState, *,
              engine: str, total_rounds: int, lanes=None, scalars=None,
              table=None, flight=None, blackbox=None, coords=None,
              topo=None, plan=None, record_every: Optional[int] = None,
-             rounds_per_call: int = 1) -> Snapshot:
+             rounds_per_call: int = 1,
+             plan_digest: Optional[str] = None) -> Snapshot:
     """A Snapshot of a run's cut, copied to the host now (the engines
     update their tensors in place). The cut must land on a ``stale_k``
     window end, a flight stride (``record_every``) and a kernel call
     boundary (``rounds_per_call``), and no packed lane may be saturated:
-    each is refused by name."""
+    each is refused by name. ``plan_digest`` is ``faults.plan_digest(
+    plan)`` when the caller has it: the digest hashes every byte of the
+    plan (143 MB at 1M nodes), so a run that cuts often computes it
+    once."""
     cursor = int(state.round_idx)
     if cursor % p.stale_k:
         raise ValueError(
@@ -255,7 +259,8 @@ def snapshot(p: SimParams, key: torch.Tensor, state: SimState, *,
     return Snapshot(
         engine=engine, round_cursor=cursor, total_rounds=total_rounds,
         base_key=_np(key).astype(np.uint32), params=params_fields(p),
-        plan_digest=_plan_digest(plan), arrays=arrays)
+        plan_digest=_plan_digest(plan) if plan_digest is None
+        else plan_digest, arrays=arrays)
 
 
 def snapshot_mesh(p: SimParams, key: torch.Tensor, state: SimState,
@@ -622,6 +627,8 @@ def run_resumable(p: SimParams, rounds: int, key=None, *, seed: int = 0,
     def trace():
         return np.concatenate(flight_parts) if flight_parts else None
 
+    digest = _plan_digest(plan) if ckpt_dir else None
+
     def save_cut(st) -> Optional[str]:
         if not ckpt_dir:
             return None
@@ -629,8 +636,8 @@ def run_resumable(p: SimParams, rounds: int, key=None, *, seed: int = 0,
             p, key, st, engine=engine, total_rounds=rounds, lanes=lv,
             scalars=sc, table=table, flight=trace(), blackbox=bb,
             coords=coords, topo=topo, plan=plan,
-            record_every=flight_every, rounds_per_call=R),
-            keep_last=keep_last)
+            record_every=flight_every, rounds_per_call=R,
+            plan_digest=digest), keep_last=keep_last)
 
     runners: dict[tuple, Any] = {}
 

@@ -39,6 +39,8 @@ layers:
   ``check_regression`` compares fresh samples against the latest record
   of a metric under the median+IQR refusal band. The validators are the
   reference's, so a record either package writes, the other accepts.
+  ``latest_twin_guard``, ``latest_users_guard`` and
+  ``latest_raft_guard`` read the baseline each family's guard re-runs.
 """
 
 from __future__ import annotations
@@ -1288,6 +1290,63 @@ def latest_profile_util(records: list[dict]
                 "smoke": bool(rec["data"].get("smoke")),
                 "n": rec["data"].get("n")}
     return None
+
+
+def _newest_first(records: list[dict], family: str) -> list[dict]:
+    return sorted((r for r in records if r["family"] == family),
+                  key=lambda r: r["round"], reverse=True)
+
+
+def latest_twin_guard(records: list[dict]) -> Optional[dict[str, Any]]:
+    """The newest TWIN record's smoke-guard envelope — the
+    ``--family TWIN`` baseline: {file, round, n, rounds,
+    converge_rounds, samples}. The guard re-runs the smoke-scale twin of
+    the same n and rounds and compares convergence rounds. None when no
+    TWIN record carries one."""
+    for rec in _newest_first(records, "TWIN"):
+        sg = rec["data"].get("smoke_guard")
+        if sg:
+            return {"file": rec["file"], "round": rec["round"], **sg}
+    return None
+
+
+def _latest_rung_guard(records: list[dict], family: str,
+                       workload: str) -> Optional[dict[str, Any]]:
+    """The newest ``family`` record's headline rung: {file, round,
+    target_rps, <workload>, value}, ``value`` the measured rung's
+    achieved req/s at the headline's target rate and ``workload`` the
+    record's description of what the guard re-runs."""
+    for rec in _newest_first(records, family):
+        d = rec["data"]
+        hr = d.get("headline_rung")
+        if not hr:
+            continue
+        target = hr.get("target_rps")
+        rung = next((r for r in d.get("ladder", ())
+                     if not r.get("skipped")
+                     and r.get("target_rps") == target), None)
+        if rung is None:
+            continue
+        return {"file": rec["file"], "round": rec["round"],
+                "target_rps": target, workload: d.get(workload, {}),
+                "value": rung.get("achieved_rps")}
+    return None
+
+
+def latest_users_guard(records: list[dict]) -> Optional[dict[str, Any]]:
+    """The newest USERS record's re-measurement envelope: {file, round,
+    target_rps, engine, value} — the admitted req/s of the recorded
+    headline rung and the open-loop rate and virtual-user population
+    that produced it. None when no USERS record has one."""
+    return _latest_rung_guard(records, "USERS", "engine")
+
+
+def latest_raft_guard(records: list[dict]) -> Optional[dict[str, Any]]:
+    """The newest RAFT record's re-measurement envelope: {file, round,
+    target_rps, cluster, value} — the PUT req/s of the recorded headline
+    rung and the rate, server count and durability mode that produced
+    it. None when no RAFT record has one."""
+    return _latest_rung_guard(records, "RAFT", "cluster")
 
 
 def check_regression(samples: list[float], baseline: float,

@@ -18,7 +18,9 @@ writes row ``i // record_every`` at the end of each decimation window
 The reference decides in a ``lax.cond`` whether a round ends a window;
 here the round index is known on the host, so ``maybe_record`` is a
 Python branch and skipped rounds launch nothing. The trace is fetched
-once, after the run (``trace_columns``).
+once, after the run (``trace_columns``). ``FlightPublisher`` and
+``publish_report`` turn traces and reports into ``sim.*`` counters and
+gauges of a metrics registry (``utils.telemetry.default`` by default).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import registry
 from consul_tpu_torch.sim.state import (DEAD, STATS_FIELDS, SUSPECT,
                                         SimStats, stats_vector)
+from consul_tpu_torch.utils import telemetry
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
 #: default decimation stride
@@ -215,3 +218,48 @@ def stats_from_trace(trace) -> SimStats:
     stats — what ``metrics.phase_reports`` reads."""
     tr = _host(trace).astype(np.float64)
     return SimStats(**{f: np.cumsum(tr[:, COL[f]]) for f in STATS_FIELDS})
+
+
+# ------------------------------------------------------------ publish
+
+
+class FlightPublisher:
+    """Publish flight traces into a metrics registry (``incr`` and
+    ``gauge``; ``utils.telemetry.default`` unless one is given).
+
+    Gauge columns become ``<prefix>.<col>`` gauges, set from the trace's
+    last row; counter columns are per-window deltas, so a trace's column
+    sum increments the ``<prefix>.<col>`` counter by that trace's events
+    (a zero sum is not published). Publish each trace once: disjoint
+    traces, as a chunked run gives, keep the registry's totals the
+    run's. Coordinate gauges are set only for a trace whose coordinate
+    columns are not all zero (a zero-filled ``rtt_err_med`` would read
+    as a converged estimator, not as off)."""
+
+    def __init__(self, metrics=None, prefix: str = "sim") -> None:
+        self.metrics = telemetry.default if metrics is None else metrics
+        self.prefix = prefix
+
+    def publish_trace(self, trace) -> None:
+        tr = _host(trace).astype(np.float64)
+        if not tr.shape[0]:
+            return
+        for name in GAUGE_COLUMNS:
+            self.metrics.gauge(f"{self.prefix}.{name}",
+                               float(tr[-1, COL[name]]))
+        for f in STATS_FIELDS:
+            total = float(tr[:, COL[f]].sum())
+            if total:
+                self.metrics.incr(f"{self.prefix}.{f}", total)
+        if tr[:, [COL[c] for c in COORD_COLUMNS]].any():
+            for name in COORD_COLUMNS:
+                self.metrics.gauge(f"{self.prefix}.{name}",
+                                   float(tr[-1, COL[name]]))
+
+
+def publish_report(report, metrics=None, prefix: str = "sim") -> None:
+    """Publish an FDReport's numeric fields as ``<prefix>.fd.*`` gauges."""
+    metrics = telemetry.default if metrics is None else metrics
+    for k, v in report.to_dict().items():
+        if isinstance(v, (int, float)):
+            metrics.gauge(f"{prefix}.fd.{k}", float(v))

@@ -140,7 +140,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_sources()
     assert len(files) > 10 and all(f.exists() for f in files)
     assert {"lanes.py", "sweep.py", "costmodel.py", "autotune.py",
-            "mesh.py", "views.py", "graft_entry.py"} <= \
+            "mesh.py", "views.py", "graft_entry.py", "twin.py", "cli.py",
+            "telemetry.py"} <= \
         {f.name for f in files}
     bad = []
     for f in files:
