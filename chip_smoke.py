@@ -167,7 +167,27 @@ non-zero before the result line):
               (d) graft_entry.entry(): one round at 65,536 nodes,
               round_idx 1; (e) cli.capture_flight_trace(64, 20): its
               columns and one row a round.
-11. timing  — each kernel's time per launch (device time: CUDA events
+11. graphs  — the compiled-run contract: every captured runner beside
+              its explicit eager run (``graphs.eager()``) on the same
+              inputs at 1,048,576 nodes, failing on any bit of
+              difference in state, stats, trace, rings or scalars and
+              on any difference in launch counts: the per-round and R=8
+              kernel runners in 48- and 512-round calls, the per-round
+              runner with the flight recorder and black box, the CLI's
+              default mode (``cli.default_run``), a chunk of the twin's
+              sim half (fault plan, carried scalars), the live engine
+              (``round.make_run_rounds``), the lane engine (stale_k 4,
+              flight) and two grid rounds of the lan grid (64 x 65,536)
+              on the xla and lanes engines. A key's first call runs
+              eagerly and its second is the capture: the second call
+              and a replay-only call are both compared. Each prints
+              wall ms a call (the first two apart), µs a round, the
+              device's busy share and busy µs from torch.profiler,
+              capture ms and the
+              bytes the capture added to the graph pool; and a
+              torch.profiler trace of one eager 48-round call (host ms
+              by op). The earlier phases run the captured paths.
+12. timing  — each kernel's time per launch (device time: CUDA events
               around replays of a CUDA graph of launches), its plain
               version's time, and its bound (``kernel_bound``) from the
               bytes it must move and the operations it must do; the
@@ -1315,8 +1335,8 @@ CUDA_CONFIGS = ("cuda", "cuda-x4", "cuda-x8")
 
 
 def tune_launches(rows, rounds, reps, variant) -> dict:
-    """The launches ``measure_config``'s kernel-runner rows make: a
-    warm-up call and ``reps`` timed calls of ``rounds`` rounds each,
+    """The launches ``measure_config``'s kernel-runner rows make: two
+    warm-up calls and ``reps`` timed calls of ``rounds`` rounds each,
     ``rounds / R`` launches a call (R=1 ``round_kernel``, else
     ``mega_kernel``)."""
     want = {}
@@ -1325,7 +1345,7 @@ def tune_launches(rows, rounds, reps, variant) -> dict:
             continue
         r = row["rounds_per_call"]
         name = f"{'round' if r == 1 else 'mega'}_kernel/{variant}"
-        want[name] = want.get(name, 0) + (1 + reps) * rounds // r
+        want[name] = want.get(name, 0) + (2 + reps) * rounds // r
     return want
 
 
@@ -2045,6 +2065,240 @@ def phase_seams(torch, m, dev, root):
     return launches
 
 
+GRAPH_CALL_ROUNDS = (48, 512)
+GRAPH_REPS = 3
+GRAPH_LANE_ROUNDS, GRAPH_LANE_K = 8, 4
+GRAPH_GRID_ROUNDS = 2
+GRAPH_TWIN_WARM = 5
+GRAPH_TRACE_TOP = 12
+
+
+def _tensor_leaves(torch, out) -> list:
+    from torch.utils._pytree import tree_flatten
+    return [x for x in tree_flatten(out)[0] if isinstance(x, torch.Tensor)]
+
+
+def _bit_diffs(torch, a, b) -> list:
+    """Indices of the output leaves that differ in dtype, shape or bits."""
+    la, lb = _tensor_leaves(torch, a), _tensor_leaves(torch, b)
+    if len(la) != len(lb):
+        return [f"{len(la)} leaves against {len(lb)}"]
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if x.dtype != y.dtype or x.shape != y.shape
+            or not torch.equal(x, y)]
+
+
+def _timed_call(torch, m, dev, prep, call) -> tuple:
+    """One call on fresh inputs (made outside the clock), ending in a
+    sync: (its outputs, wall ms)."""
+    args = prep()
+    m.bench._sync(torch.device(dev))
+    t0 = time.perf_counter()
+    out = call(*args)
+    m.bench._sync(torch.device(dev))
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def graph_pair(torch, m, dev, label, prep, call, rounds, cache=None,
+               profile=True) -> tuple:
+    """The captured runner ``call`` beside its explicit eager run on the
+    same inputs (``prep()`` makes fresh ones). On the default path a
+    key's first call runs eagerly and its second is the capture: the
+    second call and the first replay-only call are compared with the
+    eager run, bits of every output and launch counts. Wall ms a call
+    (the first two apart), per round, the device's busy share of each,
+    the capture's ms and pool bytes (``profile=False`` leaves out the
+    busy shares). Returns (report, failures, captured launches)."""
+    cr, g = m.cuda_round, m.graphs
+    cr.reset_launches()
+    with g.eager():
+        want, eager_first = _timed_call(torch, m, dev, prep, call)
+    eager_launches = dict(cr.LAUNCHES)
+    _, first = _timed_call(torch, m, dev, prep, call)
+    cr.reset_launches()
+    got, second = _timed_call(torch, m, dev, prep, call)
+    launches = dict(cr.LAUNCHES)
+    diffs = _bit_diffs(torch, want, got)
+    del got
+    eager_ms, graph_ms, replay_launches = [], [], None
+    for i in range(GRAPH_REPS):
+        with g.eager():
+            eager_ms.append(_timed_call(torch, m, dev, prep, call)[1])
+        cr.reset_launches()
+        out, ms = _timed_call(torch, m, dev, prep, call)
+        graph_ms.append(ms)
+        if i == 0:
+            replay_launches = dict(cr.LAUNCHES)
+            diffs += [f"replay {d}" for d in _bit_diffs(torch, want, out)]
+        del out
+    del want
+    busy = {"eager": {}, "captured": {}}
+    for name, ctx in (("eager", g.eager), ("captured",
+                                           contextlib.nullcontext)):
+        if not profile:
+            break
+        args = prep()
+        with ctx():
+            _, prof = m.bench.profile_call(lambda: call(*args), rounds,
+                                           torch.device(dev))
+        busy[name] = {k: prof.get(k) for k in
+                      ("busy_share", "device_busy_us", "kernels_per_round",
+                       "wall_us_per_round")}
+    eager_med = sorted(eager_ms)[GRAPH_REPS // 2]
+    graph_med = sorted(graph_ms)[GRAPH_REPS // 2]
+    rep = {"rounds": rounds, "bit_diffs": diffs,
+           "launches": launches, "eager_launches": eager_launches,
+           "eager": {"first_call_ms": eager_first, "ms_per_call": eager_ms,
+                     "us_per_round": eager_med / rounds * 1e3,
+                     **busy["eager"]},
+           "captured": {"first_call_ms": first, "second_call_ms": second,
+                        "ms_per_call": graph_ms,
+                        "us_per_round": graph_med / rounds * 1e3,
+                        **busy["captured"]}}
+    if cache is not None:
+        rep["captured"]["graphs"] = cache.stats()
+    bad = []
+    if diffs:
+        bad.append(f"{label}: captured outputs differ from the eager "
+                   f"run's in leaves {diffs}")
+    for which, got_l in (("captured", launches), ("replayed",
+                                                  replay_launches)):
+        if got_l != eager_launches:
+            bad.append(f"{label}: {which} launches {got_l}, eager "
+                       f"{eager_launches}")
+    return rep, bad, launches
+
+
+def eager_call_trace(torch, m, dev, n=N,
+                     rounds=GRAPH_CALL_ROUNDS[0]) -> dict:
+    """Where an eager 48-round call of the per-round runner spends its
+    host time: ``torch.profiler`` over one call at 1,048,576 nodes (the
+    profiler's own cost inflates it), the ops with the most self CPU
+    time and the CUDA runtime calls, beside the untraced call's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run = m.cuda_round.make_run_rounds_cuda(m.bench.headline_params(n),
+                                            rounds)
+    key = m.prng.key(41, device=dev)
+    state = m.state.init_state(n, device=dev)
+    with m.graphs.eager():
+        run(state, key)
+        m.bench._sync(torch.device(dev))
+        t0 = time.perf_counter()
+        run(state, m.prng.fold_in(key, 1))
+        m.bench._sync(torch.device(dev))
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(state, m.prng.fold_in(key, 2))
+            m.bench._sync(torch.device(dev))
+            traced = (time.perf_counter() - t0) * 1e3
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"rounds": rounds, "wall_ms": wall, "traced_wall_ms": traced,
+            "host_self_ms_by_op": {
+                e.key: {"self_ms": e.self_cpu_time_total / 1e3,
+                        "count": e.count}
+                for e in rows[:GRAPH_TRACE_TOP]}}
+
+
+def graph_cases(torch, m, dev, n=N, call_rounds=GRAPH_CALL_ROUNDS,
+                grid_n=None) -> list:
+    """(label, prep, call, rounds, cache) of each captured runner the
+    phase holds against its eager run, at ``n`` nodes (the grid at the
+    sweep bench's size unless ``grid_n``)."""
+    b, cr, key = m.bench, m.cuda_round, m.prng.key(43, device=dev)
+    cases = []
+    for R in (1, MEGA_R):
+        for rounds in call_rounds:
+            run = cr.make_run_rounds_cuda(b.headline_params(n), rounds,
+                                          rounds_per_call=R)
+            s0 = m.state.init_state(n, device=dev)
+
+            def prep(s0=s0):
+                return b.clone_state(s0), key
+
+            cases.append((f"kernel R={R} x{rounds}", prep, run, rounds,
+                          run.graphs))
+    p_diag = b.diag_params(n)
+    rec = cr.make_run_rounds_cuda(p_diag, call_rounds[0], flight_every=4,
+                                  blackbox=True)
+    tracked = m.blackbox.default_tracked(n, p_diag.blackbox_k, dev)
+    s0 = m.state.init_state(n, device=dev)
+    cases.append((f"kernel R=1 x{call_rounds[0]} flight+blackbox",
+                  lambda: (b.clone_state(s0), key),
+                  lambda s, k: rec(s, k, tracked=tracked),
+                  call_rounds[0], rec.graphs))
+    p_cli = m.params.SimParams.from_gossip_config(
+        m.config.GossipConfig.local(), n=n, loss=0.01)
+    cases.append(("cli default mode", lambda: (), lambda: m.cli.default_run(
+        p_cli, dev), m.cli.SIM_ROUNDS, None))
+    tw = m.twin
+    sim = tw.SimHalf(n, tw.twin_plan(n), seed=0, chunk=SEAMS_TWIN_CHUNK,
+                     device=dev)
+    for _, _ in zip(range(GRAPH_TWIN_WARM), sim.chunks()):
+        pass
+    twin_run = sim._runner(SEAMS_TWIN_CHUNK)
+    ts, tsc = b.clone_state(sim.state), sim.scalars.clone()
+    cases.append((f"twin sim half chunk at round {sim.cursor}",
+                  lambda: (b.clone_state(ts), sim.key, tsc.clone()),
+                  lambda s, k, sc: twin_run(s, k, scalars0=sc),
+                  SEAMS_TWIN_CHUNK, twin_run.graphs))
+    live = m.round.make_run_rounds(p_diag, GRAPH_LANE_ROUNDS)
+    cases.append(("live engine", lambda: (b.clone_state(s0), key), live,
+                  GRAPH_LANE_ROUNDS, live.graphs))
+    lane = m.round.make_run_rounds_lanes(
+        p_diag.with_(stale_k=GRAPH_LANE_K), GRAPH_LANE_ROUNDS,
+        flight_every=GRAPH_LANE_K, carry=True)
+    cases.append((f"lane engine stale_k={GRAPH_LANE_K}",
+                  lambda: (b.clone_state(s0), key), lane,
+                  GRAPH_LANE_ROUNDS, lane.graphs))
+    n_grid = grid_n or b.SWEEP_SIZE[0]
+    p_grid = m.scenarios.autotune_params("lan", n_grid)
+    tp, _ = m.params.grid_params(
+        p_grid, m.params.SweepAxes.of(**b.AUTOTUNE_GRID), dev)
+    for engine in ("xla", "lanes"):
+        grid = m.sweep.make_run_sweep(p_grid, GRAPH_GRID_ROUNDS,
+                                      engine=engine, device=dev)
+        cases.append((f"grid round {engine} {tp.grid_shape[0]} x {n_grid}",
+                      lambda: (tp, key), grid, GRAPH_GRID_ROUNDS,
+                      grid.graphs))
+    return cases
+
+
+def graphs_parts(torch, m, dev, profile=True, **sizes) -> tuple:
+    """The phase's parts at ``sizes`` (``graph_cases``' keywords), with
+    or without the busy shares: (report, failures, captured
+    launches)."""
+    out, bad, launches = {}, [], {}
+    out["eager_call_trace"] = eager_call_trace(
+        torch, m, dev, n=sizes.get("n", N),
+        rounds=sizes.get("call_rounds", GRAPH_CALL_ROUNDS)[0])
+    for label, prep, call, rounds, cache in graph_cases(torch, m, dev,
+                                                        **sizes):
+        t1 = time.perf_counter()
+        out[label], b, got = graph_pair(torch, m, dev, label, prep, call,
+                                        rounds, cache, profile=profile)
+        bad += b
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"graphs: {label} {time.perf_counter() - t1:.1f} s",
+              file=sys.stderr, flush=True)
+    return out, bad, launches
+
+
+def phase_graphs(torch, m, dev):
+    """Every captured runner beside its eager run at 1,048,576 nodes."""
+    t0 = time.perf_counter()
+    out, bad, launches = graphs_parts(torch, m, dev)
+    if bad:
+        raise SmokeFailure("graphs: " + "; ".join(bad))
+    emit({"phase": "graphs", "n": N, "nvidia_smi": nvidia_smi(),
+          "phase_s": time.perf_counter() - t0, **out,
+          "launches": launches})
+    return launches
+
+
 def _events_ms(torch, fn, reps, warm=2):
     for _ in range(warm):
         fn()
@@ -2177,8 +2431,8 @@ def modules():
 
     from consul_tpu_torch import bench, cli, config, faults, graft_entry
     from consul_tpu_torch.sim import (autotune, blackbox, checkpoint, coords,
-                                      costmodel, cuda_round, flight, mesh,
-                                      metrics, params, prng, round,
+                                      costmodel, cuda_round, flight, graphs,
+                                      mesh, metrics, params, prng, round,
                                       scenarios, state, sweep, topology,
                                       twin, views)
     from consul_tpu_torch.utils import telemetry
@@ -2187,7 +2441,8 @@ def modules():
         autotune=autotune, bench=bench, blackbox=blackbox,
         checkpoint=checkpoint, cli=cli, config=config, coords=coords,
         costmodel=costmodel, cuda_round=cuda_round, faults=faults,
-        flight=flight, graft_entry=graft_entry, mesh=mesh, metrics=metrics,
+        flight=flight, graft_entry=graft_entry, graphs=graphs, mesh=mesh,
+        metrics=metrics,
         params=params, prng=prng, round=round, scenarios=scenarios,
         state=state, sweep=sweep, telemetry=telemetry, topology=topology,
         twin=twin, views=views)
@@ -2218,7 +2473,8 @@ def main() -> int:
         phase_mesh(torch, m, dev, os.path.join(root, "mesh"))
         parts += (phase_tune(torch, m, dev, os.path.join(root, "records"),
                              headline),
-                  phase_seams(torch, m, dev, root))
+                  phase_seams(torch, m, dev, root),
+                  phase_graphs(torch, m, dev))
     for part in parts:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v

@@ -128,10 +128,9 @@ from typing import Optional
 import torch
 
 from consul_tpu_torch.config import GossipConfig
-from consul_tpu_torch.faults import (compile_plan, fault_frame,
-                                     plan_schedule, scale_plan)
+from consul_tpu_torch.faults import compile_plan, frame_at, scale_plan
 from consul_tpu_torch.sim import autotune as autotune_mod
-from consul_tpu_torch.sim import costmodel, prng, registry
+from consul_tpu_torch.sim import costmodel, graphs, prng, registry
 from consul_tpu_torch.sim import mesh as mesh_mod
 from consul_tpu_torch.sim import scenarios
 from consul_tpu_torch.sim import twin as twin_mod
@@ -206,6 +205,23 @@ def _best_of(run, state, key, base, iters, trials, dev):
     return best, state
 
 
+def _first_calls(run, state, key, dev) -> tuple:
+    """The runner's first two calls apart from the timed ones, as the JAX
+    bench splits compile from dispatch: the first (eager: the kernels'
+    build and lazy caches) and, on the card, the second (its CUDA
+    graph's capture, then a replay): (state, {first_call_ms,
+    second_call_ms, capture_ms})."""
+    c0 = graphs.CAPTURES["ms"]
+    ms = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        state = run(state, prng.fold_in(key, i))
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, {"first_call_ms": ms[0], "second_call_ms": ms[1],
+                   "capture_ms": graphs.CAPTURES["ms"] - c0}
+
+
 def recorder_runners(p: SimParams, rounds: int, n: int, dev):
     """The full-model per-round runner bare, with the flight recorder at
     the default stride, and with the black box on top, each as
@@ -253,25 +269,25 @@ def run_headline(device=None, smoke: bool = False,
 
     state = init_state(n, device=dev)
     run = make_run_rounds_cuda(p, chunk)
-    state = run(state, prng.fold_in(key, 1))   # warm-up (build, caches)
-    _sync(dev)
+    # warm-up: the kernels' build and the graph's capture
+    state, first = _first_calls(run, state, prng.fold_in(key, 1), dev)
     dt, state = _best_of(run, state, key, 10, iters, trials, dev)
     rounds = chunk * iters
     out["per_round"] = {"kernel": "round_kernel/stable", "chunk": chunk,
                         "rounds_per_sec": rounds / dt,
                         "us_per_round": dt / rounds * 1e6,
-                        "launches_per_round": 1.0}
+                        "launches_per_round": 1.0, **first}
 
     mega = make_run_rounds_cuda(p, mega_chunk, rounds_per_call=MEGA_RPC)
-    mstate = mega(clone_state(state), prng.fold_in(key, 3000))
-    _sync(dev)
+    mstate, first = _first_calls(mega, clone_state(state),
+                                 prng.fold_in(key, 3000), dev)
     mdt, mstate = _best_of(mega, mstate, key, 3001, iters, trials, dev)
     rounds = mega_chunk * iters
     out["mega"] = {"kernel": "mega_kernel/stable", "chunk": mega_chunk,
                    "rounds_per_call": MEGA_RPC,
                    "rounds_per_sec": rounds / mdt,
                    "us_per_round": mdt / rounds * 1e6,
-                   "launches_per_round": 1.0 / MEGA_RPC}
+                   "launches_per_round": 1.0 / MEGA_RPC, **first}
 
     # the full model: stats lanes + slow-node model
     diag = make_run_rounds_cuda(p_diag, diag_chunk)
@@ -388,7 +404,8 @@ def run_chaos_suite(device=None, smoke: bool = False,
     of the run (runner calls and report reads, ending in a sync). Each
     class runs twice from the same seed, which gives the same report:
     the first run builds the kernels and loads PyTorch's, and only the
-    second is timed.
+    second is timed. A run builds its own runner and calls it once, so
+    it runs eagerly (a CUDA graph is captured on a key's second call).
 
     With ``ckpt_dir`` (or a ``guard``) the suite is
     ``scenarios.run_chaos_suite``'s checkpointed run instead: one
@@ -463,7 +480,8 @@ def run_defense_bench(device=None, smoke: bool = False) -> dict:
 def run_sweep_class(topology: str, n: int, rounds: int, dev,
                     engine: str = "xla"):
     """One topology class of the sweep bench: the grid built, one call
-    (``end_to_end_s``), two more on new keys (``steady_s``, the best),
+    (``end_to_end_s``, its CUDA graphs' capture ``capture_s`` apart),
+    two more on new keys (``steady_s``, the best),
     each ending in a sync; the peak device memory over the three.
     Returns (report, the last call's SweepResult, its key)."""
     dev = torch.device(dev)
@@ -473,10 +491,12 @@ def run_sweep_class(topology: str, n: int, rounds: int, dev,
     key = prng.key(0, device=dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    c0 = graphs.CAPTURES["ms"]
     t0 = time.perf_counter()
     states, trace = run(tp, key)
     _sync(dev)
     e2e_s = time.perf_counter() - t0
+    capture_s = (graphs.CAPTURES["ms"] - c0) / 1e3
     steady_s = float("inf")
     for trial in range(2):
         k = prng.fold_in(key, trial + 1)
@@ -491,7 +511,8 @@ def run_sweep_class(topology: str, n: int, rounds: int, dev,
     rep = sweep_report(result)
     g = rep["grid_size"]
     out = {"grid_size": g, "engine": engine,
-           "end_to_end_s": e2e_s, "steady_s": steady_s,
+           "end_to_end_s": e2e_s, "capture_s": capture_s,
+           "steady_s": steady_s,
            "scenarios_per_sec": g / steady_s,
            "scenario_rounds_per_sec": g * rounds / steady_s,
            "peak_memory_bytes": peak,
@@ -611,9 +632,11 @@ def profile_plans(device=None) -> dict:
     """Where a fault-plan run's time goes, from ``torch.profiler``: the
     fault phase (60 rounds) of the ``flapping`` class, of the same at
     ``fault_gain`` 0.5 (the plan blended once by ``scale_plan``) and of the
-    ``eclipse`` class (byz variant), each after its warm-up phase; and,
-    for each, the frames alone built for the same rounds (the device
-    time per round of the flap schedule and the gain blend)."""
+    ``eclipse`` class (byz variant), each after its warm-up phase, the
+    traced call a replay of the runner's CUDA graph; and, for each, the
+    frames alone built for the same rounds as the runner builds them
+    (``frame_at``: the device time per round of the per-phase copies,
+    the flap schedule and the gain blend)."""
     dev = default_device(device)
     if dev.type != "cuda":
         raise ValueError("profile_plans traces the card; it has no CPU "
@@ -632,20 +655,22 @@ def profile_plans(device=None) -> dict:
                                     plan=cp)
         state, sc = warm(init_state(n, device=dev), key)
         run = make_run_rounds_cuda(p, rounds, carry=True, plan=cp)
-        # an untraced call on a copy first: frees the trace of set-up
-        run(clone_state(state), key, scalars0=sc.clone())
+        # two untraced calls on copies first (the eager first call, then
+        # the graph's capture): frees the trace of set-up
+        for _ in range(2):
+            run(clone_state(state), key, scalars0=sc.clone())
         _sync(dev)
         _, rep = profile_call(lambda: run(state, key, scalars0=sc), rounds,
                               dev)
         # the frames as the runner builds them: on the plan it blended
-        # once when it was made
+        # once when it was made, from the device round
         cpf = cp if gain == 1.0 else scale_plan(cp, gain)
-        sched = plan_schedule(cpf)
+        r0 = torch.tensor(CHAOS_WARMUP_ROUNDS, dtype=torch.int32,
+                          device=dev)
 
         def frames():
-            for r in range(CHAOS_WARMUP_ROUNDS,
-                           CHAOS_WARMUP_ROUNDS + rounds):
-                fault_frame(cpf, r, sched, gain)
+            for r in range(rounds):
+                frame_at(cpf, r0 + r, gain)
 
         _, frame = profile_call(frames, rounds, dev)
         out[label] = {**rep, "frame_device_us_per_round": (

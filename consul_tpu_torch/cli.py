@@ -61,7 +61,7 @@ from consul_tpu_torch.sim.flight import (FLIGHT_COLUMNS, FlightPublisher,
                                          publish_report)
 from consul_tpu_torch.sim.metrics import blackbox_report, fd_report
 from consul_tpu_torch.sim.params import SimParams
-from consul_tpu_torch.sim.round import run_rounds_flight
+from consul_tpu_torch.sim.round import init_scalars, run_rounds_flight
 from consul_tpu_torch.sim.state import init_state
 from consul_tpu_torch.utils import telemetry
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
@@ -171,20 +171,34 @@ def _chaos(name: str, n: int, platform: str, dev) -> int:
     return 0
 
 
+def default_run(p: SimParams, dev, pub: Optional[FlightPublisher] = None):
+    """The default mode's run: ``SIM_ROUNDS`` rounds of the kernel runner
+    in chunks of ``SIM_CHUNK`` with the flight recorder at stride 1, the
+    stale scalars carried across chunks (made once up front, so every
+    chunk replays one CUDA graph) and each chunk's trace handed to
+    ``pub`` (one host read a chunk). Returns (state, traces, seconds):
+    the run's wall from its initial state to the device's end of the
+    last chunk (the runner, key and state are made before the clock)."""
+    run = make_run_rounds_cuda(p, SIM_CHUNK, carry=True, flight_every=1)
+    key = prng.key(0, device=dev)
+    state = init_state(p.n, device=dev)
+    t0 = time.perf_counter()
+    sc = init_scalars(state, p)
+    traces = []
+    for c in range(SIM_ROUNDS // SIM_CHUNK):
+        state, trace, sc = run(state, prng.fold_in(key, c), scalars0=sc)
+        if pub is not None:
+            pub.publish_trace(trace)
+        traces.append(trace)
+    int(state.round_idx)           # the run has ended on the device
+    return state, traces, time.perf_counter() - t0
+
+
 def _default(gossip: GossipConfig, n: int, platform: str, dev) -> int:
     p = SimParams.from_gossip_config(gossip, n=n, loss=0.01)
     print(f"==> gossip-sim={platform}: {n} virtual members, {SIM_ROUNDS} "
           f"rounds on {dev.type}")
-    run = make_run_rounds_cuda(p, SIM_CHUNK, carry=True, flight_every=1)
-    pub = FlightPublisher()
-    key = prng.key(0, device=dev)
-    state, sc = init_state(n, device=dev), None
-    t0 = time.perf_counter()
-    for c in range(SIM_ROUNDS // SIM_CHUNK):
-        state, trace, sc = run(state, prng.fold_in(key, c), scalars0=sc)
-        pub.publish_trace(trace)   # one host read of the chunk's trace
-    int(state.round_idx)           # the run has ended on the device
-    dt = time.perf_counter() - t0
+    state, _, dt = default_run(p, dev, FlightPublisher())
     rep = fd_report(state, p)
     publish_report(rep)
     print(json.dumps({"rounds_per_sec": round(SIM_ROUNDS / dt, 1),

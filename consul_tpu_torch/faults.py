@@ -22,6 +22,14 @@ The tensor half replaces the reference's jnp half:
   the host from a ``PlanSchedule`` read once per run, and the lanes a
   round does not rewrite are views of the plan's phase rows;
   ``scale_plan`` blends a whole plan once for a runner with a fixed gain;
+* ``phase_at`` and ``frame_at`` — the same lookup and view with the
+  round a device tensor, for the runners a CUDA graph replays: the phase
+  is a ``searchsorted`` on the device, and the lanes are materialized by
+  one dynamic index on each of the plan's packed tensors (a view would
+  bake one phase's pointer into the graph); the flap and release rewrites run
+  whenever the plan has them (``any_flap`` / ``any_release``, settled by
+  ``compile_plan`` on the host), which leaves a phase that has none as
+  it is, so every frame is ``fault_frame``'s bit for bit;
 * ``detection_gate`` (and ``_binom_tail_ge``) for a static
   ``corroboration_k`` and for a swept one (a ``[G, 1]`` leaf of a
   ``params.TracedParams``, where a grid may put k = 0 beside k >= 1).
@@ -36,7 +44,7 @@ import bisect
 import hashlib
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import Iterator, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -481,7 +489,14 @@ class CompiledFaultPlan(NamedTuple):
     """Per-phase fault tensors on one device (leading axis: phase).
 
     Field order and dtypes are the reference's, which ``plan_digest``
-    hashes. The byzantine leaves are None for an honest plan."""
+    hashes. The byzantine leaves are None for an honest plan. The fields
+    after them are the port's own: whether any phase flaps and whether
+    any releases former flappers, the rewrites ``frame_at`` runs (set by
+    ``compile_plan`` from its host arrays), and the packed tensors
+    ``rows`` (``[P, L, N]`` f32, the ``ROW_LANES`` a plan has) and
+    ``masks`` (``[P, M, N]`` bool, ``MASK_LANES``), of which those lane
+    fields are views: ``frame_at`` gathers a phase with one index on
+    each (``_packed``)."""
 
     starts: torch.Tensor        # [P] int32 — phase start rounds
     psend: torch.Tensor         # [P,N] f32 — egress one-leg delivery
@@ -499,6 +514,36 @@ class CompiledFaultPlan(NamedTuple):
     spur_susp: Optional[torch.Tensor] = None   # [P,N] f32
     replay: Optional[torch.Tensor] = None      # [P,N] f32
     attacked: Optional[torch.Tensor] = None    # [P,N] bool
+    any_flap: bool = True
+    any_release: bool = True
+    rows: Optional[torch.Tensor] = None
+    masks: Optional[torch.Tensor] = None
+
+
+#: the reference's fields: the per-phase tensors
+PLAN_LEAVES = CompiledFaultPlan._fields[:-4]
+#: the lanes packed in ``rows`` and ``masks``, the byzantine ones last
+#: (an honest plan has the first 7 and the first 2)
+ROW_LANES = ("psend", "precv", "suspw", "hear_w", "crash_p", "rejoin_p",
+             "leave_p", "forge_ack", "spur_susp", "replay")
+MASK_LANES = ("slow_f", "flap_release", "attacked")
+
+
+def _packed(cp: CompiledFaultPlan,
+            rows: Optional[torch.Tensor] = None,
+            masks: Optional[torch.Tensor] = None) -> CompiledFaultPlan:
+    """``cp`` with its lane fields views of ``rows`` and ``masks``
+    (stacked from the fields when not given): the same values, so a
+    frame is one gather a dtype."""
+    byz = cp.attacked is not None
+    rn = ROW_LANES if byz else ROW_LANES[:7]
+    mn = MASK_LANES if byz else MASK_LANES[:2]
+    if rows is None:
+        rows = torch.stack([getattr(cp, f) for f in rn], 1)
+        masks = torch.stack([getattr(cp, f) for f in mn], 1)
+    return cp._replace(rows=rows, masks=masks,
+                       **{f: rows[:, i] for i, f in enumerate(rn)},
+                       **{f: masks[:, i] for i, f in enumerate(mn)})
 
 
 class FaultFrame(NamedTuple):
@@ -553,7 +598,7 @@ def compile_plan(plan: FaultPlan, n: int,
 
     byz = plan_is_byzantine(plan)
     f32, b8 = torch.float32, torch.bool
-    return CompiledFaultPlan(
+    return _packed(CompiledFaultPlan(
         starts=torch.tensor(plan.starts, dtype=torch.int32, device=dev),
         psend=stack("psend", f32), precv=stack("precv", f32),
         suspw=stack("suspw", f32), hear_w=stack("hear_w", f32),
@@ -565,7 +610,10 @@ def compile_plan(plan: FaultPlan, n: int,
         forge_ack=stack("forge_ack", f32) if byz else None,
         spur_susp=stack("spur_susp", f32) if byz else None,
         replay=stack("replay", f32) if byz else None,
-        attacked=stack("attacked", b8) if byz else None)
+        attacked=stack("attacked", b8) if byz else None,
+        any_flap=any(bool((pa["flap_half"] > 0).any()) for pa in per_phase),
+        any_release=any(bool(pa["flap_release"].any())
+                        for pa in per_phase)))
 
 
 def plan_digest(cp: Optional[CompiledFaultPlan]) -> Optional[str]:
@@ -575,7 +623,7 @@ def plan_digest(cp: Optional[CompiledFaultPlan]) -> Optional[str]:
     if cp is None:
         return None
     h = hashlib.sha256()
-    for name, leaf in zip(CompiledFaultPlan._fields, cp):
+    for name, leaf in zip(PLAN_LEAVES, cp):
         h.update(name.encode() + b"=")
         if leaf is None:
             h.update(b"none;")
@@ -601,6 +649,76 @@ def active_phase(cp: CompiledFaultPlan, round_idx: int,
     starts = (plan_schedule(cp) if sched is None else sched).starts
     i = bisect.bisect_right(starts, int(round_idx)) - 1
     return min(max(i, 0), len(starts) - 1)
+
+
+def phase_at(cp: CompiledFaultPlan, round_idx: torch.Tensor) -> torch.Tensor:
+    """``active_phase`` of the device round ``round_idx`` (0-d, or a
+    grid's ``[G]`` rounds, which share one) as a ``[1]`` int64 tensor on
+    the plan's device: no host read."""
+    r = round_idx.reshape(-1)[:1].to(cp.starts.dtype)
+    ph = torch.searchsorted(cp.starts, r, right=True) - 1
+    return ph.clamp_(0, cp.starts.shape[0] - 1)
+
+
+def frame_at(cp: CompiledFaultPlan, round_idx: torch.Tensor,
+             gain: float = 1.0) -> FaultFrame:
+    """``fault_frame`` with the round a device tensor (0-d, or a grid's
+    ``[G]`` rounds, which share one): the lanes are fresh tensors,
+    filled by one dynamic index on each of the plan's packed ``rows``
+    and ``masks``, and the flap / release rewrites of a plan that has
+    them (``any_flap``, ``any_release``) run on every round — on a phase
+    without them they change nothing. Bit for bit ``fault_frame(cp,
+    round_idx, gain=gain)``."""
+    return next(frames_at(cp, round_idx, 1, gain))
+
+
+def frames_at(cp: CompiledFaultPlan, round0: torch.Tensor, rounds: int,
+              gain: float = 1.0) -> Iterator[FaultFrame]:
+    """``frame_at`` of the ``rounds`` rounds from the device round
+    ``round0``, each frame built as it is taken. The phases, the rounds'
+    offsets in them and ``mid`` are looked up for all the rounds at
+    once: a few launches a call, none a round."""
+    r = round0.reshape(-1)[:1].to(cp.starts.dtype) + torch.arange(
+        rounds, dtype=cp.starts.dtype, device=cp.starts.device)
+    phs = (torch.searchsorted(cp.starts, r, right=True) - 1).clamp_(
+        0, cp.starts.shape[0] - 1)
+    rels = r - cp.starts.index_select(0, phs)
+    mids = cp.mid.index_select(0, phs)
+    for i in range(rounds):
+        yield _frame(cp, phs[i:i + 1], rels[i:i + 1], mids[i], gain)
+
+
+def _frame(cp: CompiledFaultPlan, ph: torch.Tensor, rel: torch.Tensor,
+           mid: torch.Tensor, gain: float) -> FaultFrame:
+    def take(x):
+        # the phase's row moved as int64 words where it splits into them:
+        # a gather's cost is per element, so wider elements move it faster
+        k = 8 // x.element_size()
+        if all(d % k == 0 for d in (
+                x.shape[-1], x.storage_offset(), *x.stride()[:-1])):
+            return x.view(torch.int64).index_select(0, ph)[0].view(x.dtype)
+        return x.index_select(0, ph)[0]
+
+    f = dict(zip(ROW_LANES, take(cp.rows)))
+    m = dict(zip(MASK_LANES, take(cp.masks)))
+    crash_p, rejoin_p = f["crash_p"], f["rejoin_p"]
+    level = float(gain)
+    if cp.any_flap:
+        half = take(cp.flap_half)
+        cycle = (rel // torch.clamp_min(half, 1)) % 2
+        flap_on = half > 0
+        down = flap_on & (cycle == 1)
+        crash_p = torch.where(down, level, crash_p)
+        rejoin_p = torch.where(flap_on & ~down, level, rejoin_p)
+    if cp.any_release:
+        rejoin_p = torch.where(m["flap_release"] & (rel == 0), level,
+                               rejoin_p)
+    return FaultFrame(
+        psend=f["psend"], precv=f["precv"], suspw=f["suspw"],
+        hear_w=f["hear_w"], mid=mid, slow_f=m["slow_f"],
+        crash_p=crash_p, rejoin_p=rejoin_p, leave_p=f["leave_p"],
+        forge_ack=f.get("forge_ack"), spur_susp=f.get("spur_susp"),
+        replay=f.get("replay"), attacked=m.get("attacked"))
 
 
 def scale_frame(fx: FaultFrame, gain) -> FaultFrame:
@@ -648,7 +766,7 @@ def scale_plan(cp: CompiledFaultPlan, gain: float) -> CompiledFaultPlan:
     ``scale_frame(fault_frame(cp, r), g)`` bit for bit. A runner whose
     gain is fixed blends its plan once instead of every round's frame."""
     rows = FaultFrame(*(getattr(cp, f) for f in FaultFrame._fields))
-    return cp._replace(**scale_frame(rows, gain)._asdict())
+    return _packed(cp._replace(**scale_frame(rows, gain)._asdict()))
 
 
 def fault_frame(cp: CompiledFaultPlan, round_idx: int,
@@ -695,10 +813,8 @@ def shard_plan(cp: CompiledFaultPlan, lo: int,
     and ``mid`` whole (the reference's ``mesh._plan_specs``). The
     byzantine leaves stay None on an honest plan. ``fault_frame`` of the
     shard reads the rank's columns."""
-    return CompiledFaultPlan(*[
-        leaf if leaf is None or name in ("starts", "mid")
-        else leaf[:, lo:hi]
-        for name, leaf in zip(CompiledFaultPlan._fields, cp)])
+    return _packed(cp._replace(flap_half=cp.flap_half[:, lo:hi]),
+                   cp.rows[..., lo:hi], cp.masks[..., lo:hi])
 
 
 # ------------------------------------------------ detection gate

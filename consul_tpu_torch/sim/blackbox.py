@@ -112,7 +112,15 @@ def init_blackbox(state, tracked: torch.Tensor,
         last_phase=torch.full((), -1, dtype=_I32, device=dev))
 
 
-def record(bb: BlackboxState, *, round_idx: int, phase: int, status,
+def _i32_scalar(v, dev) -> torch.Tensor:
+    """A 0-d int32 tensor of a host int (a fill) or a copy of a device
+    scalar (``faults.phase_at``'s ``[1]`` phase, a state's round)."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(()).to(_I32, copy=True)
+    return torch.full((), v, dtype=_I32, device=dev)
+
+
+def record(bb: BlackboxState, *, round_idx, phase, status,
            incarnation, susp_conf, up,
            probe: Optional[ProbeEvents] = None, indirect_checks: int = 0,
            attacked: Optional[torch.Tensor] = None) -> BlackboxState:
@@ -121,10 +129,11 @@ def record(bb: BlackboxState, *, round_idx: int, phase: int, status,
     ``status``/``incarnation``/``susp_conf``/``up`` are the post-round
     [N] tensors (gathered at ``bb.tracked`` here). ``round_idx`` is the
     ABSOLUTE round and ``phase`` the active FaultPlan phase (-1 without
-    a plan), both host ints. ``probe`` adds the live engine's probe
-    events; ``attacked`` (the round's FaultFrame mask, None on honest
-    runs) arms the attack-attribution twins of suspect starts and
-    false-positive declarations. Events keep the reference's emit
+    a plan), host ints or device scalars (a runner a CUDA graph replays
+    passes the state's round and ``faults.phase_at``). ``probe`` adds
+    the live engine's probe events; ``attacked`` (the round's FaultFrame
+    mask, None on honest runs) arms the attack-attribution twins of
+    suspect starts and false-positive declarations. Events keep the reference's emit
     order (code order) within a round. The ring is written IN PLACE,
     as the runners update their state: the returned state shares it.
 
@@ -142,7 +151,14 @@ def record(bb: BlackboxState, *, round_idx: int, phase: int, status,
     cur_up = cur[3] != 0
 
     def fill(v):
+        if isinstance(v, torch.Tensor):
+            return v.expand(k)
         return torch.full((k,), v, dtype=_I32, device=dev)
+
+    if isinstance(phase, torch.Tensor):
+        phase = _i32_scalar(phase, dev)
+    if isinstance(round_idx, torch.Tensor):
+        round_idx = _i32_scalar(round_idx, dev)
 
     went_down = bb.prev_up & ~cur_up
     suspect_start = (bb.prev_status != SUSPECT) & (cur_status == SUSPECT)
@@ -218,7 +234,7 @@ def record(bb: BlackboxState, *, round_idx: int, phase: int, status,
         tracked=bb.tracked, ring=bb.ring, count=count,
         prev_status=cur_status, prev_inc=cur_inc, prev_conf=cur_conf,
         prev_up=cur_up,
-        last_phase=torch.full((), phase, dtype=_I32, device=dev))
+        last_phase=_i32_scalar(phase, dev))
 
 
 # ---------------------------------------------------------- host side

@@ -56,7 +56,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from consul_tpu_torch.sim import cuda_round, prng, registry
+from consul_tpu_torch.sim import cuda_round, graphs, prng, registry
 from consul_tpu_torch.sim.flight import trace_bytes
 from consul_tpu_torch.sim.round import (make_run_rounds, make_run_rounds_fast,
                                         make_run_rounds_lanes)
@@ -368,7 +368,9 @@ def measured_cost(p, engine: str, lane_blocks=None,
 
     The eager engines (xla, fast, lanes, overlap) keep the reference's
     marginal protocol: a k- and a 2k-round run (k = the lane cadence)
-    from fresh states, each under ``OpCounter``, differenced, so init
+    from fresh states, each under ``OpCounter`` and run eagerly
+    (``graphs.eager()``: a replayed CUDA graph dispatches no op, so the
+    count is of the ops the graph holds), differenced, so init
     work (init_scalars, the staged init_lanes reductions, the key
     stream's set-up) cancels and the steady-state round remains. The
     kernel runner (``cuda``) runs nothing: its bytes and operations are
@@ -386,7 +388,8 @@ def measured_cost(p, engine: str, lane_blocks=None,
     for r in (k, 2 * k):
         run = _runner(p, engine, r, 1, lane_blocks)
         s = init_state(p.n, device=dev)
-        with OpCounter() as c:
+        # a replayed graph dispatches no aten op: count an eager call
+        with graphs.eager(), OpCounter() as c:
             run(s, key)
         counts.append(c)
     return ((counts[1].bytes - counts[0].bytes) / k,
@@ -479,8 +482,9 @@ def measure_config(p, rounds: int = 24, engine: str = "lanes",
     """Measure ONE engine config end to end — the seam the autotuner
     (``sim/autotune.py``) sweeps.
 
-    The real runner runs from a fresh state: one untimed warm-up call
-    (it builds the kernels and fills PyTorch's caches), then ``reps``
+    The real runner runs from a fresh state: two untimed warm-up calls
+    (the first builds the kernels and fills PyTorch's caches; on the
+    card the second captures the runner's CUDA graph), then ``reps``
     timed calls, each ended by a device reduce read back as a scalar
     (``float(state.informed.sum())``).
     Returns the ``registry.PROFILE_ROOFLINE_ROW`` dict: best ms/round,
@@ -489,7 +493,7 @@ def measure_config(p, rounds: int = 24, engine: str = "lanes",
     ratio and the flag beyond ``COSTMODEL_BOUND``, achieved GB/s of the
     counted bytes (the model's when not counted), the utilisation
     against ``peak_gbps`` (None skips it), and on the card the peak
-    device memory the warm-up call allocated above the state
+    device memory the warm-up calls allocated above the state
     (``temp_bytes_measured``; None on the CPU). Every timed rep is
     observed as ``sim.round.<config>`` by ``perf_registry`` (an object
     with ``.observe(name, seconds)``; None records nothing).
@@ -518,7 +522,8 @@ def measure_config(p, rounds: int = 24, engine: str = "lanes",
         _sync(dev)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-    s = run(s0, key)   # warm-up: kernels built, caches filled
+    # warm-up: kernels built, caches filled, the CUDA graph captured
+    s = run(run(s0, key), prng.fold_in(key, reps + 1))
     _sync(dev)
     temp_measured = (torch.cuda.max_memory_allocated(dev) - base
                      if on_card else None)

@@ -58,11 +58,10 @@ from typing import Optional, Sequence
 import torch
 
 from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
-                                     active_phase, detection_gate,
-                                     plan_schedule, scale_plan)
+                                     detection_gate, phase_at, scale_plan)
 from consul_tpu_torch.sim import blackbox as blackbox_mod
 from consul_tpu_torch.sim import coords as coords_mod
-from consul_tpu_torch.sim import flight, prng, topology
+from consul_tpu_torch.sim import flight, graphs, prng, topology
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
                                         SCALAR_FLOORS, _cast_like,
@@ -559,17 +558,18 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     run adds in the uncut run's order).
 
     ``plan`` (``faults.compile_plan`` on the state's device) threads a
-    FaultPlan through the kernel: each round's ``fault_frame``, keyed by
-    the absolute round, feeds the ``fault`` (honest plan) or ``byz``
-    (byzantine plan) variant of ``round_kernel``. When ``p.fault_gain``
-    is not 1 the plan is blended once here (``scale_plan``), which gives
-    every frame the bits of the reference's per-round ``scale_frame``.
+    FaultPlan through the kernel: each round's frame, keyed by the
+    absolute round on the device (``faults.frame_at``), feeds the
+    ``fault`` (honest plan) or ``byz`` (byzantine plan) variant of
+    ``round_kernel``. When ``p.fault_gain`` is not 1 the plan is blended
+    once here (``scale_plan``), which gives every frame the bits of the
+    reference's per-round ``scale_frame``.
 
     ``flight_every=k`` arms the flight recorder: after the launch that
     ends a window (and the run), a row is built from the updated packed
     arrays with ``flight.flight_row``; its counter lanes are the delta of
     the int32 run accumulator against its last-recorded snapshot, its
-    phase the plan's (host-side schedule). ``blackbox=True`` adds event
+    phase the plan's (``faults.phase_at``). ``blackbox=True`` adds event
     rings for the ``tracked`` ids (or resumes ``bb0``) on the same
     rounds, with the frame's attack mask on byzantine plans. On the
     megakernel rows and rings land on call boundaries only, stamped with
@@ -581,11 +581,17 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     prng.COORD_FOLD), state.round_idx, rounds)``); ``coord_metrics``
     fills the coordinate columns on recorded rounds only.
 
-    With every option off the runner launches what it did before they
-    existed, with the same arguments. The state's per-node tensors are
-    updated IN PLACE — the stand-in for JAX's buffer donation: the
-    passed state and the returned one share them. The combinations the
-    JAX runner refuses are refused by name (``_refuse``)."""
+    On the card the whole call — the seeds, ``init_scalars``, the frames,
+    the launches, the per-round sum and clamp, the counters and the
+    recorders — is one CUDA graph, captured on the first call of each
+    argument shape and replayed after (``graphs.GraphCache``: the JAX
+    runner's one jitted program); ``LAUNCHES`` counts what each replay
+    launches. ``graphs.eager()`` runs it launch by launch, as the CPU
+    always does. The state's per-node tensors are updated IN PLACE —
+    the stand-in for JAX's buffer donation: the passed state and the
+    returned one share them; every other returned tensor is fresh. The
+    combinations the JAX runner refuses are refused by name
+    (``_refuse``)."""
     R = rounds_per_call
     _refuse(p, R, plan, coords, flight_every, blackbox)
     if rounds % R:
@@ -606,54 +612,41 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     # (a copy from host memory makes the host wait)
     consts: dict = {}
     record = flight_every is not None
+    cache = graphs.GraphCache(counters=(LAUNCHES,))
 
-    def run(state: SimState, key: torch.Tensor, scalars0=None, coo=None,
-            topo=None, tracked=None, bb0=None):
-        if scalars0 is not None and not carry:
-            raise ValueError("scalars0 needs a carry=True runner")
-        if coords and (coo is None or topo is None):
-            raise ValueError("a coords=True runner needs coo= (a "
-                             "CoordState) and topo= (a Topology)")
-        if blackbox and tracked is None and bb0 is None:
-            raise ValueError("blackbox=True runner needs a tracked id "
-                             "tensor (blackbox.default_tracked)")
-        sched = plan_schedule(plan) if plan is not None else None
-        fxs = plan_frames(plan, state, rounds, p.fault_gain, sched=sched)
-        arrays = state.node_arrays()
+    def body(arrays, t, r0, st0, key, scalars0, coo, topo, tracked, bb):
+        """The whole call on device tensors: ``r0`` is the state's
+        round, ``st0`` its SimStats; no host read, no value of a call
+        baked in."""
         dev = arrays[0].device
-        if scalars0 is None:
-            scalars = init_scalars(state, p)
-        else:
-            scalars = scalars0.to(device=dev, dtype=torch.float32).clone()
-        seeds = prng.round_seeds(key.to(dev), state.round_idx, rounds)
+        if dev not in consts:
+            consts[dev] = (keep.to(dev), torch.tensor(
+                SCALAR_FLOORS, dtype=torch.float32, device=dev))
+        keep_d, floors = consts[dev]
+        state = SimState(*arrays, t=t, round_idx=r0, stats=st0)
+        fxs = plan_frames(plan, state, rounds, p.fault_gain)
+        scalars = init_scalars(state, p) if scalars0 is None \
+            else scalars0.clone()
+        seeds = prng.round_seeds(key, r0, rounds)
         rows = arrays[0].shape[0]
         buf = torch.empty((partials_rows(rows), N_LANES),
                           dtype=torch.float32, device=dev)
         # the accumulators start from the state's counters, so a run cut
         # at a call boundary and resumed adds the latency lane in the
         # order of the uncut run
-        st0 = state.stats
         acc_i = torch.stack([torch.zeros((), dtype=torch.int32, device=dev)
                              if i == LAT else getattr(st0, f).to(torch.int32)
                              for i, f in enumerate(STATS_FIELDS)])
         acc_lat = st0.detect_latency_sum.to(torch.float32).clone()
-        if dev not in consts:
-            consts[dev] = (keep.to(dev), torch.tensor(
-                SCALAR_FLOORS, dtype=torch.float32, device=dev))
-        keep_d, floors = consts[dev]
-        t = state.t
-        if record or coords:
-            r0 = int(state.round_idx)
+        trace = None
         if record:
             trace = flight.empty_trace(rounds, flight_every, dev)
             prev = (acc_i.clone(), acc_lat.clone())
-            bb = None
-            if blackbox:
-                bb = bb0 if bb0 is not None else blackbox_mod.init_blackbox(
-                    state, tracked, p.blackbox_ring)
+            if blackbox and bb is None:
+                bb = blackbox_mod.init_blackbox(state, tracked,
+                                                p.blackbox_ring)
         if coords:
-            ckeys = prng.round_keys(prng.fold_in(key.to(dev),
-                                                 prng.COORD_FOLD),
+            ckeys = prng.round_keys(prng.fold_in(key, prng.COORD_FOLD),
                                     r0, rounds)
         for c, fx in zip(range(rounds // R), fxs):
             sc_in = scalars
@@ -678,14 +671,14 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
             if not record:
                 continue
             i_last = (c + 1) * R - 1   # the call's last round, run-local
-            ph = active_phase(plan, r0 + i_last, sched) \
-                if plan is not None else -1
 
             def rec(carry):
                 (pi, pl), bbc = carry
                 up = arrays[3] < 0
                 crow = coords_mod.coord_metrics(coo, topo, aux) \
                     if coords else None
+                r_abs = r0 + i_last
+                ph = phase_at(plan, r_abs) if plan is not None else -1
                 # the window's delta as one vector (STATS_FIELDS order)
                 delta = (acc_i - pi).to(torch.float32)
                 delta[LAT] = acc_lat - pl
@@ -696,7 +689,7 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                     i_last, flight_every)
                 if bbc is not None:
                     bbc = blackbox_mod.record(
-                        bbc, round_idx=r0 + i_last, phase=ph,
+                        bbc, round_idx=r_abs, phase=ph,
                         status=arrays[0], incarnation=arrays[1],
                         susp_conf=arrays[6], up=up,
                         attacked=None if fx is None else fx.attacked)
@@ -704,12 +697,36 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
 
             prev, bb = flight.maybe_record((prev, bb), i_last, rounds,
                                            flight_every, rec)
-        st = state.stats
+        st = st0
         if p.collect_stats:
             st = SimStats(**{f: acc_lat if i == LAT else acc_i[i].clone()
                              for i, f in enumerate(STATS_FIELDS)})
-        out = SimState(*arrays, t=t, round_idx=state.round_idx + rounds,
-                       stats=st)
+        return t, r0 + rounds, st, coo, trace, bb, scalars
+
+    def run(state: SimState, key: torch.Tensor, scalars0=None, coo=None,
+            topo=None, tracked=None, bb0=None):
+        if scalars0 is not None and not carry:
+            raise ValueError("scalars0 needs a carry=True runner")
+        if coords and (coo is None or topo is None):
+            raise ValueError("a coords=True runner needs coo= (a "
+                             "CoordState) and topo= (a Topology)")
+        if blackbox and tracked is None and bb0 is None:
+            raise ValueError("blackbox=True runner needs a tracked id "
+                             "tensor (blackbox.default_tracked)")
+        arrays = state.node_arrays()
+        dev = arrays[0].device
+        if scalars0 is not None:
+            scalars0 = scalars0.to(device=dev, dtype=torch.float32)
+        if tracked is not None and bb0 is None:
+            tracked = tracked.to(device=dev, dtype=torch.int32)
+        else:
+            tracked = None
+        t, r, st, coo, trace, bb, scalars = cache(
+            "run", body, arrays, state.t, state.round_idx, state.stats,
+            key.to(dev), scalars0, coo if coords else None,
+            topo if coords else None, tracked if blackbox else None,
+            bb0 if blackbox else None)
+        out = SimState(*arrays, t=t, round_idx=r, stats=st)
         res = (out, coo) if coords else (out,)
         if record:
             res = res + (trace,)
@@ -719,4 +736,5 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
             res = res + (scalars,)
         return res[0] if len(res) == 1 else res
 
+    run.graphs = cache
     return run

@@ -71,8 +71,16 @@ def trace_bytes(rounds: int, record_every: int) -> int:
     return n_trace_rows(rounds, record_every) * N_COLS * 4
 
 
+def _phase_col(phase, shape: tuple, dev) -> torch.Tensor:
+    """The phase column: a host int written by a fill, or a device
+    phase (``faults.phase_at``) broadcast as it is."""
+    if isinstance(phase, torch.Tensor):
+        return phase.to(_F32).reshape(()).expand(shape)
+    return torch.full(shape, float(phase), dtype=_F32, device=dev)
+
+
 def flight_row(*, up, status, informed, local_health, incarnation, t,
-               stats_delta, phase: int,
+               stats_delta, phase,
                coord_row: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One [N_COLS] f32 row from post-round per-node tensors.
 
@@ -80,7 +88,7 @@ def flight_row(*, up, status, informed, local_health, incarnation, t,
     ready [len(STATS_FIELDS)] f32 vector (``stats_vector`` order). ``t``
     is a 0-d tensor, ``phase`` a host int (-1 without a plan), written
     by a fill, not a copy from host memory, so a row never makes the
-    host wait; ``coord_row`` is the round's ``coords.coord_metrics`` or
+    host wait, or the device phase of ``faults.phase_at``; ``coord_row`` is the round's ``coords.coord_metrics`` or
     None (zeros). The four means reduce one stacked [5, N] tensor: a
     row costs about twenty launches, which is what the host pays per
     recorded round."""
@@ -99,11 +107,10 @@ def flight_row(*, up, status, informed, local_health, incarnation, t,
     return torch.cat([
         t.to(_F32).reshape(1), means, torch.max(lh).reshape(1),
         torch.sum(incarnation, dtype=_F32).reshape(1),
-        torch.full((1,), float(phase), dtype=_F32, device=dev),
-        sv.to(_F32), coord_row.to(_F32)])
+        _phase_col(phase, (1,), dev), sv.to(_F32), coord_row.to(_F32)])
 
 
-def row_from_lanes(lanes: torch.Tensor, n_pool: int, t, phase: int,
+def row_from_lanes(lanes: torch.Tensor, n_pool: int, t, phase,
                    stats_delta: SimStats) -> torch.Tensor:
     """One trace row from a reduced lane vector (``registry.REDUCE_LANES``,
     the lane engine's per-window output): the gauge means are the lane
@@ -123,7 +130,7 @@ def row_from_lanes(lanes: torch.Tensor, n_pool: int, t, phase: int,
         lanes[lane["lh_sum"]] * inv,
         lanes_mod.max_lh_from_lanes(lanes),
         lanes[lane["inc_sum"]],
-        torch.full(lead, float(phase), dtype=_F32, device=dev)], dim=-1)
+        _phase_col(phase, lead, dev)], dim=-1)
     sv = torch.stack([getattr(stats_delta, f).to(_F32).expand(lead)
                       for f in STATS_FIELDS], dim=-1)
     coord = torch.zeros(lead + (len(COORD_COLUMNS),), dtype=_F32,
@@ -132,7 +139,7 @@ def row_from_lanes(lanes: torch.Tensor, n_pool: int, t, phase: int,
 
 
 def grid_flight_row(*, up, status, informed, local_health, incarnation, t,
-                    stats_delta: SimStats, phase: int,
+                    stats_delta: SimStats, phase,
                     coord_row: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """``flight_row`` of a grid state (``[G, N]`` lanes, ``[G]`` clock
@@ -150,7 +157,7 @@ def grid_flight_row(*, up, status, informed, local_health, incarnation, t,
     gauges = torch.cat([
         t.to(_F32).unsqueeze(0), means, torch.amax(lh, -1).unsqueeze(0),
         lanes_mod.tree_sum(incarnation.to(_F32)).unsqueeze(0),
-        torch.full((1,) + lead, float(phase), dtype=_F32, device=dev)]).t()
+        _phase_col(phase, (1,) + lead, dev)]).t()
     sv = torch.stack([getattr(stats_delta, f).to(_F32)
                       for f in STATS_FIELDS], dim=-1)
     if coord_row is None:

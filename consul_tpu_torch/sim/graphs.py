@@ -1,0 +1,379 @@
+"""Whole-call CUDA graphs: the port's counterpart of one jitted program.
+
+The JAX package runs every runner as one ``jax.jit(donate_argnums=0)``
+program: one dispatch per call, with the seeds, the population scalars,
+the plan's phase lookup, the recorders and the loop on the device. A
+static-shape body captured once in a ``torch.cuda.CUDAGraph`` and
+replayed is PyTorch's counterpart, and ``GraphCache`` is the unit that
+does it:
+
+* on first sight of a key (the runner's own static choices, the
+  argument tree's structure, every tensor's shape, dtype and device and
+  every non-tensor leaf) it runs the body eagerly on the caller's own
+  tensors: that call is the warm-up (it fills the lazy caches: the
+  kernels' library, per-device constants), its launches count as they
+  happen, and a runner called once costs what the eager run costs;
+* on second sight it captures the body into a graph, on a side stream,
+  over static input buffers and in a memory pool the cache's graphs
+  share, and replays it;
+* on every later call it writes the arguments into the static buffers with
+  ``copy_``, replays the graph, and clones the outputs out of the pool,
+  as a jitted call returns fresh buffers: a caller who keeps call 1's
+  stats or trace never sees call 2 overwrite them;
+* ``donated`` tensors are the per-node arrays a body updates in place
+  (JAX's donation): they are copied into the static buffers before the
+  replay and back after it, so the caller's tensors hold the result.
+  The cache keys on shapes, not on data pointers: a restored or resumed
+  state (a checkpoint load, a twin chunk, a sweep point) arrives in new
+  tensors, and a pointer key would capture anew for each, while the two
+  copies move 2 x 15 B a node a call;
+* ``counters`` (the kernel wrappers' launch counters) count what each
+  call launches: the capture launches nothing, so its increments are
+  taken back, and the captured launches are added on every replay.
+
+A failed capture or replay raises; nothing falls back to the eager
+body: a body that syncs (a host read, a copy from pageable host memory)
+fails its capture (a key's second call), which CUDA refuses. The CPU
+runs the body eagerly, and so does the card inside ``eager()`` — the
+explicit request the checks that hold a graph against its eager run
+make.
+
+``rehearse()`` is the capture rehearsal for the CPU: every body that a
+cache would capture runs under a ``TorchDispatchMode`` that refuses each
+host read (``.item()``, ``int()`` / ``float()`` / ``bool()`` of a
+tensor, ``.tolist()``, ``.numpy()``, ``.cpu()``, the ops whose output
+shape depends on the data) and records every op with its non-tensor
+arguments. Two calls that differ in key, start round and phase must
+dispatch the same op sequence with the same scalars: a Python int that
+varies between calls and reaches a fill would be baked into a graph.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import contextvars
+import time
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+#: graphs a cache keeps; the least recently used is dropped beyond it
+MAX_GRAPHS = 8
+
+#: captures since the process started: ``graphs`` and their ``ms``, so
+#: a caller that times a run can report the capture apart from the
+#: replays, as a JAX bench splits compile from dispatch
+CAPTURES: collections.Counter = collections.Counter()
+
+_eager = contextvars.ContextVar("consul_tpu_torch_graphs_eager",
+                                default=False)
+_rehearsal = contextvars.ContextVar("consul_tpu_torch_graphs_rehearsal",
+                                    default=None)
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every captured runner's body eagerly inside this block, on
+    the card too (the comparison of a graph with its eager run, the
+    cost model's op count)."""
+    token = _eager.set(True)
+    try:
+        yield
+    finally:
+        _eager.reset(token)
+
+
+def captures(device: torch.device) -> bool:
+    """Whether a body on ``device`` runs as a replayed graph."""
+    return device.type == "cuda" and not _eager.get()
+
+
+class pinned:
+    """A key part that names an object by identity and keeps it alive
+    while a graph keyed by it lives: a body that reads tensors it was
+    not passed (a fault plan) bakes their pointers into the graph, so a
+    call with other such tensors must capture anew."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+    def __eq__(self, other):
+        return isinstance(other, pinned) and other.obj is self.obj
+
+
+def direct(key, body: Callable, donated: Sequence[torch.Tensor], *args):
+    """A ``GraphCache`` call that never captures: ``body(donated,
+    *args)`` (a mesh rank's collectives cannot be captured)."""
+    return body(tuple(donated), *args)
+
+
+def _tensor_spec(x: torch.Tensor) -> tuple:
+    return (tuple(x.shape), x.dtype, x.device)
+
+
+def _fresh(tree):
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, tree)
+
+
+class _Entry:
+    """One captured body: its graph, static inputs and outputs, the
+    launches one replay makes, and what the capture cost."""
+
+    __slots__ = ("graph", "donated", "inputs", "out", "launches",
+                 "capture_ms", "pool_bytes", "replays")
+
+    def __init__(self, graph, donated, inputs, out, launches, capture_ms,
+                 pool_bytes):
+        self.graph = graph
+        self.donated = donated
+        self.inputs = inputs
+        self.out = out
+        self.launches = launches
+        self.capture_ms = capture_ms
+        self.pool_bytes = pool_bytes
+        self.replays = 0
+
+
+class GraphCache:
+    """The captured bodies of one runner, keyed by its static choices
+    and the arguments' specs (see the module's doc); at most
+    ``MAX_GRAPHS`` keys, least recently used dropped first."""
+
+    def __init__(self, counters: Sequence[collections.Counter] = ()):
+        self.counters = tuple(counters)
+        # key -> _Entry, or None for a key seen once (run eagerly)
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        # one memory pool for the cache's graphs: they replay one at a
+        # time on one stream and every output is cloned out at once, so
+        # no graph's live tensors sit in memory another graph writes
+        self._pool = None
+
+    def __call__(self, key, body: Callable, donated: Sequence[torch.Tensor],
+                 *args):
+        """``body(donated, *args)``: eager on a key's first call,
+        captured on its second and replayed from then on, on the card;
+        eager on the CPU and inside ``eager()``. ``key`` names the
+        runner's static choices (hashable); the donated tensors are
+        updated in place; the outputs are fresh tensors."""
+        donated = tuple(donated)
+        dev = donated[0].device if donated else None
+        leaves, spec = tree_flatten(args)
+        full_key = (key, spec,
+                    tuple(_tensor_spec(x) for x in donated),
+                    tuple(_tensor_spec(x) if isinstance(x, torch.Tensor)
+                          else ("leaf", x) for x in leaves))
+        if dev is None or not captures(dev):
+            rec = _rehearsal.get()
+            if rec is None or (dev is not None and dev.type != "cpu"):
+                return body(donated, *args)
+            with rec.armed(full_key):
+                return body(donated, *args)
+        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+        if full_key not in self._entries:
+            self._remember(full_key, None)
+            return body(donated, *args)
+        entry = self._entries[full_key]
+        if entry is None:
+            entry = self._capture(body, donated, leaves, spec)
+            self._remember(full_key, entry)
+        else:
+            self._entries.move_to_end(full_key)
+        for s, x in zip(entry.donated, donated):
+            s.copy_(x)
+        for s, x in zip(entry.inputs, tensors):
+            s.copy_(x)
+        entry.graph.replay()
+        entry.replays += 1
+        for c, d in zip(self.counters, entry.launches):
+            c.update(d)
+        for s, x in zip(entry.donated, donated):
+            x.copy_(s)
+        return _fresh(entry.out)
+
+    def _remember(self, key, entry) -> None:
+        self._entries[key] = entry
+        self._entries.move_to_end(key)
+        while len(self._entries) > MAX_GRAPHS:
+            self._entries.popitem(last=False)
+
+    def _capture(self, body, donated, leaves, spec) -> _Entry:
+        """Capture ``body`` over static buffers (filled by ``copy_``
+        before each replay, so they start empty); the key's eager first
+        call was the warm-up."""
+        dev = donated[0].device
+        s_donated = tuple(torch.empty_like(x) for x in donated)
+        s_leaves = [torch.empty_like(x) if isinstance(x, torch.Tensor)
+                    else x for x in leaves]
+        s_args = tree_unflatten(s_leaves, spec)
+        before = [collections.Counter(c) for c in self.counters]
+        t0 = time.perf_counter()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(dev)
+        try:
+            # capture_begin/end rather than the torch.cuda.graph context,
+            # which also collects garbage and empties the allocator's
+            # cache on entry (seconds after a large eager phase)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = body(s_donated, *s_args)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    # an invalidated capture leaves its pool recording:
+                    # the cache's next capture takes a new one
+                    self._pool = None
+                    raise
+                graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            launches = [c - b for c, b in zip(self.counters, before)]
+        finally:
+            # the capture launched nothing: each replay counts its launches
+            for c, b in zip(self.counters, before):
+                c.clear()
+                c.update(b)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        CAPTURES.update(graphs=1, ms=capture_ms)
+        return _Entry(graph, s_donated,
+                      [x for x in s_leaves if isinstance(x, torch.Tensor)],
+                      out, launches, capture_ms,
+                      torch.cuda.memory_reserved(dev) - reserved0)
+
+    def stats(self) -> list:
+        """Per captured graph: capture ms, the bytes
+        the capture added to the cache's memory pool (its peak: the pool
+        keeps its segments), replays so far and the launches one replay
+        counts."""
+        return [{"capture_ms": e.capture_ms, "pool_bytes": e.pool_bytes,
+                 "replays": e.replays,
+                 "launches": [dict(d) for d in e.launches]}
+                for e in self._entries.values() if e is not None]
+
+
+# ------------------------------------------------------ host reads
+
+
+class HostReadError(RuntimeError):
+    """A body meant for capture read a device value on the host."""
+
+
+#: ops that read a device value on the host, or whose output shape
+#: depends on the data (the card would sync to size the output)
+_HOST_OPS = frozenset({
+    "aten::_local_scalar_dense", "aten::item", "aten::is_nonzero",
+    "aten::equal", "aten::nonzero", "aten::masked_select",
+    "aten::_unique2", "aten::unique_consecutive", "aten::unique_dim",
+    "aten::repeat_interleave"})
+
+
+def _is_host_read(func, args, kwargs) -> bool:
+    name = func._schema.name
+    if name in _HOST_OPS:
+        return not (name == "aten::repeat_interleave"
+                    and not isinstance(args[0], torch.Tensor))
+    if name in ("aten::index", "aten::index_put", "aten::index_put_"):
+        # a boolean mask index is a nonzero
+        return any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                   for i in args[1] if i is not None)
+    if name == "aten::copy_":
+        return args[1].device.type == "cuda" and args[0].device.type == "cpu"
+    if name == "aten::_to_copy":
+        dst = (kwargs or {}).get("device")
+        return (args[0].device.type == "cuda" and dst is not None
+                and torch.device(dst).type == "cpu")
+    return False
+
+
+def _scalar_leaf(x) -> Any:
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), x.dtype)
+    if isinstance(x, float):
+        return ("float", x.hex())
+    return x
+
+
+class Rehearsal(TorchDispatchMode):
+    """The record of a rehearsal: ``calls``, one ``(key, ops)`` entry per
+    body run, ``ops`` one ``(op, args)`` entry per dispatched op, each
+    tensor argument as its shape and dtype and every other argument as
+    its value. Every host read raises ``HostReadError`` by name. (Only
+    the CPU tests use a dispatch mode: its first use imports
+    ``torch._dynamo``, seconds a process.)"""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        leaves, _ = tree_flatten((args, kwargs or {}))
+        self.calls[-1][1].append((func._schema.name,
+                                  tuple(_scalar_leaf(x) for x in leaves)))
+        if _is_host_read(func, args, kwargs):
+            raise HostReadError(
+                f"{func._schema.name} reads the device from the host "
+                "inside a body meant for a CUDA graph")
+        return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def armed(self, key):
+        """Run one body (its cache key ``key``) under the rehearsal."""
+        self.calls.append((key, []))
+        patched = {name: getattr(torch.Tensor, name)
+                   for name in ("tolist", "numpy", "cpu")}
+
+        def refuse(name):
+            def read(*_a, **_k):
+                raise HostReadError(
+                    f"Tensor.{name}() inside a body meant for a CUDA "
+                    "graph")
+            return read
+
+        try:
+            for name in patched:
+                setattr(torch.Tensor, name, refuse(name))
+            with self:
+                yield
+        finally:
+            for name, fn in patched.items():
+                setattr(torch.Tensor, name, fn)
+
+
+@contextlib.contextmanager
+def rehearse():
+    """Run every body a ``GraphCache`` would capture under a
+    ``Rehearsal`` (CPU tensors only); yields it."""
+    rec = Rehearsal()
+    token = _rehearsal.set(rec)
+    try:
+        yield rec
+    finally:
+        _rehearsal.reset(token)
+
+
+def first_difference(a: list, b: list) -> Optional[tuple]:
+    """The first body run at which two lists of ``(key, ops)`` records
+    differ — ``(index, a's, b's)`` — or None when they ran the same
+    bodies with the same ops and scalars."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, x, y
+    if len(a) != len(b):
+        i = min(len(a), len(b))
+        return (i, a[i] if i < len(a) else None,
+                b[i] if i < len(b) else None)
+    return None

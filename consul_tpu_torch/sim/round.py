@@ -58,13 +58,13 @@ from typing import Iterator, Optional
 import torch
 
 from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
-                                     PlanSchedule, active_phase,
-                                     detection_gate, fault_frame, ipow,
-                                     plan_schedule, scale_frame)
-from consul_tpu_torch.sim import blackbox, flight, prng, topology
+                                     detection_gate, frame_at,
+                                     frames_at, ipow,
+                                     phase_at, scale_frame)
+from consul_tpu_torch.sim import blackbox, flight, graphs, prng, topology
 from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import coords as coords_mod
-from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim.params import SimParams, TracedParams
 from consul_tpu_torch.sim.state import (ALIVE, ALIVE_AGE, CONF_MAX, DEAD,
                                         LEFT, SLOW_AGE, STATS_FIELDS,
                                         SUSPECT, TICK_MAX, TTL_NEVER,
@@ -108,8 +108,10 @@ def _shrink(c: torch.Tensor, p: SimParams) -> torch.Tensor:
     if isinstance(ck, torch.Tensor):
         den = torch.log(ck.to(_F32) + 1.0)
     else:
-        den = torch.log(torch.tensor(float(ck), dtype=_F32,
-                                     device=c.device) + 1.0)
+        # a fill, not a copy from host memory (which syncs the host
+        # and cannot be captured in a CUDA graph)
+        den = torch.log(torch.full((), float(ck), dtype=_F32,
+                                   device=c.device) + 1.0)
     frac = torch.log(c.to(_F32) + 1.0) / den
     x = 1.0 - p.shrink_omr * frac
     if isinstance(p.shrink_r, torch.Tensor):
@@ -409,7 +411,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
             # race the full Lifeguard timer, not a 0/epsilon one
             scale = torch.clamp_min(scale, 1.0)
     else:
-        scale = torch.tensor(1.0, dtype=_F32, device=informed.device)
+        scale = torch.ones((), dtype=_F32, device=informed.device)
 
     # carried suspicion timers advance one tick
     sttl = torch.where(status == SUSPECT, sttl - 1, sttl)
@@ -568,12 +570,18 @@ def _stats_add(st: SimStats, lanes, reduce=None) -> SimStats:
 
 def clamp_scalars(sums: torch.Tensor,
                   floors: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Apply ``SCALAR_FLOORS`` to a reduced [8] scalar vector. A loop on
-    the card passes ``floors`` made once on the device: building them
-    here copies from host memory, which makes the host wait."""
+    """Apply ``SCALAR_FLOORS`` to a reduced [8] scalar vector. The floors
+    are copied to each device once (a copy from host memory makes the
+    host wait, and a CUDA graph cannot hold it)."""
     if floors is None:
-        floors = torch.tensor(SCALAR_FLOORS, dtype=_F32, device=sums.device)
+        floors = _scalar_floors.get(sums.device)
+        if floors is None:
+            floors = _scalar_floors[sums.device] = torch.tensor(
+                SCALAR_FLOORS, dtype=_F32, device=sums.device)
     return torch.maximum(sums, floors)
+
+
+_scalar_floors: dict = {}
 
 
 def round_core(state: SimState, scalars: Optional[torch.Tensor],
@@ -654,21 +662,18 @@ def gossip_round_fast(state: SimState, scalars: torch.Tensor,
 
 
 def plan_frames(plan: Optional[CompiledFaultPlan], state: SimState,
-                rounds: int, gain: float = 1.0,
-                sched: Optional[PlanSchedule] = None
+                rounds: int, gain: float = 1.0
                 ) -> Iterator[Optional[FaultFrame]]:
     """An iterator over the fault view of each of the next ``rounds``
     rounds of ``state``, keyed by the absolute round (all None without a
     plan). Frames are built as they are taken, so a flapping phase's
-    rewritten lanes never pile up; the phase lookup runs on the host
-    from one read of the plan's schedule. ``gain`` is that of a plan
-    blended by ``scale_plan`` (see ``fault_frame``); ``sched`` is the
-    plan's schedule if the caller has read it."""
+    rewritten lanes never pile up; the phase lookup runs on the device
+    from ``state.round_idx`` (``faults.frames_at``: no host read, so a
+    CUDA graph can hold it). ``gain`` is that of a plan blended by
+    ``scale_plan`` (see ``fault_frame``)."""
     if plan is None:
         return itertools.repeat(None, rounds)
-    sched = plan_schedule(plan) if sched is None else sched
-    r0 = int(state.round_idx)
-    return (fault_frame(plan, r0 + r, sched, gain) for r in range(rounds))
+    return frames_at(plan, state.round_idx, rounds, gain)
 
 
 def init_scalars(state: SimState, p: SimParams) -> torch.Tensor:
@@ -711,13 +716,56 @@ def run_rounds(state: SimState, key: torch.Tensor, p: SimParams,
     return state, (torch.stack(trace) if trace_node is not None else None)
 
 
+def _param_inputs(p) -> tuple:
+    """(key part, leaf tensors) of a body's params: a grid's
+    TracedParams leaves are graph inputs (``_params_from`` rebuilds the
+    view on the static copies); SimParams are constants."""
+    if not isinstance(p, TracedParams):
+        return (p,), ()
+    names = tuple(sorted(p.leaves))
+    return ((p.static, names, p.point),
+            tuple(p.leaves[nm] for nm in names))
+
+
+def _params_from(p, leaves: tuple):
+    if not isinstance(p, TracedParams):
+        return p
+    return TracedParams(p.static, dict(zip(sorted(p.leaves), leaves)),
+                        p.point)
+
+
+def _carry(state: SimState, *extra) -> list:
+    """A private copy of a run's state (and ``extra`` tensors) as one
+    flat list of tensors, the donated carry of a window body."""
+    return [x.clone() for x in (*state.node_arrays(), state.t,
+                                state.round_idx, *state.stats, *extra)]
+
+
+def _carry_state(d) -> SimState:
+    return SimState(*d[:8], t=d[8], round_idx=d[9],
+                    stats=SimStats(*d[10:10 + N_STATS]))
+
+
+#: a carry's tensors after the state's: [8 lanes, t, round, stats]
+_CARRY_STATE = 10 + N_STATS
+
+
+def _write(dst, src) -> None:
+    for d, x in zip(dst, src):
+        d.copy_(x)
+
+
 def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
     """Stale-scalar loop on threefry draws: ``run(state, key, plan=None,
     scalars0=None)`` -> state (``(state, scalars)`` with ``carry``).
     ``carry=True`` is the checkpoint seam: the returned scalars, passed
     back as ``scalars0``, resume the run bit for bit (``init_scalars``
     would recompute live sums instead). ``plan`` shapes each round with
-    its ``fault_frame``."""
+    its ``fault_frame``. On the card each round is one replay of a
+    captured round (``graphs.GraphCache``), its key an input and its
+    frame looked up on the device from the carried round; the returned
+    state is new, as the eager loop's is."""
+    cache = graphs.GraphCache()
 
     def run(state: SimState, key: torch.Tensor,
             plan: Optional[CompiledFaultPlan] = None, scalars0=None):
@@ -725,19 +773,44 @@ def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
             raise ValueError("scalars0 needs a carry=True runner")
         sc = init_scalars(state, p) if scalars0 is None else scalars0
         keys = prng.round_keys(key, state.round_idx, rounds)
-        for r, fx in enumerate(plan_frames(plan, state, rounds)):
-            state, sc = gossip_round_fast(state, sc, keys[r], p, fx)
-        return (state, sc) if carry else state
 
+        def one_round(d, key_r):
+            s = _carry_state(d)
+            fx = frame_at(plan, s.round_idx) if plan is not None else None
+            s2, sc2 = gossip_round_fast(s, d[_CARRY_STATE], key_r, p, fx)
+            _write(d, (*s2.node_arrays(), s2.t, s2.round_idx, *s2.stats,
+                       sc2))
+
+        d = _carry(state, sc)
+        plan_key = graphs.pinned(plan) if plan is not None else None
+        for r in range(rounds):
+            cache(("round", plan_key), one_round, d, keys[r])
+        state = _carry_state(d)
+        return (state, d[_CARRY_STATE]) if carry else state
+
+    run.graphs = cache
     return run
 
 
 def make_run_rounds(p: SimParams, rounds: int):
-    """A pre-bound live-engine runner: ``run(state, key)`` -> state."""
+    """A pre-bound live-engine runner: ``run(state, key)`` -> state, the
+    rounds of ``run_rounds``. On the card each round is one replay of a
+    captured round (``graphs.GraphCache``), its key an input; the
+    returned state is new, as ``run_rounds``' is."""
+    cache = graphs.GraphCache()
+
+    def one_round(d, key_r):
+        s2 = gossip_round(_carry_state(d), key_r, p)
+        _write(d, (*s2.node_arrays(), s2.t, s2.round_idx, *s2.stats))
 
     def run(state: SimState, key: torch.Tensor) -> SimState:
-        return run_rounds(state, key, p, rounds)[0]
+        keys = prng.round_keys(key, state.round_idx, rounds)
+        d = _carry(state)
+        for r in range(rounds):
+            cache("round", one_round, d, keys[r])
+        return _carry_state(d)
 
+    run.graphs = cache
     return run
 
 
@@ -798,12 +871,11 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
         bb0 = blackbox.init_blackbox(state, tracked,
                                      ring_len or p.blackbox_ring)
     keys = prng.round_keys(key, state.round_idx, rounds)
-    sched = plan_schedule(plan) if plan is not None else None
-    r0 = int(state.round_idx)
+    r0 = state.round_idx
     buf = flight.empty_trace(rounds, record_every, state.status.device)
     prev, bb, c = state.stats, bb0, coords
-    for i, fx in enumerate(plan_frames(plan, state, rounds, sched=sched)):
-        ph = active_phase(plan, r0 + i, sched) if plan is not None else -1
+    for i, fx in enumerate(plan_frames(plan, state, rounds)):
+        ph = phase_at(plan, r0 + i) if plan is not None else -1
         # the attack mask disarms with a zero gain, as the stats do
         atk = None
         if fx is not None and fx.attacked is not None:
@@ -857,12 +929,6 @@ def make_run_rounds_flight(p: SimParams, rounds: int,
 # per-node tensors at the end of a run (the stand-in for JAX's buffer
 # donation). Every function takes one run ([N] lanes, SimParams) or a
 # grid ([G, N] lanes, params.TracedParams) alike.
-
-
-def _start_round(state: SimState) -> int:
-    """The run's first absolute round (one host read; a grid's points
-    share it)."""
-    return int(state.round_idx.reshape(-1)[0])
 
 
 def _grid_scalars(sc: torch.Tensor) -> torch.Tensor:
@@ -982,12 +1048,19 @@ def _apply_lane_stats(s: SimState, lv: torch.Tensor,
 def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
                rounds: int, flight_every: Optional[int], lane_reducer, *,
                shard_offset: int = 0, overlap: bool = False, lanes0=None,
-               table0=None, return_carry: bool = False):
+               table0=None, return_carry: bool = False, cache=None):
     """The lane engine's loop: ceil(rounds / stale_k) windows, each
     ending in one reduction (a partial final window ends in its own).
     Flight rows come from the reduced lane vector
     (``flight.row_from_lanes``) on window ends that close a stride and
     at the run's end.
+
+    Each window is one call of ``cache`` (a ``graphs.GraphCache``: one
+    captured window, replayed ``rounds // stale_k`` times, its keys an
+    input and its frames and phase looked up on the device from the
+    carried round; ``graphs.direct`` runs it as it stands). The window
+    updates a private copy of the run's state, lane vector and flight
+    snapshot in place.
 
     ``overlap=True`` carries the pre-fold block table and folds it one
     window late (window m consumes window m-2's reduction); the first
@@ -1007,29 +1080,47 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     resume from them, bit for bit."""
     k = p.stale_k
     with_flight = flight_every is not None
+    call = cache if cache is not None else graphs.direct
     if lanes0 is None:
         lanes0 = init_lanes(state, p, lane_reducer)
-    sched = plan_schedule(cp) if cp is not None else None
-    r0 = _start_round(state) if (cp is not None or with_flight) else 0
+    pkey, pleaves = _param_inputs(p)
+    plan_key = graphs.pinned(cp) if cp is not None else None
 
-    def frames(i0, count):
-        if cp is None:
-            return [None] * count
-        return [fault_frame(cp, r0 + i0 + j, sched) for j in range(count)]
+    def window(d, keys_k, leaves, count, record):
+        pp = _params_from(p, leaves)
+        s = _carry_state(d)
+        r = s.round_idx
+        frames = [None] * count if cp is None else \
+            list(frames_at(cp, r, count))
+        if overlap:
+            pending = lane_reducer.fold_start(d[_CARRY_STATE + 1])
+        s2, stack = _lane_window(s, d[_CARRY_STATE], keys_k, frames, pp,
+                                 count, shard_offset)
+        lv = lane_reducer.fold_finish(pending) if overlap \
+            else lane_reducer(stack)
+        s2 = _apply_lane_stats(s2, lv, pp)
+        if overlap:
+            _write(d[_CARRY_STATE + 1:], (lane_reducer.partials(stack),))
+        row = None
+        if record:
+            prev = SimStats(*d[_CARRY_STATE + 1:])
+            ph = phase_at(cp, s2.round_idx - 1) if cp is not None else -1
+            row = flight.row_from_lanes(lv, pp.n, s2.t, ph,
+                                        flight.stats_delta(s2.stats, prev))
+            _write(d[_CARRY_STATE + 1:], s2.stats)
+        _write(d[:_CARRY_STATE + 1], (*s2.node_arrays(), s2.t,
+                                      s2.round_idx, *s2.stats, lv))
+        return row
 
-    n_super, rem = divmod(rounds, k)
     if overlap:
-        s, lv_ready = state, lanes0
         table = (lanes_mod.seed_table(lanes0, shard_offset)
                  if table0 is None
                  else lanes_mod.carry_table(table0, shard_offset))
-        for m in range(n_super):
-            pending = lane_reducer.fold_start(table)
-            s, stack = _lane_window(s, lv_ready, keys[m * k:(m + 1) * k],
-                                    frames(m * k, k), p, k, shard_offset)
-            lv_new = lane_reducer.fold_finish(pending)
-            s = _apply_lane_stats(s, lv_new, p)
-            lv_ready, table = lv_new, lane_reducer.partials(stack)
+        d = _carry(state, lanes0, table)
+        for m in range(rounds // k):
+            call(("overlap", pkey, plan_key), window, d,
+                 keys[m * k:(m + 1) * k], pleaves, k, False)
+        s, lv_ready, table = _carry_state(d), d[_CARRY_STATE], d[-1]
         if return_carry:
             return s, lv_ready, lane_reducer.gather_table(table)
         return _apply_lane_stats(s, lane_reducer.fold(table), p)
@@ -1038,26 +1129,17 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     lead = tuple(state.status.shape[:-1])
     buf = flight.empty_trace(rounds, flight_every, dev, lead=lead) \
         if with_flight else None
-    prev = state.stats
-    s, lv = state, lanes0
+    d = _carry(state, lanes0, *(state.stats if with_flight else ()))
     for i0 in range(0, rounds, k):
         count = min(k, rounds - i0)
-        s, stack = _lane_window(s, lv, keys[i0:i0 + count],
-                                frames(i0, count), p, count, shard_offset)
-        lv = lane_reducer(stack)
-        s = _apply_lane_stats(s, lv, p)
-        if with_flight:
-            i = i0 + count - 1
-
-            def rec(pv, s2=s, lv2=lv, i=i):
-                ph = active_phase(cp, r0 + i, sched) if cp is not None \
-                    else -1
-                flight.record_row(buf, flight.row_from_lanes(
-                    lv2, p.n, s2.t, ph, flight.stats_delta(s2.stats, pv)),
-                    i, flight_every)
-                return s2.stats
-
-            prev = flight.maybe_record(prev, i, rounds, flight_every, rec)
+        i = i0 + count - 1
+        record = with_flight and ((i + 1) % flight_every == 0
+                                  or i + 1 >= rounds)
+        row = call(("window", pkey, plan_key, count, record), window, d,
+                   keys[i0:i0 + count], pleaves, count, record)
+        if record:
+            flight.record_row(buf, row, i, flight_every)
+    s, lv = _carry_state(d), d[_CARRY_STATE]
     out = (s, buf) if with_flight else (s,)
     if return_carry:
         out = out + (lv,)
@@ -1115,6 +1197,7 @@ def make_run_rounds_lanes(p: SimParams, rounds: int,
         reducer = lanes_mod.reduce_lanes_single
     lanes_mod.check_pool(p.n, reducer.blocks)
     lanes_mod.check_schedule(p, rounds, flight_every, overlap)
+    cache = graphs.GraphCache()
 
     def run(state: SimState, key: torch.Tensor,
             cp: Optional[CompiledFaultPlan] = None, lanes0=None,
@@ -1135,9 +1218,10 @@ def make_run_rounds_lanes(p: SimParams, rounds: int,
         out = _lane_scan(state, keys, cp if cp is not None else plan, p,
                          rounds, flight_every, reducer,
                          overlap=overlap, lanes0=lanes0, table0=table0,
-                         return_carry=carry)
+                         return_carry=carry, cache=cache)
         if isinstance(out, SimState):
             return _write_back(state, out)
         return (_write_back(state, out[0]),) + tuple(out[1:])
 
+    run.graphs = cache
     return run

@@ -30,10 +30,12 @@ Engines:
   over the concrete points, each through ``cuda_round.
   make_run_rounds_cuda(rounds_per_call=R)`` (``mega_kernel`` for R > 1,
   ``round_kernel`` for R = 1) from a fresh state on the same key,
-  results stacked ``[G]``. The kernels take no swept leaves, so it
-  exists to put kernel schedules in the same reports, not for grid
-  throughput. It refuses fault plans (the megakernel freezes its inputs
-  per call) and coordinates, as the JAX engine does.
+  results stacked ``[G]``, each point run eagerly (a point's runner is
+  new and called once, and a graph is captured on a key's second call). The kernels
+  take no swept leaves, so it exists to put kernel schedules in the
+  same reports, not for grid throughput. It refuses fault plans (the
+  megakernel freezes its inputs per call) and coordinates, as the JAX
+  engine does.
 """
 
 from __future__ import annotations
@@ -42,16 +44,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from consul_tpu_torch.faults import (CompiledFaultPlan, active_phase,
-                                     fault_frame, plan_schedule)
+from consul_tpu_torch.faults import (CompiledFaultPlan, frame_at,
+                                     phase_at)
 from consul_tpu_torch.sim import coords as coords_mod
-from consul_tpu_torch.sim import flight, prng
+from consul_tpu_torch.sim import flight, graphs, prng
 from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim.params import (GridSpec, SimParams, TracedParams,
                                          _point_param, grid_params,
                                          point_params)
-from consul_tpu_torch.sim.round import (_lane_scan, _start_round,
-                                        round_core)
+from consul_tpu_torch.sim.round import (_CARRY_STATE, _carry,
+                                        _carry_state, _lane_scan,
+                                        _param_inputs, _params_from,
+                                        _write, round_core)
 from consul_tpu_torch.sim.state import SimState, SimStats, init_state
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
@@ -59,47 +63,65 @@ ENGINES = ("xla", "lanes", "cuda")
 
 
 def _xla_scan(state: SimState, tp, keys: torch.Tensor, rounds: int,
-              flight_every: Optional[int], cp, coords=None, topo=None):
+              flight_every: Optional[int], cp, cache, coords=None,
+              topo=None):
     """A grid's run on the live engine: ``round_core`` with the per-row
     reducer, and a flight row per point where a stride closes (as
     ``round.run_rounds_flight`` records). ``coords`` (``[G, N, ...]``
     CoordState) relaxes over ``topo`` each round and fills the rows'
-    coordinate columns."""
+    coordinate columns. Each round is one call of ``cache`` (a
+    ``graphs.GraphCache``: one captured grid round, replayed ``rounds``
+    times, its key an input, its frame and phase looked up on the device
+    from the carried round) on a private copy of the grid's state."""
     rows = state.status.shape[-1]
-    sched = plan_schedule(cp) if cp is not None else None
-    r0 = _start_round(state) if cp is not None else 0
+    pkey, pleaves = _param_inputs(tp)
     buf = flight.empty_trace(rounds, flight_every, state.status.device,
                              lead=tuple(state.status.shape[:-1])) \
         if flight_every is not None else None
-    prev = state.stats
-    s, c = state, coords
-    for i in range(rounds):
-        fx = fault_frame(cp, r0 + i, sched) if cp is not None else None
-        u01 = prng.threefry_u01(keys[i], rows)
+    nc = len(coords) if coords is not None else 0
+    d = _carry(state, *(coords if coords is not None else ()),
+               *(state.stats if flight_every is not None else ()))
+
+    def grid_round(d, key_i, leaves, record):
+        pp = _params_from(tp, leaves)
+        s = _carry_state(d)
+        fx = frame_at(cp, s.round_idx) if cp is not None else None
+        u01 = prng.threefry_u01(key_i, rows)
         aux = None
         if coords is None:
-            s, _ = round_core(s, None, tp, u01, fx,
-                              reduce=lanes_mod.row_sums)
+            s2, _ = round_core(s, None, pp, u01, fx,
+                               reduce=lanes_mod.row_sums)
+            c2 = ()
         else:
-            s, _, c, aux, _ = round_core(s, None, tp, u01, fx, coords=c,
-                                         topo=topo, key=keys[i],
-                                         reduce=lanes_mod.row_sums)
-        if flight_every is not None:
-            def rec(pv, s2=s, c2=c, aux=aux, i=i):
-                ph = active_phase(cp, r0 + i, sched) if cp is not None \
-                    else -1
-                crow = coords_mod.coord_metrics(c2, topo, aux) \
-                    if coords is not None else None
-                flight.record_row(buf, flight.grid_flight_row(
-                    up=s2.up, status=s2.status, informed=s2.informed,
-                    local_health=s2.local_health,
-                    incarnation=s2.incarnation, t=s2.t,
-                    stats_delta=flight.stats_delta(s2.stats, pv),
-                    phase=ph, coord_row=crow), i, flight_every)
-                return s2.stats
+            c = coords_mod.CoordState(*d[_CARRY_STATE:_CARRY_STATE + nc])
+            s2, _, c2, aux, _ = round_core(s, None, pp, u01, fx, coords=c,
+                                           topo=topo, key=key_i,
+                                           reduce=lanes_mod.row_sums)
+        row = None
+        if record:
+            prev = SimStats(*d[_CARRY_STATE + nc:])
+            ph = phase_at(cp, s2.round_idx - 1) if cp is not None else -1
+            crow = coords_mod.coord_metrics(c2, topo, aux) \
+                if coords is not None else None
+            row = flight.grid_flight_row(
+                up=s2.up, status=s2.status, informed=s2.informed,
+                local_health=s2.local_health, incarnation=s2.incarnation,
+                t=s2.t, stats_delta=flight.stats_delta(s2.stats, prev),
+                phase=ph, coord_row=crow)
+            _write(d[_CARRY_STATE + nc:], s2.stats)
+        _write(d[:_CARRY_STATE + nc], (*s2.node_arrays(), s2.t,
+                                       s2.round_idx, *s2.stats, *c2))
+        return row
 
-            prev = flight.maybe_record(prev, i, rounds, flight_every, rec)
-    return s, buf
+    plan_key = graphs.pinned(cp) if cp is not None else None
+    for i in range(rounds):
+        record = flight_every is not None and (
+            (i + 1) % flight_every == 0 or i + 1 >= rounds)
+        row = cache(("grid", pkey, plan_key, record), grid_round, d,
+                    keys[i], pleaves, record)
+        if record:
+            flight.record_row(buf, row, i, flight_every)
+    return _carry_state(d), buf
 
 
 def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
@@ -120,15 +142,17 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
             "the cuda engine runs each point through make_run_rounds_cuda "
             "on its concrete SimParams (no swept leaves reach a kernel); "
             "that runner is its oracle")
+    cache = graphs.GraphCache()
     if engine == "lanes":
         lanes_mod.check_pool(p.n)
         lanes_mod.check_flight_config(p, flight_every)
 
         def solo(state, tp, keys, cp):
             out = _lane_scan(state, keys, cp, tp, rounds, flight_every,
-                             lanes_mod.reduce_lanes_single)
+                             lanes_mod.reduce_lanes_single, cache=cache)
             return out if flight_every is not None else (out, None)
 
+        solo.graphs = cache
         return solo
 
     def solo(state, tp, keys, cp):
@@ -138,9 +162,10 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
             c0 = coords_mod.CoordState(*[
                 x.repeat(lead + (1,) * x.dim()) for x in
                 coords_mod.init_coords(p.n, device=state.status.device)])
-        return _xla_scan(state, tp, keys, rounds, flight_every, cp,
+        return _xla_scan(state, tp, keys, rounds, flight_every, cp, cache,
                          coords=c0, topo=topo)
 
+    solo.graphs = cache
     return solo
 
 
@@ -215,6 +240,8 @@ def _make_cuda_sweep(p: SimParams, rounds: int, flight_every: Optional[int],
                    for pp in pts]
         states, traces = [], []
         for pp, runner in zip(pts, runners):
+            # a point's runner is new and called once: its one call is
+            # a key's first, which runs eagerly (no capture a point)
             out = runner(init_state(pp.n, device=dev), key.to(dev))
             if flight_every is not None:
                 out, tr = out
@@ -278,6 +305,7 @@ def make_run_sweep(p: SimParams, rounds: int, *,
         keys = prng.round_keys(key.to(dev), 0, rounds)
         return solo(states, tp, keys, plan)
 
+    run.graphs = solo.graphs
     return run
 
 

@@ -271,6 +271,6 @@ def test_tune_phase_rehearsal(tmp_path):
     # the launch bookkeeping the card run asserts
     rows = [{"engine": "cuda", "rounds_per_call": r} for r in (1, 4, 8)]
     assert chip_smoke.tune_launches(rows, 48, 3, "stable") == {
-        "round_kernel/stable": 192, "mega_kernel/stable": 48 + 24}
+        "round_kernel/stable": 240, "mega_kernel/stable": 60 + 30}
     assert chip_smoke.tune_launches(rows, 24, 3, "full") == {
-        "round_kernel/full": 96, "mega_kernel/full": 24 + 12}
+        "round_kernel/full": 120, "mega_kernel/full": 30 + 15}

@@ -145,8 +145,13 @@ def test_marginal_protocol_cancels_init_work():
     from consul_tpu_torch.sim import prng
 
     key = prng.round_keys(prng.key(0), 0, 1)[0]
+    d = tround._carry(s, sc)
     with cm.OpCounter() as one:
-        tround.gossip_round_fast(s, sc, key, p)
+        s2, sc2 = tround.gossip_round_fast(s, sc, key, p)
+        # the runner writes each round into the buffers it carries (a
+        # CUDA graph of one round replays on them)
+        tround._write(d, (*s2.node_arrays(), s2.t, s2.round_idx,
+                          *s2.stats, sc2))
     with cm.OpCounter() as run1:
         tround.make_run_rounds_fast(p, 1)(
             tstate.init_state(1024, device=CPU), prng.key(0))
@@ -490,7 +495,7 @@ def test_measure_config_counts_the_kernel_runner(cuda, rpc):
                             rounds_per_call=rpc, reps=reps,
                             peak_gbps=3350.0, device=cuda)
     name = "round_kernel/full" if rpc == 1 else "mega_kernel/full"
-    assert dict(cuda_round.LAUNCHES) == {name: (1 + reps) * rounds // rpc}
+    assert dict(cuda_round.LAUNCHES) == {name: (2 + reps) * rounds // rpc}
     arrays = tstate.init_state(n, device=cuda).node_arrays()
     kb = cm.kernel_bound(p, arrays, rpc)
     assert row["bytes_measured"] == round(kb["bytes"] / rpc, 1)

@@ -109,7 +109,7 @@ def test_plan_compiled_plan_and_digest_equal_the_reference(rt, n):
     assert mine.total_rounds == theirs.total_rounds == 88
     assert mine.starts == list(theirs.starts)
     cp, rcp = tf.compile_plan(mine, n, CPU), rf.compile_plan(theirs, n)
-    for name in tf.CompiledFaultPlan._fields:
+    for name in tf.PLAN_LEAVES:
         a, b = getattr(cp, name), getattr(rcp, name, None)
         if a is None or b is None:
             assert a is None and b is None, name
