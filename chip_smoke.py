@@ -8,11 +8,12 @@ non-zero before the result line):
 
 1. env      — the card, the device count, its name and power limit from
               nvidia-smi; builds the CUDA kernels from
-              consul_tpu_torch/csrc and prints, per kernel
-              instantiation, ptxas's registers and spills (a spill
-              fails the run), its static SASS instruction count
-              (cuobjdump -sass on the built library) and the nodes
-              each thread takes.
+              consul_tpu_torch/csrc (round_kernels.cu, prng_kernels.cu,
+              sum_kernels.cu: one nvcc each, in parallel) and prints,
+              per kernel instantiation, ptxas's registers and spills (a
+              spill fails the run), its static SASS instruction count
+              (cuobjdump -sass on the built library) and, for the round
+              kernels, the nodes each thread takes.
 2. check    — at 1,048,576 nodes, on a state warmed by the plain path:
               one round_kernel launch in the stable and the full
               variant, one churn-config launch, one full-variant launch
@@ -31,7 +32,9 @@ non-zero before the result line):
 3. headline — the main path through the user entry points
               (consul_tpu_torch.bench.run_headline: per-round and R=8
               runners on the stable and full configs, best of 3), its
-              launch counters zeroed just before and read just after;
+              launch counters zeroed just before and read just after
+              (the round kernels, and the threefry kernel's words and
+              xor modes: the runners' round keys and seeds);
               then a 262,144-node, 60-round crash-detection check,
               counted on its own (exactly 60 stable round launches).
               The full-model diagnostic must show no false positive
@@ -187,19 +190,50 @@ non-zero before the result line):
               bytes the capture added to the graph pool; and a
               torch.profiler trace of one eager 48-round call (host ms
               by op). The earlier phases run the captured paths.
-12. timing  — each kernel's time per launch (device time: CUDA events
-              around replays of a CUDA graph of launches), its plain
-              version's time, and its bound (``kernel_bound``) from the
-              bytes it must move and the operations it must do; the
-              six variants of the paths and the gated full variant
-              (corroboration_k=1), which no path runs yet.
+              Launches count the round kernels and the draw and sum
+              kernels.
+12. draws   — the threefry draw kernel and the tree_sum kernel
+              (consul_tpu_torch/sim/fused.py): (a) every draw mode at
+              1, 2, 3, 255, 65,536, 1,048,576 and 16,777,216 words, key
+              stacks of 1, 5 and 4,096 keys, offsets past 2^32 (as an
+              int and as a device value), fold_in on a data tensor,
+              uniform's bounds (the views', normal's, a width that is no
+              power of two), normal, exponential and randint; every sum
+              at lengths 1, 2, 3, 7, 1,000,003 and 1,048,576, the grid
+              rows [2048, 65,536], the lane tables [32, 64], the lane
+              engine's block partials and row_sums, on inputs with
+              signed zeros and magnitudes 1e-30 to 1e30 — each bit for
+              bit its plain version (fused.plain()), which launches no
+              kernel; (b) a body holding every mode and both sums
+              through graphs.GraphCache, four calls with new keys,
+              offsets and inputs, each equal to its eager run with equal
+              launches; (c) the engines on the kernels against
+              fused.plain(), bit for bit with equal round-kernel
+              launches: the lane engine at 1M (16 rounds, stale_k 4,
+              flight), a lan grid round (64 x 65,536) on the xla and
+              lanes engines, the views at 4,096 (40 rounds), the kernel
+              runner's R=1 x48, R=1 x512 and R=8 x48 calls, a coordinate
+              round at 1M — wall and device µs a round both ways, and
+              every draw and sum kernel launched by them; (d) each
+              kernel's device ms at its paths' shapes, its plain
+              version's and torch.sum's ms, its bound
+              (costmodel.draw_bound / sum_bound).
+13. timing  — each round kernel's time per launch (device time: CUDA
+              events around replays of a CUDA graph of launches), its
+              plain version's time, and its bound (``kernel_bound``)
+              from the bytes it must move and the operations it must
+              do; the six variants of the paths and the gated full
+              variant (corroboration_k=1), which no path runs yet.
 
-Then the ``kernels`` line, the nvidia-smi line, and last
+Then the ``kernels`` line (the round kernels' variants, each
+``threefry/<mode>`` and ``tree_sum``: launches over the script's paths,
+times at the main path's shapes), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -288,8 +322,15 @@ CHECK_ROUNDS = {"fault": 4, "byz": 5}
 
 def kernel_label(symbol: str):
     """The variant whose instantiation a mangled kernel symbol names
-    (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>),
-    or None."""
+    (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>,
+    draw_kernel<MODE>, the sum kernels), or None."""
+    m = re.search(r"draw_kernelILi([0-4])E", symbol)
+    if m:
+        return "threefry/" + ("words", "xor", "seeds", "uniform",
+                              "u01_global")[int(m.group(1))]
+    m = re.search(r"(level|rows)_kernel", symbol)
+    if m:
+        return "tree_sum/" + m.group(1)
     m = re.search(r"mega_kernelILb([01])E", symbol)
     if m:
         return "mega_kernel/" + ("stable" if m.group(1) == "1" else "full")
@@ -344,9 +385,9 @@ def sass_counts(build, name) -> dict:
     return out
 
 
-def phase_env(torch, build, cuda_round):
+def phase_env(torch, build, cuda_round, fused):
     t0 = time.perf_counter()
-    reports = build.build([cuda_round.SOURCE])
+    reports = build.build([cuda_round.SOURCE, *fused.SOURCES])
     build_s = time.perf_counter() - t0
     regs = ptxas_report(reports[cuda_round.SOURCE])
     sass = sass_counts(build, cuda_round.SOURCE)
@@ -361,6 +402,18 @@ def phase_env(torch, build, cuda_round):
                                 for v in kernels.values()):
         raise SmokeFailure(f"kernel report incomplete or spilling: "
                            f"{kernels}")
+    for src in fused.SOURCES:
+        regs = ptxas_report(reports[src])
+        sass = sass_counts(build, src)
+        kernels.update({k: {**regs.get(k, {}), "sass_instructions":
+                            sass.get(k)} for k in set(regs) | set(sass)})
+    new = [v for k, v in kernels.items() if k.split("/")[0]
+           in ("threefry", "tree_sum")]
+    if len(new) != 7 or any(v.get("spill_bytes") != 0 or
+                            not v.get("registers") or
+                            not v["sass_instructions"] for v in new):
+        raise SmokeFailure(f"draw and sum kernel report incomplete or "
+                           f"spilling: {kernels}")
     emit({"phase": "env", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -538,11 +591,17 @@ def crash_detection(torch, m, dev):
 def phase_headline(torch, m, dev):
     cr = m.cuda_round
     cr.reset_launches()
+    m.fused.reset_launches()
     res = m.bench.run_headline(dev)
     launches = dict(cr.LAUNCHES)
+    draws = _fused_counts(m)
     for k in ("round_kernel/stable", "round_kernel/full",
               "mega_kernel/stable", "mega_kernel/full"):
         if launches.get(k, 0) <= 0:
+            raise SmokeFailure(f"{k} was not launched on the main path")
+    # the runners' per-round keys and seeds
+    for k in ("threefry/words", "threefry/xor"):
+        if draws.get(k, 0) <= 0:
             raise SmokeFailure(f"{k} was not launched on the main path")
     cr.reset_launches()
     crash = crash_detection(torch, m, dev)
@@ -558,7 +617,7 @@ def phase_headline(torch, m, dev):
                            f"({FD_BAND} of {FD_REF}, no false positive): "
                            f"{fd}")
     emit({"phase": "headline", **res, "crash_detection": crash,
-          "launches": launches})
+          "launches": launches, "draw_launches": draws})
     return res, launches
 
 
@@ -2108,27 +2167,41 @@ def graph_pair(torch, m, dev, label, prep, call, rounds, cache=None,
     eager run, bits of every output and launch counts. Wall ms a call
     (the first two apart), per round, the device's busy share of each,
     the capture's ms and pool bytes (``profile=False`` leaves out the
-    busy shares). Returns (report, failures, captured launches)."""
+    busy shares). Launches count the round kernels and the draw and sum
+    kernels. Returns (report, failures, captured launches)."""
     cr, g = m.cuda_round, m.graphs
-    cr.reset_launches()
+
+    mark = {}
+
+    def reset():
+        # the draw and sum kernels' counts are read as differences: the
+        # script totals them over its phases
+        cr.reset_launches()
+        mark.clear()
+        mark.update(_fused_counts(m))
+
+    def counts():
+        return {**cr.LAUNCHES, **_count_delta(_fused_counts(m), mark)}
+
+    reset()
     with g.eager():
         want, eager_first = _timed_call(torch, m, dev, prep, call)
-    eager_launches = dict(cr.LAUNCHES)
+    eager_launches = counts()
     _, first = _timed_call(torch, m, dev, prep, call)
-    cr.reset_launches()
+    reset()
     got, second = _timed_call(torch, m, dev, prep, call)
-    launches = dict(cr.LAUNCHES)
+    launches = counts()
     diffs = _bit_diffs(torch, want, got)
     del got
     eager_ms, graph_ms, replay_launches = [], [], None
     for i in range(GRAPH_REPS):
         with g.eager():
             eager_ms.append(_timed_call(torch, m, dev, prep, call)[1])
-        cr.reset_launches()
+        reset()
         out, ms = _timed_call(torch, m, dev, prep, call)
         graph_ms.append(ms)
         if i == 0:
-            replay_launches = dict(cr.LAUNCHES)
+            replay_launches = counts()
             diffs += [f"replay {d}" for d in _bit_diffs(torch, want, out)]
         del out
     del want
@@ -2299,6 +2372,416 @@ def phase_graphs(torch, m, dev):
     return launches
 
 
+# ------------------------------------------------------------- draws
+
+#: the draws phase's sizes: words a draw, key stacks, row lengths
+DRAW_WORDS = (1, 2, 3, 255, 65_536, 1_048_576, 16_777_216)
+DRAW_STACKS = (1, 5, 4096)
+SUM_LENGTHS = (1, 2, 3, 7, 1_000_003, 1_048_576)
+#: the engines held kernels against plain: lane-engine rounds, views
+#: rounds at 4,096, the kernel runner's (R, rounds) calls, grid rounds
+DRAWS_LANE_ROUNDS = 16
+DRAWS_VIEWS_ROUNDS = 40
+DRAWS_RUNNER_CALLS = ((1, 48), (1, 512), (8, 48))
+#: a value past 2^32 - 1 for the wrapping offsets
+WRAP = 2**32 - 1000
+#: the draw and sum kernels, by their launch counters' names
+DRAW_KERNELS = ("threefry/words", "threefry/xor", "threefry/uniform",
+                "threefry/u01_global", "tree_sum")
+
+
+def _fused_counts(m) -> dict:
+    return dict(m.fused.LAUNCHES)
+
+
+def _count_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def _same_bits(torch, a, b) -> bool:
+    la, lb = _tensor_leaves(torch, a), _tensor_leaves(torch, b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.view(torch.int32) if x.dtype == torch.float32 else x,
+            y.view(torch.int32) if y.dtype == torch.float32 else y)
+        for x, y in zip(la, lb))
+
+
+def _sum_input(torch, shape, dev, seed):
+    """f32 with magnitudes from 1e-30 to 1e30, -0.0 and +0.0 among them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, device=dev, generator=g)
+    x *= 10.0 ** torch.randint(-30, 31, shape, device=dev, generator=g)
+    x[..., ::3] = -0.0
+    x[..., 1::7] = 0.0
+    return x
+
+
+def draw_cases(torch, m, dev, words=DRAW_WORDS, stacks=DRAW_STACKS):
+    """(label, call) of every draw the phase holds against its plain
+    version: each mode at each size, key stacks, a wrapping offset, a
+    ``fold_in`` on a data tensor, every bound kind of ``uniform``."""
+    P = m.prng
+    k = P.key(17, device=dev)
+    start = torch.tensor(WRAP, device=dev)
+    cases = []
+    for n in words:
+        cases += [
+            (f"words split x{n}", lambda n=n: P.split(k, n)),
+            (f"xor bits x{n}", lambda n=n: P.bits(k, n)),
+            (f"uniform x{n}", lambda n=n: P.uniform(k, n)),
+            (f"u01_global x{n} from {WRAP}",
+             lambda n=n: P.u01_global(k, WRAP, n)),
+            (f"u01_global x{n} from a device offset",
+             lambda n=n: P.u01_global(k, start, n))]
+    for n in words[:5]:
+        cases += [
+            (f"words fold_in on data x{n}",
+             lambda n=n: P.fold_in(k, torch.arange(n, device=dev) * 977)),
+            (f"words round_keys x{n}",
+             lambda n=n: P.round_keys(k, start, n)),
+            (f"xor round_seeds x{n}",
+             lambda n=n: P.round_seeds(k, start, n))]
+    x0 = P.bits(P.fold_in(k, 1), words[4])
+    x1 = P.bits(P.fold_in(k, 2), words[4])
+    cases += [("words threefry2x32 on data",
+               lambda: P.threefry2x32(k[0], k[1], x0, x1)),
+              ("words fold_in x1", lambda: P.fold_in(k, 2**32 - 1))]
+    per = words[-1] // stacks[-1]
+    for s in stacks:
+        ks = P.split(k, s)
+        cases += [(f"words split of {s} keys", lambda ks=ks: P.split(ks, 3)),
+                  (f"xor bits of {s} keys", lambda ks=ks: P.bits(ks)),
+                  (f"uniform {s} keys x{per}",
+                   lambda ks=ks: P.uniform(ks, per))]
+    mid = words[-2]
+    for lo, hi in ((1e-9, 1.0), (P._NORMAL_LO, 1.0), (-3.0, 5.5)):
+        cases.append((f"uniform [{lo:g}, {hi:g}) x{mid}",
+                      lambda lo=lo, hi=hi: P.uniform(k, mid, lo, hi)))
+    side = int(round(words[-1] ** 0.5))
+    cases += [(f"uniform [1e-09, 1) {side} x {side} (views)",
+               lambda: P.uniform(k, (side, side), 1e-9, 1.0)),
+              (f"normal x{mid}", lambda: P.normal(k, (mid,))),
+              (f"exponential x{mid}", lambda: P.exponential(k, (mid,))),
+              (f"randint x{mid}", lambda: P.randint(k, (mid,), 1, mid))]
+    return cases
+
+
+def sum_cases(torch, m, dev, lengths=SUM_LENGTHS, grid_l=65_536,
+              lane_l=N):
+    """(label, call) of every sum the phase holds against its plain
+    version: each length alone and in 3 rows, the grid rows
+    ``[K * 64, grid_l]``, the lane tables ``[K, 64]``, the lane engine's
+    block partials of ``[K, lane_l]``, ``row_sums``."""
+    L = m.lanes
+    cases = []
+    for n in lengths:
+        for rows in (1, 3):
+            x = _sum_input(torch, (rows, n), dev, n + rows)
+            cases.append((f"tree_sum [{rows}, {n}]",
+                          lambda x=x: L.tree_sum(x)))
+    grid = _sum_input(torch, (L.N_LANES * L.LANE_BLOCKS, grid_l), dev, 1)
+    table = _sum_input(torch, (L.N_LANES, L.LANE_BLOCKS), dev, 2)
+    stack = _sum_input(torch, (L.N_LANES, lane_l), dev, 3)
+    stack[1] = -0.0
+    cases += [(f"tree_sum grid rows {tuple(grid.shape)}",
+               lambda: L.tree_sum(grid)),
+              (f"tree_sum lane table {tuple(table.shape)}",
+               lambda: L.tree_sum(table)),
+              (f"block partials {tuple(stack.shape)}",
+               lambda: L._block_partials(stack, L.LANE_BLOCKS)),
+              ("row_sums", lambda: L.row_sums(stack[:4], stack[4:8]))]
+    return cases
+
+
+def kernel_checks(torch, m, dev, cases) -> tuple:
+    """Each case on the kernels and inside ``fused.plain()``, bit for
+    bit; (report, failures). The plain side must launch no kernel."""
+    out, bad = {}, []
+    for label, call in cases:
+        got = call()
+        before = _fused_counts(m)
+        with m.fused.plain():
+            want = call()
+        if _fused_counts(m) != before:
+            bad.append(f"{label}: plain() launched a kernel")
+        same = _same_bits(torch, got, want)
+        out[label] = same
+        if not same:
+            bad.append(f"{label}: the kernel differs from its plain version")
+        del got, want
+    return out, bad
+
+
+def captured_draws(torch, m, dev, calls=4, words=4096, rows=3) -> tuple:
+    """A body holding every draw mode and both sum kernels through
+    ``graphs.GraphCache``, called with new keys, offsets and inputs: the
+    first call eager, the second captured, the rest replayed; each equal
+    to its eager run, launches equal. (report, failures)."""
+    P, L, g = m.prng, m.lanes, m.graphs
+    cache = g.GraphCache()
+
+    def body(donated, key, offset, x):
+        return (P.round_seeds(key, offset, 48), P.round_keys(key, offset, 5),
+                P.u01_global(key, offset, words), P.uniform(key, words),
+                P.bits(key, words), P.fold_in(key, offset),
+                L.tree_sum(x), L._block_partials(x, L.LANE_BLOCKS))
+
+    dummy = torch.zeros(1, device=dev)
+    out, bad = [], []
+    for i in range(calls):
+        args = (P.key(100 + i, device=dev),
+                torch.tensor(WRAP + 333 * i, device=dev),
+                _sum_input(torch, (rows, L.LANE_BLOCKS * 300), dev, i))
+        before = _fused_counts(m)
+        got = cache(("draws",), body, (dummy,), *args)
+        launches = _count_delta(_fused_counts(m), before)
+        before = _fused_counts(m)
+        with g.eager():
+            want = body((dummy,), *args)
+        eager = _count_delta(_fused_counts(m), before)
+        same = _same_bits(torch, got, want)
+        out.append({"call": i, "bitwise": same, "launches": launches})
+        if not same or launches != eager:
+            bad.append(f"captured draws call {i}: bitwise {same}, launches "
+                       f"{launches} against eager {eager}")
+    replays = [s["replays"] for s in cache.stats()]
+    if dev.type == "cuda" and replays != [calls - 1]:
+        bad.append(f"captured draws: replays {replays}")
+    return {"calls": out, "replays": replays}, bad
+
+
+def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
+                profile=True):
+    """``call(*prep())`` on the kernels and inside ``fused.plain()``:
+    each side called ``warm`` times (a captured runner's eager call and
+    its capture), then once timed (a replay), and ``traced`` (a call and
+    its rounds; ``call`` itself when None) once under the profiler for
+    device time; the kernels' side's launches counted from zero.
+    (report, failures, the kernels' launches)."""
+    t_call, t_rounds = traced or (call, rounds)
+    rep, outs = {}, {}
+    launches = {}
+    for side in ("kernels", "plain"):
+        ctx = m.fused.plain if side == "plain" else contextlib.nullcontext
+        with ctx():
+            before = _fused_counts(m)
+            cr_before = collections.Counter(m.cuda_round.LAUNCHES)
+            for _ in range(warm):
+                call(*prep())
+            args = prep()
+            m.bench._sync(torch.device(dev))
+            outs[side], ms = _wall_ms(torch, lambda: call(*args))
+            counts = _count_delta(_fused_counts(m), before)
+            rk = dict(collections.Counter(m.cuda_round.LAUNCHES)
+                      - cr_before)
+            prof = {}
+            if profile and dev.type == "cuda":
+                args = prep()
+                _, prof = m.bench.profile_call(lambda: t_call(*args),
+                                               t_rounds, torch.device(dev))
+        rep[side] = {"wall_us_per_round": ms / rounds * 1e3,
+                     "device_us_per_round":
+                         prof.get("device_busy_us", 0.0) / t_rounds
+                         if prof else None,
+                     "kernels_per_round": prof.get("kernels_per_round"),
+                     "round_kernel_launches": rk}
+        if side == "kernels":
+            launches = counts
+        elif counts:
+            rep["bad_plain_launches"] = counts
+    bad = []
+    if not _same_bits(torch, outs["kernels"], outs["plain"]):
+        bad.append(f"{label}: kernels and plain() differ")
+    if rep["kernels"]["round_kernel_launches"] != \
+            rep["plain"]["round_kernel_launches"]:
+        bad.append(f"{label}: round-kernel launches differ")
+    if "bad_plain_launches" in rep:
+        bad.append(f"{label}: plain() launched {rep['bad_plain_launches']}")
+    if dev.type == "cuda" and not launches:
+        bad.append(f"{label}: no draw or sum kernel launched")
+    rep["launches"] = launches
+    return rep, bad, launches
+
+
+def engine_cases(torch, m, dev, n=N, grid_n=None, views_n=VIEWS_N,
+                 lane_rounds=DRAWS_LANE_ROUNDS,
+                 views_rounds=DRAWS_VIEWS_ROUNDS,
+                 runner_calls=DRAWS_RUNNER_CALLS):
+    """(label, prep, call, rounds, warm-up calls, traced call or None) of
+    each engine the phase runs on the kernels and on the plain versions:
+    the lane engine in sweep_lanes' configuration, a lan grid round on
+    the xla and lanes engines, the views at 4,096 (views_single's first
+    stage; not a captured runner, so no warm-up; traced over
+    ``VIEWS_PROFILE_ROUNDS``: the profiler's cost grows with the plain
+    version's ~2,900 launches a round), the kernel runner's calls and a
+    coordinate round."""
+    b, P = m.bench, m.prng
+    key = P.key(61, device=dev)
+    cases = []
+    p_diag = b.diag_params(n)
+    s0 = m.state.init_state(n, device=dev)
+    lane = m.round.make_run_rounds_lanes(
+        p_diag.with_(stale_k=LANE_KS[-1]), lane_rounds,
+        flight_every=LANE_STRIDE, carry=True)
+    cases.append((f"lane engine stale_k={LANE_KS[-1]} x{lane_rounds}",
+                  lambda: (b.clone_state(s0), key), lane, lane_rounds, 2,
+                  None))
+    n_grid = grid_n or b.SWEEP_SIZE[0]
+    p_grid = m.scenarios.autotune_params("lan", n_grid)
+    tp, _ = m.params.grid_params(
+        p_grid, m.params.SweepAxes.of(**b.AUTOTUNE_GRID), dev)
+    for engine in ("xla", "lanes"):
+        grid = m.sweep.make_run_sweep(p_grid, 1, engine=engine, device=dev)
+        cases.append((f"grid round {engine} {tp.grid_shape[0]} x {n_grid}",
+                      lambda: (tp, key), grid, 1, 2, None))
+    V = m.views
+    pv = m.params.SimParams(n=views_n, loss=0.01)
+    v0 = V.init_views(views_n, device=dev)
+    cases.append((f"views {views_n} x{views_rounds}", lambda: (v0,),
+                  lambda v: V.run_views(v, P.key(71, dev), pv, views_rounds),
+                  views_rounds, 0,
+                  (lambda v: V.run_views(v, P.key(72, dev), pv,
+                                         VIEWS_PROFILE_ROUNDS),
+                   VIEWS_PROFILE_ROUNDS)))
+    for R, rounds in runner_calls:
+        run = m.cuda_round.make_run_rounds_cuda(b.headline_params(n), rounds,
+                                                rounds_per_call=R)
+        cases.append((f"kernel runner R={R} x{rounds}",
+                      lambda: (b.clone_state(s0), key), run, rounds, 2,
+                      None))
+    topo = m.topology.make_topology(m.topology.TopologyParams(n=n), dev)
+    coo = m.coords.init_coords(n, device=dev)
+    up = torch.ones(n, dtype=torch.bool, device=dev)
+    sc = torch.tensor([float(n), float(n), float(n), 0.0, 0.01 * n,
+                       0.01 * n, 0.0, 1e-9], device=dev)
+    ckey = P.fold_in(key, P.COORD_FOLD)
+    cases.append(("coordinate round", lambda: (),
+                  lambda: m.cuda_round.coord_round(coo, topo, ckey, up, sc),
+                  1, 1, None))
+    return cases
+
+
+def draws_engines(torch, m, dev, profile=True, **sizes) -> tuple:
+    """Every engine of ``engine_cases`` on the kernels and plain:
+    (report, failures, the kernels' launches over them)."""
+    out, bad, launches = {}, [], collections.Counter()
+    for label, prep, call, rounds, warm, traced in engine_cases(
+            torch, m, dev, **sizes):
+        t1 = time.perf_counter()
+        out[label], b, got = engine_pair(torch, m, dev, label, prep, call,
+                                         rounds, warm, traced,
+                                         profile=profile)
+        bad += b
+        launches.update(got)
+        print(f"draws: {label} {time.perf_counter() - t1:.1f} s",
+              file=sys.stderr, flush=True)
+    return out, bad, dict(launches)
+
+
+def draw_timing_cases(torch, m, dev, n=N, grid_l=65_536, views=VIEWS_N):
+    """(name, kernel call, plain call, bound, library call or None) of
+    each kernel at the shapes of its paths: ``round_keys`` of a 512-round
+    call, its seeds (the xor mode as int32), the live engine's 1M-word
+    uniform, the views' 4,096 x 4,096 one, the lane engine's
+    ``u01_global``, and the sums: the lane engine's block partials of
+    ``[32, 1M]``, a coordinate mean ``[1, 1M]``, the grid rows ``[2048,
+    grid_l]`` and the lane table ``[32, 64]``."""
+    P, L, F, cm = m.prng, m.lanes, m.fused, m.costmodel
+    k = P.key(23, device=dev)
+    start = torch.tensor(5, device=dev)
+    rk = P.round_keys(k, start, 512)
+    draws = [
+        ("threefry/words", "round_keys x512",
+         F.draw("words", k[..., 0], k[..., 1], gen=512,
+                base=P._on(start, dev))),
+        ("threefry/xor", "round_seeds x512",
+         F.draw("seeds", rk[..., 0], rk[..., 1])),
+        ("threefry/uniform", f"uniform x{n}",
+         F.draw("uniform", k[..., 0, None], k[..., 1, None], gen=n)),
+        ("threefry/uniform", f"uniform [1e-9, 1) {views} x {views}",
+         F.draw("uniform", k[..., 0, None], k[..., 1, None],
+                gen=views * views, minval=1e-9, maxval=1.0)),
+        ("threefry/u01_global", f"u01_global x{n}",
+         F.draw("u01_global", k[0], k[1], gen=n, base=P._on(0, dev)))]
+    plains = {"round_keys x512": lambda: P.round_keys(k, start, 512),
+              "round_seeds x512": lambda: (P.bits(rk) >> 1).to(torch.int32),
+              f"uniform x{n}": lambda: P.uniform(k, n),
+              f"uniform [1e-9, 1) {views} x {views}":
+                  lambda: P.uniform(k, (views, views), 1e-9, 1.0),
+              f"u01_global x{n}": lambda: P.u01_global(k, 0, n)}
+    cases = [(name, shape, lambda d=d: F.threefry(d), plains[shape],
+              cm.draw_bound(d), None) for name, shape, d in draws]
+    for shape, x, plus_zero in (
+            (f"block partials [32, {n}]",
+             _sum_input(torch, (L.N_LANES, L.LANE_BLOCKS, n // L.LANE_BLOCKS),
+                        dev, 5), True),
+            (f"coordinate mean [1, {n}]", _sum_input(torch, (1, n), dev, 6),
+             False),
+            (f"grid rows [2048, {grid_l}]",
+             _sum_input(torch, (L.N_LANES * L.LANE_BLOCKS, grid_l), dev, 7),
+             False),
+            ("lane table [32, 64]",
+             _sum_input(torch, (L.N_LANES, L.LANE_BLOCKS), dev, 8), False)):
+        rows = x.numel() // x.shape[-1]
+        plain = (lambda x=x: L.tree_sum(x) + 0.0) if plus_zero else \
+            (lambda x=x: L.tree_sum(x))
+        cases.append(("tree_sum", shape,
+                      lambda x=x, z=plus_zero: F.tree_sum(x, z), plain,
+                      cm.sum_bound(rows, x.shape[-1]),
+                      lambda x=x: torch.sum(x, -1)))
+    return cases
+
+
+def draws_timing(torch, m, dev, n=N) -> dict:
+    """Each kernel's device ms at its paths' shapes (CUDA-graph replay),
+    its plain version's and the library call's ms (CUDA events), its
+    bound."""
+    out = {}
+    for name, shape, kern, plain, bound, library in draw_timing_cases(
+            torch, m, dev, n):
+        with m.fused.plain():
+            plain_ms = _events_ms(torch, plain, 5)
+        out.setdefault(name, {})[shape] = {
+            "ms": _graph_ms(torch, kern, 200),
+            "plain_ms": plain_ms,
+            "library_ms": _events_ms(torch, library, 50) if library
+            else None,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bytes": bound["bytes"]}
+    return out
+
+
+def phase_draws(torch, m, dev):
+    """The draw and sum kernels: (a) each against its plain version,
+    bit for bit; (b) captured replays; (c) the engines on the kernels
+    against ``fused.plain()``; (d) times. Returns (report, the engines'
+    kernel launches)."""
+    t0 = time.perf_counter()
+    draws, bad = kernel_checks(torch, m, dev, draw_cases(torch, m, dev))
+    sums, b = kernel_checks(torch, m, dev, sum_cases(torch, m, dev))
+    bad += b
+    captured, b = captured_draws(torch, m, dev)
+    bad += b
+    checks_s = time.perf_counter() - t0
+    engines, b, launches = draws_engines(torch, m, dev)
+    bad += b
+    missing = [k for k in DRAW_KERNELS if not launches.get(k)]
+    if missing:
+        bad.append(f"draws: the engines never launched {missing}")
+    if bad:
+        raise SmokeFailure("draws: " + "; ".join(bad))
+    timing = draws_timing(torch, m, dev)
+    rep = {"phase": "draws", "n": N, "nvidia_smi": nvidia_smi(),
+           "phase_s": time.perf_counter() - t0, "checks_s": checks_s,
+           "draws": draws, "sums": sums, "captured": captured,
+           "engines": engines, "timing": timing, "launches": launches}
+    emit(rep)
+    return rep, launches
+
+
+
 def _events_ms(torch, fn, reps, warm=2):
     for _ in range(warm):
         fn()
@@ -2431,18 +2914,18 @@ def modules():
 
     from consul_tpu_torch import bench, cli, config, faults, graft_entry
     from consul_tpu_torch.sim import (autotune, blackbox, checkpoint, coords,
-                                      costmodel, cuda_round, flight, graphs,
-                                      mesh, metrics, params, prng, round,
-                                      scenarios, state, sweep, topology,
-                                      twin, views)
+                                      costmodel, cuda_round, flight, fused,
+                                      graphs, lanes, mesh, metrics, params,
+                                      prng, round, scenarios, state, sweep,
+                                      topology, twin, views)
     from consul_tpu_torch.utils import telemetry
 
     return types.SimpleNamespace(
         autotune=autotune, bench=bench, blackbox=blackbox,
         checkpoint=checkpoint, cli=cli, config=config, coords=coords,
         costmodel=costmodel, cuda_round=cuda_round, faults=faults,
-        flight=flight, graft_entry=graft_entry, graphs=graphs, mesh=mesh,
-        metrics=metrics,
+        flight=flight, fused=fused, graft_entry=graft_entry, graphs=graphs,
+        lanes=lanes, mesh=mesh, metrics=metrics,
         params=params, prng=prng, round=round, scenarios=scenarios,
         state=state, sweep=sweep, telemetry=telemetry, topology=topology,
         twin=twin, views=views)
@@ -2462,9 +2945,11 @@ def main() -> int:
 
     from consul_tpu_torch.utils import build
 
-    phase_env(torch, build, m.cuda_round)
+    phase_env(torch, build, m.cuda_round, m.fused)
     checks, inputs = phase_check(torch, m, dev)
     headline, launches = phase_headline(torch, m, dev)
+    # the draw and sum kernels' launches on every path from here on
+    draws0 = _fused_counts(m)
     chaos, chaos_launches = phase_chaos(torch, m, dev)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as root:
         parts = (chaos_launches, phase_observe(torch, m, dev),
@@ -2475,6 +2960,10 @@ def main() -> int:
                              headline),
                   phase_seams(torch, m, dev, root),
                   phase_graphs(torch, m, dev))
+    draw_launches = collections.Counter(_count_delta(_fused_counts(m),
+                                                     draws0))
+    draws, engine_launches = phase_draws(torch, m, dev)
+    draw_launches.update(engine_launches)
     for part in parts:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
@@ -2498,6 +2987,27 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    # each draw and sum kernel at its main path's shape; bit for bit
+    # against its plain version in phase draws
+    shapes = {"threefry/words": "round_keys x512",
+              "threefry/xor": "round_seeds x512",
+              "threefry/uniform": f"uniform x{N}",
+              "threefry/u01_global": f"u01_global x{N}",
+              "tree_sum": f"block partials [32, {N}]"}
+    for name in DRAW_KERNELS:
+        t = draws["timing"][name][shapes[name]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "consul_tpu_torch/csrc/" + (
+                "sum_kernels.cu" if name == "tree_sum"
+                else "prng_kernels.cu"),
+            "replaces": "consul_tpu/sim/lanes.py:199 (jnp.sum)"
+            if name == "tree_sum" else
+            "consul_tpu/sim/lanes.py:181 (jax.random.*)",
+            "launches": draw_launches[name], "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -46,6 +46,7 @@ layers:
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -56,7 +57,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from consul_tpu_torch.sim import cuda_round, graphs, prng, registry
+from consul_tpu_torch.sim import cuda_round, fused, graphs, prng, registry
 from consul_tpu_torch.sim.flight import trace_bytes
 from consul_tpu_torch.sim.round import (make_run_rounds, make_run_rounds_fast,
                                         make_run_rounds_lanes)
@@ -300,15 +301,60 @@ def kernel_bound(p, arrays, rounds=1, fx=None, out=None) -> dict:
             per_node += BYZ_F32_OPS
         f32_ops = rows * per_node
     int_ops = rounds * (calls * PHILOX_INT_OPS + draws * DRAW_INT_OPS)
+    return {"state_bytes": state_bytes, "frame_bytes": rows * frame_bytes,
+            "philox_calls": rounds * calls, "draws": rounds * draws,
+            **_bound(nbytes, int_ops, f32_ops)}
+
+
+def _bound(nbytes: int, int_ops: float, f32_ops: float) -> dict:
+    """The larger of ``nbytes`` over the HBM rate and the operations
+    over their rates (integer and f32 lanes run side by side)."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
-    return {"bytes": nbytes, "state_bytes": state_bytes,
-            "frame_bytes": rows * frame_bytes,
-            "philox_calls": rounds * calls, "draws": rounds * draws,
-            "int32_ops": int_ops, "f32_ops": f32_ops,
+    return {"bytes": nbytes, "int32_ops": int_ops, "f32_ops": f32_ops,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+#: integer operations of one Threefry-2x32 evaluation on the card: 20
+#: rotations of an add, a funnel shift and a xor, 5 key injections of
+#: two adds, the first injection's two adds (the key schedule's third
+#: word is made once a row, so no word pays for it)
+THREEFRY_INT_OPS = 20 * 3 + 5 * 2 + 2
+#: integer operations a word's output adds, by draw mode: the xor, the
+#: shift, the int -> float conversion
+DRAW_MODE_INT_OPS = {"words": 0, "xor": 1, "seeds": 2, "uniform": 3,
+                     "u01_global": 2}
+#: f32 operations a uniform word's scaling adds to its conversion's one
+#: product: none, a product, a sum and a max (power-of-two width), or
+#: the max alone (the f64 product and sum are not counted)
+SCALE_F32_OPS = {"unit": 0, "pow2": 3, "f64": 1}
+
+
+def draw_bound(d: "fused.Draw") -> dict:
+    """The least time one launch of the draw kernel on ``d`` could take:
+    its operands read once (``d.raw``: keys, counter data, base) and its
+    output written once, over the HBM rate; its integer operations (a
+    Threefry evaluation, the generated counter's add and the mode's
+    output, a word) over ``INT32_OPS_PER_S``; a uniform's scaling as f32
+    operations (its f64 width, two f64 operations a word, is not
+    counted: a lower bound)."""
+    words = math.prod(d.shape)
+    nbytes = sum(t.numel() * t.element_size() for t in d.raw) \
+        + fused.draw_out_bytes(d)
+    int_ops = words * (THREEFRY_INT_OPS + int(d.gen)
+                       + DRAW_MODE_INT_OPS[d.mode])
+    f32_ops = words * (1 + SCALE_F32_OPS[d.scale]) \
+        if d.mode in ("uniform", "u01_global") else 0
+    return {"words": words, **_bound(nbytes, int_ops, f32_ops)}
+
+
+def sum_bound(rows: int, length: int) -> dict:
+    """The least time a ``tree_sum`` of ``rows`` f32 rows of ``length``
+    could take: every element read once, one f32 a row written, and
+    ``length - 1`` additions a row."""
+    return _bound(4 * rows * (length + 1), 0, rows * (length - 1))
 
 
 # ---------------------------------------- counted and timed attribution
@@ -329,7 +375,10 @@ class OpCounter(TorchDispatchMode):
     input and moves nothing (XLA counts no bytes for a bitcast). A
     count, like XLA's per-HLO "bytes accessed": a broadcast input counts
     its full size, an in-place op its operand twice (read and write),
-    and nothing is known of caches."""
+    and nothing is known of caches. A launch of the draw or sum kernels
+    (``fused``), which dispatches no aten op, adds its operands and
+    outputs the same way (``add``), each counted once: the kernel reads
+    a broadcast key once."""
 
     def __init__(self):
         super().__init__()
@@ -337,17 +386,28 @@ class OpCounter(TorchDispatchMode):
         self.ops = 0
         self.calls = 0
 
+    def __enter__(self):
+        fused.OBSERVERS.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        fused.OBSERVERS.remove(self)
+        return super().__exit__(*exc)
+
+    def add(self, ins, outs) -> None:
+        """Count one call that read tensors ``ins`` and wrote ``outs``."""
+        self.bytes += sum(t.numel() * t.element_size()
+                          for t in list(ins) + list(outs))
+        self.ops += sum(t.numel() for t in outs)
+        self.calls += 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if not func.is_view:
-            ins = [t for t in tree_leaves((args, kwargs))
-                   if isinstance(t, torch.Tensor)]
-            outs = [t for t in tree_leaves(out)
-                    if isinstance(t, torch.Tensor)]
-            self.bytes += sum(t.numel() * t.element_size()
-                              for t in ins + outs)
-            self.ops += sum(t.numel() for t in outs)
-            self.calls += 1
+            self.add([t for t in tree_leaves((args, kwargs))
+                      if isinstance(t, torch.Tensor)],
+                     [t for t in tree_leaves(out)
+                      if isinstance(t, torch.Tensor)])
         return out
 
 

@@ -27,9 +27,13 @@ does it:
   state (a checkpoint load, a twin chunk, a sweep point) arrives in new
   tensors, and a pointer key would capture anew for each, while the two
   copies move 2 x 15 B a node a call;
-* ``counters`` (the kernel wrappers' launch counters) count what each
-  call launches: the capture launches nothing, so its increments are
-  taken back, and the captured launches are added on every replay.
+* ``counters`` (the kernel wrappers' launch counters; the draw and sum
+  kernels' ``fused.LAUNCHES`` always) count what each call launches:
+  the capture launches nothing, so its increments are taken back, and
+  the captured launches are added on every replay;
+* the key holds the ``fused.plain()`` switch: a body captured with the
+  draw and sum kernels is not replayed where the plain versions were
+  asked for.
 
 A failed capture or replay raises; nothing falls back to the eager
 body: a body that syncs (a host read, a copy from pageable host memory)
@@ -59,6 +63,8 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+from consul_tpu_torch.sim import fused
 
 #: graphs a cache keeps; the least recently used is dropped beyond it
 MAX_GRAPHS = 8
@@ -149,7 +155,7 @@ class GraphCache:
     ``MAX_GRAPHS`` keys, least recently used dropped first."""
 
     def __init__(self, counters: Sequence[collections.Counter] = ()):
-        self.counters = tuple(counters)
+        self.counters = tuple(counters) + (fused.LAUNCHES,)
         # key -> _Entry, or None for a key seen once (run eagerly)
         self._entries: collections.OrderedDict = collections.OrderedDict()
         # one memory pool for the cache's graphs: they replay one at a
@@ -167,7 +173,7 @@ class GraphCache:
         donated = tuple(donated)
         dev = donated[0].device if donated else None
         leaves, spec = tree_flatten(args)
-        full_key = (key, spec,
+        full_key = (key, fused.plain_active(), spec,
                     tuple(_tensor_spec(x) for x in donated),
                     tuple(_tensor_spec(x) if isinstance(x, torch.Tensor)
                           else ("leaf", x) for x in leaves))

@@ -31,15 +31,23 @@ exact: every column has one owner and the other ranks add +0.0, and
 one value for which ``x + 0.0`` is not ``x``). So the mesh's lane
 vectors equal one device's bit for bit, whatever the world size.
 
+On the card every sum here is the sum kernel (``fused.tree_sum``: the
+same additions in the same order, in one or two launches, with
+``_block_partials``' +0.0 folded in); CPU tensors run the halving below,
+and ``tree_sum_staged`` is the kernel's plain twin (its ``fused.sum_plan``
+in PyTorch), which CPU tensors run inside ``fused.twins()``.
+
 Not ported: the reference's jax batching patch for its optimization
 barrier (no PyTorch meaning).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from consul_tpu_torch.sim import registry
+from consul_tpu_torch.sim import fused, registry
 from consul_tpu_torch.sim.state import STATS_FIELDS, SimStats
 
 N_LANES = registry.N_REDUCE_LANES
@@ -125,6 +133,13 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     element to the next step. Each output is one fixed tree of f32
     additions, independent of the leading shape and of the device —
     the sums a grid row and its one-point run share bit for bit."""
+    if fused.routed(x):
+        return _fused_sum(x)
+    return _halve(x)
+
+
+def _halve(x: torch.Tensor) -> torch.Tensor:
+    """``tree_sum``'s plain version: the halving steps as PyTorch ops."""
     while x.shape[-1] > 1:
         length = x.shape[-1]
         h = length // 2
@@ -133,6 +148,60 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
             y = torch.cat([y, x[..., 2 * h:]], dim=-1)
         x = y
     return x[..., 0]
+
+
+def _fused_sum(x: torch.Tensor, plus_zero: bool = False) -> torch.Tensor:
+    """The sum kernel for a CUDA tensor, its plain twin for a CPU one."""
+    if x.device.type == "cuda":
+        return fused.tree_sum(x, plus_zero)
+    return tree_sum_staged(x, plus_zero)
+
+
+def _level(y: torch.Tensor, st: fused.Stage) -> torch.Tensor:
+    """Level ``st.k`` of rows ``y`` ([R, L] -> [R, n_k]) as the kernel's
+    threads compute it: position p is the pairwise tree, in the order of
+    m, of the leaves p + sum of h_b over the set bits b of m (a full
+    tree's threads load them 8 at a time: the same tree); in the last
+    position's tree leaf m (not all ones) is absent when level j's length
+    is odd, j the highest zero bit of m, and a pair with one side absent
+    passes the other on."""
+    k = st.k
+    if k == 0:
+        return y
+    m = torch.arange(1 << k)
+    bits = (m[:, None] >> torch.arange(k)) & 1
+    off = (bits * torch.tensor(st.h)).sum(1)
+    idx = torch.arange(st.nk)[:, None] + off
+    odd = torch.tensor([(st.odd() >> j) & 1 for j in range(k)],
+                       dtype=torch.bool)
+    top_zero = ((1 - bits) * torch.arange(k)).amax(1)
+    present = torch.ones(idx.shape, dtype=torch.bool)
+    present[-1] = (m == (1 << k) - 1) | ~odd[top_zero]
+    v = y[:, torch.where(present, idx, 0).to(y.device)]
+    pres = present.to(y.device).expand(v.shape)
+    for _ in range(k):
+        a, b = v[..., 0::2], v[..., 1::2]
+        pa, pb = pres[..., 0::2], pres[..., 1::2]
+        v = torch.where(pa & pb, a + b, torch.where(pa, a, b))
+        pres = pa | pb
+    return v[..., 0]
+
+
+def tree_sum_staged(x: torch.Tensor, plus_zero: bool = False) -> torch.Tensor:
+    """The sum kernel's plain twin: ``tree_sum`` (plus +0.0 when
+    ``plus_zero``) through the launches of ``fused.sum_plan`` — a
+    ``level`` launch computes level k of every row, a ``rows`` launch
+    level k and then the remaining halving steps (its block's shared
+    memory stage)."""
+    lead = tuple(x.shape[:-1])
+    rows = math.prod(lead)
+    y = x.reshape(rows, x.shape[-1])
+    for st in fused.sum_plan(rows, x.shape[-1]):
+        y = _level(y, st)
+        if st.kernel == "rows":
+            y = _halve(y)
+    y = y.reshape(lead)
+    return y + 0.0 if plus_zero else y
 
 
 def row_sums(*xs: torch.Tensor) -> list:
@@ -149,8 +218,11 @@ def _block_partials(stack: torch.Tensor, blocks: int) -> torch.Tensor:
     sums (inner length L // blocks). Adding +0.0 turns a -0.0 partial
     into +0.0 and leaves every other value as it is, so a table summed
     with zero tables (the mesh's all-reduce) keeps every bit."""
-    return tree_sum(stack.reshape(*stack.shape[:-1], blocks,
-                                  stack.shape[-1] // blocks)) + 0.0
+    rows = stack.reshape(*stack.shape[:-1], blocks,
+                         stack.shape[-1] // blocks)
+    if fused.routed(rows):
+        return _fused_sum(rows, plus_zero=True)
+    return tree_sum(rows) + 0.0
 
 
 class LaneReducer:

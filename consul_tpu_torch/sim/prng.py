@@ -24,6 +24,13 @@ Two generators live here:
 Words are carried in int64 tensors holding values in [0, 2^32), masked
 after every add and shift (PyTorch on the CPU has no ``<<`` for uint32);
 threefry's rounds run on int32 words, whose adds wrap as uint32's do.
+
+On the card every threefry draw is one launch of the draw kernel
+(``fused.threefry``): each function builds its ``fused.Draw`` and
+``_draw`` launches it. The functions' own bodies are the plain versions,
+which CPU tensors run (and the card inside ``fused.plain()``);
+``_draw_twin`` is the kernel's plain twin, which CPU tensors run inside
+``fused.twins()``.
 Philox's multiplications split one factor into 16-bit halves so no
 product leaves int64's range.
 """
@@ -31,9 +38,11 @@ product leaves int64's range.
 from __future__ import annotations
 
 import math
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
+
+from consul_tpu_torch.sim import fused
 
 MASK = 0xFFFFFFFF
 
@@ -75,6 +84,11 @@ def _threefry_i32(k0, k1, x0, x1):
 def threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds on broadcastable int64 word tensors;
     returns the two output words (int64 in [0, 2^32))."""
+    if isinstance(k0, torch.Tensor) and fused.routed(k0):
+        dev = k0.device
+        w = _draw(fused.draw("words", _on(k0, dev), _on(k1, dev),
+                             _counter(x0, dev), _counter(x1, dev)))
+        return w[..., 0], w[..., 1]
     y0, y1 = _threefry_i32(k0, k1, x0, x1)
     return y0.to(torch.int64) & MASK, y1.to(torch.int64) & MASK
 
@@ -94,10 +108,61 @@ def _on(x, device) -> torch.Tensor:
     return torch.as_tensor(x, device=device).to(torch.int64)
 
 
+def _counter(x, device) -> Optional[torch.Tensor]:
+    """A counter word operand of a draw: None for the int 0."""
+    if isinstance(x, int) and x == 0:
+        return None
+    return _on(x, device)
+
+
+def _draw(d: fused.Draw) -> torch.Tensor:
+    """One fused draw: the kernel for CUDA operands, its plain twin
+    (``_draw_twin``) for CPU ones."""
+    if d.k0.device.type == "cuda":
+        return fused.threefry(d)
+    return _draw_twin(d)
+
+
+def _draw_twin(d: fused.Draw) -> torch.Tensor:
+    """The draw kernel's plain twin: ``d`` in PyTorch ops, the counters
+    made as the kernel makes them, the output laid out as
+    ``fused.draw_out`` lays it out."""
+    c0 = 0 if d.x0 is None else d.x0
+    c1 = 0 if d.x1 is None else d.x1
+    if d.gen:
+        j = torch.arange(d.shape[-1], dtype=torch.int64, device=d.k0.device)
+        if d.base is not None:
+            j = d.base + j
+        c1 = c1 + (j & MASK)
+        if d.gen_hi:
+            c0 = c0 + (j >> 32)
+    y0, y1 = _threefry_i32(d.k0, d.k1, c0, c1)
+    y0, y1 = y0.expand(d.shape), y1.expand(d.shape)
+    if d.mode == "words":
+        return torch.stack([y0.to(torch.int64) & MASK,
+                            y1.to(torch.int64) & MASK], dim=-1)
+    if d.mode == "u01_global":
+        return _u01_of(y0.to(torch.int64) & MASK)
+    w = (y0 ^ y1).to(torch.int64) & MASK
+    if d.mode == "xor":
+        return w
+    if d.mode == "seeds":
+        return (w >> 1).to(torch.int32)
+    f = (w >> 9).to(torch.float32) * (2.0 ** -23)
+    if d.scale == "pow2":
+        f = torch.clamp_min(f * d.width + d.lo, d.lo)
+    elif d.scale == "f64":
+        f = torch.clamp_min((f.double() * d.width + d.lo).float(), d.lo)
+    return f
+
+
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: a new key from ``k`` and uint32 ``data``
     (a 1-D ``data`` tensor gives a ``[len, 2]`` stack of keys)."""
-    d = _on(data, k.device) & MASK
+    d = _on(data, k.device)
+    if fused.routed(k):
+        return _draw(fused.draw("words", k[..., 0], k[..., 1], x1=d))
+    d = d & MASK
     y0, y1 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
 
@@ -105,6 +170,9 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
 def split(k: torch.Tensor, num: int) -> torch.Tensor:
     """``jax.random.split(k, num)`` -> ``[num, 2]`` keys; a ``[..., 2]``
     key stack splits each key: ``[..., num, 2]``."""
+    if fused.routed(k):
+        return _draw(fused.draw("words", k[..., 0, None], k[..., 1, None],
+                                gen=num))
     i = torch.arange(num, dtype=torch.int64, device=k.device)
     y0, y1 = threefry2x32(k[..., 0, None], k[..., 1, None], 0, i)
     return torch.stack([y0, y1], dim=-1)
@@ -114,6 +182,10 @@ def bits(k: torch.Tensor, n: int = 0) -> torch.Tensor:
     """32-bit random words of ``k`` (``jax.random.bits``): the scalar
     word for ``n == 0`` (per key, for a ``[..., 2]`` key stack), else an
     ``[n]`` vector."""
+    if fused.routed(k):
+        if n == 0:
+            return _draw(fused.draw("xor", k[..., 0], k[..., 1]))
+        return _draw(fused.draw("xor", k[0], k[1], gen=n, gen_hi=True))
     if n == 0:
         z = torch.zeros_like(k[..., 0])
         y0, y1 = threefry2x32(k[..., 0], k[..., 1], z, z)
@@ -151,6 +223,11 @@ def uniform(k: torch.Tensor, shape: Shape, minval: float = 0.0,
     int32, so a draw holds fewer than 2^31 words. A ``[..., 2]`` key
     stack draws for each key: ``[..., *shape]``."""
     shape = _shape(shape)
+    if fused.routed(k):
+        f = _draw(fused.draw("uniform", k[..., 0, None], k[..., 1, None],
+                             gen=_numel(shape), minval=minval,
+                             maxval=maxval))
+        return f.view(tuple(k.shape[:-1]) + shape)
     j = torch.arange(_numel(shape), dtype=torch.int32, device=k.device)
     y0, y1 = _threefry_i32(k[..., 0, None], k[..., 1, None], 0, j)
     f = ((y0 ^ y1) >> 9 & 0x7FFFFF).to(torch.float32) * (2.0 ** -23)
@@ -213,6 +290,9 @@ def round_keys(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
     """``[count, 2]`` per-round keys for ABSOLUTE rounds
     start..start+count-1: round r's key is ``fold_in(k, r)``, a pure
     function of the base key and the absolute round index."""
+    if fused.routed(k):
+        return _draw(fused.draw("words", k[..., 0], k[..., 1], gen=count,
+                                base=_on(start, k.device)))
     idx = _on(start, k.device) \
         + torch.arange(count, dtype=torch.int64, device=k.device)
     return fold_in(k, idx)
@@ -222,7 +302,10 @@ def round_seeds(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
     """``[count]`` non-negative int32 kernel seeds for absolute rounds
     start..start+count-1 (one word of each round key, shifted right
     once) — the same stream the JAX package feeds its TPU kernels."""
-    return (bits(round_keys(k, start, count)) >> 1).to(torch.int32)
+    rk = round_keys(k, start, count)
+    if fused.routed(rk):
+        return _draw(fused.draw("seeds", rk[..., 0], rk[..., 1]))
+    return (bits(rk) >> 1).to(torch.int32)
 
 
 # --------------------------------------------------------- Philox4x32-10
@@ -321,6 +404,9 @@ def u01_global(k: torch.Tensor, offset: Start, length: int) -> torch.Tensor:
     ``(0, offset + i)``, word 0, top 24 bits — so node i draws the same
     value whatever slice of the pool is computed (reference
     ``lanes.u01_global``). Not ``uniform``: a different stream."""
+    if fused.routed(k):
+        return _draw(fused.draw("u01_global", k[0], k[1], gen=length,
+                                base=_on(offset, k.device)))
     idx = (_on(offset, k.device)
            + torch.arange(length, dtype=torch.int64, device=k.device)) \
         & MASK

@@ -1,0 +1,563 @@
+"""consul_tpu_torch's fused draw and sum kernels (``sim/fused.py``).
+
+CPU half: the kernels' plain twins, reached through the public
+functions inside ``fused.twins()``, against the plain versions and the
+JAX reference.
+
+* Every draw mode (``words``: ``threefry2x32``, ``fold_in``, ``split``,
+  ``round_keys``; ``xor``: ``bits``, ``round_seeds``; ``uniform`` with
+  each bound kind; ``u01_global``) is bit for bit the composite plain
+  function and ``jax.random`` / ``jax.extend.random.threefry_2x32`` on
+  seeded keys, key stacks and offsets near 2^32.
+* ``lanes.tree_sum_staged`` (the sum kernel's plan: one or two launches
+  of ``fused.sum_plan``) is bit for bit ``lanes.tree_sum`` over every
+  length a hypothesis strategy draws in [1, 3 * 2^16], plus 1,048,576
+  and 1,000,003, under leading shapes, signed zeros and magnitudes from
+  1e-30 to 1e30; both agree with ``jnp.sum`` within ``JNP_RTOL`` of the
+  sum of magnitudes (another order of f32 additions).
+* Routing: CPU tensors run the plain versions unless ``twins()`` is on;
+  the kernel launchers refuse CPU tensors (no fallback); the graph cache
+  counts the kernels' launches and keys on ``plain()``; the op counter
+  sees a launch; the bounds count what the kernels move.
+
+Card half (``cuda``-marked, skipped without a card): each kernel against
+its plain version on the card inside ``fused.plain()``, bit for bit, and
+a captured body holding both kernels replayed with new keys, offsets
+and inputs, equal to its eager run.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from consul_tpu_torch.sim import costmodel, fused, graphs, lanes, prng
+from test_torch_harness import cuda  # noqa: F401  (fixture)
+
+SEEDS = (0, 1, 42, 2**31 - 1)
+#: the bounds kinds of ``uniform``: [0, 1); the views' [1e-9, 1) and
+#: normal's low end (power-of-two widths, one f32 rounding); widths
+#: that are no power of two (the f64 product and sum)
+BOUNDS = ((0.0, 1.0), (1e-9, 1.0), (prng._NORMAL_LO, 1.0), (2.0, 6.0),
+          (-3.0, 5.5), (0.1, 0.7))
+#: |sum - jnp.sum| over the sum of magnitudes: two orders of f32
+#: additions over at most 2^20 terms differ by a few ulp of the largest
+#: partial sum
+JNP_RTOL = 1e-5
+
+
+def _kd(k):
+    import jax
+
+    return np.asarray(jax.random.key_data(k)).astype(np.int64)
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    """The tensor's bits (floats as their int32 words)."""
+    a = x.detach().cpu().numpy()
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _twin_and_plain(fn, *args, **kw):
+    with fused.twins():
+        twin = fn(*args, **kw)
+    return twin, fn(*args, **kw)
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        np.array_equal(_bits(a), _bits(b))
+
+
+# ------------------------------------------------------------- draws
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_words_mode_matches_jax(seed):
+    import jax
+
+    k, tk = jax.random.key(seed), prng.key(seed)
+    twin, plain = _twin_and_plain(prng.split, tk, 5)
+    assert _same(twin, plain)
+    np.testing.assert_array_equal(twin.numpy(), _kd(jax.random.split(k, 5)))
+    for d in (0, 7, 2**31 + 5, 2**32 - 1):
+        twin, plain = _twin_and_plain(prng.fold_in, tk, d)
+        assert _same(twin, plain)
+        np.testing.assert_array_equal(twin.numpy(),
+                                      _kd(jax.random.fold_in(k, d)))
+    # a key stack splits each key
+    stack = prng.split(tk, 3)
+    twin, plain = _twin_and_plain(prng.split, stack, 4)
+    assert _same(twin, plain) and twin.shape == (3, 4, 2)
+    for i in range(3):
+        np.testing.assert_array_equal(
+            twin[i].numpy(),
+            _kd(jax.random.split(jax.random.wrap_key_data(
+                np.asarray(stack[i].numpy(), dtype=np.uint32)), 4)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_on_a_data_tensor_and_round_keys(seed):
+    import jax
+
+    k, tk = jax.random.key(seed), prng.key(seed)
+    data = torch.tensor([0, 1, 2**31, 2**32 - 1, 12345], dtype=torch.int64)
+    twin, plain = _twin_and_plain(prng.fold_in, tk, data)
+    assert _same(twin, plain)
+    for i, d in enumerate(data.tolist()):
+        np.testing.assert_array_equal(twin[i].numpy(),
+                                      _kd(jax.random.fold_in(k, d)))
+    for start in (0, 5, torch.tensor(1000, dtype=torch.int32),
+                  2**32 - 3):
+        twin, plain = _twin_and_plain(prng.round_keys, tk, start, 12)
+        assert _same(twin, plain)
+        s0 = int(start)
+        np.testing.assert_array_equal(
+            twin.numpy(), np.stack([_kd(jax.random.fold_in(
+                k, (s0 + i) & prng.MASK)) for i in range(12)]))
+        twin, plain = _twin_and_plain(prng.round_seeds, tk, start, 12)
+        assert _same(twin, plain) and twin.dtype == torch.int32
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_threefry2x32_on_data_matches_jax(seed):
+    import jax.extend.random as jxr
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    kw = rng.integers(0, 2**32, size=2, dtype=np.int64)
+    x0 = rng.integers(0, 2**32, size=(3, 17), dtype=np.int64)
+    x1 = rng.integers(0, 2**32, size=(3, 17), dtype=np.int64)
+    k0, k1 = torch.tensor(kw[0]), torch.tensor(kw[1])
+    twin, plain = _twin_and_plain(prng.threefry2x32, k0, k1,
+                                  torch.from_numpy(x0),
+                                  torch.from_numpy(x1))
+    assert _same(twin, plain)
+    # jax's count is both words' counters, flat: word 0's, then word 1's
+    want = np.asarray(jxr.threefry_2x32(
+        jnp.asarray(kw, dtype=jnp.uint32),
+        jnp.asarray(np.concatenate([x0.ravel(), x1.ravel()]),
+                    dtype=jnp.uint32)))
+    np.testing.assert_array_equal(twin[0].numpy().ravel(), want[:x0.size])
+    np.testing.assert_array_equal(twin[1].numpy().ravel(), want[x0.size:])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_xor_mode_matches_jax(seed):
+    import jax
+    import jax.numpy as jnp
+
+    k, tk = jax.random.key(seed), prng.key(seed)
+    twin, plain = _twin_and_plain(prng.bits, tk)
+    assert _same(twin, plain)
+    assert int(twin) == int(jax.random.bits(k, dtype=jnp.uint32))
+    for n in (1, 2, 3, 255, 4099):
+        twin, plain = _twin_and_plain(prng.bits, tk, n)
+        assert _same(twin, plain)
+        np.testing.assert_array_equal(
+            twin.numpy(), np.asarray(jax.random.bits(k, (n,),
+                                                     dtype=jnp.uint32)))
+    stack = prng.split(tk, 5)
+    twin, plain = _twin_and_plain(prng.bits, stack)
+    assert _same(twin, plain) and twin.shape == (5,)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("bounds", BOUNDS, ids=lambda b: f"{b[0]:g}-{b[1]:g}")
+def test_uniform_mode_matches_jax(seed, bounds):
+    import jax
+
+    lo, hi = bounds
+    k, tk = jax.random.key(seed), prng.key(seed)
+    twin, plain = _twin_and_plain(prng.uniform, tk, (16, 257), lo, hi)
+    assert _same(twin, plain)
+    np.testing.assert_array_equal(
+        _bits(twin), np.asarray(jax.random.uniform(
+            k, (16, 257), minval=lo, maxval=hi)).view(np.int32))
+    # a key stack draws for each key
+    stack = prng.split(tk, 5)
+    twin, plain = _twin_and_plain(prng.uniform, stack, 300, lo, hi)
+    assert _same(twin, plain) and twin.shape == (5, 300)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_tails_and_randint_follow_the_uniform(seed):
+    tk = prng.key(seed)
+    for fn, args in ((prng.normal, ((64, 3),)),
+                     (prng.exponential, ((129,),)),
+                     (prng.randint, ((77,), 1, 4096))):
+        twin, plain = _twin_and_plain(fn, tk, *args)
+        assert _same(twin, plain)
+
+
+@pytest.mark.parametrize("offset", [0, 77, 2**32 - 100, 2**32 + 5])
+def test_u01_global_mode_matches_jax(offset):
+    import jax.extend.random as jxr
+    import jax.numpy as jnp
+
+    tk = prng.key(3)
+    twin, plain = _twin_and_plain(prng.u01_global, tk, offset, 4096)
+    assert _same(twin, plain)
+    idx = (offset + np.arange(4096, dtype=np.int64)) & prng.MASK
+    y0 = np.asarray(jxr.threefry_2x32(
+        jnp.asarray(tk.numpy(), dtype=jnp.uint32),
+        jnp.asarray(np.concatenate([np.zeros_like(idx), idx]),
+                    dtype=jnp.uint32)))[:idx.size]
+    want = (y0 >> 8).astype(np.float32) * np.float32(2**-24)
+    np.testing.assert_array_equal(_bits(twin), want.view(np.int32))
+    # the offset as a device value (the lane engine's shard offset)
+    with fused.twins():
+        dev = prng.u01_global(tk, torch.tensor(offset), 4096)
+    assert _same(dev, twin)
+
+
+def test_draw_refuses_what_the_kernel_cannot_take():
+    tk = prng.key(1)
+    with pytest.raises(ValueError, match="dimensions"):
+        fused.draw("uniform", tk[0].expand((1,) * (fused.MAX_DIMS + 1)),
+                   tk[1], gen=4)
+    d = fused.draw("xor", tk[0], tk[1], gen=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.threefry(d)
+
+
+# -------------------------------------------------------------- sums
+
+
+def _sum_input(rng, lead, length, zeros=False) -> torch.Tensor:
+    x = rng.standard_normal(lead + (length,)).astype(np.float32)
+    x *= np.float32(10.0) ** rng.integers(-30, 31, size=x.shape)
+    if zeros:
+        x[..., ::3] = -0.0
+        x[..., 1::5] = 0.0
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _check_sum(x: torch.Tensor) -> None:
+    want = lanes.tree_sum(x)
+    assert _same(lanes.tree_sum_staged(x), want)
+    with fused.twins():
+        assert _same(lanes.tree_sum(x), want)
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(length=st.integers(1, 3 * 2**16),
+       lead=st.sampled_from([(), (1,), (3,), (2, 2)]),
+       seed=st.integers(0, 2**16), zeros=st.booleans())
+def test_staged_tree_sum_is_tree_sum(length, lead, seed, zeros):
+    _check_sum(_sum_input(np.random.default_rng(seed), lead, length, zeros))
+
+
+@pytest.mark.parametrize("length", [1, 2, 3, 7, 1023, 1024, 1025, 16384,
+                                    16385, 1_000_003, 1_048_576])
+def test_staged_tree_sum_at_the_plans_edges(length):
+    _check_sum(_sum_input(np.random.default_rng(length), (1,), length,
+                          zeros=True))
+
+
+def test_staged_tree_sum_on_many_rows_and_lane_tables():
+    rng = np.random.default_rng(5)
+    # enough rows for one launch a row, and the lane tables [K, 64]
+    _check_sum(_sum_input(rng, (fused.ROWS_ALONE + 1,), 2049))
+    _check_sum(_sum_input(rng, (lanes.N_LANES,), lanes.LANE_BLOCKS))
+
+
+def test_signed_zeros_and_block_partials():
+    for length in (1, 2, 3, 5, 1025, 17001):
+        x = torch.full((2, length), -0.0)
+        want = lanes.tree_sum(x)
+        assert _bits(want).tolist() == [_bits(torch.tensor(-0.0)).item()] * 2
+        assert _same(lanes.tree_sum_staged(x), want)
+        assert _bits(lanes.tree_sum_staged(x, plus_zero=True)).tolist() == \
+            [0, 0]
+    stack = _sum_input(np.random.default_rng(2), (4,), 64 * 40, zeros=True)
+    stack[1] = -0.0
+    want = lanes._block_partials(stack, lanes.LANE_BLOCKS)
+    with fused.twins():
+        assert _same(lanes._block_partials(stack, lanes.LANE_BLOCKS), want)
+    assert not bool(torch.signbit(want[1]).any())
+
+
+@pytest.mark.parametrize("length", [3, 1000, 65536, 1_000_003])
+def test_tree_sum_agrees_with_jnp_sum(length):
+    import jax.numpy as jnp
+
+    x = _sum_input(np.random.default_rng(length), (3,), length)
+    want = np.asarray(jnp.sum(jnp.asarray(x.numpy()), axis=-1))
+    scale = x.abs().sum(-1).double().numpy()
+    for got in (lanes.tree_sum(x), lanes.tree_sum_staged(x)):
+        err = np.abs(got.double().numpy() - want.astype(np.float64))
+        assert (err <= JNP_RTOL * scale).all()
+
+
+def test_sum_plan_launches():
+    assert [s.kernel for s in fused.sum_plan(40, 64)] == ["rows"]
+    assert [s.kernel for s in fused.sum_plan(1, 16384)] == ["rows"]
+    assert [s.kernel for s in fused.sum_plan(fused.ROWS_ALONE, 2**20)] == \
+        ["rows"]
+    two = fused.sum_plan(1, 2**20)
+    assert [s.kernel for s in two] == ["level", "rows"]
+    assert two[0].nk <= fused.SPLIT_N and two[1].length == two[0].nk
+    assert two[1].nk <= fused.SMEM_N and two[0].k >= 1
+    with pytest.raises(ValueError):
+        fused.sum_plan(1, 0)
+
+
+# ---------------------------------------------------------- routing
+
+
+def test_cpu_tensors_run_the_plain_versions(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a CPU tensor reached a kernel route")
+
+    monkeypatch.setattr(prng, "_draw", refuse)
+    monkeypatch.setattr(lanes, "_fused_sum", refuse)
+    fused.reset_launches()
+    tk = prng.key(5)
+    prng.uniform(tk, 64)
+    prng.round_seeds(tk, 0, 4)
+    prng.u01_global(tk, 3, 16)
+    lanes.tree_sum(torch.ones(3, 9))
+    lanes._block_partials(torch.ones(2, 128), 64)
+    assert not fused.routed(tk)
+    with fused.plain():
+        assert not fused.routed(tk)
+    with fused.twins():
+        assert fused.routed(tk)
+        with pytest.raises(AssertionError, match="kernel route"):
+            prng.uniform(tk, 64)
+        with fused.plain():
+            assert not fused.routed(tk)
+    assert dict(fused.LAUNCHES) == {}
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.tree_sum(torch.ones(4))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.threefry(fused.draw("words", prng.key(1)[0],
+                                  prng.key(1)[1]))
+
+
+def test_graph_cache_counts_the_kernels_and_keys_on_the_switch():
+    cache = graphs.GraphCache(counters=())
+    assert cache.counters == (fused.LAUNCHES,)
+    assert not fused.plain_active()
+    with fused.plain():
+        assert fused.plain_active()
+
+
+def test_op_counter_sees_a_kernel_launch():
+    x, y = torch.ones(8), torch.ones(2)
+    with costmodel.OpCounter() as c:
+        assert fused.OBSERVERS == [c]
+        fused._observe((x,), (y,))
+    assert fused.OBSERVERS == []
+    assert (c.bytes, c.ops, c.calls) == (40, 2, 1)
+
+
+def test_kernel_bounds():
+    tk = prng.key(1)
+    d = fused.draw("uniform", tk[..., 0, None], tk[..., 1, None],
+                   gen=2**20)
+    b = costmodel.draw_bound(d)
+    assert b["words"] == 2**20 and b["bytes"] == 4 * 2**20 + 16
+    assert b["int32_ops"] == 2**20 * (costmodel.THREEFRY_INT_OPS + 1 + 3)
+    assert b["bound_by"] == "operations"
+    s = costmodel.sum_bound(64, 16384)
+    assert s["bytes"] == 4 * 64 * 16385 and s["bound_by"] == "bytes"
+    assert math.isclose(s["bound_ms"],
+                        s["bytes"] / costmodel.HBM_BYTES_PER_S * 1e3)
+
+
+# ------------------------------------------------------- on the card
+
+
+def _kernel_and_plain(fn, *args):
+    got = fn(*args)
+    with fused.plain():
+        want = fn(*args)
+    return got, want
+
+
+@pytest.mark.cuda
+def test_draw_kernel_equals_its_plain_version(cuda):
+    tk = prng.key(9, device=cuda)
+    stack = prng.split(tk, 5)
+    cases = [(prng.split, tk, 7), (prng.split, stack, 3),
+             (prng.fold_in, tk, 2**31 + 5),
+             (prng.fold_in, tk, torch.arange(300, device=cuda)),
+             (prng.bits, tk), (prng.bits, tk, 65536), (prng.bits, stack),
+             (prng.round_keys, tk, torch.tensor(7, device=cuda), 48),
+             (prng.round_seeds, tk, torch.tensor(7, device=cuda), 512),
+             (prng.u01_global, tk, 2**32 - 100, 4096),
+             (prng.normal, tk, (255, 3)), (prng.exponential, tk, (1000,)),
+             (prng.randint, tk, (333,), 1, 4096)]
+    cases += [(prng.uniform, k, n, lo, hi) for k in (tk, stack)
+              for n in (1, 3, 65536) for lo, hi in BOUNDS]
+    for fn, *args in cases:
+        got, want = _kernel_and_plain(fn, *args)
+        assert _same(got, want), (fn.__name__, args)
+
+
+@pytest.mark.cuda
+def test_sum_kernel_equals_its_plain_version(cuda):
+    rng = np.random.default_rng(4)
+    for lead, length in (((1,), 1), ((1,), 2), ((1,), 3), ((1,), 7),
+                         ((2,), 1025), ((1,), 1_000_003),
+                         ((1,), 1_048_576), ((40, 64), 16384),
+                         ((lanes.N_LANES,), 64), ((300,), 2049)):
+        x = _sum_input(rng, lead, length, zeros=True).to(cuda)
+        got, want = _kernel_and_plain(lanes.tree_sum, x)
+        assert _same(got, want), (lead, length)
+    stack = _sum_input(rng, (4,), 64 * 40, zeros=True).to(cuda)
+    stack[1] = -0.0
+    got, want = _kernel_and_plain(lanes._block_partials, stack, 64)
+    assert _same(got, want)
+    with pytest.raises(ValueError, match="f32"):
+        lanes.tree_sum(torch.ones(4, dtype=torch.float64, device=cuda))
+
+
+@pytest.mark.cuda
+def test_captured_draws_and_sums_replay_new_inputs(cuda):
+    cache = graphs.GraphCache()
+
+    def body(donated, key, offset, x):
+        return (prng.round_seeds(key, offset, 48),
+                prng.u01_global(key, offset, 4096),
+                prng.uniform(key, 1000), prng.fold_in(key, offset),
+                lanes.tree_sum(x), lanes._block_partials(x, 64))
+
+    dummy = torch.zeros(1, device=cuda)
+    for i in range(4):
+        args = (prng.key(100 + i, device=cuda),
+                torch.tensor(2**32 - 5 + 7 * i, device=cuda),
+                torch.randn(3, 64 * 300, device=cuda))
+        fused.reset_launches()
+        got = cache(("draws",), body, (dummy,), *args)
+        launches = dict(fused.LAUNCHES)
+        fused.reset_launches()
+        with graphs.eager():
+            want = body((dummy,), *args)
+        assert launches == dict(fused.LAUNCHES)
+        assert all(_same(a, b) for a, b in zip(got, want)), i
+    assert cache.stats()[0]["replays"] == 3
+
+
+def test_chip_smoke_draws_phase_on_the_twins():
+    """``chip_smoke.py``'s draws phase, rehearsed on the CPU at small
+    sizes with the kernels' plain twins in the kernels' place: every
+    draw, sum, captured body and engine runs, compares and reports; the
+    timing cases are built (their bounds computed) but not timed."""
+    import chip_smoke
+
+    m = chip_smoke.modules()
+    dev = torch.device("cpu")
+    with fused.twins():
+        draws, bad = chip_smoke.kernel_checks(
+            torch, m, dev, chip_smoke.draw_cases(
+                torch, m, dev, words=(1, 2, 3, 255, 4096, 16384, 65536),
+                stacks=(1, 5, 16)))
+        sums, b = chip_smoke.kernel_checks(
+            torch, m, dev, chip_smoke.sum_cases(
+                torch, m, dev, lengths=(1, 2, 3, 7, 1025, 17001),
+                grid_l=256, lane_l=64 * 64))
+        bad += b
+        captured, b = chip_smoke.captured_draws(torch, m, dev)
+        bad += b
+        engines, b, launches = chip_smoke.draws_engines(
+            torch, m, dev, profile=False, n=1024, grid_n=256, views_n=64,
+            lane_rounds=4, views_rounds=3, runner_calls=((1, 8), (8, 8)))
+        bad += b
+    assert bad == [] and launches == {}
+    assert all(draws.values()) and all(sums.values()) and len(draws) > 50
+    assert len(engines) == 7 and all(c["bitwise"]
+                                     for c in captured["calls"])
+    cases = chip_smoke.draw_timing_cases(torch, m, dev, n=4096, grid_l=64,
+                                         views=64)
+    assert {c[0] for c in cases} == set(chip_smoke.DRAW_KERNELS)
+    assert all(c[4]["bound_ms"] > 0 for c in cases)
+
+
+def _kernel_reads(args: fused.DrawArgs, ptr_name: str, stride_name: str):
+    """The int64 words the draw kernel reads for one operand, in output
+    order, through its pointer, sizes and strides (draw_kernel's row and
+    word indexing), read from host memory at those addresses."""
+    import ctypes
+
+    ptr = getattr(args, ptr_name)
+    nd = args.ndim
+    size, stride = list(args.size)[:nd], list(getattr(args, stride_name))
+    words = size[-1]
+    rows = math.prod(size[:-1])
+    out = []
+    for row in range(rows):
+        rem, off = row, 0
+        for d in range(nd - 2, -1, -1):
+            off += (rem % size[d]) * stride[d]
+            rem //= size[d]
+        for j in range(words):
+            out.append(ctypes.c_int64.from_address(
+                ptr + 8 * (off + j * stride[nd - 1])).value)
+    return out
+
+
+def test_draw_args_address_every_operand(monkeypatch):
+    """Every ``Draw`` the prng functions build, turned into the kernel's
+    arguments on the CPU: the words the kernel would load through each
+    pointer and stride are the expanded operands' values."""
+    seen = []
+
+    def record(d):
+        seen.append(d)
+        return prng._draw_twin(d)
+
+    monkeypatch.setattr(prng, "_draw", record)
+    tk = prng.key(8)
+    stack = prng.split(tk, 3)
+    with fused.twins():
+        prng.split(stack, 4)
+        prng.fold_in(tk, torch.arange(5) * 7)
+        prng.fold_in(stack, 9)
+        prng.bits(tk)
+        prng.bits(tk, 5)
+        prng.uniform(stack, (2, 3), -3.0, 5.5)
+        prng.round_seeds(tk, torch.tensor(4, dtype=torch.int32), 6)
+        prng.u01_global(tk, 2**32 - 2, 4)
+        prng.threefry2x32(tk[0], tk[1], torch.arange(6).view(2, 3), 0)
+    assert len(seen) == 10
+    for d in seen:
+        out = fused.draw_out(d)
+        args = fused.draw_args(d, out)
+        assert args.ndim == max(1, len(d.shape)) <= fused.MAX_DIMS
+        assert math.prod(list(args.size)) == out.numel() // (
+            2 if d.mode == "words" else 1)
+        for name in ("k0", "k1", "x0", "x1"):
+            t = getattr(d, name)
+            if t is None:
+                assert getattr(args, name) is None
+                continue
+            assert _kernel_reads(args, name, "s" + name) == \
+                t.reshape(-1).tolist()
+        assert (args.base is None) == (d.base is None)
+        assert args.out == out.data_ptr()
+
+
+def test_sum_stage_args():
+    for rows, length in ((1, 1), (3, 1025), (1, 1_000_003), (300, 65536),
+                         (1, 2**24)):
+        for st in fused.sum_plan(rows, length):
+            a = fused._stage_args(st, rows, plus_zero=True)
+            assert (a.rows, a.length, a.nk, a.k) == (rows, st.length,
+                                                      st.nk, st.k)
+            assert a.nk <= (fused.SMEM_N if st.kernel == "rows"
+                            else fused.SPLIT_N)
+            assert list(a.delta)[:st.k] == list(st.delta())
+            assert a.odd == st.odd()
