@@ -10,8 +10,9 @@ non-zero before the result line):
               nvidia-smi; builds the CUDA kernels from
               consul_tpu_torch/csrc (round_kernels.cu, prng_kernels.cu,
               sum_kernels.cu: one nvcc each, in parallel) and prints,
-              per kernel instantiation, ptxas's registers and spills (a
-              spill fails the run), its static SASS instruction count
+              per kernel instantiation, ptxas's registers, stack frame
+              and spills (a spill, or a stack frame in a sum kernel,
+              fails the run), its static SASS instruction count
               (cuobjdump -sass on the built library) and, for the round
               kernels, the nodes each thread takes.
 2. check    — at 1,048,576 nodes, on a state warmed by the plain path:
@@ -202,8 +203,14 @@ non-zero before the result line):
               at lengths 1, 2, 3, 7, 1,000,003 and 1,048,576, the grid
               rows [2048, 65,536], the lane tables [32, 64], the lane
               engine's block partials and row_sums, on inputs with
-              signed zeros and magnitudes 1e-30 to 1e30 — each bit for
-              bit its plain version (fused.plain()), which launches no
+              signed zeros and magnitudes 1e-30 to 1e30, the sum plan's
+              edges ([5, 1M]; a last CTA that owns the carrying last
+              position alone or one float4 group; both sides of a row's
+              cut and of the rows that fill the card; odd steps; 2^24,
+              whose CTAs take 64 KB of shared memory; short rows packed
+              several to a CTA) and a contiguous
+              view whose base is not 16-byte aligned — each bit for bit
+              its plain version (fused.plain()), which launches no
               kernel; (b) a body holding every mode and both sums
               through graphs.GraphCache, four calls with new keys,
               offsets and inputs, each equal to its eager run with equal
@@ -213,10 +220,11 @@ non-zero before the result line):
               flight), a lan grid round (64 x 65,536) on the xla and
               lanes engines, the views at 4,096 (40 rounds), the kernel
               runner's R=1 x48, R=1 x512 and R=8 x48 calls, a coordinate
-              round at 1M — wall and device µs a round both ways, and
-              every draw and sum kernel launched by them; (d) each
-              kernel's device ms at its paths' shapes, its plain
-              version's and torch.sum's ms, its bound
+              round at 1M — wall and device µs a round both ways, the
+              sum kernel's device µs a round, and every draw and sum
+              kernel launched by them; (d) each kernel's device ms at
+              its paths' shapes and torch.sum's (both by CUDA-graph
+              replay), its plain version's ms, its bound
               (costmodel.draw_bound / sum_bound).
 13. timing  — each round kernel's time per launch (device time: CUDA
               events around replays of a CUDA graph of launches), its
@@ -328,9 +336,9 @@ def kernel_label(symbol: str):
     if m:
         return "threefry/" + ("words", "xor", "seeds", "uniform",
                               "u01_global")[int(m.group(1))]
-    m = re.search(r"(level|rows)_kernel", symbol)
+    m = re.search(r"sum_kernelILi([0-4])ELi([14])E", symbol)
     if m:
-        return "tree_sum/" + m.group(1)
+        return f"tree_sum/t{m.group(1)}v{m.group(2)}"
     m = re.search(r"mega_kernelILb([01])E", symbol)
     if m:
         return "mega_kernel/" + ("stable" if m.group(1) == "1" else "full")
@@ -343,7 +351,8 @@ def kernel_label(symbol: str):
 
 
 def ptxas_report(text: str) -> dict:
-    """Registers and spill bytes per kernel from nvcc -Xptxas -v."""
+    """Registers, stack frame and spill bytes per kernel from nvcc
+    -Xptxas -v."""
     out, cur = {}, None
     for ln in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -353,6 +362,9 @@ def ptxas_report(text: str) -> dict:
             continue
         if cur is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", ln)
+        if m:
+            out.setdefault(cur, {})["stack_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m:
@@ -407,13 +419,17 @@ def phase_env(torch, build, cuda_round, fused):
         sass = sass_counts(build, src)
         kernels.update({k: {**regs.get(k, {}), "sass_instructions":
                             sass.get(k)} for k in set(regs) | set(sass)})
-    new = [v for k, v in kernels.items() if k.split("/")[0]
-           in ("threefry", "tree_sum")]
-    if len(new) != 7 or any(v.get("spill_bytes") != 0 or
-                            not v.get("registers") or
-                            not v["sass_instructions"] for v in new):
-        raise SmokeFailure(f"draw and sum kernel report incomplete or "
-                           f"spilling: {kernels}")
+    new = {k: v for k, v in kernels.items() if k.split("/")[0]
+           in ("threefry", "tree_sum")}
+    sums = [v for k, v in new.items() if k.startswith("tree_sum/")]
+    # sum_kernel<T, 1> for T of 0 .. THREAD_LEVELS, sum_kernel<4, 4>
+    n_sums = fused.THREAD_LEVELS + 2
+    if len(new) != 5 + n_sums or len(sums) != n_sums or any(
+            v.get("spill_bytes") != 0 or not v.get("registers") or
+            not v["sass_instructions"] for v in new.values()) or \
+            any(v.get("stack_bytes") != 0 for v in sums):
+        raise SmokeFailure(f"draw and sum kernel report incomplete, "
+                           f"spilling or with a stack frame: {kernels}")
     emit({"phase": "env", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2378,6 +2394,17 @@ def phase_graphs(torch, m, dev):
 DRAW_WORDS = (1, 2, 3, 255, 65_536, 1_048_576, 16_777_216)
 DRAW_STACKS = (1, 5, 4096)
 SUM_LENGTHS = (1, 2, 3, 7, 1_000_003, 1_048_576)
+#: the sum kernel's plan edges, (rows, length): the flight means' [5, 1M]
+#: (64 CTAs a row), a last CTA that owns the carrying last position alone
+#: (278,529: scalar) or one float4 group (86,016), the lengths on both
+#: sides of a row's cut (32,752: one CTA; 32,753: two), the rows on both
+#: sides of fused.ROWS_ALONE (263 rows of 32,768: two CTAs a row; 264:
+#: one), odd steps (65,540: scalar loads), a CTA's shared memory beyond
+#: 48 KB (2^24), short rows packed 16 and 1,000 to a CTA with a last CTA
+#: that packs fewer
+SUM_EDGES = ((5, 1_048_576), (1, 278_529), (1, 86_016), (3, 32_752),
+             (3, 32_753), (263, 32_768), (264, 32_768), (3, 65_540),
+             (1, 16_777_216), (4097, 1024), (1001, 7))
 #: the engines held kernels against plain: lane-engine rounds, views
 #: rounds at 4,096, the kernel runner's (R, rounds) calls, grid rounds
 DRAWS_LANE_ROUNDS = 16
@@ -2469,18 +2496,22 @@ def draw_cases(torch, m, dev, words=DRAW_WORDS, stacks=DRAW_STACKS):
 
 
 def sum_cases(torch, m, dev, lengths=SUM_LENGTHS, grid_l=65_536,
-              lane_l=N):
+              lane_l=N, edges=SUM_EDGES):
     """(label, call) of every sum the phase holds against its plain
-    version: each length alone and in 3 rows, the grid rows
-    ``[K * 64, grid_l]``, the lane tables ``[K, 64]``, the lane engine's
-    block partials of ``[K, lane_l]``, ``row_sums``."""
+    version: each length alone and in 3 rows, the plan's ``edges``, a
+    contiguous ``[4, grid_l]`` view whose base is not 16-byte aligned,
+    the grid rows ``[K * 64, grid_l]``, the lane tables ``[K, 64]``, the
+    lane engine's block partials of ``[K, lane_l]``, ``row_sums``."""
     L = m.lanes
     cases = []
-    for n in lengths:
-        for rows in (1, 3):
-            x = _sum_input(torch, (rows, n), dev, n + rows)
-            cases.append((f"tree_sum [{rows}, {n}]",
-                          lambda x=x: L.tree_sum(x)))
+    shapes = [(rows, n) for n in lengths for rows in (1, 3)] + list(edges)
+    for rows, n in shapes:
+        x = _sum_input(torch, (rows, n), dev, n + rows)
+        cases.append((f"tree_sum [{rows}, {n}]", lambda x=x: L.tree_sum(x)))
+    flat = _sum_input(torch, (1 + 4 * grid_l,), dev, 4)
+    skew = flat[1:].view(4, grid_l)
+    cases.append((f"tree_sum [4, {grid_l}] at a 4-byte offset",
+                  lambda: L.tree_sum(skew)))
     grid = _sum_input(torch, (L.N_LANES * L.LANE_BLOCKS, grid_l), dev, 1)
     table = _sum_input(torch, (L.N_LANES, L.LANE_BLOCKS), dev, 2)
     stack = _sum_input(torch, (L.N_LANES, lane_l), dev, 3)
@@ -2586,6 +2617,7 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
                          prof.get("device_busy_us", 0.0) / t_rounds
                          if prof else None,
                      "kernels_per_round": prof.get("kernels_per_round"),
+                     "tree_sum_us_per_round": sum_us_per_round(prof),
                      "round_kernel_launches": rk}
         if side == "kernels":
             launches = counts
@@ -2603,6 +2635,21 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
         bad.append(f"{label}: no draw or sum kernel launched")
     rep["launches"] = launches
     return rep, bad, launches
+
+
+#: the sum kernels' names in a profile: ``sum_kernel``, and the earlier
+#: design's ``level_kernel`` / ``rows_kernel`` (``kernel_ab.py --sums``
+#: times a checkout of it)
+SUM_KERNEL_NAMES = re.compile(r"\b(sum|level|rows)_kernel\b")
+
+
+def sum_us_per_round(prof: dict):
+    """The device µs a round of the sum kernels in a profile
+    (``bench.device_breakdown``'s by-kernel times), or None."""
+    by = prof.get("device_us_per_round_by_kernel")
+    if by is None:
+        return None
+    return sum(v for k, v in by.items() if SUM_KERNEL_NAMES.search(k))
 
 
 def engine_cases(torch, m, dev, n=N, grid_n=None, views_n=VIEWS_N,
@@ -2686,8 +2733,10 @@ def draw_timing_cases(torch, m, dev, n=N, grid_l=65_536, views=VIEWS_N):
     call, its seeds (the xor mode as int32), the live engine's 1M-word
     uniform, the views' 4,096 x 4,096 one, the lane engine's
     ``u01_global``, and the sums: the lane engine's block partials of
-    ``[32, 1M]``, a coordinate mean ``[1, 1M]``, the grid rows ``[2048,
-    grid_l]`` and the lane table ``[32, 64]``."""
+    ``[32, 1M]``, a coordinate mean ``[1, 1M]``, the flight means ``[5,
+    1M]``, the grid rows ``[2048, grid_l]``, the lanes grid engine's
+    block partials of ``[32, 64, grid_l]`` and the lane table ``[32,
+    64]``."""
     P, L, F, cm = m.prng, m.lanes, m.fused, m.costmodel
     k = P.key(23, device=dev)
     start = torch.tensor(5, device=dev)
@@ -2719,9 +2768,14 @@ def draw_timing_cases(torch, m, dev, n=N, grid_l=65_536, views=VIEWS_N):
                         dev, 5), True),
             (f"coordinate mean [1, {n}]", _sum_input(torch, (1, n), dev, 6),
              False),
+            (f"flight means [5, {n}]", _sum_input(torch, (5, n), dev, 9),
+             False),
             (f"grid rows [2048, {grid_l}]",
              _sum_input(torch, (L.N_LANES * L.LANE_BLOCKS, grid_l), dev, 7),
              False),
+            (f"grid block partials [131072, {grid_l // L.LANE_BLOCKS}]",
+             _sum_input(torch, (L.N_LANES, L.LANE_BLOCKS, L.LANE_BLOCKS,
+                                grid_l // L.LANE_BLOCKS), dev, 10), True),
             ("lane table [32, 64]",
              _sum_input(torch, (L.N_LANES, L.LANE_BLOCKS), dev, 8), False)):
         rows = x.numel() // x.shape[-1]
@@ -2735,9 +2789,9 @@ def draw_timing_cases(torch, m, dev, n=N, grid_l=65_536, views=VIEWS_N):
 
 
 def draws_timing(torch, m, dev, n=N) -> dict:
-    """Each kernel's device ms at its paths' shapes (CUDA-graph replay),
-    its plain version's and the library call's ms (CUDA events), its
-    bound."""
+    """Each kernel's and the library call's device ms at its paths'
+    shapes (both by CUDA-graph replay), its plain version's ms (CUDA
+    events), its bound."""
     out = {}
     for name, shape, kern, plain, bound, library in draw_timing_cases(
             torch, m, dev, n):
@@ -2746,7 +2800,7 @@ def draws_timing(torch, m, dev, n=N) -> dict:
         out.setdefault(name, {})[shape] = {
             "ms": _graph_ms(torch, kern, 200),
             "plain_ms": plain_ms,
-            "library_ms": _events_ms(torch, library, 50) if library
+            "library_ms": _graph_ms(torch, library, 200) if library
             else None,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "bytes": bound["bytes"]}

@@ -13,7 +13,8 @@ out as PyTorch ops: a threefry draw is ~140 elementwise launches
   ``uniform`` (with its scaling) and ``u01_global``. ``prng`` builds
   each draw's ``Draw`` and routes it here.
 * ``csrc/sum_kernels.cu`` — ``tree_sum``: ``lanes.tree_sum``'s order of
-  additions in one or two launches (``sum_plan``).
+  additions in one launch a sum (``sum_plan``): a long row is cut
+  across CTAs, and its last CTA to arrive folds it.
 
 Both are held bit for bit to the plain versions, so every engine's
 state, statistics and trace stay what they were. Routing
@@ -63,15 +64,25 @@ MODES = {"words": 0, "xor": 1, "seeds": 2, "uniform": 3, "u01_global": 4}
 SCALES = {"unit": 0, "pow2": 1, "f64": 2}
 MAX_DIMS = 6
 
-#: the sum kernels' limits (csrc/sum_kernels.cu; ``_sum_lib`` checks
-#: them): levels a thread may unroll, the block stage's longest level
-MAX_LEVELS = 24
-SMEM_N = 1024
-#: rows that fill the card with one block each (two on each of the
-#: H100's 132 SMs): fewer rows of more than ``SMEM_N`` take two launches
+#: the sum kernel's limits (csrc/sum_kernels.cu; ``_sum_lib`` checks
+#: them): halving steps of a row shorter than 2^31, the levels a thread
+#: walks in registers, the positions a CTA may hold in shared memory
+#: (128 KB), the threads of a CTA
+MAX_LEVELS = 31
+THREAD_LEVELS = 4
+SMEM_N = 32768
+SUM_THREADS = 256
+#: the positions a thread loads at once on the vector path
+SUM_VEC = 4
+#: rows that fill the card (two CTAs on each of the H100's 132 SMs):
+#: their CTAs take ``SUM_GROUPS`` float4 groups a thread (16 leaf loads
+#: each), fewer rows' CTAs one
 ROWS_ALONE = 264
-#: the longest level the second launch's blocks start from
-SPLIT_N = 16384
+SUM_GROUPS = 4
+#: the fewest level-k positions a cut row's CTA owns (each leaf load of
+#: a warp then covers whole 64-byte halves of lines; 32 left the last
+#: CTA twice the positions to fold for no faster loads)
+MIN_WIDTH = 16
 
 #: launches per kernel since the last ``reset_launches()``; incremented
 #: only where a kernel is launched (never by a plain version)
@@ -312,39 +323,46 @@ def threefry(d: Draw) -> torch.Tensor:
 # ----------------------------------------------------------------- sums
 
 
-class SumStage(ctypes.Structure):
-    """Mirror of ``struct SumStage`` in sum_kernels.cu."""
+class SumPlan(NamedTuple):
+    """The one launch of ``rows`` row sums of ``length`` (see
+    csrc/sum_kernels.cu): each thread walks the leaf trees of level ``t``,
+    each CTA owns ``width`` positions of level ``k`` (a row's last CTA may
+    own fewer; ``chunks`` CTAs a row) and joins levels ``t`` .. ``k`` in
+    shared memory, and the row's last CTA folds level ``k``; an uncut
+    row's CTA holds ``pack`` rows; the halving lengths ``lengths[0..k]``
+    and steps ``h[0..k-1]``."""
 
-    _fields_ = [("rows", ctypes.c_int64), ("length", ctypes.c_int64),
-                ("nk", ctypes.c_int64), ("odd", ctypes.c_int64),
-                ("k", ctypes.c_int), ("plus_zero", ctypes.c_int),
-                ("delta", ctypes.c_int64 * MAX_LEVELS)]
-
-
-class Stage(NamedTuple):
-    """One launch of a row sum: ``kernel`` ``level`` (level ``k`` of
-    every row into a scratch) or ``rows`` (level ``k`` into shared
-    memory, then the rest of the steps), on rows of ``length``; the
-    halving lengths ``lengths[0..k]`` and steps ``h[0..k-1]``."""
-
-    kernel: str
+    rows: int
     length: int
+    t: int
     k: int
     lengths: tuple
     h: tuple
+    chunks: int
+    width: int
+    pack: int
+
+    @property
+    def nt(self) -> int:
+        return self.lengths[self.t]
 
     @property
     def nk(self) -> int:
         return self.lengths[self.k]
 
-    def delta(self) -> tuple:
-        """The leaf offset's step after a leaf with t trailing ones:
-        h_t - sum of h_b for b < t."""
-        return tuple(self.h[t] - sum(self.h[:t]) for t in range(self.k))
+    @property
+    def j(self) -> int:
+        """The levels a CTA joins in shared memory."""
+        return self.k - self.t
 
     def odd(self) -> int:
-        """Bit j set when the length of level j is odd (j < k)."""
-        return sum(1 << j for j in range(self.k) if self.lengths[j] % 2)
+        """Bit i set when the length of level i is odd (i < k)."""
+        return sum(1 << i for i in range(self.k) if self.lengths[i] % 2)
+
+    def ranges(self) -> list:
+        """Each CTA's range [a, b) of a row's level-k positions."""
+        return [(a, min(a + self.width, self.nk))
+                for a in range(0, self.nk, self.width)]
 
 
 def _lengths(length: int) -> list:
@@ -354,63 +372,114 @@ def _lengths(length: int) -> list:
     return out
 
 
-def _stage(kernel: str, length: int, longest: int) -> Stage:
-    """The stage that unrolls the fewest levels leaving at most
-    ``longest`` positions."""
-    lengths = _lengths(length)
-    k = next(i for i, n in enumerate(lengths) if n <= longest)
-    return Stage(kernel, length, k, tuple(lengths[:k + 1]),
-                 tuple(n // 2 for n in lengths[:k]))
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _quads(length: int, h: tuple) -> bool:
+    """Whether a row and its unrolled steps come in whole float4s."""
+    return length % SUM_VEC == 0 and all(s % SUM_VEC == 0 for s in h)
 
 
 @functools.lru_cache(maxsize=None)
-def sum_plan(rows: int, length: int) -> tuple:
-    """The launches of ``rows`` row sums of ``length``: one ``rows``
-    launch when the rows fill the card or are at most ``SPLIT_N`` long;
-    else a ``level`` launch to at most ``SPLIT_N`` positions a row over
-    the whole card, then a ``rows`` launch on those."""
+def sum_plan(rows: int, length: int) -> SumPlan:
+    """The launch of ``rows`` row sums of ``length``. A thread walks
+    ``THREAD_LEVELS`` levels (fewer on a short row). A row is cut into
+    CTAs of one float4 group a thread when the rows do not fill the card
+    (``ROWS_ALONE``), of ``SUM_GROUPS`` when they do (one CTA for a row
+    of fewer): few long rows then spread over the card, many rows keep
+    one CTA a row. Each CTA of a cut row owns a range of level k, the
+    deepest level that leaves ``MIN_WIDTH`` positions a CTA, and the
+    row's last CTA folds level k; a row of one CTA folds level t, and
+    short rows that fill the card several times over pack as many to a
+    CTA as give its threads 4 positions each."""
     if length < 1:
         raise ValueError("tree_sum needs a non-empty last dimension")
-    if length <= SPLIT_N or rows >= ROWS_ALONE:
-        return (_stage("rows", length, SMEM_N),)
-    first = _stage("level", length, SPLIT_N)
-    return first, _stage("rows", first.nk, SMEM_N)
+    if length >= 2**31:
+        raise ValueError(f"tree_sum takes rows shorter than 2^31; got "
+                         f"{length}")
+    lengths = _lengths(length)
+    t = min(THREAD_LEVELS, len(lengths) - 1)
+    nt = lengths[t]
+    groups = SUM_GROUPS if rows >= ROWS_ALONE else 1
+    # at most SMEM_N / (2 * MIN_WIDTH) CTAs a row: level k then fits
+    chunks = min(max(1, nt // (SUM_THREADS * SUM_VEC * groups)),
+                 SMEM_N // (2 * MIN_WIDTH))
+    k = t if chunks == 1 else max(i for i in range(t, len(lengths))
+                                  if lengths[i] >= chunks * MIN_WIDTH)
+    h = tuple(n // 2 for n in lengths[:k])
+    quantum = SUM_VEC if _quads(length, h) else 1
+    nk = lengths[k]
+    width = _ceil(_ceil(nk, chunks), quantum) * quantum
+    if (width << (k - t)) > SMEM_N or nk > SMEM_N:
+        raise ValueError(f"a row of {length} is longer than one launch "
+                         "of tree_sum folds")
+    pack = 1 if chunks > 1 else max(
+        1, min(rows // ROWS_ALONE, SUM_THREADS * SUM_VEC // nt))
+    return SumPlan(rows, length, t, k, tuple(lengths[:k + 1]), h,
+                   _ceil(nk, width), width, pack)
+
+
+def vector_path(plan: SumPlan, ptr: int) -> bool:
+    """Whether the launch loads float4s: the row length and every step
+    ``h`` are multiples of 4 (so the row is at least 16 long and a thread
+    walks ``THREAD_LEVELS``), so is each CTA's width, and the data starts
+    on 16 bytes."""
+    return (_quads(plan.length, plan.h) and plan.width % SUM_VEC == 0
+            and plan.t == THREAD_LEVELS and ptr % (4 * SUM_VEC) == 0)
+
+
+def sum_smem(plan: SumPlan) -> int:
+    """The shared-memory bytes of the launch: a CTA's segments of level
+    t, or its packed rows' level k, which it folds."""
+    return 4 * max(plan.width << plan.j, plan.pack * plan.nk)
+
+
+class SumArgs(ctypes.Structure):
+    """Mirror of ``struct SumPlan`` in sum_kernels.cu."""
+
+    _fields_ = ([("rows", ctypes.c_int64)]
+                + [(f, ctypes.c_int32)
+                   for f in ("length", "nt", "nk", "width", "chunks",
+                             "pack", "t", "j", "odd", "plus_zero")]
+                + [("h", ctypes.c_int32 * MAX_LEVELS)])
+
+
+def sum_args(plan: SumPlan, plus_zero: bool) -> SumArgs:
+    return SumArgs(rows=plan.rows, length=plan.length, nt=plan.nt,
+                   nk=plan.nk, width=plan.width, chunks=plan.chunks,
+                   pack=plan.pack, t=plan.t, j=plan.j, odd=plan.odd(),
+                   plus_zero=int(plus_zero),
+                   h=(ctypes.c_int32 * MAX_LEVELS)(*plan.h))
 
 
 @functools.lru_cache(maxsize=None)
 def _sum_lib() -> ctypes.CDLL:
     lib = build.load(SUM_SOURCE)
-    lib.sum_kernels_layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.sum_kernels_layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
     lib.sum_kernels_layout.restype = None
-    levels, smem = ctypes.c_int(), ctypes.c_int()
-    lib.sum_kernels_layout(ctypes.byref(levels), ctypes.byref(smem))
-    if (levels.value, smem.value) != (MAX_LEVELS, SMEM_N):
+    got = [ctypes.c_int() for _ in range(4)]
+    lib.sum_kernels_layout(*(ctypes.byref(v) for v in got))
+    want = (MAX_LEVELS, THREAD_LEVELS, SMEM_N, SUM_THREADS)
+    if tuple(v.value for v in got) != want:
         raise RuntimeError(
-            f"sum_kernels.cu unrolls at most {levels.value} levels into "
-            f"{smem.value} positions; fused maps {MAX_LEVELS} and {SMEM_N}")
-    for fn in (lib.launch_sum_level, lib.launch_sum_rows):
-        fn.argtypes = [ctypes.c_void_p, SumStage, ctypes.c_void_p,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+            f"sum_kernels.cu's (levels, thread levels, shared positions, "
+            f"threads) are {tuple(v.value for v in got)}; fused maps "
+            f"{want}")
+    lib.launch_tree_sum.argtypes = [ctypes.c_void_p, SumArgs, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p]
+    lib.launch_tree_sum.restype = ctypes.c_int
     lib.sum_kernels_error_string.argtypes = [ctypes.c_int]
     lib.sum_kernels_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _stage_args(st: Stage, rows: int, plus_zero: bool) -> SumStage:
-    if st.k > MAX_LEVELS - 1:
-        raise ValueError(f"a row of {st.length} would unroll {st.k} "
-                         f"levels; the kernel takes {MAX_LEVELS - 1}")
-    delta = st.delta() + (0,) * (MAX_LEVELS - st.k)
-    return SumStage(rows=rows, length=st.length, nk=st.nk, odd=st.odd(),
-                    k=st.k, plus_zero=int(plus_zero),
-                    delta=(ctypes.c_int64 * MAX_LEVELS)(*delta))
-
-
 def tree_sum(x: torch.Tensor, plus_zero: bool = False) -> torch.Tensor:
     """``lanes.tree_sum`` of a CUDA f32 tensor over its last dimension
-    (plus +0.0 when ``plus_zero``: ``lanes._block_partials``), in the
-    launches of ``sum_plan``; raises on a non-f32 tensor or a refused or
+    (plus +0.0 when ``plus_zero``: ``lanes._block_partials``), in the one
+    launch of ``sum_plan``; raises on a non-f32 tensor or a refused or
     failed launch."""
     if x.device.type != "cuda":
         raise ValueError("fused.tree_sum launches on CUDA tensors; the "
@@ -425,24 +494,20 @@ def tree_sum(x: torch.Tensor, plus_zero: bool = False) -> torch.Tensor:
     if rows == 0:
         return out
     src = x.contiguous()
-    lib = _sum_lib()
-    stream = _stream(x)
     plan = sum_plan(rows, x.shape[-1])
-    for st in plan:
-        last = st.kernel == "rows"
-        args = _stage_args(st, rows, plus_zero and last)
-        if last:
-            dst = out
-            rc = lib.launch_sum_rows(src.data_ptr(), args, dst.data_ptr(),
-                                     stream)
-        else:
-            dst = torch.empty((rows, st.nk), dtype=torch.float32,
+    scratch = arrivals = None
+    if plan.chunks > 1:
+        scratch = torch.empty((rows, plan.nk), dtype=torch.float32,
                               device=x.device)
-            rc = lib.launch_sum_level(src.data_ptr(), args, dst.data_ptr(),
-                                      stream)
-        _check_launch(rc, f"tree_sum/{st.kernel}",
-                      lib.sum_kernels_error_string)
-        LAUNCHES["tree_sum"] += 1
-        src = dst
+        arrivals = torch.zeros(rows, dtype=torch.int32, device=x.device)
+    lib = _sum_lib()
+    vec = SUM_VEC if vector_path(plan, src.data_ptr()) else 1
+    _check_launch(lib.launch_tree_sum(
+        src.data_ptr(), sum_args(plan, plus_zero), vec, sum_smem(plan),
+        out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(), _stream(x)),
+        "tree_sum", lib.sum_kernels_error_string)
+    LAUNCHES["tree_sum"] += 1
     _observe((x,), (out,))
     return out

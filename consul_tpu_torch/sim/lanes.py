@@ -32,10 +32,11 @@ one value for which ``x + 0.0`` is not ``x``). So the mesh's lane
 vectors equal one device's bit for bit, whatever the world size.
 
 On the card every sum here is the sum kernel (``fused.tree_sum``: the
-same additions in the same order, in one or two launches, with
+same additions in the same order, in one launch a sum, with
 ``_block_partials``' +0.0 folded in); CPU tensors run the halving below,
-and ``tree_sum_staged`` is the kernel's plain twin (its ``fused.sum_plan``
-in PyTorch), which CPU tensors run inside ``fused.twins()``.
+and ``tree_sum_staged`` is the kernel's plain twin (the partials of its
+``fused.sum_plan`` in PyTorch), which CPU tensors run inside
+``fused.twins()``.
 
 Not ported: the reference's jax batching patch for its optimization
 barrier (no PyTorch meaning).
@@ -157,23 +158,21 @@ def _fused_sum(x: torch.Tensor, plus_zero: bool = False) -> torch.Tensor:
     return tree_sum_staged(x, plus_zero)
 
 
-def _level(y: torch.Tensor, st: fused.Stage) -> torch.Tensor:
-    """Level ``st.k`` of rows ``y`` ([R, L] -> [R, n_k]) as the kernel's
-    threads compute it: position p is the pairwise tree, in the order of
-    m, of the leaves p + sum of h_b over the set bits b of m (a full
-    tree's threads load them 8 at a time: the same tree); in the last
-    position's tree leaf m (not all ones) is absent when level j's length
-    is odd, j the highest zero bit of m, and a pair with one side absent
-    passes the other on."""
-    k = st.k
+def _level(y: torch.Tensor, lengths: tuple) -> torch.Tensor:
+    """Level ``len(lengths) - 1`` of rows ``y`` ([R, lengths[0]] -> [R,
+    lengths[-1]]) as the kernel's threads compute it: position p is the
+    pairwise tree, in the order of m, of the leaves p + sum of h_b over
+    the set bits b of m; in the last position's tree leaf m (not all
+    ones) is absent when level j's length is odd, j the highest zero bit
+    of m, and a pair with one side absent passes the other on."""
+    k = len(lengths) - 1
     if k == 0:
         return y
     m = torch.arange(1 << k)
     bits = (m[:, None] >> torch.arange(k)) & 1
-    off = (bits * torch.tensor(st.h)).sum(1)
-    idx = torch.arange(st.nk)[:, None] + off
-    odd = torch.tensor([(st.odd() >> j) & 1 for j in range(k)],
-                       dtype=torch.bool)
+    off = (bits * torch.tensor([n // 2 for n in lengths[:k]])).sum(1)
+    idx = torch.arange(lengths[k])[:, None] + off
+    odd = torch.tensor([n % 2 == 1 for n in lengths[:k]])
     top_zero = ((1 - bits) * torch.arange(k)).amax(1)
     present = torch.ones(idx.shape, dtype=torch.bool)
     present[-1] = (m == (1 << k) - 1) | ~odd[top_zero]
@@ -187,20 +186,48 @@ def _level(y: torch.Tensor, st: fused.Stage) -> torch.Tensor:
     return v[..., 0]
 
 
+def _reverse(g: int, bits: int) -> int:
+    return int(format(g, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _ranges(y: torch.Tensor, plan: fused.SumPlan) -> torch.Tensor:
+    """Level ``plan.k`` of rows ``y`` (level ``plan.t``) as the kernel's
+    CTAs compute it, range by range: a range [a, b) gathers the 2^j
+    segments a + [0, b - a) + sum of h_b over the set bits of g (bit i
+    for level t + i), segment g at slot bitreverse(g); each step halves
+    the slots, and where the range holds the level's last position the
+    last element of the first half takes its right side alone when the
+    step's level is odd."""
+    j, t = plan.j, plan.t
+    if j == 0:
+        return y
+    hs = torch.tensor(plan.h[t:])
+    g = torch.tensor([_reverse(r, j) for r in range(1 << j)])
+    seg = (((g[:, None] >> torch.arange(j)) & 1) * hs).sum(1)
+    out = []
+    for a, b in plan.ranges():
+        idx = (seg[:, None] + torch.arange(a, b)).reshape(-1)
+        buf = y[:, idx.to(y.device)]
+        for i in range(j):
+            half = buf.shape[-1] // 2
+            right = buf[:, half:]
+            buf = buf[:, :half] + right
+            if b == plan.nk and plan.lengths[t + i] % 2:
+                buf[:, -1] = right[:, -1]
+        out.append(buf)
+    return torch.cat(out, -1)
+
+
 def tree_sum_staged(x: torch.Tensor, plus_zero: bool = False) -> torch.Tensor:
     """The sum kernel's plain twin: ``tree_sum`` (plus +0.0 when
-    ``plus_zero``) through the launches of ``fused.sum_plan`` — a
-    ``level`` launch computes level k of every row, a ``rows`` launch
-    level k and then the remaining halving steps (its block's shared
-    memory stage)."""
+    ``plus_zero``) in the partials of ``fused.sum_plan``'s launch —
+    level t by the threads' leaf trees, level k by the CTAs' ranges, then
+    the fold of level k."""
     lead = tuple(x.shape[:-1])
     rows = math.prod(lead)
-    y = x.reshape(rows, x.shape[-1])
-    for st in fused.sum_plan(rows, x.shape[-1]):
-        y = _level(y, st)
-        if st.kernel == "rows":
-            y = _halve(y)
-    y = y.reshape(lead)
+    plan = fused.sum_plan(rows, x.shape[-1])
+    y = _level(x.reshape(rows, x.shape[-1]), plan.lengths[:plan.t + 1])
+    y = _halve(_ranges(y, plan)).reshape(lead)
     return y + 0.0 if plus_zero else y
 
 

@@ -364,8 +364,8 @@ def test_kernel_cost_counts_the_bytes_of_one_call():
 
 def test_kernel_report_parsers():
     """chip_smoke's readers of ptxas -v and cuobjdump -sass: every
-    instantiation maps to its variant; registers, spills and the static
-    instruction count (NOPs left out) per kernel."""
+    instantiation maps to its variant; registers, stack frame, spills
+    and the static instruction count (NOPs left out) per kernel."""
     sym = "_ZN12_GLOBAL__N_112round_kernelILb{}ELb{}ELb{}ELi4ELi4EEEv11Round"
     names = {sym.format(1, 1, 0): "round_kernel/byz",
              sym.format(1, 0, 0): "round_kernel/fault",
@@ -375,20 +375,28 @@ def test_kernel_report_parsers():
                  "mega_kernel/stable",
              "_ZN12_GLOBAL__N_111mega_kernelILb0ELi2ELi2EEEv11R":
                  "mega_kernel/full",
+             "_ZN12_GLOBAL__N_110sum_kernelILi4ELi4EEEvPKf7SumPlanPfS4_Pi":
+                 "tree_sum/t4v4",
+             "_ZN12_GLOBAL__N_110sum_kernelILi2ELi1EEEvPKf7SumPlanPfS4_Pi":
+                 "tree_sum/t2v1",
              "_ZN12_GLOBAL__N_16philoxEjjj": None}
     for symbol, label in names.items():
         assert chip_smoke.kernel_label(symbol) == label
     ptxas = "\n".join(
         f"ptxas info    : Compiling entry function '{s}' for 'sm_90a'\n"
         f"ptxas info    : Function properties for {s}\n"
-        f"    0 bytes stack frame, {8 * i} bytes spill stores, {4 * i} "
-        f"bytes spill loads\n"
+        f"    {16 * (i == 7)} bytes stack frame, {8 * i} bytes spill "
+        f"stores, {4 * i} bytes spill loads\n"
         f"ptxas info    : Used {90 + i} registers, used 1 barriers"
         for i, s in enumerate(names))
     got = chip_smoke.ptxas_report(ptxas)
     assert set(got) == {v for v in names.values() if v}
-    assert got["round_kernel/fault"] == {"spill_bytes": 12, "registers": 91}
-    assert got["round_kernel/byz"] == {"spill_bytes": 0, "registers": 90}
+    assert got["round_kernel/fault"] == {"stack_bytes": 0,
+                                         "spill_bytes": 12, "registers": 91}
+    assert got["round_kernel/byz"] == {"stack_bytes": 0, "spill_bytes": 0,
+                                       "registers": 90}
+    assert got["tree_sum/t2v1"] == {"stack_bytes": 16, "spill_bytes": 84,
+                                    "registers": 97}
 
 
 def test_bench_smoke_runs_the_plain_path():

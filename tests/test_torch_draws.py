@@ -9,21 +9,28 @@ JAX reference.
   each bound kind; ``u01_global``) is bit for bit the composite plain
   function and ``jax.random`` / ``jax.extend.random.threefry_2x32`` on
   seeded keys, key stacks and offsets near 2^32.
-* ``lanes.tree_sum_staged`` (the sum kernel's plan: one or two launches
-  of ``fused.sum_plan``) is bit for bit ``lanes.tree_sum`` over every
+* ``lanes.tree_sum_staged`` (the partials of the sum kernel's one
+  launch, ``fused.sum_plan``: level t by the threads, level k by the
+  CTAs' ranges, the fold) is bit for bit ``lanes.tree_sum`` over every
   length a hypothesis strategy draws in [1, 3 * 2^16], plus 1,048,576
-  and 1,000,003, under leading shapes, signed zeros and magnitudes from
-  1e-30 to 1e30; both agree with ``jnp.sum`` within ``JNP_RTOL`` of the
-  sum of magnitudes (another order of f32 additions).
+  and 1,000,003 on 1 and 5 rows, the rows on both sides of the length
+  at which a row is cut, uneven ranges and a last CTA that owns the
+  carrying last position alone, under leading shapes, signed zeros and
+  magnitudes from 1e-30 to 1e30; both agree with ``jnp.sum`` within
+  ``JNP_RTOL`` of the sum of magnitudes (another order of f32
+  additions). The plan, its ctypes arguments and the vector path's
+  eligibility (aligned and misaligned bases, odd steps) are checked
+  on their own.
 * Routing: CPU tensors run the plain versions unless ``twins()`` is on;
   the kernel launchers refuse CPU tensors (no fallback); the graph cache
   counts the kernels' launches and keys on ``plain()``; the op counter
   sees a launch; the bounds count what the kernels move.
 
 Card half (``cuda``-marked, skipped without a card): each kernel against
-its plain version on the card inside ``fused.plain()``, bit for bit, and
-a captured body holding both kernels replayed with new keys, offsets
-and inputs, equal to its eager run.
+its plain version on the card inside ``fused.plain()``, bit for bit (the
+sums at the paths' shapes, the split edges and a misaligned base), and
+a captured body holding both kernels, a few-long-rows sum among them,
+replayed with new keys, offsets and inputs, equal to its eager run.
 """
 
 from __future__ import annotations
@@ -262,10 +269,49 @@ def test_staged_tree_sum_at_the_plans_edges(length):
                           zeros=True))
 
 
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("length", [1_000_003, 1_048_576])
+def test_staged_tree_sum_on_few_long_rows(rows, length):
+    plan = fused.sum_plan(rows, length)
+    assert plan.chunks > 1
+    _check_sum(_sum_input(np.random.default_rng(length + rows), (rows,),
+                          length, zeros=True))
+
+
+@pytest.mark.parametrize("rows, length, chunks", [
+    (1, 32752, 1), (1, 32753, 2), (fused.ROWS_ALONE - 1, 32768, 2),
+    (fused.ROWS_ALONE, 32768, 1), (fused.ROWS_ALONE + 1, 32768, 1)])
+def test_staged_tree_sum_where_a_row_is_cut(rows, length, chunks):
+    """A row of 32,752 leaves 2,047 positions at level 4, one CTA's; one
+    of 32,753 leaves 2,048 and is cut in two while the rows do not fill
+    the card; from ``ROWS_ALONE`` rows on, a row of 32,768 keeps one
+    CTA."""
+    assert fused.sum_plan(rows, length).chunks == chunks
+    _check_sum(_sum_input(np.random.default_rng(rows), (rows,), length))
+
+
+@pytest.mark.parametrize("length, last", [(1_000_003, 8), (100003, 13),
+                                          (278529, 1), (86016, 4)])
+def test_staged_tree_sum_on_uneven_ranges(length, last):
+    """Ranges that split a row's level k unevenly, down to a last CTA
+    that owns the carrying last position alone (278,529) or one float4
+    group (86,016)."""
+    plan = fused.sum_plan(1, length)
+    a, b = plan.ranges()[-1]
+    assert plan.chunks > 1 and b - a == last and b == plan.nk
+    assert plan.nk % plan.width == last % plan.width
+    assert fused.vector_path(plan, 0) == (length % 4 == 0)
+    _check_sum(_sum_input(np.random.default_rng(length), (2,), length,
+                          zeros=True))
+
+
 def test_staged_tree_sum_on_many_rows_and_lane_tables():
+    """Rows that pack several to a CTA among them (the lanes grid
+    engine's block partials of 1,024, the lane tables of 64)."""
     rng = np.random.default_rng(5)
+    _check_sum(_sum_input(rng, (4097,), 1024, zeros=True))
     # enough rows for one launch a row, and the lane tables [K, 64]
-    _check_sum(_sum_input(rng, (fused.ROWS_ALONE + 1,), 2049))
+    _check_sum(_sum_input(rng, (265,), 2049))
     _check_sum(_sum_input(rng, (lanes.N_LANES,), lanes.LANE_BLOCKS))
 
 
@@ -298,16 +344,83 @@ def test_tree_sum_agrees_with_jnp_sum(length):
 
 
 def test_sum_plan_launches():
-    assert [s.kernel for s in fused.sum_plan(40, 64)] == ["rows"]
-    assert [s.kernel for s in fused.sum_plan(1, 16384)] == ["rows"]
-    assert [s.kernel for s in fused.sum_plan(fused.ROWS_ALONE, 2**20)] == \
-        ["rows"]
-    two = fused.sum_plan(1, 2**20)
-    assert [s.kernel for s in two] == ["level", "rows"]
-    assert two[0].nk <= fused.SPLIT_N and two[1].length == two[0].nk
-    assert two[1].nk <= fused.SMEM_N and two[0].k >= 1
+    """One launch a sum at every shape: a row of fewer than 2,048 level-t
+    positions (8,192 when the rows fill the card) gets one CTA, which
+    folds level t; a longer one is cut into CTAs of one float4 group a
+    thread (four), whose ranges of level k cover it, and the last to
+    arrive folds it."""
+    for rows, length in ((40, 64), (1, 1), (1, 16384), (2048, 16384),
+                         (2048, 65536), (300, 2**20), (1, 2**20),
+                         (5, 2**20), (1, 1_000_003), (3, 1025), (1, 2**24)):
+        plan = fused.sum_plan(rows, length)
+        assert plan.rows == rows and plan.length == length
+        assert plan.lengths[0] == length and len(plan.h) == plan.k
+        assert plan.t == min(fused.THREAD_LEVELS, len(
+            fused._lengths(length)) - 1)
+        ranges = plan.ranges()
+        assert plan.pack == 1 or plan.chunks == 1
+        assert len(ranges) == plan.chunks and ranges[0][0] == 0
+        assert ranges[-1][1] == plan.nk and all(
+            b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+        assert fused.sum_smem(plan) <= 4 * fused.SMEM_N
+        if plan.chunks > 1:
+            assert plan.width >= fused.MIN_WIDTH
+            # level k is the deepest that leaves MIN_WIDTH a CTA
+            assert plan.nk // 2 < plan.chunks * fused.MIN_WIDTH
+        else:
+            assert (plan.k, plan.nk) == (plan.t, plan.nt)
+    # short rows, and many rows: one CTA a row, level t folded in place;
+    # short rows that fill the card several times over pack as many rows
+    # to a CTA as give each thread 4 positions
+    for rows, length, pack in ((2048, 16384, 1), (40, 64, 1),
+                               (1, 16384, 1), (2048, 65536, 1),
+                               (131072, 1024, 16), (3000, 64, 11),
+                               (4097, 1024, 15)):
+        plan = fused.sum_plan(rows, length)
+        assert (plan.chunks, plan.k, plan.t, plan.pack) == (1, 4, 4, pack)
+        assert plan.pack * plan.nt <= fused.SUM_THREADS * fused.SUM_VEC \
+            or plan.pack == 1
+    # few long rows: one float4 group a thread
+    one = fused.sum_plan(1, 2**20)
+    assert (one.chunks, one.t, one.k, one.nk, one.width) == (64, 4, 10, 1024,
+                                                             16)
+    assert fused.sum_plan(5, 2**20).chunks == 64
+    few = fused.sum_plan(fused.ROWS_ALONE - 1, 65536)
+    assert (few.chunks, few.k, few.nk, few.width) == (4, 10, 64, 16)
+    # many long rows: four
+    assert fused.sum_plan(300, 2**20).chunks == 16
+    # the longest rows: at most SMEM_N / (2 * MIN_WIDTH) CTAs, beyond 48
+    # KB a CTA
+    longest = fused.sum_plan(1, 2**24)
+    assert longest.chunks == fused.SMEM_N // (2 * fused.MIN_WIDTH)
+    assert fused.sum_smem(longest) == 65536
     with pytest.raises(ValueError):
         fused.sum_plan(1, 0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        fused.sum_plan(1, 2**31)
+    with pytest.raises(ValueError, match="longer"):
+        fused.sum_plan(1, 2**30)
+
+
+def test_vector_path_eligibility():
+    """float4 loads where the row length, every step h and each CTA's
+    width are multiples of 4 and the base is 16-byte aligned."""
+    plan = fused.sum_plan(2048, 16384)
+    assert fused.vector_path(plan, 0) and fused.vector_path(plan, 4096)
+    for ptr in (4, 8, 12, 4100):
+        assert not fused.vector_path(plan, ptr)
+    assert fused.vector_path(fused.sum_plan(5, 2**20), 256)
+    # an odd step: 65,540's first step h_0 is 32,770
+    odd = fused.sum_plan(1, 65540)
+    assert any(h % 4 for h in odd.h)
+    assert not fused.vector_path(odd, 0)
+    # lengths that are no multiple of 4
+    for length in (1, 3, 1025, 1_000_003):
+        assert not fused.vector_path(fused.sum_plan(1, length), 0)
+    # an aligned-looking base on a misaligned contiguous view
+    x = torch.zeros(1 + 4 * 4096)[1:].view(4, 4096)
+    assert x.is_contiguous() and x.contiguous().data_ptr() == x.data_ptr()
+    assert not fused.vector_path(fused.sum_plan(4, 4096), x.data_ptr())
 
 
 # ---------------------------------------------------------- routing
@@ -412,11 +525,22 @@ def test_sum_kernel_equals_its_plain_version(cuda):
     rng = np.random.default_rng(4)
     for lead, length in (((1,), 1), ((1,), 2), ((1,), 3), ((1,), 7),
                          ((2,), 1025), ((1,), 1_000_003),
-                         ((1,), 1_048_576), ((40, 64), 16384),
-                         ((lanes.N_LANES,), 64), ((300,), 2049)):
+                         ((1,), 1_048_576), ((5,), 1_048_576),
+                         ((40, 64), 16384), ((2048,), 16384),
+                         ((2048,), 65536), ((lanes.N_LANES,), 64),
+                         ((300,), 2049), ((3,), 32752), ((3,), 32753),
+                         ((263,), 32768), ((264,), 32768),
+                         ((1,), 278529), ((1,), 86016), ((3,), 65540),
+                         ((1,), 2**24), ((4097,), 1024), ((1000,), 7)):
         x = _sum_input(rng, lead, length, zeros=True).to(cuda)
         got, want = _kernel_and_plain(lanes.tree_sum, x)
         assert _same(got, want), (lead, length)
+    # a contiguous tensor whose base is not 16-byte aligned
+    flat = _sum_input(rng, (), 1 + 4 * 65536, zeros=True).to(cuda)
+    x = flat[1:].view(4, 65536)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    got, want = _kernel_and_plain(lanes.tree_sum, x)
+    assert _same(got, want)
     stack = _sum_input(rng, (4,), 64 * 40, zeros=True).to(cuda)
     stack[1] = -0.0
     got, want = _kernel_and_plain(lanes._block_partials, stack, 64)
@@ -429,17 +553,22 @@ def test_sum_kernel_equals_its_plain_version(cuda):
 def test_captured_draws_and_sums_replay_new_inputs(cuda):
     cache = graphs.GraphCache()
 
-    def body(donated, key, offset, x):
+    def body(donated, key, offset, x, long):
         return (prng.round_seeds(key, offset, 48),
                 prng.u01_global(key, offset, 4096),
                 prng.uniform(key, 1000), prng.fold_in(key, offset),
-                lanes.tree_sum(x), lanes._block_partials(x, 64))
+                lanes.tree_sum(x), lanes._block_partials(x, 64),
+                lanes.tree_sum(long))
 
     dummy = torch.zeros(1, device=cuda)
-    for i in range(4):
+    # the few long rows are cut across CTAs: each replay must find the
+    # arrival counters at zero
+    assert fused.sum_plan(5, 2**20).chunks > 1
+    for i in range(5):
         args = (prng.key(100 + i, device=cuda),
                 torch.tensor(2**32 - 5 + 7 * i, device=cuda),
-                torch.randn(3, 64 * 300, device=cuda))
+                torch.randn(3, 64 * 300, device=cuda),
+                torch.randn(5, 2**20, device=cuda))
         fused.reset_launches()
         got = cache(("draws",), body, (dummy,), *args)
         launches = dict(fused.LAUNCHES)
@@ -448,7 +577,8 @@ def test_captured_draws_and_sums_replay_new_inputs(cuda):
             want = body((dummy,), *args)
         assert launches == dict(fused.LAUNCHES)
         assert all(_same(a, b) for a, b in zip(got, want)), i
-    assert cache.stats()[0]["replays"] == 3
+    # the second call captures and replays, the last three replay
+    assert cache.stats()[0]["replays"] == 4
 
 
 def test_chip_smoke_draws_phase_on_the_twins():
@@ -468,7 +598,8 @@ def test_chip_smoke_draws_phase_on_the_twins():
         sums, b = chip_smoke.kernel_checks(
             torch, m, dev, chip_smoke.sum_cases(
                 torch, m, dev, lengths=(1, 2, 3, 7, 1025, 17001),
-                grid_l=256, lane_l=64 * 64))
+                grid_l=256, lane_l=64 * 64,
+                edges=((5, 65536), (1, 100003), (3, 65540))))
         bad += b
         captured, b = chip_smoke.captured_draws(torch, m, dev)
         bad += b
@@ -552,12 +683,16 @@ def test_draw_args_address_every_operand(monkeypatch):
 
 def test_sum_stage_args():
     for rows, length in ((1, 1), (3, 1025), (1, 1_000_003), (300, 65536),
-                         (1, 2**24)):
-        for st in fused.sum_plan(rows, length):
-            a = fused._stage_args(st, rows, plus_zero=True)
-            assert (a.rows, a.length, a.nk, a.k) == (rows, st.length,
-                                                      st.nk, st.k)
-            assert a.nk <= (fused.SMEM_N if st.kernel == "rows"
-                            else fused.SPLIT_N)
-            assert list(a.delta)[:st.k] == list(st.delta())
-            assert a.odd == st.odd()
+                         (1, 2**24), (2048, 16384), (5, 2**20), (4096, 1024)):
+        plan = fused.sum_plan(rows, length)
+        a = fused.sum_args(plan, plus_zero=True)
+        assert (a.rows, a.length, a.nt, a.nk, a.width, a.chunks, a.pack,
+                a.t, a.j) == (rows, length, plan.nt, plan.nk, plan.width,
+                              plan.chunks, plan.pack, plan.t, plan.j)
+        assert a.plus_zero == 1 and a.odd == plan.odd()
+        assert list(a.h)[:plan.k] == list(plan.h)
+        assert list(a.h)[plan.k:] == [0] * (fused.MAX_LEVELS - plan.k)
+        assert plan.h == tuple(n // 2 for n in plan.lengths[:plan.k])
+        assert a.odd == sum(1 << i for i, n in enumerate(plan.lengths[:-1])
+                            if n % 2)
+        assert fused.sum_args(plan, plus_zero=False).plus_zero == 0
