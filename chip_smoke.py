@@ -11,8 +11,8 @@ non-zero before the result line):
               consul_tpu_torch/csrc (round_kernels.cu, prng_kernels.cu,
               sum_kernels.cu: one nvcc each, in parallel) and prints,
               per kernel instantiation, ptxas's registers, stack frame
-              and spills (a spill, or a stack frame in a sum kernel,
-              fails the run), its static SASS instruction count
+              and spills (a spill, or a stack frame in a draw or sum
+              kernel, fails the run), its static SASS instruction count
               (cuobjdump -sass on the built library) and, for the round
               kernels, the nodes each thread takes.
 2. check    — at 1,048,576 nodes, on a state warmed by the plain path:
@@ -34,8 +34,8 @@ non-zero before the result line):
               (consul_tpu_torch.bench.run_headline: per-round and R=8
               runners on the stable and full configs, best of 3), its
               launch counters zeroed just before and read just after
-              (the round kernels, and the threefry kernel's words and
-              xor modes: the runners' round keys and seeds);
+              (the round kernels, and the threefry kernel's seeds mode:
+              the runners' round seeds, one launch a call);
               then a 262,144-node, 60-round crash-detection check,
               counted on its own (exactly 60 stable round launches).
               The full-model diagnostic must show no false positive
@@ -199,7 +199,13 @@ non-zero before the result line):
               stacks of 1, 5 and 4,096 keys, offsets past 2^32 (as an
               int and as a device value), fold_in on a data tensor,
               uniform's bounds (the views', normal's, a width that is no
-              power of two), normal, exponential and randint; every sum
+              power of two), normal, exponential and randint; the keys
+              derived in the launch: round_seeds, a round's slots as the
+              rows of one draw (threefry_u01, global_u01; every slot set
+              the engines draw, the replay slot among them), draws from a
+              prng.SubKey and a SubKey stack, on rows that start off a
+              vector boundary; a 2^31 + 5-word u01_global (64-bit
+              indices) held by slices against its plain version; every sum
               at lengths 1, 2, 3, 7, 1,000,003 and 1,048,576, the grid
               rows [2048, 65,536], the lane tables [32, 64], the lane
               engine's block partials and row_sums, on inputs with
@@ -217,15 +223,19 @@ non-zero before the result line):
               launches; (c) the engines on the kernels against
               fused.plain(), bit for bit with equal round-kernel
               launches: the lane engine at 1M (16 rounds, stale_k 4,
-              flight), a lan grid round (64 x 65,536) on the xla and
+              flight), the live engine at 1M (8 rounds), both on the
+              byzantine check plan (12 rounds: the churn and replay
+              slots), a lan grid round (64 x 65,536) on the xla and
               lanes engines, the views at 4,096 (40 rounds), the kernel
               runner's R=1 x48, R=1 x512 and R=8 x48 calls, a coordinate
               round at 1M — wall and device µs a round both ways, the
-              sum kernel's device µs a round, and every draw and sum
-              kernel launched by them; (d) each kernel's device ms at
-              its paths' shapes and torch.sum's (both by CUDA-graph
-              replay), its plain version's ms, its bound
-              (costmodel.draw_bound / sum_bound).
+              sum kernel's device µs a round, every draw and sum kernel
+              launched by them, and the threefry launches of one call
+              (a round and a call) beside PR 13's (``PR13_THREEFRY``);
+              (d) each kernel's device ms at its paths' shapes and
+              torch.sum's (both by CUDA-graph replay), its plain
+              version's ms, its bound (costmodel.draw_bound /
+              sum_bound).
 13. timing  — each round kernel's time per launch (device time: CUDA
               events around replays of a CUDA graph of launches), its
               plain version's time, and its bound (``kernel_bound``)
@@ -243,6 +253,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import inspect
 import io
 import json
 import math
@@ -331,11 +342,14 @@ CHECK_ROUNDS = {"fault": 4, "byz": 5}
 def kernel_label(symbol: str):
     """The variant whose instantiation a mangled kernel symbol names
     (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>,
-    draw_kernel<MODE>, the sum kernels), or None."""
-    m = re.search(r"draw_kernelILi([0-4])E", symbol)
+    draw_kernel<MODE, index type, ROW, words a thread>, the sum
+    kernels), or None."""
+    m = re.search(r"draw_kernelILi([0-4])E([il])Lb([01])ELi([14])E", symbol)
     if m:
         return "threefry/" + ("words", "xor", "seeds", "uniform",
-                              "u01_global")[int(m.group(1))]
+                              "u01_global")[int(m.group(1))] + \
+            ("/i32" if m.group(2) == "i" else "/i64") + \
+            ("/row" if m.group(3) == "1" else "") + f"/v{m.group(4)}"
     m = re.search(r"sum_kernelILi([0-4])ELi([14])E", symbol)
     if m:
         return f"tree_sum/t{m.group(1)}v{m.group(2)}"
@@ -376,14 +390,19 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-def sass_counts(build, name) -> dict:
-    """Static SASS instructions per kernel of the built library (NOPs
-    left out), from cuobjdump -sass beside nvcc."""
+def sass_listing(build, name) -> str:
+    """cuobjdump -sass (beside nvcc) of the built library."""
     tool = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass",
+    return subprocess.run([str(tool), "-sass",
                            str(build.library_path(name))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
+
+
+def sass_counts(build, name) -> dict:
+    """Static SASS instructions per kernel of the built library (NOPs
+    left out), from cuobjdump -sass beside nvcc."""
+    text = sass_listing(build, name)
     out, cur = {}, None
     for ln in text.splitlines():
         m = re.search(r"Function : (\S+)", ln)
@@ -394,6 +413,54 @@ def sass_counts(build, name) -> dict:
         elif cur is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", ln) \
                 and not re.match(r"\s+/\*[0-9a-f]+\*/\s+NOP\b", ln):
             out[cur] += 1
+    return out
+
+
+def _sass_functions(text: str) -> dict:
+    """{label: [(address, opcode, operands)]} of every kernel of a
+    cuobjdump -sass listing (NOPs left out)."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = kernel_label(m.group(1))
+            if cur is not None:
+                out[cur] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                     r"\s*([^;]*);", ln)
+        if cur is not None and m and m.group(3) != "NOP":
+            out[cur].append((int(m.group(1), 16), m.group(3), m.group(4)))
+    return out
+
+
+def word_loop_sass(text: str) -> dict:
+    """Per draw-kernel instantiation: the SASS instructions a word of its
+    word loop (the shortest backward branch's body that holds 19 funnel
+    shifts a word, ``SHF.L.W``: the unrolled threefry, whose last
+    rotation the ``u01_global`` mode drops), in all and by opcode, from
+    cuobjdump -sass."""
+    out = {}
+    for label, ins in _sass_functions(text).items():
+        if not label.startswith("threefry/"):
+            continue
+        words = int(label.rsplit("/v", 1)[1])
+        best = None
+        for addr, op, args in ins:
+            m = re.match(r"0x([0-9a-f]+)", args.strip())
+            if op != "BRA" or m is None or int(m.group(1), 16) >= addr:
+                continue
+            lo = int(m.group(1), 16)
+            body = [o for a, o, _ in ins if lo <= a <= addr]
+            shf = sum(o.startswith("SHF.L.W") for o in body)
+            if shf >= 19 * words and (best is None or len(body) < len(best)):
+                best = body
+        if best is None:
+            continue
+        ops = collections.Counter(o.split(".")[0] for o in best)
+        out[label] = {"per_word": len(best) / words,
+                      "by_op_per_word": {k: v / words for k, v in
+                                         sorted(ops.items())}}
     return out
 
 
@@ -414,26 +481,45 @@ def phase_env(torch, build, cuda_round, fused):
                                 for v in kernels.values()):
         raise SmokeFailure(f"kernel report incomplete or spilling: "
                            f"{kernels}")
+    loops = {}
     for src in fused.SOURCES:
         regs = ptxas_report(reports[src])
         sass = sass_counts(build, src)
         kernels.update({k: {**regs.get(k, {}), "sass_instructions":
                             sass.get(k)} for k in set(regs) | set(sass)})
+        if src == fused.DRAW_SOURCE:
+            loops = word_loop_sass(sass_listing(build, src))
+    # the draw bound may count no more instructions a word than the
+    # kernel's word loop issues
+    from consul_tpu_torch.sim import costmodel
+
+    for label, loop in loops.items():
+        loop["bound_per_word"] = costmodel.draw_instructions_per_word(
+            label.split("/")[1])
+    short = sorted(k for k, v in loops.items() if "/row/" in k
+                   and v["per_word"] < v["bound_per_word"])
+    if short or not any("/row/" in k for k in loops):
+        raise SmokeFailure(f"the draw bound counts more instructions a word "
+                           f"than the word loops of {short} issue: {loops}")
     new = {k: v for k, v in kernels.items() if k.split("/")[0]
            in ("threefry", "tree_sum")}
     sums = [v for k, v in new.items() if k.startswith("tree_sum/")]
-    # sum_kernel<T, 1> for T of 0 .. THREAD_LEVELS, sum_kernel<4, 4>
+    # sum_kernel<T, 1> for T of 0 .. THREAD_LEVELS, sum_kernel<4, 4>;
+    # draw_kernel<MODE, I, ROW or not, V> of each mode: int32 at one and
+    # 4 words a thread, int64 at 4
     n_sums = fused.THREAD_LEVELS + 2
-    if len(new) != 5 + n_sums or len(sums) != n_sums or any(
-            v.get("spill_bytes") != 0 or not v.get("registers") or
-            not v["sass_instructions"] for v in new.values()) or \
-            any(v.get("stack_bytes") != 0 for v in sums):
+    n_draws = len(fused.MODES) * 6
+    if len(new) != n_draws + n_sums or len(sums) != n_sums or any(
+            v.get("spill_bytes") != 0 or v.get("stack_bytes") != 0 or
+            not v.get("registers") or not v["sass_instructions"]
+            for v in new.values()):
         raise SmokeFailure(f"draw and sum kernel report incomplete, "
                            f"spilling or with a stack frame: {kernels}")
     emit({"phase": "env", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "kernels": kernels})
+          "build_s": build_s, "kernels": kernels,
+          "draw_word_loop_sass": loops})
 
 
 def warmed_state(torch, m, p, dev, rounds=12):
@@ -615,10 +701,11 @@ def phase_headline(torch, m, dev):
               "mega_kernel/stable", "mega_kernel/full"):
         if launches.get(k, 0) <= 0:
             raise SmokeFailure(f"{k} was not launched on the main path")
-    # the runners' per-round keys and seeds
-    for k in ("threefry/words", "threefry/xor"):
-        if draws.get(k, 0) <= 0:
-            raise SmokeFailure(f"{k} was not launched on the main path")
+    # the runners' round seeds: one seeds launch a call derives each
+    # round's key and draws its seed
+    if draws.get("threefry/seeds", 0) <= 0:
+        raise SmokeFailure("threefry/seeds was not launched on the main "
+                           "path")
     cr.reset_launches()
     crash = crash_detection(torch, m, dev)
     crash["launches"] = dict(cr.LAUNCHES)
@@ -2410,11 +2497,39 @@ SUM_EDGES = ((5, 1_048_576), (1, 278_529), (1, 86_016), (3, 32_752),
 DRAWS_LANE_ROUNDS = 16
 DRAWS_VIEWS_ROUNDS = 40
 DRAWS_RUNNER_CALLS = ((1, 48), (1, 512), (8, 48))
+#: the live engine's rounds, and both engines' on the byzantine check
+#: plan (2 warm rounds, 8 of attack, 2 after)
+DRAWS_LIVE_ROUNDS = 8
+DRAWS_PLAN_ROUNDS = 12
 #: a value past 2^32 - 1 for the wrapping offsets
 WRAP = 2**32 - 1000
 #: the draw and sum kernels, by their launch counters' names
-DRAW_KERNELS = ("threefry/words", "threefry/xor", "threefry/uniform",
-                "threefry/u01_global", "tree_sum")
+DRAW_KERNELS = ("threefry/words", "threefry/xor", "threefry/seeds",
+                "threefry/uniform", "threefry/u01_global", "tree_sum")
+#: the slot sets the engines draw (round.draw_slots): the headline
+#: config's, the full model's (slow), a churn model's, a fault frame's
+#: with the slow model, a byzantine frame's (the replay slot), all six
+SLOT_SETS = ((2, 3, 4), (1, 2, 3, 4), (0, 1, 2, 3, 4), (0, 2, 3, 4, 5),
+             (0, 1, 2, 3, 4, 5))
+#: the full model's slots: the lane and live engines' round in the
+#: draws timing
+ROUND_SLOTS = SLOT_SETS[1]
+#: the words of the draw past the 32-bit index path (2^31 words less
+#: the grid's room): u01_global held by slices
+WIDE_WORDS = 2**31 + 5
+#: the threefry launches of one call of each draws-phase engine at
+#: PR 13, (launches, rounds), from its chip run's draws phase (the live
+#: engine's from its graphs phase, the same config and rounds)
+PR13_THREEFRY = {
+    "lane engine stale_k=4 x16": (81, 16),
+    f"live engine x{DRAWS_LIVE_ROUNDS}": (41, DRAWS_LIVE_ROUNDS),
+    "grid round xla 64 x 65536": (6, 1),
+    "grid round lanes 64 x 65536": (6, 1),
+    "views 4096 x40": (524, 40),
+    "kernel runner R=1 x48": (2, 48),
+    "kernel runner R=1 x512": (2, 512),
+    "kernel runner R=8 x48": (2, 48),
+    "coordinate round": (7, 1)}
 
 
 def _fused_counts(m) -> dict:
@@ -2445,10 +2560,25 @@ def _sum_input(torch, shape, dev, seed):
     return x
 
 
+def round_draws(fn, slots, *args) -> tuple:
+    """A round's slot draws through ``fn`` (``prng.threefry_u01`` or
+    ``global_u01`` on ``args``), each slot of ``slots`` read once; on a
+    checkout whose ``fn`` takes no slot set (an older one that
+    ``kernel_ab.py`` times) its lazy form."""
+    if "slots" in inspect.signature(fn).parameters:
+        u = fn(*args, slots)
+    else:
+        u = fn(*args)
+    return tuple(u(s) for s in slots)
+
+
 def draw_cases(torch, m, dev, words=DRAW_WORDS, stacks=DRAW_STACKS):
     """(label, call) of every draw the phase holds against its plain
     version: each mode at each size, key stacks, a wrapping offset, a
-    ``fold_in`` on a data tensor, every bound kind of ``uniform``."""
+    ``fold_in`` on a data tensor, every bound kind of ``uniform``, and
+    the keys derived in the launch: ``round_seeds``, each engine's slot
+    set as one draw, ``SubKey`` draws and stacks, rows that start off a
+    vector boundary."""
     P = m.prng
     k = P.key(17, device=dev)
     start = torch.tensor(WRAP, device=dev)
@@ -2492,7 +2622,62 @@ def draw_cases(torch, m, dev, words=DRAW_WORDS, stacks=DRAW_STACKS):
               (f"normal x{mid}", lambda: P.normal(k, (mid,))),
               (f"exponential x{mid}", lambda: P.exponential(k, (mid,))),
               (f"randint x{mid}", lambda: P.randint(k, (mid,), 1, mid))]
+    # keys derived in the launch: a round's slots as one draw's rows (at
+    # a row length off a vector boundary too), SubKeys
+    for n in (mid, words[4] + 3):
+        for slots in SLOT_SETS:
+            cases += [
+                (f"uniform slots {slots} x{n}",
+                 lambda n=n, s=slots: round_draws(P.threefry_u01, s, k, n)),
+                (f"u01_global slots {slots} x{n} from {WRAP}",
+                 lambda n=n, s=slots: round_draws(P.global_u01, s, k, WRAP,
+                                                  n))]
+    cases.append((f"u01_global slots {SLOT_SETS[-2]} x{mid} from a device "
+                  "offset", lambda: round_draws(P.global_u01, SLOT_SETS[-2],
+                                                k, start, mid)))
+    sub = P.SubKey(k, P.COORD_FOLD)
+    # a [5, 3] SubKey stack: the views' gossip chain's last level
+    stack = P.SubKey(P.split(P.split(k, 5), 3), 2)
+    cases += [(f"seeds round_seeds x{n}",
+               lambda n=n: P.round_seeds(k, start, n))
+              for n in (1, 3, words[4] + 1)]
+    cases += [("words split of a SubKey", lambda: P.split(sub, 4)),
+              ("words split of a SubKey stack", lambda: P.split(stack, 3)),
+              ("words round_keys of a SubKey",
+               lambda: P.round_keys(sub, start, 48)),
+              (f"uniform of a SubKey x{mid}", lambda: P.uniform(sub, mid)),
+              ("uniform of a SubKey stack [5, 3] x 255",
+               lambda: P.uniform(stack, 255)),
+              (f"uniform [1e-09, 1) of a SubKey stack [5, 3] x {mid}",
+               lambda: P.uniform(stack, mid, 1e-9, 1.0)),
+              ("u01_global of a SubKey x4099 from a device offset",
+               lambda: P.u01_global(sub, start, 4099)),
+              ("normal of a SubKey", lambda: P.normal(sub, (1001,))),
+              ("randint of a SubKey x1001",
+               lambda: P.randint(sub, (1001,), 1, 1001))]
     return cases
+
+
+def wide_draw_check(torch, m, dev, words=WIDE_WORDS, piece=65_536,
+                    offset=7) -> tuple:
+    """A ``u01_global`` of ``words`` (at full size past the kernel's
+    32-bit index path) held by slices at its start, middle and end
+    against its plain version on those slices: node i draws the same
+    value on any slice. (report, failures)"""
+    P = m.prng
+    k = P.key(19, device=dev)
+    big = P.u01_global(k, offset, words)
+    out, bad = {}, []
+    for a in (0, words // 2, words - piece):
+        with m.fused.plain():
+            want = P.u01_global(k, offset + a, piece)
+        same = _same_bits(torch, big[a:a + piece], want)
+        out[f"u01_global x{words} [{a}:{a + piece}]"] = same
+        if not same:
+            bad.append(f"u01_global x{words}: words {a}.. differ from the "
+                       "plain version")
+    del big
+    return out, bad
 
 
 def sum_cases(torch, m, dev, lengths=SUM_LENGTHS, grid_l=65_536,
@@ -2557,6 +2742,12 @@ def captured_draws(torch, m, dev, calls=4, words=4096, rows=3) -> tuple:
         return (P.round_seeds(key, offset, 48), P.round_keys(key, offset, 5),
                 P.u01_global(key, offset, words), P.uniform(key, words),
                 P.bits(key, words), P.fold_in(key, offset),
+                *round_draws(P.threefry_u01, SLOT_SETS[-1], key, words),
+                *round_draws(P.global_u01, SLOT_SETS[-2], key, offset,
+                             words),
+                P.split(P.SubKey(key, 3), 4),
+                P.round_keys(P.SubKey(key, P.COORD_FOLD), offset, 5),
+                P.randint(key, (words,), 1, words),
                 L.tree_sum(x), L._block_partials(x, L.LANE_BLOCKS))
 
     dummy = torch.zeros(1, device=dev)
@@ -2589,8 +2780,9 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
     each side called ``warm`` times (a captured runner's eager call and
     its capture), then once timed (a replay), and ``traced`` (a call and
     its rounds; ``call`` itself when None) once under the profiler for
-    device time; the kernels' side's launches counted from zero.
-    (report, failures, the kernels' launches)."""
+    device time; the kernels' side's launches counted from zero, and the
+    timed call's threefry launches a call and a round beside PR 13's
+    (``PR13_THREEFRY``). (report, failures, the kernels' launches)."""
     t_call, t_rounds = traced or (call, rounds)
     rep, outs = {}, {}
     launches = {}
@@ -2603,7 +2795,9 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
                 call(*prep())
             args = prep()
             m.bench._sync(torch.device(dev))
+            timed0 = _fused_counts(m)
             outs[side], ms = _wall_ms(torch, lambda: call(*args))
+            timed = _count_delta(_fused_counts(m), timed0)
             counts = _count_delta(_fused_counts(m), before)
             rk = dict(collections.Counter(m.cuda_round.LAUNCHES)
                       - cr_before)
@@ -2618,9 +2812,17 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
                          if prof else None,
                      "kernels_per_round": prof.get("kernels_per_round"),
                      "tree_sum_us_per_round": sum_us_per_round(prof),
+                     "threefry_us_per_round": draw_us_per_round(prof),
                      "round_kernel_launches": rk}
         if side == "kernels":
             launches = counts
+            fry = sum(v for k, v in timed.items()
+                      if k.startswith("threefry/"))
+            pr13 = PR13_THREEFRY.get(label)
+            rep["threefry_launches"] = {
+                "call": timed, "per_call": fry, "per_round": fry / rounds,
+                "pr13_per_call": pr13[0] if pr13 else None,
+                "pr13_per_round": pr13[0] / pr13[1] if pr13 else None}
         elif counts:
             rep["bad_plain_launches"] = counts
     bad = []
@@ -2643,22 +2845,40 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
 SUM_KERNEL_NAMES = re.compile(r"\b(sum|level|rows)_kernel\b")
 
 
-def sum_us_per_round(prof: dict):
-    """The device µs a round of the sum kernels in a profile
-    (``bench.device_breakdown``'s by-kernel times), or None."""
+#: the draw kernel's name in a profile
+DRAW_KERNEL_NAMES = re.compile(r"\bdraw_kernel\b")
+
+
+def _us_per_round(prof: dict, names):
     by = prof.get("device_us_per_round_by_kernel")
     if by is None:
         return None
-    return sum(v for k, v in by.items() if SUM_KERNEL_NAMES.search(k))
+    return sum(v for k, v in by.items() if names.search(k))
+
+
+def sum_us_per_round(prof: dict):
+    """The device µs a round of the sum kernels in a profile
+    (``bench.device_breakdown``'s by-kernel times), or None."""
+    return _us_per_round(prof, SUM_KERNEL_NAMES)
+
+
+def draw_us_per_round(prof: dict):
+    """The device µs a round of the draw kernel in a profile, or
+    None."""
+    return _us_per_round(prof, DRAW_KERNEL_NAMES)
 
 
 def engine_cases(torch, m, dev, n=N, grid_n=None, views_n=VIEWS_N,
                  lane_rounds=DRAWS_LANE_ROUNDS,
                  views_rounds=DRAWS_VIEWS_ROUNDS,
-                 runner_calls=DRAWS_RUNNER_CALLS):
+                 runner_calls=DRAWS_RUNNER_CALLS,
+                 live_rounds=DRAWS_LIVE_ROUNDS,
+                 plan_rounds=DRAWS_PLAN_ROUNDS):
     """(label, prep, call, rounds, warm-up calls, traced call or None) of
     each engine the phase runs on the kernels and on the plain versions:
-    the lane engine in sweep_lanes' configuration, a lan grid round on
+    the lane engine in sweep_lanes' configuration, the live engine on
+    the full model, both engines on the byzantine check plan (its churn
+    and replay slots; eager, not captured), a lan grid round on
     the xla and lanes engines, the views at 4,096 (views_single's first
     stage; not a captured runner, so no warm-up; traced over
     ``VIEWS_PROFILE_ROUNDS``: the profiler's cost grows with the plain
@@ -2675,6 +2895,22 @@ def engine_cases(torch, m, dev, n=N, grid_n=None, views_n=VIEWS_N,
     cases.append((f"lane engine stale_k={LANE_KS[-1]} x{lane_rounds}",
                   lambda: (b.clone_state(s0), key), lane, lane_rounds, 2,
                   None))
+    live = m.round.make_run_rounds(p_diag, live_rounds)
+    cases.append((f"live engine x{live_rounds}",
+                  lambda: (b.clone_state(s0), key), live, live_rounds, 2,
+                  None))
+    p_chaos = m.scenarios.chaos_params(n)
+    cp = m.faults.compile_plan(check_plans(n)["byz"], n, dev)
+    s_chaos = m.state.init_state(n, device=dev)
+    lane_byz = m.round.make_run_rounds_lanes(p_chaos, plan_rounds, plan=cp)
+    cases += [
+        (f"live engine byzantine plan x{plan_rounds}",
+         lambda: (b.clone_state(s_chaos), key),
+         lambda s, k: m.round.run_rounds(s, k, p_chaos, plan_rounds,
+                                         plan=cp)[0], plan_rounds, 0, None),
+        (f"lane engine byzantine plan x{plan_rounds}",
+         lambda: (b.clone_state(s_chaos), key), lane_byz, plan_rounds, 2,
+         None)]
     n_grid = grid_n or b.SWEEP_SIZE[0]
     p_grid = m.scenarios.autotune_params("lan", n_grid)
     tp, _ = m.params.grid_params(
@@ -2727,41 +2963,68 @@ def draws_engines(torch, m, dev, profile=True, **sizes) -> tuple:
     return out, bad, dict(launches)
 
 
-def draw_timing_cases(torch, m, dev, n=N, grid_l=65_536, views=VIEWS_N):
-    """(name, kernel call, plain call, bound, library call or None) of
-    each kernel at the shapes of its paths: ``round_keys`` of a 512-round
-    call, its seeds (the xor mode as int32), the live engine's 1M-word
-    uniform, the views' 4,096 x 4,096 one, the lane engine's
-    ``u01_global``, and the sums: the lane engine's block partials of
-    ``[32, 1M]``, a coordinate mean ``[1, 1M]``, the flight means ``[5,
-    1M]``, the grid rows ``[2048, grid_l]``, the lanes grid engine's
-    block partials of ``[32, 64, grid_l]`` and the lane table ``[32,
-    64]``."""
+def draw_timing_cases(torch, m, dev, n=N, grid_l=65_536, views=VIEWS_N,
+                      bounds=True):
+    """(name, shape, kernel call, plain call, bound, library call or
+    None) of each kernel at the shapes of its paths: ``round_keys`` of a
+    512-round call, its seeds (one launch deriving each round's key),
+    the live engine's 1M-word uniform, the views' 4,096 x 4,096 one, the
+    lane engine's ``u01_global``, a round's draws of the full model's
+    slots on the live and lane engines (one launch each), the coordinate
+    round's ``randint`` (both words one launch), and the sums: the lane
+    engine's block partials of ``[32, 1M]``, a coordinate mean ``[1,
+    1M]``, the flight means ``[5, 1M]``, the grid rows ``[2048,
+    grid_l]``, the lanes grid engine's block partials of ``[32, 64,
+    grid_l]`` and the lane table ``[32, 64]``. A draw's kernel call is
+    its one launch (``prng._draw`` of its ``Draw``) and its plain call
+    the kernel's twin on that ``Draw`` (``prng._draw_twin``: the same
+    function, where the prng call may do more, as ``randint``'s
+    remainders); with ``bounds`` False (``kernel_ab.py``, on a checkout
+    of either design) both are the prng function and no draw has a
+    bound."""
     P, L, F, cm = m.prng, m.lanes, m.fused, m.costmodel
     k = P.key(23, device=dev)
     start = torch.tensor(5, device=dev)
-    rk = P.round_keys(k, start, 512)
+    S = len(ROUND_SLOTS)
     draws = [
         ("threefry/words", "round_keys x512",
-         F.draw("words", k[..., 0], k[..., 1], gen=512,
-                base=P._on(start, dev))),
-        ("threefry/xor", "round_seeds x512",
-         F.draw("seeds", rk[..., 0], rk[..., 1])),
-        ("threefry/uniform", f"uniform x{n}",
-         F.draw("uniform", k[..., 0, None], k[..., 1, None], gen=n)),
+         lambda: P.round_keys(k, start, 512),
+         lambda: F.draw("words", k[..., 0], k[..., 1], gen=512,
+                        base=P._on(start, dev))),
+        ("threefry/seeds", "round_seeds x512",
+         lambda: P.round_seeds(k, start, 512),
+         lambda: F.draw("seeds", k[..., 0], k[..., 1], gen=512,
+                        base=P._on(start, dev), derive_gen=True)),
+        ("threefry/uniform", f"uniform x{n}", lambda: P.uniform(k, n),
+         lambda: F.draw("uniform", k[..., 0, None], k[..., 1, None],
+                        gen=n)),
         ("threefry/uniform", f"uniform [1e-9, 1) {views} x {views}",
-         F.draw("uniform", k[..., 0, None], k[..., 1, None],
-                gen=views * views, minval=1e-9, maxval=1.0)),
+         lambda: P.uniform(k, (views, views), 1e-9, 1.0),
+         lambda: F.draw("uniform", k[..., 0, None], k[..., 1, None],
+                        gen=views * views, minval=1e-9, maxval=1.0)),
         ("threefry/u01_global", f"u01_global x{n}",
-         F.draw("u01_global", k[0], k[1], gen=n, base=P._on(0, dev)))]
-    plains = {"round_keys x512": lambda: P.round_keys(k, start, 512),
-              "round_seeds x512": lambda: (P.bits(rk) >> 1).to(torch.int32),
-              f"uniform x{n}": lambda: P.uniform(k, n),
-              f"uniform [1e-9, 1) {views} x {views}":
-                  lambda: P.uniform(k, (views, views), 1e-9, 1.0),
-              f"u01_global x{n}": lambda: P.u01_global(k, 0, n)}
-    cases = [(name, shape, lambda d=d: F.threefry(d), plains[shape],
-              cm.draw_bound(d), None) for name, shape, d in draws]
+         lambda: P.u01_global(k, 0, n),
+         lambda: F.draw("u01_global", k[0], k[1], gen=n,
+                        base=P._on(0, dev))),
+        ("threefry/uniform", f"threefry_u01 slots {ROUND_SLOTS} x{n}",
+         lambda: round_draws(P.threefry_u01, ROUND_SLOTS, k, n),
+         lambda: F.draw("uniform", k[0].expand(S, 1), k[1].expand(S, 1),
+                        gen=n, derive=P.slot_words(ROUND_SLOTS))),
+        ("threefry/u01_global", f"global_u01 slots {ROUND_SLOTS} x{n}",
+         lambda: round_draws(P.global_u01, ROUND_SLOTS, k, 0, n),
+         lambda: F.draw("u01_global", k[0].expand(S, 1),
+                        k[1].expand(S, 1), gen=n, base=P._on(0, dev),
+                        derive=P.slot_words(ROUND_SLOTS))),
+        ("threefry/xor", f"randint x{n}", lambda: P.randint(k, (n,), 1, n),
+         lambda: F.draw("xor", k[0].expand(2, 1), k[1].expand(2, 1), gen=n,
+                        gen_hi=True, derive=(0, 1)))]
+    cases = []
+    for name, shape, call, make in draws:
+        d = make() if bounds else None
+        cases.append((name, shape,
+                      (lambda d=d: P._draw(d)) if bounds else call,
+                      (lambda d=d: P._draw_twin(d)) if bounds else call,
+                      cm.draw_bound(d) if bounds else None, None))
     for shape, x, plus_zero in (
             (f"block partials [32, {n}]",
              _sum_input(torch, (L.N_LANES, L.LANE_BLOCKS, n // L.LANE_BLOCKS),
@@ -2791,19 +3054,20 @@ def draw_timing_cases(torch, m, dev, n=N, grid_l=65_536, views=VIEWS_N):
 def draws_timing(torch, m, dev, n=N) -> dict:
     """Each kernel's and the library call's device ms at its paths'
     shapes (both by CUDA-graph replay), its plain version's ms (CUDA
-    events), its bound."""
+    events), its bound and the time over it."""
     out = {}
     for name, shape, kern, plain, bound, library in draw_timing_cases(
             torch, m, dev, n):
         with m.fused.plain():
             plain_ms = _events_ms(torch, plain, 5)
+        ms = _graph_ms(torch, kern, 200)
         out.setdefault(name, {})[shape] = {
-            "ms": _graph_ms(torch, kern, 200),
-            "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms,
             "library_ms": _graph_ms(torch, library, 200) if library
             else None,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "bytes": bound["bytes"]}
+            "x_bound": ms / bound["bound_ms"], "bytes": bound["bytes"],
+            "int32_bound_ms": bound.get("int32_bound_ms")}
     return out
 
 
@@ -2817,6 +3081,9 @@ def phase_draws(torch, m, dev):
     sums, b = kernel_checks(torch, m, dev, sum_cases(torch, m, dev))
     bad += b
     captured, b = captured_draws(torch, m, dev)
+    bad += b
+    wide, b = wide_draw_check(torch, m, dev)
+    draws.update(wide)
     bad += b
     checks_s = time.perf_counter() - t0
     engines, b, launches = draws_engines(torch, m, dev)
@@ -3044,7 +3311,8 @@ def main() -> int:
     # each draw and sum kernel at its main path's shape; bit for bit
     # against its plain version in phase draws
     shapes = {"threefry/words": "round_keys x512",
-              "threefry/xor": "round_seeds x512",
+              "threefry/xor": f"randint x{N}",
+              "threefry/seeds": "round_seeds x512",
               "threefry/uniform": f"uniform x{N}",
               "threefry/u01_global": f"u01_global x{N}",
               "tree_sum": f"block partials [32, {N}]"}

@@ -207,6 +207,9 @@ def config_label(engine: str, stale_k: int = 1,
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: instructions issued: 4 warp-instructions a clock on each SM (one a
+#: scheduler), whatever pipe runs them (H100 white paper)
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 
 #: integer operations of one Philox4x32-10 call on the card, which gives
 #: four words: per round two widening multiplies and two three-input
@@ -330,24 +333,62 @@ DRAW_MODE_INT_OPS = {"words": 0, "xor": 1, "seeds": 2, "uniform": 3,
 #: product: none, a product, a sum and a max (power-of-two width), or
 #: the max alone (the f64 product and sum are not counted)
 SCALE_F32_OPS = {"unit": 0, "pow2": 3, "f64": 1}
+#: instructions one Threefry-2x32 evaluation issues at the least: each
+#: of the 20 rounds an add, a funnel shift and an xor (no instruction
+#: does two of them), the 5 key injections into word 1, the last one
+#: into word 0 (the others ride the next round's add as one three-input
+#: add), the counter's add. A mode that reads word 0 alone
+#: (``u01_global``) drops the last round's rotation, xor and injection
+#: into word 1.
+THREEFRY_INSTRUCTIONS = 20 * 3 + 5 + 1 + 1
+WORD0_DROPS = 3
 
 
 def draw_bound(d: "fused.Draw") -> dict:
     """The least time one launch of the draw kernel on ``d`` could take:
     its operands read once (``d.raw``: keys, counter data, base) and its
-    output written once, over the HBM rate; its integer operations (a
-    Threefry evaluation, the generated counter's add and the mode's
-    output, a word) over ``INT32_OPS_PER_S``; a uniform's scaling as f32
-    operations (its f64 width, two f64 operations a word, is not
-    counted: a lower bound)."""
+    output written once, over the HBM rate; its instructions over the
+    card's issue rate (``ISSUE_PER_S``): a word's Threefry evaluation
+    (``THREEFRY_INSTRUCTIONS``), its output's integer and f32 operations
+    (``DRAW_MODE_INT_OPS``, the uniform's product and
+    ``SCALE_F32_OPS``), and a derived key's evaluation, once a row for a
+    table word and once a word for the generated index. Every pipe
+    issues from the same 4 schedulers an SM, so no count of one pipe's
+    operations is a lower bound: the kernel moves adds to the FMA pipe.
+    ``int32_ops`` and ``int32_bound_ms`` keep the count PR 12 bounded
+    by, 72 integer operations a Threefry at the integer lanes' rate,
+    which the kernel beats on long draws (PERF.md §6, PR 14)."""
     words = math.prod(d.shape)
     nbytes = sum(t.numel() * t.element_size() for t in d.raw) \
         + fused.draw_out_bytes(d)
-    int_ops = words * (THREEFRY_INT_OPS + int(d.gen)
-                       + DRAW_MODE_INT_OPS[d.mode])
+    derived = words if d.derive_gen else \
+        math.prod(d.shape[:-1]) if d.derive else 0
     f32_ops = words * (1 + SCALE_F32_OPS[d.scale]) \
         if d.mode in ("uniform", "u01_global") else 0
-    return {"words": words, **_bound(nbytes, int_ops, f32_ops)}
+    instructions = words * (
+        THREEFRY_INSTRUCTIONS + DRAW_MODE_INT_OPS[d.mode]
+        - (WORD0_DROPS if d.mode == "u01_global" else 0)) \
+        + f32_ops + derived * THREEFRY_INSTRUCTIONS
+    int_ops = words * (THREEFRY_INT_OPS + int(d.gen)
+                       + DRAW_MODE_INT_OPS[d.mode]) \
+        + derived * THREEFRY_INT_OPS
+    old = _bound(nbytes, int_ops, f32_ops)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = instructions / ISSUE_PER_S * 1e3
+    return {"words": words, "bytes": nbytes, "instructions": instructions,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "int32_ops": int_ops, "int32_bound_ms": old["bound_ms"]}
+
+
+def draw_instructions_per_word(mode: str, scale: str = "unit") -> int:
+    """``draw_bound``'s instructions a word of a draw with no derived
+    key (the env phase holds it under the kernel's own SASS a word)."""
+    return THREEFRY_INSTRUCTIONS + DRAW_MODE_INT_OPS[mode] \
+        - (WORD0_DROPS if mode == "u01_global" else 0) \
+        + ((1 + SCALE_F32_OPS[scale])
+           if mode in ("uniform", "u01_global") else 0)
 
 
 def sum_bound(rows: int, length: int) -> dict:

@@ -646,7 +646,7 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                 bb = blackbox_mod.init_blackbox(state, tracked,
                                                 p.blackbox_ring)
         if coords:
-            ckeys = prng.round_keys(prng.fold_in(key, prng.COORD_FOLD),
+            ckeys = prng.round_keys(prng.SubKey(key, prng.COORD_FOLD),
                                     r0, rounds)
         for c, fx in zip(range(rounds // R), fxs):
             sc_in = scalars

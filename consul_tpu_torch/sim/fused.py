@@ -9,8 +9,11 @@ out as PyTorch ops: a threefry draw is ~140 elementwise launches
 
 * ``csrc/prng_kernels.cu`` — ``threefry``: one launch a draw, in the
   modes ``words`` (``threefry2x32``, ``fold_in``, ``split``,
-  ``round_keys``), ``xor`` (``bits``, and ``round_seeds`` as int32),
-  ``uniform`` (with its scaling) and ``u01_global``. ``prng`` builds
+  ``round_keys``), ``xor`` (``bits``, ``randint``'s two words),
+  ``seeds`` (``round_seeds``), ``uniform`` (with its scaling) and
+  ``u01_global``. A draw may derive its keys in the launch
+  (``fold_in`` by a word of a table a row, or by the generated index),
+  so a round's slots, or its seeds, are one launch. ``prng`` builds
   each draw's ``Draw`` and routes it here.
 * ``csrc/sum_kernels.cu`` — ``tree_sum``: ``lanes.tree_sum``'s order of
   additions in one launch a sum (``sum_plan``): a long row is cut
@@ -55,10 +58,12 @@ DRAW_SOURCE = "prng_kernels"
 SUM_SOURCE = "sum_kernels"
 SOURCES = (DRAW_SOURCE, SUM_SOURCE)
 
-#: the draw kernel's output modes (csrc/prng_kernels.cu ``Mode``); a
-#: ``seeds`` draw is the ``xor`` mode written as int32 (its count is
-#: ``threefry/xor``)
+#: the draw kernel's output modes (csrc/prng_kernels.cu ``Mode``)
 MODES = {"words": 0, "xor": 1, "seeds": 2, "uniform": 3, "u01_global": 4}
+#: its key derivations (``Derive``): none, a table word a row, the
+#: generated index; and the table's most words
+DERIVE = {"none": 0, "row": 1, "gen": 2}
+MAX_DERIVE = 8
 #: the uniform's scaling (``Scale``): none for [0, 1), a power-of-two
 #: width in f32, any other width through f64
 SCALES = {"unit": 0, "pow2": 1, "f64": 2}
@@ -162,10 +167,13 @@ class Draw(NamedTuple):
     ``k1`` and the counter words' data ``x0``, ``x1`` (int64 tensors or
     None for 0), each expanded to ``shape``; ``gen`` adds the index j
     along the last dimension, plus ``base`` (a 0-d int64 device tensor or
-    None), to word 1 (and ``(base + j) >> 32`` to word 0 when
-    ``gen_hi``); ``mode`` names the output; ``lo``, ``width`` and
+    None), to word 1 (and ``j >> 32`` to word 0 when ``gen_hi``, which
+    takes no base); ``mode`` names the output; ``lo``, ``width`` and
     ``scale`` the uniform's scaling; ``raw`` the operands as given (the
-    bytes a launch reads)."""
+    bytes a launch reads). ``derive`` folds a word into the key before
+    the draw (``fold_in``): row r (over the leading dimensions, row-major)
+    by ``derive[r % len(derive)]``; ``derive_gen`` by the generated index
+    ``base + j`` in place of the counter's."""
 
     mode: str
     shape: tuple
@@ -180,6 +188,8 @@ class Draw(NamedTuple):
     width: float
     scale: str
     raw: tuple
+    derive: tuple = ()
+    derive_gen: bool = False
 
 
 @functools.lru_cache(maxsize=None)
@@ -201,16 +211,34 @@ def uniform_scale(minval: float, maxval: float) -> tuple:
 def draw(mode: str, k0: torch.Tensor, k1: torch.Tensor, x0=None, x1=None,
          gen: Optional[int] = None, base: Optional[torch.Tensor] = None,
          gen_hi: bool = False, minval: float = 0.0,
-         maxval: float = 1.0) -> Draw:
+         maxval: float = 1.0, derive: tuple = (),
+         derive_gen: bool = False) -> Draw:
     """The ``Draw`` of ``mode`` on these operands: the index space is
     their broadcast shape, with ``gen`` (the generated counter's count)
-    as its last dimension when given."""
+    as its last dimension when given. ``derive`` (uint32 words, one a
+    row, repeating) or ``derive_gen`` (needs ``gen``, not ``gen_hi``)
+    derive the keys in the launch (``Draw``)."""
     ops = [t for t in (k0, k1, x0, x1) if t is not None]
     shape = torch.broadcast_shapes(*(t.shape for t in ops),
                                    *(() if gen is None else ((gen,),)))
     if len(shape) > MAX_DIMS:
         raise ValueError(f"a draw spans at most {MAX_DIMS} dimensions; "
                          f"got {tuple(shape)}")
+    derive = tuple(int(w) for w in derive)
+    if derive:
+        rows = math.prod(shape[:-1])
+        if derive_gen or not shape or len(derive) > MAX_DERIVE \
+                or rows % len(derive) \
+                or not all(0 <= w <= 0xFFFFFFFF for w in derive):
+            raise ValueError(f"a draw derives its rows' keys by 1 to "
+                             f"{MAX_DERIVE} uint32 words that tile its "
+                             f"{rows} rows; got {derive}")
+    if derive_gen and (gen is None or gen_hi):
+        raise ValueError("a key derived by the generated index needs "
+                         "gen and no gen_hi")
+    if gen_hi and (gen is None or base is not None):
+        raise ValueError("gen_hi counts the generated index from 0: it "
+                         "needs gen and no base")
     lo, width, scale = uniform_scale(minval, maxval)
 
     def ex(t):
@@ -218,7 +246,8 @@ def draw(mode: str, k0: torch.Tensor, k1: torch.Tensor, x0=None, x1=None,
 
     return Draw(mode, tuple(shape), ex(k0), ex(k1), ex(x0), ex(x1),
                 gen is not None, base, gen_hi, lo, width, scale,
-                tuple(t for t in ops + [base] if t is not None))
+                tuple(t for t in ops + [base] if t is not None), derive,
+                derive_gen)
 
 
 class DrawArgs(ctypes.Structure):
@@ -229,6 +258,9 @@ class DrawArgs(ctypes.Structure):
                 + [(f, ctypes.c_int)
                    for f in ("ndim", "gen", "gen_hi", "scale")]
                 + [("lo", ctypes.c_float), ("width", ctypes.c_float)]
+                + [(f, ctypes.c_int) for f in ("derive", "nderive")]
+                + [("dword", ctypes.c_uint32 * MAX_DERIVE),
+                   ("rows", ctypes.c_int64)]
                 + [(f, ctypes.c_int64 * MAX_DIMS)
                    for f in ("size", "sk0", "sk1", "sx0", "sx1")])
 
@@ -238,8 +270,12 @@ def _draw_lib() -> ctypes.CDLL:
     lib = build.load(DRAW_SOURCE)
     lib.prng_kernels_max_dims.argtypes = []
     lib.prng_kernels_max_dims.restype = ctypes.c_int
-    if lib.prng_kernels_max_dims() != MAX_DIMS:
-        raise RuntimeError("prng_kernels.cu and fused.MAX_DIMS disagree")
+    lib.prng_kernels_max_derive.argtypes = []
+    lib.prng_kernels_max_derive.restype = ctypes.c_int
+    if (lib.prng_kernels_max_dims(), lib.prng_kernels_max_derive()) != \
+            (MAX_DIMS, MAX_DERIVE):
+        raise RuntimeError("prng_kernels.cu and fused's MAX_DIMS and "
+                           "MAX_DERIVE disagree")
     lib.launch_threefry.argtypes = [DrawArgs, ctypes.c_int,
                                     ctypes.c_void_p]
     lib.launch_threefry.restype = ctypes.c_int
@@ -296,6 +332,10 @@ def draw_args(d: Draw, out: torch.Tensor) -> DrawArgs:
         out=out.data_ptr(), ndim=len(size), gen=int(d.gen),
         gen_hi=int(d.gen_hi), scale=SCALES[d.scale], lo=d.lo,
         width=d.width,
+        derive=DERIVE["gen" if d.derive_gen else
+                      "row" if d.derive else "none"],
+        nderive=len(d.derive),
+        dword=(ctypes.c_uint32 * MAX_DERIVE)(*d.derive),
         size=(ctypes.c_int64 * MAX_DIMS)(
             *size, *(1,) * (MAX_DIMS - len(size))),
         **{f"s{n}": (ctypes.c_int64 * MAX_DIMS)(*ops[n][1]) for n in ops})
@@ -314,8 +354,7 @@ def threefry(d: Draw) -> torch.Tensor:
         _check_launch(lib.launch_threefry(args, MODES[d.mode],
                                           _stream(out)),
                       f"threefry/{d.mode}", lib.prng_kernels_error_string)
-        LAUNCHES["threefry/xor" if d.mode == "seeds"
-                 else f"threefry/{d.mode}"] += 1
+        LAUNCHES[f"threefry/{d.mode}"] += 1
         _observe(d.raw, (out,))
     return out
 

@@ -30,13 +30,18 @@ On the card every threefry draw is one launch of the draw kernel
 ``_draw`` launches it. The functions' own bodies are the plain versions,
 which CPU tensors run (and the card inside ``fused.plain()``);
 ``_draw_twin`` is the kernel's plain twin, which CPU tensors run inside
-``fused.twins()``.
+``fused.twins()``. A launch may derive its keys first (one level of
+``fold_in``): ``round_seeds`` is one launch, a round's slots
+(``threefry_u01``, ``global_u01``) are the rows of one launch, and a
+``SubKey`` (``fold_in(k, word)``, that is ``split(k, n)[word]``, left
+uncomputed) is derived by the draw that takes it.
 Philox's multiplications split one factor into 16-bit halves so no
 product leaves int64's range.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional, Union
 
@@ -124,19 +129,36 @@ def _draw(d: fused.Draw) -> torch.Tensor:
 
 
 def _draw_twin(d: fused.Draw) -> torch.Tensor:
-    """The draw kernel's plain twin: ``d`` in PyTorch ops, the counters
-    made as the kernel makes them, the output laid out as
-    ``fused.draw_out`` lays it out."""
+    """The draw kernel's plain twin: ``d`` in PyTorch ops, the keys
+    derived and the counters made as the kernel makes them, the output
+    laid out as ``fused.draw_out`` lays it out."""
+    dev = d.k0.device
+    k0, k1 = d.k0, d.k1
     c0 = 0 if d.x0 is None else d.x0
     c1 = 0 if d.x1 is None else d.x1
+    j = None
     if d.gen:
-        j = torch.arange(d.shape[-1], dtype=torch.int64, device=d.k0.device)
+        j = torch.arange(d.shape[-1], dtype=torch.int64, device=dev)
         if d.base is not None:
             j = d.base + j
+    if d.derive_gen:
+        # the key of word j is fold_in(k, base + j); the counter keeps
+        # its data words
+        k0, k1 = _threefry_i32(k0, k1, 0, j & MASK)
+    elif d.derive:
+        # row r's key is fold_in(k, derive[r % len(derive)]), made once
+        # a row where the key is the same along it
+        if k0.stride(-1) == 0 and k1.stride(-1) == 0:
+            k0, k1 = k0[..., :1], k1[..., :1]
+        lead = d.shape[:-1]
+        w = torch.tensor(d.derive, dtype=torch.int64, device=dev).repeat(
+            math.prod(lead) // len(d.derive)).view(lead + (1,))
+        k0, k1 = _threefry_i32(k0, k1, 0, w)
+    if d.gen and not d.derive_gen:
         c1 = c1 + (j & MASK)
         if d.gen_hi:
             c0 = c0 + (j >> 32)
-    y0, y1 = _threefry_i32(d.k0, d.k1, c0, c1)
+    y0, y1 = _threefry_i32(k0, k1, c0, c1)
     y0, y1 = y0.expand(d.shape), y1.expand(d.shape)
     if d.mode == "words":
         return torch.stack([y0.to(torch.int64) & MASK,
@@ -167,12 +189,55 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def split(k: torch.Tensor, num: int) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class SubKey:
+    """``fold_in(parent, word)`` — which is ``split(parent, n)[word]``
+    for any ``n > word`` — left for the draw that takes it as its key:
+    on the kernel's route that draw derives it in its own launch, the
+    plain versions compute ``fold_in`` first (``value``). ``split``,
+    ``uniform`` (and ``normal``, ``exponential``), ``randint``,
+    ``u01_global`` and ``round_keys`` take one. A key stack's
+    ``SubKey`` indexes like the stack: ``sub[i]`` is ``SubKey(
+    parent[i], word)``."""
+
+    parent: torch.Tensor
+    word: int
+
+    def __getitem__(self, i) -> "SubKey":
+        return SubKey(self.parent[i], self.word)
+
+    def value(self) -> torch.Tensor:
+        return fold_in(self.parent, self.word)
+
+
+Key = Union[torch.Tensor, SubKey]
+
+
+def subkeys(k: torch.Tensor, num: int) -> list:
+    """``split(k, num)`` as ``num`` ``SubKey``s: no launch until a draw
+    takes one."""
+    return [SubKey(k, i) for i in range(num)]
+
+
+def _parts(k: Key) -> tuple:
+    """(the key tensor a launch reads, the words it derives by)."""
+    if isinstance(k, SubKey):
+        return k.parent, (k.word,)
+    return k, ()
+
+
+def _value(k: Key) -> torch.Tensor:
+    return k.value() if isinstance(k, SubKey) else k
+
+
+def split(k: Key, num: int) -> torch.Tensor:
     """``jax.random.split(k, num)`` -> ``[num, 2]`` keys; a ``[..., 2]``
     key stack splits each key: ``[..., num, 2]``."""
-    if fused.routed(k):
-        return _draw(fused.draw("words", k[..., 0, None], k[..., 1, None],
-                                gen=num))
+    pk, derive = _parts(k)
+    if fused.routed(pk):
+        return _draw(fused.draw("words", pk[..., 0, None], pk[..., 1, None],
+                                gen=num, derive=derive))
+    k = _value(k)
     i = torch.arange(num, dtype=torch.int64, device=k.device)
     y0, y1 = threefry2x32(k[..., 0, None], k[..., 1, None], 0, i)
     return torch.stack([y0, y1], dim=-1)
@@ -209,7 +274,7 @@ def _numel(shape: tuple) -> int:
     return out
 
 
-def uniform(k: torch.Tensor, shape: Shape, minval: float = 0.0,
+def uniform(k: Key, shape: Shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(k, shape, minval=, maxval=)`` in f32, bit for
     bit. Element i of the flattened shape takes word i (the partitionable
@@ -223,11 +288,13 @@ def uniform(k: torch.Tensor, shape: Shape, minval: float = 0.0,
     int32, so a draw holds fewer than 2^31 words. A ``[..., 2]`` key
     stack draws for each key: ``[..., *shape]``."""
     shape = _shape(shape)
-    if fused.routed(k):
-        f = _draw(fused.draw("uniform", k[..., 0, None], k[..., 1, None],
+    pk, derive = _parts(k)
+    if fused.routed(pk):
+        f = _draw(fused.draw("uniform", pk[..., 0, None], pk[..., 1, None],
                              gen=_numel(shape), minval=minval,
-                             maxval=maxval))
-        return f.view(tuple(k.shape[:-1]) + shape)
+                             maxval=maxval, derive=derive))
+        return f.view(tuple(pk.shape[:-1]) + shape)
+    k = _value(k)
     j = torch.arange(_numel(shape), dtype=torch.int32, device=k.device)
     y0, y1 = _threefry_i32(k[..., 0, None], k[..., 1, None], 0, j)
     f = ((y0 ^ y1) >> 9 & 0x7FFFFF).to(torch.float32) * (2.0 ** -23)
@@ -251,7 +318,7 @@ _NORMAL_WIDTH = 2.0
 _SQRT2_F32 = float(torch.tensor(2.0 ** 0.5, dtype=torch.float32))
 
 
-def normal(k: torch.Tensor, shape: Shape) -> torch.Tensor:
+def normal(k: Key, shape: Shape) -> torch.Tensor:
     """``jax.random.normal(k, shape)`` in f32: sqrt(2)·erfinv(u) of the
     uniform ``max(lo, f·(1 - lo) + lo)`` on [lo, 1), f the word's
     [0, 1) float. The uniform is bit for bit; PyTorch's ``erfinv`` and
@@ -261,38 +328,48 @@ def normal(k: torch.Tensor, shape: Shape) -> torch.Tensor:
     return _SQRT2_F32 * torch.special.erfinv(u)
 
 
-def exponential(k: torch.Tensor, shape: Shape) -> torch.Tensor:
+def exponential(k: Key, shape: Shape) -> torch.Tensor:
     """``jax.random.exponential(k, shape)`` in f32: ``-log1p(-u)`` of
     the bit-exact uniform (the two libraries' ``log1p`` differ in the
     last bits)."""
     return -torch.log1p(-uniform(k, shape))
 
 
-def randint(k: torch.Tensor, shape: Shape, minval: int,
+def randint(k: Key, shape: Shape, minval: int,
             maxval: int) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval, int32)``, bit for
     bit: two 32-bit words per element from ``split(k, 2)``, folded into
     [minval, maxval) by the same wrapping uint32 remainders
     ((hi % span) · m + lo % span) % span, where m = ((2^16 % span)^2
-    mod 2^32) % span — which wraps to 0 once span exceeds 2^16."""
+    mod 2^32) % span — which wraps to 0 once span exceeds 2^16. On the
+    kernel's route both words are one launch: the two split keys derived
+    as its two rows."""
     shape = _shape(shape)
     span = maxval - minval if maxval > minval else 1
     mult = ((((2 ** 16) % span) ** 2) & MASK) % span
-    k1, k2 = split(k, 2)
+    k = _value(k)
     count = _numel(shape)
-    hi, lo = bits(k1, count), bits(k2, count)
+    if fused.routed(k):
+        hi, lo = _draw(fused.draw("xor", k[0].expand(2, 1),
+                                  k[1].expand(2, 1), gen=count,
+                                  gen_hi=True, derive=(0, 1)))
+    else:
+        k1, k2 = split(k, 2)
+        hi, lo = bits(k1, count), bits(k2, count)
     off = (((hi % span) * mult) & MASK) + lo % span
     off = (off & MASK) % span
     return (off + minval).to(torch.int32).view(shape)
 
 
-def round_keys(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
+def round_keys(k: Key, start: Start, count: int) -> torch.Tensor:
     """``[count, 2]`` per-round keys for ABSOLUTE rounds
     start..start+count-1: round r's key is ``fold_in(k, r)``, a pure
     function of the base key and the absolute round index."""
-    if fused.routed(k):
-        return _draw(fused.draw("words", k[..., 0], k[..., 1], gen=count,
-                                base=_on(start, k.device)))
+    pk, derive = _parts(k)
+    if fused.routed(pk):
+        return _draw(fused.draw("words", pk[..., 0], pk[..., 1], gen=count,
+                                base=_on(start, pk.device), derive=derive))
+    k = _value(k)
     idx = _on(start, k.device) \
         + torch.arange(count, dtype=torch.int64, device=k.device)
     return fold_in(k, idx)
@@ -301,10 +378,13 @@ def round_keys(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
 def round_seeds(k: torch.Tensor, start: Start, count: int) -> torch.Tensor:
     """``[count]`` non-negative int32 kernel seeds for absolute rounds
     start..start+count-1 (one word of each round key, shifted right
-    once) — the same stream the JAX package feeds its TPU kernels."""
+    once) — the same stream the JAX package feeds its TPU kernels. On
+    the kernel's route one launch derives each round's key and draws
+    its word."""
+    if fused.routed(k):
+        return _draw(fused.draw("seeds", k[..., 0], k[..., 1], gen=count,
+                                base=_on(start, k.device), derive_gen=True))
     rk = round_keys(k, start, count)
-    if fused.routed(rk):
-        return _draw(fused.draw("seeds", rk[..., 0], rk[..., 1]))
     return (bits(rk) >> 1).to(torch.int32)
 
 
@@ -383,30 +463,71 @@ REPLAY_FOLD = 0xB12A
 COORD_FOLD = 0x5EED
 
 
-def threefry_u01(k: torch.Tensor, n: int) -> U01:
-    """The JAX engines' draws for one round: ``split(k, 5)`` gives one
-    key per slot 0-4 and each slot draws ``uniform(slot_key, (n,))``;
-    slot 5 (the replay draw of byzantine rounds) draws from
-    ``fold_in(k, REPLAY_FOLD)``."""
+#: a round's draw slots: 0-4 key ``split(k, 5)[slot]``, 5 (the replay
+#: draw of byzantine rounds) ``fold_in(k, REPLAY_FOLD)``
+SLOTS = tuple(range(6))
+REPLAY_SLOT = 5
+
+
+def slot_words(slots: tuple) -> tuple:
+    """The word each slot's key folds into the round key (``split``'s
+    index is ``fold_in``'s word)."""
+    return tuple(REPLAY_FOLD if s == REPLAY_SLOT else s for s in slots)
+
+
+def _check_slot(slot: int, slots: tuple) -> None:
+    if slot not in slots:
+        raise ValueError(f"draw slot {slot} was not drawn: this round "
+                         f"draws the slots {slots}")
+
+
+def _slot_rows(rows: torch.Tensor, slots: tuple) -> U01:
+    """The source over one launch's ``[len(slots), n]`` rows."""
+    at = {s: i for i, s in enumerate(slots)}
+
+    def u01(slot: int) -> torch.Tensor:
+        _check_slot(slot, slots)
+        return rows[at[slot]]
+
+    return u01
+
+
+def threefry_u01(k: torch.Tensor, n: int, slots: tuple) -> U01:
+    """The JAX engines' draws for one round: slot s < 5 draws
+    ``uniform(split(k, 5)[s], (n,))``; slot 5 (the replay draw of
+    byzantine rounds) draws from ``fold_in(k, REPLAY_FOLD)``. ``slots``
+    are those the round reads (``round.draw_slots``); asking for another
+    raises. On the kernel's route they are the rows of one launch, each
+    deriving its slot key from ``k``; the plain version splits and draws
+    a slot when it is first read."""
+    slots = tuple(slots)
+    if fused.routed(k):
+        return _slot_rows(_draw(fused.draw(
+            "uniform", k[0].expand(len(slots), 1),
+            k[1].expand(len(slots), 1), gen=n,
+            derive=slot_words(slots))), slots)
     keys = split(k, 5)
 
     def u01(slot: int) -> torch.Tensor:
-        if slot == 5:
+        _check_slot(slot, slots)
+        if slot == REPLAY_SLOT:
             return uniform(fold_in(k, REPLAY_FOLD), n)
         return uniform(keys[slot], n)
 
     return u01
 
 
-def u01_global(k: torch.Tensor, offset: Start, length: int) -> torch.Tensor:
+def u01_global(k: Key, offset: Start, length: int) -> torch.Tensor:
     """The lane engine's ``[length]`` uniforms keyed by (key, GLOBAL node
     index): one threefry2x32 evaluation per node on the counter pair
     ``(0, offset + i)``, word 0, top 24 bits — so node i draws the same
     value whatever slice of the pool is computed (reference
     ``lanes.u01_global``). Not ``uniform``: a different stream."""
-    if fused.routed(k):
-        return _draw(fused.draw("u01_global", k[0], k[1], gen=length,
-                                base=_on(offset, k.device)))
+    pk, derive = _parts(k)
+    if fused.routed(pk):
+        return _draw(fused.draw("u01_global", pk[0], pk[1], gen=length,
+                                base=_on(offset, pk.device), derive=derive))
+    k = _value(k)
     idx = (_on(offset, k.device)
            + torch.arange(length, dtype=torch.int64, device=k.device)) \
         & MASK
@@ -414,14 +535,23 @@ def u01_global(k: torch.Tensor, offset: Start, length: int) -> torch.Tensor:
     return _u01_of(y0)
 
 
-def global_u01(k: torch.Tensor, offset: Start, n: int) -> U01:
+def global_u01(k: torch.Tensor, offset: Start, n: int,
+               slots: tuple) -> U01:
     """The lane engine's draws for one round over nodes offset..offset+
     n-1: slots 0-4 from ``split(k, 5)``, slot 5 (byzantine replay) from
-    ``fold_in(k, REPLAY_FOLD)``, each through ``u01_global``."""
+    ``fold_in(k, REPLAY_FOLD)``, each through ``u01_global``; ``slots``
+    and the launch as in ``threefry_u01``."""
+    slots = tuple(slots)
+    if fused.routed(k):
+        return _slot_rows(_draw(fused.draw(
+            "u01_global", k[0].expand(len(slots), 1),
+            k[1].expand(len(slots), 1), gen=n, base=_on(offset, k.device),
+            derive=slot_words(slots))), slots)
     keys = split(k, 5)
 
     def u01(slot: int) -> torch.Tensor:
-        kk = fold_in(k, REPLAY_FOLD) if slot == 5 else keys[slot]
+        _check_slot(slot, slots)
+        kk = fold_in(k, REPLAY_FOLD) if slot == REPLAY_SLOT else keys[slot]
         return u01_global(kk, offset, n)
 
     return u01

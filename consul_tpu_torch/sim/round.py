@@ -84,6 +84,25 @@ LAT = STATS_FIELDS.index("detect_latency_sum")
 U_CHURN, U_SLOW, U_ACK, U_POIS, U_HEAR, U_REPLAY = range(6)
 N_DRAWS = 6
 
+
+def draw_slots(p, fx: Optional[FaultFrame] = None) -> tuple:
+    """The slots ``_round_body`` reads under ``p`` and ``fx``, known
+    before it runs: churn with a churn model or a fault frame, slow with
+    the slow model (a grid that sweeps either takes the union: every
+    point runs one body), ack, Poisson and hear always, the replay draw
+    on a byzantine frame. A round's threefry draws are these slots'
+    rows, one launch (``prng.threefry_u01``, ``prng.global_u01``)."""
+    slots = []
+    if p.has_churn or fx is not None:
+        slots.append(U_CHURN)
+    if p.enabled("slow_per_round"):
+        slots.append(U_SLOW)
+    slots += [U_ACK, U_POIS, U_HEAR]
+    if fx is not None and fx.attacked is not None:
+        slots.append(U_REPLAY)
+    return tuple(slots)
+
+
 #: floors applied to a reduced scalar vector (n_elig >= 1,
 #: n_up_elig >= 1e-9, lfail_den >= 1e-9); the other lanes are unclamped
 SCALAR_FLOORS = (float("-inf"), 1.0, 1e-9, float("-inf"), float("-inf"),
@@ -321,7 +340,7 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     if co is not None:
         coords, topo, key = co
         k_pair, k_jit, k_dir, k_q = prng.split(
-            prng.fold_in(key, prng.COORD_FOLD), 4)
+            prng.SubKey(key, prng.COORD_FOLD), 4)
         rows = status.shape[-1]
         i_all = torch.arange(rows, device=status.device)
         pair_j = topology.sample_pairs(rows, k_pair)
@@ -642,7 +661,8 @@ def gossip_round(state: SimState, key: torch.Tensor, p: SimParams,
     CoordRoundAux)``; ``events=True`` appends the round's
     ``ProbeEvents``."""
     res = round_core(state, None, p,
-                     prng.threefry_u01(key, state.status.shape[0]), fx,
+                     prng.threefry_u01(key, state.status.shape[0],
+                                       draw_slots(p, fx)), fx,
                      coords=coords, topo=topo, key=key, events=events)
     if len(res) == 2:
         return res[0]
@@ -658,7 +678,8 @@ def gossip_round_fast(state: SimState, scalars: torch.Tensor,
                       fx: Optional[FaultFrame] = None):
     """One period on LAST round's scalars: returns (state', scalars')."""
     return round_core(state, scalars, p,
-                      prng.threefry_u01(key, state.status.shape[0]), fx)
+                      prng.threefry_u01(key, state.status.shape[0],
+                                        draw_slots(p, fx)), fx)
 
 
 def plan_frames(plan: Optional[CompiledFaultPlan], state: SimState,
@@ -882,9 +903,11 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
             atk = fx.attacked if p.fault_gain > 0.0 \
                 else torch.zeros_like(fx.attacked)
         # events=True: the five-field return whatever the options
+        u01 = prng.threefry_u01(keys[i], state.status.shape[0],
+                                draw_slots(p, fx))
         s2, _, c2, aux, ev = round_core(
-            state, None, p, prng.threefry_u01(keys[i], state.status.shape[0]),
-            fx, coords=c, topo=topo, key=keys[i], events=True)
+            state, None, p, u01, fx, coords=c, topo=topo, key=keys[i],
+            events=True)
 
         def rec(carry):
             pv, bbc = carry
@@ -951,7 +974,8 @@ def _lane_contributions(state: SimState, scalars: torch.Tensor,
         fx = scale_frame(fx, p.fault_gain)
     vals = state.node_arrays()
     outs, lanes = _round_body(vals, _grid_scalars(scalars), p,
-                              prng.global_u01(key, shard_offset, rows),
+                              prng.global_u01(key, shard_offset, rows,
+                                              draw_slots(p, fx)),
                               fx=fx, lane_mode=True)
     out = SimState(*_cast_like(outs, vals),
                    t=state.t + _per_point(p.probe_interval, state.t),

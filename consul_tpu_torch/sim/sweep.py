@@ -55,7 +55,7 @@ from consul_tpu_torch.sim.params import (GridSpec, SimParams, TracedParams,
 from consul_tpu_torch.sim.round import (_CARRY_STATE, _carry,
                                         _carry_state, _lane_scan,
                                         _param_inputs, _params_from,
-                                        _write, round_core)
+                                        _write, draw_slots, round_core)
 from consul_tpu_torch.sim.state import SimState, SimStats, init_state
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
@@ -86,7 +86,7 @@ def _xla_scan(state: SimState, tp, keys: torch.Tensor, rounds: int,
         pp = _params_from(tp, leaves)
         s = _carry_state(d)
         fx = frame_at(cp, s.round_idx) if cp is not None else None
-        u01 = prng.threefry_u01(key_i, rows)
+        u01 = prng.threefry_u01(key_i, rows, draw_slots(pp, fx))
         aux = None
         if coords is None:
             s2, _ = round_core(s, None, pp, u01, fx,

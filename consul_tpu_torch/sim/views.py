@@ -152,7 +152,7 @@ def _timeout_rounds(p: SimParams) -> tuple:
     return min_r, max_r
 
 
-def _pick(key: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _pick(key: prng.Key, mask: torch.Tensor) -> torch.Tensor:
     """Per-row Gumbel-max categorical draw over ``mask`` [r, n] -> [r];
     a ``[F, 2]`` key stack draws F picks over the one mask: [F, r]."""
     u = prng.uniform(key, tuple(mask.shape), minval=1e-9, maxval=1.0)
@@ -160,16 +160,18 @@ def _pick(key: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(torch.where(mask, g, -math.inf), dim=-1)
 
 
-def _gossip_draws(k_gossip: torch.Tensor, p: SimParams, rows: int):
+def _gossip_draws(k_gossip: prng.Key, p: SimParams, rows: int):
     """A round's gossip keys and uniforms, derived at once from the
     reference's chain ``split(k_gossip, ticks)`` -> ``split(., fanout)``
     -> ``split(., 3)`` (pick, loss, processing): the pick keys ``[T, F,
-    2]`` and the loss and processing uniforms ``[T, F, rows]``. None
-    depends on the state, so a tick draws its F picks in one call."""
-    sub = prng.split(prng.split(prng.split(
-        k_gossip, int(p.gossip_ticks_per_round)), int(p.gossip_nodes)), 3)
-    return (sub[..., 0, :], prng.uniform(sub[..., 1, :], rows),
-            prng.uniform(sub[..., 2, :], rows))
+    2]`` (a ``prng.SubKey`` stack) and the loss and processing uniforms
+    ``[T, F, rows]``. None depends on the state, so a tick draws its F
+    picks in one call. The chain's last level is derived by the draws
+    that take its keys, so it is no launch of its own."""
+    sub = prng.split(prng.split(k_gossip, int(p.gossip_ticks_per_round)),
+                     int(p.gossip_nodes))
+    return (prng.SubKey(sub, 0), prng.uniform(prng.SubKey(sub, 1), rows),
+            prng.uniform(prng.SubKey(sub, 2), rows))
 
 
 def _p_noack_pair(g_i: torch.Tensor, g_t: torch.Tensor, pi_i: torch.Tensor,
@@ -304,7 +306,8 @@ def views_round(st: ViewState, key: torch.Tensor, p: SimParams) -> ViewState:
     rnd = int(st.round)
     ar = torch.arange(n, device=dev)
     eye = ar[:, None] == ar[None, :]
-    k_crash, k_slow, k_pick, k_ack, k_gossip, k_pp = prng.split(key, 6)
+    # each consumer of split(key, 6) derives its key in its own launch
+    k_crash, k_slow, k_pick, k_ack, k_gossip, k_pp = prng.subkeys(key, 6)
     if p.collect_stats:
         pre_susp, pre_dead = _col_flags(st, eye)
         pre_status = st.status
@@ -348,7 +351,7 @@ def views_round(st: ViewState, key: torch.Tensor, p: SimParams) -> ViewState:
     # -- gossip: fanout piggyback transmissions ---------------------------
     fanout = int(p.gossip_nodes)
     pick_keys, u_loss, u_recv = _gossip_draws(k_gossip, p, n)
-    for tick in range(pick_keys.shape[0]):
+    for tick in range(u_loss.shape[0]):
         gmask = (st.status != DEAD) & ~eye
         sendable = st.up & gmask.any(1)
         full_key = _key(st.status, st.inc)
@@ -543,7 +546,7 @@ def make_sharded_views_round(p: SimParams, mesh: Mesh,
         # crash/slow draws use the unfolded keys: the ground truth is
         # replicated, so every rank draws the same churn
         k_crash, k_slow, key = prng.split(key.to(dev), 3)
-        k_pick, k_ack, k_gossip, k_pp = prng.split(
+        k_pick, k_ack, k_gossip, k_pp = prng.subkeys(
             prng.fold_in(key, shard), 4)
         if p.collect_stats:
             pre_susp, pre_dead = col_flags(st)
@@ -587,7 +590,7 @@ def make_sharded_views_round(p: SimParams, mesh: Mesh,
         # -- gossip: partial max, then the exchange -----------------------
         fanout = int(p.gossip_nodes)
         pick_keys, u_loss, u_recv = _gossip_draws(k_gossip, p, nl)
-        for tick in range(pick_keys.shape[0]):
+        for tick in range(u_loss.shape[0]):
             gmask = (st.status != DEAD) & ~local_eye
             sendable = up_l & gmask.any(1)
             full_key = _key(st.status, st.inc)

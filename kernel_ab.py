@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the round kernels, or the sum kernel, of two checkouts of this
-repository on one card.
+"""Time the round kernels, the sum kernel or the draw kernel of two
+checkouts of this repository on one card.
 
-    python3 kernel_ab.py [--sums] OLD NEW
+    python3 kernel_ab.py [--sums | --draws] OLD NEW
 
 OLD and NEW are repository roots (for example a ``git archive`` of the
 parent commit unpacked under ``build/``, and ``.``). They run in the
@@ -24,6 +24,15 @@ timed the same way and the launches a sum, each shape again for every
 ``chip_smoke.engine_cases`` on the kernels under the profiler: its
 device µs a round and the sum kernel's share of them.
 
+With ``--draws`` every run times the draw kernel instead: each draw
+shape of ``chip_smoke.draw_timing_cases`` and of ``small_draws`` as the
+prng call that makes it (``bounds=False``: the same call on either
+design, its launches and device µs by ``chip_smoke._graph_ms``), and
+each engine of
+``chip_smoke.engine_cases`` on the kernels under the profiler: its
+device µs a round, the draw kernel's share of them and its threefry
+launches a call.
+
 Prints one JSON line per run, then one object of the runs in order,
 then nvidia-smi's name and power limit. Needs a CUDA card.
 """
@@ -40,6 +49,9 @@ HERE = pathlib.Path(__file__).resolve().parent
 #: the cut rows' CTA sizes ``--sums`` times: 1, 2 and 4 float4 groups a
 #: thread (4 keeps the grid rows [2048, 65,536] at one CTA a row)
 SUM_GROUPS_TRIED = (1, 2, 4)
+#: the rounds of a kernel-runner call and the nodes of a small pool whose
+#: draws ``--draws`` also times, where a launch's time is its latency
+SMALL_ROUNDS, SMALL_NODES = 48, 4_096
 
 
 def one(root: pathlib.Path) -> dict:
@@ -119,14 +131,72 @@ def sums(root: pathlib.Path) -> dict:
     return {"shapes": shapes, "groups": groups, "engines": engines}
 
 
+def small_draws(torch, smoke, P, dev) -> list:
+    """(shape, prng call) of the small draws: a ``SMALL_ROUNDS``-round
+    call's keys and seeds, ``split(k, 5)`` and a round's slots over
+    ``SMALL_NODES`` nodes on the live and lane engines."""
+    k = P.key(23, device=dev)
+    start = torch.tensor(5, device=dev)
+    slots, n = smoke.ROUND_SLOTS, SMALL_NODES
+    return [
+        (f"round_keys x{SMALL_ROUNDS}",
+         lambda: P.round_keys(k, start, SMALL_ROUNDS)),
+        (f"round_seeds x{SMALL_ROUNDS}",
+         lambda: P.round_seeds(k, start, SMALL_ROUNDS)),
+        ("split x5", lambda: P.split(k, 5)),
+        (f"threefry_u01 slots {slots} x{n}",
+         lambda: smoke.round_draws(P.threefry_u01, slots, k, n)),
+        (f"global_u01 slots {slots} x{n}",
+         lambda: smoke.round_draws(P.global_u01, slots, k, 0, n))]
+
+
+def draws(root: pathlib.Path) -> dict:
+    """The draw kernel of the checkout at ``root``: each draw shape's
+    launches and device ms, and the draws phase's engines."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    smoke = _smoke()
+    m = smoke.modules()
+    if pathlib.Path(m.fused.__file__).resolve().parents[2] != root:
+        raise RuntimeError(f"imported {m.fused.__file__}, not {root}")
+    dev = torch.device("cuda", 0)
+    shapes, engines = {}, {}
+    cases = [(shape, kern) for name, shape, kern, *_ in
+             smoke.draw_timing_cases(torch, m, dev, bounds=False)
+             if name != "tree_sum"]
+    for shape, kern in cases + small_draws(torch, smoke, m.prng, dev):
+        m.fused.reset_launches()
+        kern()
+        shapes[shape] = {"launches": dict(m.fused.LAUNCHES),
+                         "ms": smoke._graph_ms(torch, kern, 200)}
+    for label, prep, call, rounds, warm, traced in smoke.engine_cases(
+            torch, m, dev):
+        t_call, t_rounds = traced or (call, rounds)
+        for _ in range(warm):
+            call(*prep())
+        args = prep()
+        m.fused.reset_launches()
+        call(*args)
+        fry = sum(v for k, v in m.fused.LAUNCHES.items()
+                  if k.startswith("threefry/"))
+        args = prep()
+        _, prof = m.bench.profile_call(lambda: t_call(*args), t_rounds, dev)
+        engines[label] = {
+            "device_us_per_round": prof["device_busy_us"] / t_rounds,
+            "threefry_us_per_round": smoke.draw_us_per_round(prof),
+            "threefry_launches_per_call": fry, "rounds": rounds}
+    return {"shapes": shapes, "engines": engines}
+
+
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--one":
-        fn = sums if argv[1] == "sums" else one
+        fn = {"sums": sums, "draws": draws}.get(argv[1], one)
         print(json.dumps(fn(pathlib.Path(argv[2]).resolve())), flush=True)
         return 0
     what = "rounds"
-    if argv[:1] == ["--sums"]:
-        what, argv = "sums", argv[1:]
+    if argv[:1] in (["--sums"], ["--draws"]):
+        what, argv = argv[0][2:], argv[1:]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2

@@ -5,10 +5,19 @@ functions inside ``fused.twins()``, against the plain versions and the
 JAX reference.
 
 * Every draw mode (``words``: ``threefry2x32``, ``fold_in``, ``split``,
-  ``round_keys``; ``xor``: ``bits``, ``round_seeds``; ``uniform`` with
-  each bound kind; ``u01_global``) is bit for bit the composite plain
-  function and ``jax.random`` / ``jax.extend.random.threefry_2x32`` on
-  seeded keys, key stacks and offsets near 2^32.
+  ``round_keys``; ``xor``: ``bits``, ``randint``; ``seeds``:
+  ``round_seeds``; ``uniform`` with each bound kind; ``u01_global``) is
+  bit for bit the composite plain function and ``jax.random`` /
+  ``jax.extend.random.threefry_2x32`` on seeded keys, key stacks and
+  offsets near 2^32; so are the keys derived in the launch: the seeds
+  draw against the reference's ``round_seeds``, a round's slots as the
+  rows of one draw against ``split`` + ``uniform`` and the reference's
+  ``lanes.u01_global`` slot by slot (the replay slot among them), and
+  ``SubKey`` draws. The slot guard raises on a slot the round did not
+  draw, ``round.draw_slots`` is the set the round body reads, the
+  engines draw once a round, and the kernel's word loop (4 words a
+  thread, vector stores on aligned rows, scalar tails of 1-3 words) is
+  walked in Python over every word of the edge shapes.
 * ``lanes.tree_sum_staged`` (the partials of the sum kernel's one
   launch, ``fused.sum_plan``: level t by the threads, level k by the
   CTAs' ranges, the fold) is bit for bit ``lanes.tree_sum`` over every
@@ -28,9 +37,11 @@ JAX reference.
 
 Card half (``cuda``-marked, skipped without a card): each kernel against
 its plain version on the card inside ``fused.plain()``, bit for bit (the
-sums at the paths' shapes, the split edges and a misaligned base), and
-a captured body holding both kernels, a few-long-rows sum among them,
-replayed with new keys, offsets and inputs, equal to its eager run.
+sums at the paths' shapes, the split edges and a misaligned base; the
+draws' derived keys, slot sets and rows that start off a vector
+boundary), and a captured body holding both kernels, a few-long-rows sum
+among them and the derived-key draws, replayed with new keys, offsets
+and inputs, equal to its eager run.
 """
 
 from __future__ import annotations
@@ -44,9 +55,11 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from consul_tpu_torch.sim import costmodel, fused, graphs, lanes, prng
-from test_torch_harness import cuda  # noqa: F401  (fixture)
+from consul_tpu_torch.sim import round as tround
+from test_torch_harness import cuda, ref  # noqa: F401  (fixtures)
 
 SEEDS = (0, 1, 42, 2**31 - 1)
+CPU = torch.device("cpu")
 #: the bounds kinds of ``uniform``: [0, 1); the views' [1e-9, 1) and
 #: normal's low end (power-of-two widths, one f32 rounding); widths
 #: that are no power of two (the f64 product and sum)
@@ -233,6 +246,290 @@ def test_draw_refuses_what_the_kernel_cannot_take():
     d = fused.draw("xor", tk[0], tk[1], gen=8)
     with pytest.raises(ValueError, match="CUDA"):
         fused.threefry(d)
+    # derived keys: a table that tiles the rows, at most MAX_DERIVE
+    # words of 32 bits; the generated index with gen and no gen_hi
+    two = tk[0].expand(3, 1), tk[1].expand(3, 1)
+    for derive in ((0, 1), tuple(range(fused.MAX_DERIVE + 1)), (2**32,)):
+        with pytest.raises(ValueError, match="derives"):
+            fused.draw("uniform", *two, gen=4, derive=derive)
+    with pytest.raises(ValueError, match="derives"):
+        fused.draw("xor", tk[0], tk[1], derive=(1,))
+    for kw in ({}, {"gen": 4, "gen_hi": True}):
+        with pytest.raises(ValueError, match="generated index"):
+            fused.draw("seeds", tk[0], tk[1], derive_gen=True, **kw)
+
+
+def _np_keys(rng, n):
+    """``n`` random raw keys made with numpy: (torch [n, 2], jax)."""
+    import jax
+
+    kw = rng.integers(0, 2**32, size=(n, 2), dtype=np.int64)
+    return torch.from_numpy(kw), [jax.random.wrap_key_data(
+        np.asarray(w, dtype=np.uint32)) for w in kw]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_seeds_draw_equals_the_reference_round_seeds(ref, seed):
+    """``round_seeds`` on the kernel's route is one draw whose keys are
+    derived by the generated index (``fused.Draw.derive_gen``): its twin
+    equals the reference's ``round_seeds`` at offsets near 2^32."""
+    from consul_tpu.sim.round import round_seeds as ref_seeds
+
+    rng = np.random.default_rng(seed)
+    keys, jkeys = _np_keys(rng, 2)
+    for tk, k in zip(keys, jkeys):
+        for start, count in ((0, 1), (5, 3), (1000, 512), (2**31 - 100, 7)):
+            with fused.twins():
+                got = prng.round_seeds(tk, start, count)
+                dev = prng.round_seeds(tk, torch.tensor(start), count)
+            assert got.dtype == torch.int32 and got.shape == (count,)
+            np.testing.assert_array_equal(
+                got.numpy(), np.asarray(ref_seeds(k, start, count)))
+            assert _same(dev, got)
+            assert _same(got, prng.round_seeds(tk, start, count))
+
+
+@pytest.mark.parametrize("slots", [(2, 3, 4), (1, 2, 3, 4),
+                                   (0, 1, 2, 3, 4), (0, 2, 3, 4, 5),
+                                   (0, 1, 2, 3, 4, 5), (5,)])
+@pytest.mark.parametrize("seed", SEEDS[:2])
+def test_slot_batched_draws_match_jax(ref, slots, seed):
+    """A round's slots as the rows of one draw (each row's key derived
+    from the round key by its slot word): ``threefry_u01`` is
+    ``jax.random.split(k, 5)[s]`` + ``uniform`` and ``global_u01`` the
+    reference's ``lanes.u01_global`` on the same key, slot by slot; slot
+    5 is ``fold_in(k, REPLAY_FOLD)``'s."""
+    import jax
+
+    from consul_tpu.sim import lanes as rlanes
+
+    rng = np.random.default_rng(100 + seed)
+    (tk,), (k,) = _np_keys(rng, 1)
+    n = 4 * 257 + 3
+    offset = 2**32 - 700
+    ref_keys = list(jax.random.split(k, 5)) + [
+        jax.random.fold_in(k, prng.REPLAY_FOLD)]
+    with fused.twins():
+        u = prng.threefry_u01(tk, n, slots)
+        g = prng.global_u01(tk, offset, n, slots)
+        rows = [(u(s), g(s)) for s in slots]
+    plain_u = prng.threefry_u01(tk, n, slots)
+    plain_g = prng.global_u01(tk, offset, n, slots)
+    for s, (us, gs) in zip(slots, rows):
+        assert _same(us, plain_u(s)) and _same(gs, plain_g(s))
+        np.testing.assert_array_equal(
+            _bits(us), np.asarray(jax.random.uniform(ref_keys[s], (n,)))
+            .view(np.int32))
+        np.testing.assert_array_equal(
+            _bits(gs), np.asarray(rlanes.u01_global(ref_keys[s], offset,
+                                                    n)).view(np.int32))
+
+
+def test_slot_guard_raises_on_a_slot_not_drawn():
+    tk = prng.key(4)
+    for twins in (False, True):
+        with fused.twins() if twins else _nothing():
+            for fn, args in ((prng.threefry_u01, (tk, 64)),
+                             (prng.global_u01, (tk, 3, 64))):
+                u = fn(*args, (2, 3, 4))
+                u(3)
+                for slot in (0, 1, 5):
+                    with pytest.raises(ValueError, match="not drawn"):
+                        u(slot)
+
+
+def _nothing():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def _frames(n):
+    """A fault frame and a byzantine one at ``n`` nodes (the chip
+    smoke's check plans, in their attack rounds)."""
+    import chip_smoke
+
+    from consul_tpu_torch import faults
+
+    out = {}
+    for name, plan in chip_smoke.check_plans(n).items():
+        cp = faults.compile_plan(plan, n, torch.device("cpu"))
+        out[name] = faults.fault_frame(cp, chip_smoke.CHECK_ROUNDS[name])
+    return out
+
+
+def test_draw_slots_are_the_slots_the_round_reads():
+    """``round.draw_slots`` is exactly the set ``_round_body`` reads
+    under each params and frame kind: a source of all six slots records
+    what the body asks for. A grid that sweeps the slow model draws its
+    slot for every point (the union)."""
+    from consul_tpu_torch import bench
+    from consul_tpu_torch.sim import params as tparams
+    from consul_tpu_torch.sim import scenarios, state
+
+    n = 256
+    frames = _frames(n)
+    cases = [(bench.headline_params(n), None),
+             (bench.diag_params(n), None),
+             (bench.diag_params(n).with_(fail_per_round=0.01), None),
+             (scenarios.chaos_params(n), frames["fault"]),
+             (scenarios.chaos_params(n), frames["byz"]),
+             (bench.diag_params(n), frames["byz"])]
+    s0 = state.init_state(n, device=CPU)
+    for p, fx in cases:
+        read = set()
+        full = prng.threefry_u01(prng.key(3), n, prng.SLOTS)
+
+        def spy(slot):
+            read.add(slot)
+            return full(slot)
+
+        tround.round_core(s0, None, p, spy, fx)
+        assert tuple(sorted(read)) == tround.draw_slots(p, fx), (p, fx)
+    lan = scenarios.autotune_params("lan", n).with_(slow_per_round=0.0)
+    assert tround.U_SLOW not in tround.draw_slots(lan)
+    for axes, slow in (({"slow_per_round": (0.0, 0.001)}, True),
+                       ({"gossip_nodes": (2, 3)}, False)):
+        tp, _ = tparams.grid_params(lan, tparams.SweepAxes.of(**axes),
+                                    "cpu")
+        want = sorted(tround.draw_slots(lan) + (tround.U_SLOW,) * slow)
+        assert tround.draw_slots(tp) == tuple(want)
+
+
+def test_engines_draw_once_a_round_on_the_kernel_route(monkeypatch):
+    """The threefry launches of each engine's call on the kernel's
+    route (its twin on the CPU; ``prng._draw`` counted): the kernel
+    runner one a call (its seeds), the live, lane and xla grid engines
+    one a round beside their round keys, the views two words draws a
+    round (the gossip chain) beside their uniforms."""
+    from consul_tpu_torch import bench
+    from consul_tpu_torch.sim import (cuda_round, params, scenarios,
+                                      state, sweep, views)
+
+    seen = []
+
+    def count(d):
+        seen.append(d.mode)
+        return prng._draw_twin(d)
+
+    monkeypatch.setattr(prng, "_draw", count)
+    n, rounds = 1024, 4
+    key = prng.key(5)
+    p = bench.diag_params(n)
+    with fused.twins():
+        for run, want in (
+                (cuda_round.make_run_rounds_cuda(bench.headline_params(n),
+                                                 rounds), {"seeds": 1}),
+                (tround.make_run_rounds(p, rounds),
+                 {"words": 1, "uniform": rounds}),
+                (tround.make_run_rounds_lanes(p, rounds),
+                 {"words": 1, "u01_global": rounds})):
+            seen.clear()
+            run(state.init_state(n, device=CPU), key)
+            assert {m: seen.count(m) for m in set(seen)} == want
+        tp, _ = params.grid_params(
+            scenarios.autotune_params("lan", 256),
+            params.SweepAxes.of(**bench.AUTOTUNE_GRID), "cpu")
+        grid = sweep.make_run_sweep(scenarios.autotune_params("lan", 256),
+                                    2, engine="xla", device="cpu")
+        seen.clear()
+        grid(tp, key)
+        assert {m: seen.count(m) for m in set(seen)} == \
+            {"words": 1, "uniform": 2}
+        pv = params.SimParams(n=64, loss=0.01)
+        st = views.init_views(64, device=CPU)
+        # round 0 is no push/pull round
+        assert views._pp_every(pv) > 1
+        seen.clear()
+        views.views_round(st, key, pv)
+        ticks = int(pv.gossip_ticks_per_round)
+        assert seen.count("words") == 2
+        assert seen.count("uniform") == 2 + 2 + ticks
+
+
+def _kernel_writes(rows, words, blocks_cap, vec=4, threads=8):
+    """The (row, word, vector store) of every output word the draw
+    kernel's loops write, walked in Python over its grid (``threads`` a
+    block here, ``blocks_cap`` resident blocks), as
+    ``launch``/``draw_kernel`` in csrc/prng_kernels.cu index them."""
+    bx = min(-(-words // (threads * vec)), blocks_cap)
+    by = max(1, min(blocks_cap // bx, rows, 65535))
+    out = []
+    for bxi in range(bx):
+        for byi in range(by):
+            for t in range(threads):
+                for batch in range(byi, rows, by * threads):
+                    for b in range(threads):
+                        row = batch + b * by
+                        if row >= rows:
+                            break
+                        orow = row * words
+                        j0 = bxi * threads * vec + t * vec
+                        while j0 < words:
+                            left = words - j0
+                            full = left >= vec and orow % vec == 0
+                            for v in range(min(left, vec)):
+                                out.append((row, j0 + v, full))
+                            j0 += bx * threads * vec
+    return out
+
+
+@pytest.mark.parametrize("rows, words", [(1, 1), (1, 3), (1, 4), (1, 5),
+                                         (1, 31), (1, 32), (1, 33),
+                                         (3, 7), (5, 64), (5, 65), (2, 66),
+                                         (17, 3), (40, 100)])
+@pytest.mark.parametrize("cap", [1, 3, 64])
+def test_kernel_word_loop_writes_every_word_once(rows, words, cap):
+    """The kernel's word loop at the vector width's edges: every word
+    of the index space is written once; a vector store only where its 4
+    words lie in the row and the row starts on a vector boundary (a row
+    of a length that is no multiple of 4 takes scalar stores from its
+    second row on); tails of 1-3 words."""
+    got = _kernel_writes(rows, words, cap)
+    assert sorted((r, j) for r, j, _ in got) == \
+        [(r, j) for r in range(rows) for j in range(words)]
+    for r, j, vec in got:
+        assert vec == ((r * words) % 4 == 0 and words - (j - j % 4) >= 4)
+
+
+@pytest.mark.parametrize("mode", ["words", "xor", "seeds", "uniform",
+                                  "u01_global"])
+@pytest.mark.parametrize("shape", [(1,), (3,), (4,), (5,), (7,), (3, 5),
+                                   (2, 4), (5, 1), (2, 3, 6), (4, 1023)])
+def test_draw_twin_at_the_vector_edges(mode, shape):
+    """Each mode's twin on index spaces at and beyond the vector width,
+    rows whose tails are 1-3 words, with keys per row, per word and
+    derived: equal to the plain composite."""
+    rng = np.random.default_rng(len(shape) * 100 + shape[-1])
+    kw = torch.from_numpy(rng.integers(0, 2**32, size=shape[:-1] + (1, 2),
+                                       dtype=np.int64))
+    j = torch.arange(shape[-1])
+
+    def out(y0, y1):
+        if mode == "words":
+            return torch.stack([y0, y1], dim=-1)
+        if mode == "xor":
+            return y0 ^ y1
+        if mode == "seeds":
+            return ((y0 ^ y1) >> 1).to(torch.int32)
+        if mode == "uniform":
+            return ((y0 ^ y1) >> 9).to(torch.float32) * 2.0 ** -23
+        return prng._u01_of(y0)
+
+    # a row key (stride 0 along the words): plain, and derived by a word
+    y = prng.threefry2x32(kw[..., 0], kw[..., 1], 0, j)
+    assert _same(prng._draw_twin(fused.draw(
+        mode, kw[..., 0], kw[..., 1], gen=shape[-1])), out(*y))
+    keys = prng.fold_in(kw, 7)
+    y = prng.threefry2x32(keys[..., 0], keys[..., 1], 0, j)
+    assert _same(prng._draw_twin(fused.draw(
+        mode, kw[..., 0], kw[..., 1], gen=shape[-1], derive=(7,))), out(*y))
+    # a key a word: derived by the generated index, counters zero
+    keys = prng.fold_in(kw, j)
+    y = prng.threefry2x32(keys[..., 0], keys[..., 1], 0, 0)
+    assert _same(prng._draw_twin(fused.draw(
+        mode, kw[..., 0], kw[..., 1], gen=shape[-1], derive_gen=True)),
+        out(*y))
 
 
 # -------------------------------------------------------------- sums
@@ -484,6 +781,26 @@ def test_kernel_bounds():
     assert b["words"] == 2**20 and b["bytes"] == 4 * 2**20 + 16
     assert b["int32_ops"] == 2**20 * (costmodel.THREEFRY_INT_OPS + 1 + 3)
     assert b["bound_by"] == "operations"
+    # the issue bound: 67 instructions a threefry, the uniform's xor,
+    # shift, conversion and product; PR 12's integer-lane count beside
+    assert b["instructions"] == 2**20 * (67 + 3 + 1) == \
+        2**20 * costmodel.draw_instructions_per_word("uniform")
+    assert math.isclose(b["bound_ms"], b["instructions"]
+                        / costmodel.ISSUE_PER_S * 1e3)
+    assert math.isclose(b["int32_bound_ms"], b["int32_ops"]
+                        / costmodel.INT32_OPS_PER_S * 1e3)
+    assert b["bound_ms"] < b["int32_bound_ms"]
+    u = fused.draw("u01_global", tk[0], tk[1], gen=8, base=torch.tensor(1))
+    assert costmodel.draw_bound(u)["instructions"] == 8 * (64 + 2 + 1)
+    # a derived key's evaluation: once a row, or once a word
+    rows = fused.draw("uniform", tk[0].expand(4, 1), tk[1].expand(4, 1),
+                      gen=2**20, derive=(0, 1, 2, 3))
+    assert costmodel.draw_bound(rows)["int32_ops"] == \
+        4 * b["int32_ops"] + 4 * costmodel.THREEFRY_INT_OPS
+    seeds = fused.draw("seeds", tk[0], tk[1], gen=512,
+                       base=torch.tensor(3), derive_gen=True)
+    assert costmodel.draw_bound(seeds)["int32_ops"] == 512 * (
+        2 * costmodel.THREEFRY_INT_OPS + 1 + 2)
     s = costmodel.sum_bound(64, 16384)
     assert s["bytes"] == 4 * 64 * 16385 and s["bound_by"] == "bytes"
     assert math.isclose(s["bound_ms"],
@@ -515,9 +832,44 @@ def test_draw_kernel_equals_its_plain_version(cuda):
              (prng.randint, tk, (333,), 1, 4096)]
     cases += [(prng.uniform, k, n, lo, hi) for k in (tk, stack)
               for n in (1, 3, 65536) for lo, hi in BOUNDS]
+    # keys derived in the launch: each operand form, rows that start off
+    # a vector boundary (lengths 1-3 past a multiple of 4)
+    sub = prng.SubKey(tk, prng.COORD_FOLD)
+    sub_stack = prng.SubKey(prng.split(stack, 3), 1)
+    start = torch.tensor(2**32 - 9, device=cuda)
+    cases += [(prng.round_seeds, tk, start, n) for n in (1, 2, 3, 5, 4099)]
+    cases += [(prng.split, sub, 4), (prng.split, sub_stack, 3),
+              (prng.round_keys, sub, start, 48),
+              (prng.u01_global, sub, start, 4098),
+              (prng.normal, sub, (1001,)), (prng.randint, sub, (77,), 1, 77),
+              (prng.randint, tk, (65539,), 1, 4096)]
+    cases += [(prng.uniform, k, n, lo, hi) for k in (sub, sub_stack)
+              for n in (1, 3, 4097) for lo, hi in BOUNDS[:3]]
     for fn, *args in cases:
         got, want = _kernel_and_plain(fn, *args)
         assert _same(got, want), (fn.__name__, args)
+    for slots in ((2, 3, 4), (1, 2, 3, 4), (0, 2, 3, 4, 5),
+                  (0, 1, 2, 3, 4, 5)):
+        for n in (1, 6, 4097, 65536):
+            for fn, args in ((prng.threefry_u01, (tk, n)),
+                             (prng.global_u01, (tk, start, n))):
+                got, want = _kernel_and_plain(
+                    lambda: tuple(map(fn(*args, slots), slots)))
+                assert _same(got, want), (fn.__name__, slots, n)
+
+
+@pytest.mark.cuda
+def test_draw_kernel_takes_64_bit_indices(cuda):
+    """A draw of 2^31 + 5 words (past the 32-bit index path): its
+    slices at the start, middle and end equal the plain version's draw
+    of those slices."""
+    tk = prng.key(21, device=cuda)
+    words, piece = 2**31 + 5, 4099
+    big = prng.u01_global(tk, 11, words)
+    for a in (0, words // 2 + 1, words - piece):
+        with fused.plain():
+            want = prng.u01_global(tk, 11 + a, piece)
+        assert _same(big[a:a + piece], want), a
 
 
 @pytest.mark.cuda
@@ -554,9 +906,16 @@ def test_captured_draws_and_sums_replay_new_inputs(cuda):
     cache = graphs.GraphCache()
 
     def body(donated, key, offset, x, long):
+        u = prng.threefry_u01(key, 1001, (0, 1, 2, 3, 4, 5))
+        g = prng.global_u01(key, offset, 4096, (0, 2, 3, 4, 5))
         return (prng.round_seeds(key, offset, 48),
                 prng.u01_global(key, offset, 4096),
                 prng.uniform(key, 1000), prng.fold_in(key, offset),
+                *map(u, range(6)), *map(g, (0, 2, 3, 4, 5)),
+                prng.round_keys(prng.SubKey(key, prng.COORD_FOLD), offset,
+                                8),
+                prng.uniform(prng.SubKey(prng.split(key, 3), 2), 4099),
+                prng.randint(key, (333,), 1, 333),
                 lanes.tree_sum(x), lanes._block_partials(x, 64),
                 lanes.tree_sum(long))
 
@@ -603,18 +962,46 @@ def test_chip_smoke_draws_phase_on_the_twins():
         bad += b
         captured, b = chip_smoke.captured_draws(torch, m, dev)
         bad += b
+        wide, b = chip_smoke.wide_draw_check(torch, m, dev, words=3 * 4099,
+                                             piece=4099)
+        bad += b
         engines, b, launches = chip_smoke.draws_engines(
             torch, m, dev, profile=False, n=1024, grid_n=256, views_n=64,
-            lane_rounds=4, views_rounds=3, runner_calls=((1, 8), (8, 8)))
+            lane_rounds=4, views_rounds=3, runner_calls=((1, 8), (8, 8)),
+            live_rounds=4, plan_rounds=4)
         bad += b
     assert bad == [] and launches == {}
-    assert all(draws.values()) and all(sums.values()) and len(draws) > 50
-    assert len(engines) == 7 and all(c["bitwise"]
-                                     for c in captured["calls"])
+    assert all(draws.values()) and all(sums.values()) and len(draws) > 80
+    assert len(wide) == 3 and all(wide.values())
+    assert len(engines) == 10 and all(c["bitwise"]
+                                      for c in captured["calls"])
     cases = chip_smoke.draw_timing_cases(torch, m, dev, n=4096, grid_l=64,
                                          views=64)
     assert {c[0] for c in cases} == set(chip_smoke.DRAW_KERNELS)
     assert all(c[4]["bound_ms"] > 0 for c in cases)
+    bare = chip_smoke.draw_timing_cases(torch, m, dev, n=4096, grid_l=64,
+                                        views=64, bounds=False)
+    assert all(c[4] is None for c in bare if c[0] != "tree_sum")
+    prng_calls = {(c[0], c[1]): c[2] for c in bare}
+    # a draw row's one launch makes what its plain side (the twin of the
+    # same draw) and its prng call make (randint's two rows of words are
+    # folded into its integers)
+    for name, shape, kern, plain, *_ in cases:
+        if name == "tree_sum":
+            continue
+        with fused.twins():
+            got = _flat(kern()).reshape(-1)
+            assert _same(got, _flat(plain()).reshape(-1)), shape
+            if name != "threefry/xor":
+                assert _same(got, _flat(prng_calls[name, shape]())
+                             .reshape(-1)), shape
+
+
+def _flat(x) -> torch.Tensor:
+    """A draw's output, or a round's slot rows, as one tensor."""
+    if isinstance(x, tuple):
+        return torch.stack(x)
+    return x
 
 
 def _kernel_reads(args: fused.DrawArgs, ptr_name: str, stride_name: str):
@@ -663,7 +1050,19 @@ def test_draw_args_address_every_operand(monkeypatch):
         prng.round_seeds(tk, torch.tensor(4, dtype=torch.int32), 6)
         prng.u01_global(tk, 2**32 - 2, 4)
         prng.threefry2x32(tk[0], tk[1], torch.arange(6).view(2, 3), 0)
-    assert len(seen) == 10
+        # keys derived in the launch
+        prng.threefry_u01(tk, 5, (0, 2, 3, 4, 5))
+        prng.global_u01(tk, 7, 5, (1, 2, 3, 4))
+        prng.uniform(prng.SubKey(stack, 2), 3)
+        prng.split(prng.SubKey(tk, prng.COORD_FOLD), 4)
+        prng.randint(tk, (5,), 1, 5)
+    # round_seeds is one draw: the seeds, keys derived by the index
+    assert len(seen) == 14
+    assert [d.derive for d in seen[9:]] == [
+        (0, 2, 3, 4, prng.REPLAY_FOLD), (1, 2, 3, 4), (2,),
+        (prng.COORD_FOLD,), (0, 1)]
+    assert [d.derive_gen for d in seen] == [False] * 6 + [True] \
+        + [False] * 7
     for d in seen:
         out = fused.draw_out(d)
         args = fused.draw_args(d, out)
@@ -679,6 +1078,9 @@ def test_draw_args_address_every_operand(monkeypatch):
                 t.reshape(-1).tolist()
         assert (args.base is None) == (d.base is None)
         assert args.out == out.data_ptr()
+        assert args.derive == fused.DERIVE[
+            "gen" if d.derive_gen else "row" if d.derive else "none"]
+        assert list(args.dword)[:args.nderive] == list(d.derive)
 
 
 def test_sum_stage_args():
@@ -696,3 +1098,38 @@ def test_sum_stage_args():
         assert a.odd == sum(1 << i for i, n in enumerate(plan.lengths[:-1])
                             if n % 2)
         assert fused.sum_args(plan, plus_zero=False).plus_zero == 0
+
+
+def test_draw_kernel_labels_and_word_loop_parser():
+    """``chip_smoke.py``'s env phase names each draw-kernel instantiation
+    (mode, index type, row kind, words a thread) and reads the SASS a
+    word of its word loop: the shortest backward branch's body holding
+    19 funnel shifts a word."""
+    import chip_smoke
+
+    ns = "_ZN48_GLOBAL__N__da3303ab_15_prng_kernels_cu_7fd9c0ad11"
+    assert chip_smoke.kernel_label(
+        ns + "draw_kernelILi3EiLb1ELi4EEEv8DrawArgs") == \
+        "threefry/uniform/i32/row/v4"
+    assert chip_smoke.kernel_label(
+        ns + "draw_kernelILi2ElLb0ELi1EEEv8DrawArgs") == \
+        "threefry/seeds/i64/v1"
+
+    def listing(name, body):
+        lines = [f"\t\tFunction : {ns}{name}"]
+        for i, ins in enumerate(body):
+            lines.append(f"        /*{16 * i:04x}*/                   {ins} ;"
+                         f"          /* 0x0000 */")
+        return lines
+
+    loop = ["SHF.L.W.U32.HI R1, R1, 0xd, R1", "LOP3.LUT R1, R1, R2, RZ",
+            "IADD3 R2, R2, R1, RZ"] * 76 + ["NOP", "IMAD R3, R3, 0x1, R4"]
+    outer = ["S2R R0, SR_TID.X"] + loop + ["@P0 BRA 0x10", "BRA 0x0",
+                                           "EXIT"]
+    text = "\n".join(listing("draw_kernelILi4EiLb1ELi4EEEv8DrawArgs",
+                             outer))
+    got = chip_smoke.word_loop_sass(text)
+    # the inner loop: 76 x 3 + 1 (the NOP left out) + the branch, 4 words
+    inner = got["threefry/u01_global/i32/row/v4"]
+    assert inner["per_word"] == (76 * 3 + 1 + 1) / 4
+    assert inner["by_op_per_word"]["SHF"] == 76 / 4

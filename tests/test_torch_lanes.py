@@ -78,7 +78,7 @@ def test_global_u01_slots_follow_the_reference_keys(ref):
 
     k = jax.random.key(11)
     keys = list(jax.random.split(k, 5)) + [jax.random.fold_in(k, 0xB12A)]
-    u = prng.global_u01(prng.key(11), 64, 512)
+    u = prng.global_u01(prng.key(11), 64, 512, prng.SLOTS)
     for slot, kk in enumerate(keys):
         assert np.array_equal(u(slot).numpy(),
                               np.asarray(rlanes.u01_global(kk, 64, 512)))
