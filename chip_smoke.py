@@ -9,10 +9,11 @@ non-zero before the result line):
 1. env      — the card, the device count, its name and power limit from
               nvidia-smi; builds the CUDA kernels from
               consul_tpu_torch/csrc (round_kernels.cu, prng_kernels.cu,
-              sum_kernels.cu: one nvcc each, in parallel) and prints,
-              per kernel instantiation, ptxas's registers, stack frame
-              and spills (a spill, or a stack frame in a draw or sum
-              kernel, fails the run), its static SASS instruction count
+              sum_kernels.cu, lane_kernels.cu: one nvcc each, in
+              parallel) and prints, per kernel instantiation, ptxas's
+              registers, stack frame and spills (a spill, or a stack
+              frame in a draw, sum or lane kernel, fails the run), its
+              static SASS instruction count
               (cuobjdump -sass on the built library) and, for the round
               kernels, the nodes each thread takes.
 2. check    — at 1,048,576 nodes, on a state warmed by the plain path:
@@ -30,7 +31,23 @@ non-zero before the result line):
               partial sums, on every block that holds no such node:
               counter lanes exact, scalar lanes within 1e-5 relative +
               1e-4).
-3. headline — the main path through the user entry points
+3. lanes    — the lane kernel (lane_round, sim/lane_kernel.py): ATen's
+              rule for a CUDA tensor divided by a Python number (a
+              product with the f32 reciprocal; the kernel packs those
+              reciprocals), then, on the check's warmed state at
+              1,048,576 nodes, one lane_round launch per case of
+              ``lane_cases`` (stable, full, churn, an honest and a
+              byzantine frame on the chaos and the full configs,
+              corroboration_k=1, a shard offset, window rounds j >= 1
+              with and without stats, mid-window and last) through the
+              lane engine's call, and a 2-round window on each grid of
+              ``lane_grids`` at 65,536 nodes a point (the lan autotune
+              grid's 64 points; two 16-point grids that sweep every
+              kind of constant, on the check plans' frames), each bit
+              for bit the plain body on the same state, scalars, keys
+              and frames inside ``fused.plain()``: the 8 lanes and the
+              32 stack rows, one launch a round.
+4. headline — the main path through the user entry points
               (consul_tpu_torch.bench.run_headline: per-round and R=8
               runners on the stable and full configs, best of 3), its
               launch counters zeroed just before and read just after
@@ -41,14 +58,14 @@ non-zero before the result line):
               The full-model diagnostic must show no false positive
               and suspicions and refutes per node-round within
               0.85-1.15x of the port's first measurement (``FD_REF``).
-4. chaos    — the fault-plan path through its entry point
+5. chaos    — the fault-plan path through its entry point
               (consul_tpu_torch.bench.run_chaos_suite: the nine chaos
               classes of sim/scenarios.py at 1,048,576 nodes, each run
               twice: an untimed warm-up, then the timed run), counted
               on its own: every round of an honest class is a fault
               launch, of a byzantine class a byz launch. Each class's
               detection signature is asserted (see ``class_failures``).
-5. observe  — the recorders through the kernel runner, each run counted
+6. observe  — the recorders through the kernel runner, each run counted
               on its own: at 1,048,576 nodes on the full-model config,
               200 per-round rounds with the flight recorder at stride 10
               and the black box (64 agents, ring 256), then 240 R=8
@@ -64,15 +81,16 @@ non-zero before the result line):
               µs of a coordinate round's parts: draws, ``vivaldi_step``,
               ``coord_metrics``; and the host µs and launches of one
               flight row and one black-box record.
-6. sweep    — the lane engine and the sweep engine, each run counted on
+7. sweep    — the lane engine and the sweep engine, each run counted on
               its own: (a) the lane engine (make_run_rounds_lanes) at
               1,048,576 nodes on the full-model config, stale_k 1 and 4:
               a 64-round warm-up, then 96 rounds with the flight
               recorder at stride 4, resumed from the warm-up's carry;
               the FD band holds over the 96 rounds, the column sums
-              equal the stats delta; wall µs per round of the run timed
-              alone, device µs per round from torch.profiler's busy
-              time of the same run traced. (b) The bench's lan grid at
+              equal the stats delta, one lane_round launch a round;
+              wall µs per round of the run timed alone, device µs per
+              round from torch.profiler's busy time of the same run
+              traced. (b) The bench's lan grid at
               full size through consul_tpu_torch.bench.run_sweep_class:
               64 points x 65,536 nodes x 300 rounds, xla engine and
               lanes engine; two points re-run alone (make_run_point)
@@ -85,7 +103,7 @@ non-zero before the result line):
               concrete SimParams and key, launches counted exactly.
               (d) run_byzantine_defense at 4,096 nodes, 200 rounds:
               best_k >= 1 with an induced missed rate below k=0's.
-7. resume   — checkpoints through the entry points, each run counted on
+8. resume   — checkpoints through the entry points, each run counted on
               its own, every comparison exact: (a) the lane engine at
               1,048,576 nodes (full-model config, stale_k 4, flight
               stride 4, 96 rounds) straight, then through
@@ -108,7 +126,7 @@ non-zero before the result line):
               servers, 10,000 LAN nodes per DC, 120 partition rounds)
               with the reference test's signature. Prints wall seconds
               per part, file bytes, and snapshot, save and load ms.
-8. mesh     — the sharded lane engine and the per-viewer tier on
+9. mesh     — the sharded lane engine and the per-viewer tier on
               torch.distributed (no kernel; every part plain PyTorch,
               each timed on its own): (a) a world of 1 on NCCL at
               1,048,576 nodes on the full-model config, 96 rounds at
@@ -133,7 +151,7 @@ non-zero before the result line):
               gloo world: the all_to_all and pmax exchanges bit for bit
               over 35 rounds; (f) graft_entry.dryrun_multichip(2) on the
               card.
-9. tune     — the cost model and the autotuner through their entry
+10. tune     — the cost model and the autotuner through their entry
               points at 1,048,576 nodes, each run counted on its own:
               (a) measure_bandwidth (copy, triad; no peak above 1.05 x
               3,350 GB/s); (b) roofline_table on the full-model config,
@@ -150,7 +168,7 @@ non-zero before the result line):
               written by the bench's _record_next and read back by
               load_ledger, one history row each. Records and the cache
               go to a temporary directory under build/.
-10. seams   — the entry points and seams (cli.py, sim/twin.py,
+11. seams   — the entry points and seams (cli.py, sim/twin.py,
               graft_entry.py), each part counted on its own: (a) the
               CLI's default mode in this process (``cli.main(["agent",
               "-dev", "-gossip-sim", "gpu", "-gossip-sim-nodes",
@@ -171,7 +189,7 @@ non-zero before the result line):
               (d) graft_entry.entry(): one round at 65,536 nodes,
               round_idx 1; (e) cli.capture_flight_trace(64, 20): its
               columns and one row a round.
-11. graphs  — the compiled-run contract: every captured runner beside
+12. graphs  — the compiled-run contract: every captured runner beside
               its explicit eager run (``graphs.eager()``) on the same
               inputs at 1,048,576 nodes, failing on any bit of
               difference in state, stats, trace, rings or scalars and
@@ -193,7 +211,7 @@ non-zero before the result line):
               by op). The earlier phases run the captured paths.
               Launches count the round kernels and the draw and sum
               kernels.
-12. draws   — the threefry draw kernel and the tree_sum kernel
+13. draws   — the threefry draw kernel and the tree_sum kernel
               (consul_tpu_torch/sim/fused.py): (a) every draw mode at
               1, 2, 3, 255, 65,536, 1,048,576 and 16,777,216 words, key
               stacks of 1, 5 and 4,096 keys, offsets past 2^32 (as an
@@ -223,10 +241,14 @@ non-zero before the result line):
               launches; (c) the engines on the kernels against
               fused.plain(), bit for bit with equal round-kernel
               launches: the lane engine at 1M (16 rounds, stale_k 4,
-              flight), the live engine at 1M (8 rounds), both on the
+              flight; one lane_round launch a round, kernels a round and
+              device µs a round both ways), the live engine at 1M (8
+              rounds), both on the
               byzantine check plan (12 rounds: the churn and replay
               slots), a lan grid round (64 x 65,536) on the xla and
-              lanes engines, the views at 4,096 (40 rounds), the kernel
+              lanes engines (the lanes grid one lane_round launch a
+              round too), the views at 4,096 (40 rounds), the
+              kernel
               runner's R=1 x48, R=1 x512 and R=8 x48 calls, a coordinate
               round at 1M — wall and device µs a round both ways, the
               sum kernel's device µs a round, every draw and sum kernel
@@ -236,15 +258,20 @@ non-zero before the result line):
               torch.sum's (both by CUDA-graph replay), its plain
               version's ms, its bound (costmodel.draw_bound /
               sum_bound).
-13. timing  — each round kernel's time per launch (device time: CUDA
+14. timing  — each round kernel's time per launch (device time: CUDA
               events around replays of a CUDA graph of launches), its
               plain version's time, and its bound (``kernel_bound``)
               from the bytes it must move and the operations it must
               do; the six variants of the paths and the gated full
-              variant (corroboration_k=1), which no path runs yet.
+              variant (corroboration_k=1), which no path runs yet; and
+              lane_round's (full, stable, fault, byz, a mid-window
+              round, the lan autotune grid 64 x 65,536) beside
+              ``costmodel.lane_bound`` and the plain body's time on the
+              same slot rows.
 
 Then the ``kernels`` line (the round kernels' variants, each
-``threefry/<mode>`` and ``tree_sum``: launches over the script's paths,
+``threefry/<mode>``, ``tree_sum`` and ``lane_round``: launches over the
+script's paths,
 times at the main path's shapes), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -343,7 +370,7 @@ def kernel_label(symbol: str):
     """The variant whose instantiation a mangled kernel symbol names
     (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>,
     draw_kernel<MODE, index type, ROW, words a thread>, the sum
-    kernels), or None."""
+    kernels, lane_round<FRAME, BYZ>), or None."""
     m = re.search(r"draw_kernelILi([0-4])E([il])Lb([01])ELi([14])E", symbol)
     if m:
         return "threefry/" + ("words", "xor", "seeds", "uniform",
@@ -353,6 +380,10 @@ def kernel_label(symbol: str):
     m = re.search(r"sum_kernelILi([0-4])ELi([14])E", symbol)
     if m:
         return f"tree_sum/t{m.group(1)}v{m.group(2)}"
+    m = re.search(r"lane_roundILb([01])ELb([01])E", symbol)
+    if m:
+        return {"00": "lane_round/none", "10": "lane_round/fault",
+                "11": "lane_round/byz"}.get("".join(m.groups()))
     m = re.search(r"mega_kernelILb([01])E", symbol)
     if m:
         return "mega_kernel/" + ("stable" if m.group(1) == "1" else "full")
@@ -464,9 +495,10 @@ def word_loop_sass(text: str) -> dict:
     return out
 
 
-def phase_env(torch, build, cuda_round, fused):
+def phase_env(torch, build, cuda_round, fused, lane_kernel):
     t0 = time.perf_counter()
-    reports = build.build([cuda_round.SOURCE, *fused.SOURCES])
+    reports = build.build([cuda_round.SOURCE, *fused.SOURCES,
+                           lane_kernel.SOURCE])
     build_s = time.perf_counter() - t0
     regs = ptxas_report(reports[cuda_round.SOURCE])
     sass = sass_counts(build, cuda_round.SOURCE)
@@ -515,6 +547,18 @@ def phase_env(torch, build, cuda_round, fused):
             for v in new.values()):
         raise SmokeFailure(f"draw and sum kernel report incomplete, "
                            f"spilling or with a stack frame: {kernels}")
+    regs = ptxas_report(reports[lane_kernel.SOURCE])
+    sass = sass_counts(build, lane_kernel.SOURCE)
+    lane = {k: {**regs.get(k, {}), "sass_instructions": sass.get(k)}
+            for k in set(regs) | set(sass)}
+    # lane_round<FRAME, BYZ>: no frame, an honest one, a byzantine one
+    if len(lane) != 3 or any(
+            v.get("spill_bytes") != 0 or v.get("stack_bytes") != 0 or
+            not v.get("registers") or not v["sass_instructions"]
+            for v in lane.values()):
+        raise SmokeFailure(f"lane kernel report incomplete, spilling or "
+                           f"with a stack frame: {lane}")
+    kernels.update(lane)
     emit({"phase": "env", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -673,6 +717,234 @@ def phase_check(torch, m, dev):
     emit({"phase": "check", "n": N, "ok": True,
           "compile_plan_s": compile_s, "kernels": list(results.values())})
     return results, inputs
+
+
+#: the lane kernel's check: a shard's offset past the first nodes
+LANE_OFFSET = 12_345
+
+
+def division_rule(torch, dev) -> str:
+    """How ATen divides a CUDA tensor by a Python number: "reciprocal"
+    (a product with the f32 reciprocal) or "divide", read from 2^20
+    quotients by 3 against the true division of two tensors."""
+    x = torch.arange(1, 2**20 + 1, dtype=torch.float32, device=dev)
+    by_number = x / 3
+    if torch.equal(by_number, x / torch.full_like(x, 3.0)):
+        return "divide"
+    recip = torch.tensor(1.0, dtype=torch.float32) / 3.0
+    if torch.equal(by_number, x * recip.item()):
+        return "reciprocal"
+    raise SmokeFailure("a CUDA tensor divided by a Python number is "
+                       "neither a division nor a product with the f32 "
+                       "reciprocal")
+
+
+def lane_cases(m, inputs, offset=LANE_OFFSET) -> list:
+    """(label, params, frame, shard offset, stats, inst, window) of every
+    ``lane_round`` launch the lanes phase holds against the plain body:
+    the stable, full and churn configs, an honest frame and a byzantine
+    one with corroboration_k=2 (the chaos suite's config, and again on
+    the full one), corroboration_k=1, a shard's offset, and window
+    rounds j >= 1 (``window``: onto the stack of the round before)."""
+    b, sc = m.bench, m.scenarios
+    n = inputs[0][0].shape[0]
+    frames = inputs[3]
+    p_stable, p_full = b.headline_params(n), b.diag_params(n)
+    p_churn = p_full.with_(fail_per_round=0.002, rejoin_per_round=0.02,
+                           leave_per_round=0.0005)
+    p_chaos = sc.chaos_params(n)
+    return [
+        ("stable", p_stable, None, 0, "write", True, False),
+        ("full", p_full, None, 0, "write", True, False),
+        ("churn", p_churn, None, 0, "write", True, False),
+        ("fault", p_chaos, frames["fault"], 0, "write", True, False),
+        ("byz corroboration_k=2", p_chaos.with_(corroboration_k=2),
+         frames["byz"], 0, "write", True, False),
+        ("fault slow+tcp", p_full, frames["fault"], 0, "write", True, False),
+        ("byz slow+tcp", p_full.with_(corroboration_k=2), frames["byz"], 0,
+         "write", True, False),
+        ("full corroboration_k=1", p_full.with_(corroboration_k=1), None, 0,
+         "write", True, False),
+        (f"full shard offset {offset}", p_full, None, offset, "write", True,
+         False),
+        ("window j>=1 stats, last round", p_full, None, 0, "add", True,
+         True),
+        ("window j>=1 stats, mid-window", p_full, None, 0, "add", False,
+         True),
+        ("window j>=1 no stats, mid-window", p_stable, None, 0, "skip",
+         False, True),
+        ("window j>=1 byz stats, last round",
+         p_chaos.with_(corroboration_k=2), frames["byz"], 0, "add", True,
+         True)]
+
+
+def lane_state(torch, m, inputs):
+    """The checks' warmed state as a SimState at round 0."""
+    arrays = inputs[0]
+    dev = arrays[0].device
+    return m.state.SimState(*arrays, t=torch.zeros((), device=dev),
+                            round_idx=torch.zeros((), dtype=torch.int32,
+                                                  device=dev),
+                            stats=m.state.SimStats.zeros(dev))
+
+
+def lane_check(torch, m, inputs, case, key) -> dict:
+    """One ``lane_round`` launch (through ``round._lane_contributions``,
+    the lane engine's call) against the plain body on the same state,
+    scalars, key and frame, inside ``fused.plain()``: the 8 lanes and
+    the 32 stack rows bit for bit. A window round's stack starts as the
+    plain body's stack of another round; the plain side adds its
+    counter rows onto it (the plain window's ``pend + rows``) and keeps
+    its other rows where the round skips them."""
+    label, p, fx, offset, stats, inst, window = case
+    L, R = m.lanes, m.round
+    s = lane_state(torch, m, inputs)
+    scal = inputs[1]
+    prev = None
+    if window:
+        with m.fused.plain():
+            _, prev = R._lane_contributions(s, scal, m.prng.fold_in(key, 1),
+                                            p, fx, offset)
+    before = m.fused.LAUNCHES["lane_round"]
+    got, stack = R._lane_contributions(
+        s, scal, key, p, fx, offset,
+        stack=None if prev is None else prev.clone(), stats=stats, inst=inst)
+    launched = m.fused.LAUNCHES["lane_round"] - before
+    with m.fused.plain():
+        want, rows = R._lane_contributions(s, scal, key, p, fx, offset)
+    if window:
+        plain_rows = rows
+        rows = prev.clone()
+        if stats == "add":
+            rows[L.STATS_SLICE] = prev[L.STATS_SLICE] \
+                + plain_rows[L.STATS_SLICE]
+        if inst:
+            keep = torch.ones(rows.shape[0], dtype=torch.bool,
+                              device=rows.device)
+            keep[L.STATS_SLICE] = False
+            rows[keep] = plain_rows[keep]
+    lanes_bad = {f: int((a != b).sum()) for f, a, b in zip(
+        m.state.NODE_FIELDS, got.node_arrays(), want.node_arrays())
+        if not _same_bits(torch, a, b)}
+    rows_bad = [i for i in range(rows.shape[0])
+                if not _same_bits(torch, stack[i], rows[i])]
+    return {"label": label, "launches": launched, "stats": stats,
+            "inst": inst, "lanes_differ": lanes_bad, "rows_differ": rows_bad,
+            "bitwise": not lanes_bad and not rows_bad and
+            _same_bits(torch, got.t, want.t)}
+
+
+def lane_checks(torch, m, inputs, cases) -> tuple:
+    """Every case of ``cases`` (``lane_cases``): (report, failures)."""
+    key = m.prng.key(41, device=inputs[0][0].device)
+    out, bad = [], []
+    for case in cases:
+        r = lane_check(torch, m, inputs, case, key)
+        out.append(r)
+        if not r["bitwise"]:
+            bad.append(f"lane_round {r['label']}: lanes "
+                       f"{r['lanes_differ']} rows {r['rows_differ']} "
+                       "differ from the plain body")
+        want = 1 if inputs[0][0].device.type == "cuda" else 0
+        if r["launches"] != want:
+            bad.append(f"lane_round {r['label']}: {r['launches']} launches")
+    return out, bad
+
+
+#: the grids of points the lanes phase holds against the plain body: the
+#: bench's lan autotune grid (the sweep's cell), and two grids that
+#: sweep every kind of constant the table holds — a divided probe
+#: interval, a per-point k, a blended frame with a row a point, the
+#: Lifeguard, churn and loss constants — on the check plans' frames
+LANE_GRID_N = 65_536
+
+
+def lane_grids(m, n=LANE_GRID_N) -> list:
+    """(label, params, axes, frame kind) of each grid ``lane_grid_check``
+    runs at ``n`` nodes a point."""
+    b, sc = m.bench, m.scenarios
+    return [
+        ("lan autotune grid", sc.autotune_params("lan", n),
+         dict(sc.AUTOTUNE_GRID), None),
+        ("probe_interval, k, fault_gain, slow_factor; byz frame",
+         sc.chaos_params(n), dict(probe_interval=(1.0, 2.0),
+                                  corroboration_k=(0.0, 2.0),
+                                  fault_gain=(0.5, 1.0),
+                                  slow_factor=(0.1, 0.3)), "byz"),
+        ("suspicion_mult, awareness_max, churn, loss; honest frame",
+         b.diag_params(n), dict(suspicion_mult=(4.0, 5.0),
+                                awareness_max=(4.0, 8.0),
+                                fail_per_round=(0.0, 0.01),
+                                loss=(0.01, 0.05)), "fault")]
+
+
+def lane_grid_state(torch, m, p, axes, kind, dev, warm=3):
+    """A grid of ``p`` over ``axes`` (TracedParams, its [G, N] state with
+    dead rows, warmed ``warm`` rounds by the plain body, its lane vector)
+    and the frame of the check plan ``kind`` (or None)."""
+    n = p.n
+    tp, pts = m.params.grid_params(p, m.params.SweepAxes.of(**axes), dev)
+    s = m.sweep._broadcast_state(p, len(pts), dev)
+    dead = torch.arange(n, device=dev) % 97 == 0
+    s = s._replace(down_age=torch.where(
+        dead, torch.tensor(3, dtype=torch.int16, device=dev), s.down_age))
+    fx = None
+    if kind is not None:
+        cp = m.faults.compile_plan(check_plans(n)[kind], n, dev)
+        fx = m.faults.fault_frame(cp, CHECK_ROUNDS[kind])
+    red = m.lanes.reduce_lanes_single
+    with m.fused.plain():
+        lv = m.round.init_lanes(s, tp, red)
+        keys = m.prng.round_keys(m.prng.key(5, device=dev), 0, warm)
+        s, stack = m.round._lane_window(s, lv, keys, [fx] * warm, tp, warm)
+        lv = red(stack)
+    return tp, s, lv, fx
+
+
+def lane_grid_check(torch, m, dev, grid, rounds=2) -> dict:
+    """A window of ``rounds`` on a warmed grid through the kernel and
+    inside ``fused.plain()``: every point's lanes, clock and stack rows
+    bit for bit, one launch a round."""
+    label, p, axes, kind = grid
+    tp, s, lv, fx = lane_grid_state(torch, m, p, axes, kind, dev)
+    keys = m.prng.round_keys(m.prng.key(6, device=dev), 3, rounds)
+    outs, launches = [], []
+    for ctx in (contextlib.nullcontext, m.fused.plain):
+        before = m.fused.LAUNCHES["lane_round"]
+        with ctx():
+            s2, stack = m.round._lane_window(s, lv, keys, [fx] * rounds,
+                                             tp, rounds)
+        launches.append(m.fused.LAUNCHES["lane_round"] - before)
+        outs.append((*s2.node_arrays(), s2.t, stack))
+    differ = [i for i, (a, b) in enumerate(zip(*outs))
+              if not _same_bits(torch, a, b)]
+    return {"label": label, "points": tp.grid_shape[0], "n": p.n,
+            "launches": launches[0], "plain_launches": launches[1],
+            "differ": differ, "bitwise": not differ}
+
+
+def phase_lanes(torch, m, dev, inputs):
+    """The lane kernel: ATen's division rule on the card (the kernel's
+    packed reciprocals follow it), then one ``lane_round`` launch of
+    each ``lane_cases`` case at 1,048,576 nodes on the checks' warmed
+    state, and a window on each grid of ``lane_grids``, held bit for bit
+    against the plain body."""
+    t0 = time.perf_counter()
+    rule = division_rule(torch, dev)
+    bad = [] if rule == m.lane_kernel.CARD_RULE else [
+        f"ATen's rule is {rule}; the kernel packs "
+        f"{m.lane_kernel.CARD_RULE}"]
+    cases, b = lane_checks(torch, m, inputs, lane_cases(m, inputs))
+    bad += b
+    grids = [lane_grid_check(torch, m, dev, g) for g in lane_grids(m)]
+    bad += [f"lane_round grid {g['label']}: rows {g['differ']} differ, "
+            f"{g['launches']} launches, {g['plain_launches']} plain"
+            for g in grids if not g["bitwise"] or g["launches"] != 2
+            or g["plain_launches"]]
+    if bad:
+        raise SmokeFailure("lanes: " + "; ".join(bad))
+    emit({"phase": "lanes", "n": N, "division_rule": rule, "cases": cases,
+          "grids": grids, "phase_s": time.perf_counter() - t0})
 
 
 def crash_detection(torch, m, dev):
@@ -1069,16 +1341,21 @@ def sweep_lanes(torch, m, dev, n=N, warm_rounds=LANE_WARM,
         s0 = m.bench.clone_state(s)
         # the same run twice from the warm state: timed alone, then
         # traced (the profiler's own host cost inflates its wall time)
+        lr0 = m.fused.LAUNCHES["lane_round"]
         t0 = time.perf_counter()
         run(m.bench.clone_state(s0), m.prng.fold_in(key, 1),
             lanes0=lv.clone())
         m.bench._sync(torch.device(dev))
         wall_us = (time.perf_counter() - t0) / rounds * 1e6
+        lane_launches = (m.fused.LAUNCHES["lane_round"] - lr0) / rounds
         (fin, trace, _), prof = m.bench.profile_call(
             lambda: run(s, m.prng.fold_in(key, 1), lanes0=lv), rounds,
             torch.device(dev))
         top = list(prof.get("device_us_per_round_by_kernel", {}).items())
         label = f"lanes stale_k={k}"
+        if torch.device(dev).type == "cuda" and lane_launches != 1:
+            bad.append(f"{label}: {lane_launches} lane_round launches a "
+                       "round")
         bad += recorder_failures(m, s0, fin, trace, label, last_row=False)
         d = {f: float(getattr(fin.stats, f)) - float(getattr(s0.stats, f))
              for f in m.state.STATS_FIELDS}
@@ -1094,6 +1371,8 @@ def sweep_lanes(torch, m, dev, n=N, warm_rounds=LANE_WARM,
         out[f"stale_k={k}"] = {"rounds": rounds, "record_every": stride,
                                "rows": int(trace.shape[0]), "fd": fd,
                                "wall_us_per_round": wall_us,
+                               "lane_round_launches_per_round":
+                                   lane_launches,
                                "profiled_wall_us_per_round":
                                    prof["wall_us_per_round"],
                                "device_us_per_round":
@@ -2814,6 +3093,8 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
                      "tree_sum_us_per_round": sum_us_per_round(prof),
                      "threefry_us_per_round": draw_us_per_round(prof),
                      "round_kernel_launches": rk}
+        rep[side]["lane_round_launches_per_round"] = \
+            timed.get("lane_round", 0) / rounds
         if side == "kernels":
             launches = counts
             fry = sum(v for k, v in timed.items()
@@ -2835,6 +3116,13 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
         bad.append(f"{label}: plain() launched {rep['bad_plain_launches']}")
     if dev.type == "cuda" and not launches:
         bad.append(f"{label}: no draw or sum kernel launched")
+    # the lane engine and the lanes grid: one lane_round launch a round
+    # on the kernels
+    per_round = rep["kernels"]["lane_round_launches_per_round"]
+    if dev.type == "cuda" and label.startswith(("lane engine",
+                                                "grid round lanes")) \
+            and per_round != 1:
+        bad.append(f"{label}: {per_round} lane_round launches a round")
     rep["launches"] = launches
     return rep, bad, launches
 
@@ -3088,7 +3376,8 @@ def phase_draws(torch, m, dev):
     checks_s = time.perf_counter() - t0
     engines, b, launches = draws_engines(torch, m, dev)
     bad += b
-    missing = [k for k in DRAW_KERNELS if not launches.get(k)]
+    missing = [k for k in DRAW_KERNELS + ("lane_round",)
+               if not launches.get(k)]
     if missing:
         bad.append(f"draws: the engines never launched {missing}")
     if bad:
@@ -3223,8 +3512,81 @@ def time_kernels(torch, m, inputs) -> dict:
     return out
 
 
+def lane_plain(torch, m, arrays, scal, u, slots, p, fx):
+    """``lane_round``'s plain version on the same slot rows: the plain
+    body in lane mode, its lanes narrowed and its stack made."""
+    outs, lanes = m.round._round_body(arrays, m.round._grid_scalars(scal),
+                                      p,
+                                      m.prng._slot_rows(u, slots), fx=fx,
+                                      lane_mode=True)
+    outs = m.round._cast_like(outs, arrays)
+    zeros = torch.zeros_like(outs[2])
+    return outs, torch.stack([zeros if x is None else x for x in lanes])
+
+
+def lane_timing_cases(m, inputs) -> list:
+    """(name, params, frame, stats, inst) of each ``lane_round`` launch
+    ``time_lane_kernel`` times: a round of the full model (the lane
+    engine at stale_k 1), of the stable config, on the honest and the
+    byzantine check frames, and a mid-window round of the full model at
+    stale_k > 1 (its counter rows added, its other rows skipped)."""
+    b = m.bench
+    n = inputs[0][0].shape[0]
+    frames = inputs[3]
+    p_full, p_chaos = b.diag_params(n), m.scenarios.chaos_params(n)
+    return [("lane_round/full", p_full, None, "write", True),
+            ("lane_round/stable", b.headline_params(n), None, "write",
+             True),
+            ("lane_round/fault", p_chaos, frames["fault"], "write", True),
+            ("lane_round/byz", p_chaos.with_(corroboration_k=2),
+             frames["byz"], "write", True),
+            ("lane_round/full mid-window", p_full, None, "add", False)]
+
+
+def lane_grid_inputs(torch, m, dev, n=LANE_GRID_N):
+    """The lan autotune grid's state, scalars and params (the sweep's
+    lanes engine's cell): (name, params, frame, stats, inst, state
+    lanes, scalars), timed as a ``lane_timing_cases`` case."""
+    label, p, axes, kind = lane_grids(m, n)[0]
+    tp, s, lv, _ = lane_grid_state(torch, m, p, axes, kind, dev, warm=1)
+    return (f"lane_round/{label} {tp.grid_shape[0]} x {n}", tp, None,
+            "write", True, s.node_arrays(),
+            m.lanes.scalars_from_lanes(lv).contiguous())
+
+
+def time_lane_kernel(torch, m, inputs) -> dict:
+    """Each ``lane_timing_cases`` launch's ``launch_times``, its bound
+    (``costmodel.lane_bound``) and its plain version's time; and the
+    lan autotune grid's (``lane_grid_inputs``)."""
+    arrays, scal, _, _ = inputs
+    dev = arrays[0].device
+    key = m.prng.key(43, device=dev)
+    out = {}
+    cases = [(*c, arrays, scal) for c in lane_timing_cases(m, inputs)]
+    for name, p, fx, stats, inst, arrays, scal in cases + [
+            lane_grid_inputs(torch, m, dev)]:
+        slots = m.round.draw_slots(p, fx)
+        u = m.prng.global_rows(key, 0, arrays[0].shape[-1], slots)
+        stack = torch.zeros((m.lane_kernel.N_ROWS,) + tuple(arrays[0].shape),
+                            dtype=torch.float32, device=dev)
+
+        def kern():
+            m.lane_kernel.lane_round(arrays, scal, u, slots, p, fx,
+                                     stack=stack, stats=stats, inst=inst)
+
+        def plain():
+            lane_plain(torch, m, arrays, scal, u, slots, p, fx)
+
+        bound = m.costmodel.lane_bound(arrays, u, fx, stats, inst)
+        t = launch_times(torch, kern, 200)
+        out[name] = {**t, "plain_ms": _events_ms(torch, plain, 3, warm=1),
+                     **bound, "x_bound": t["ms"] / bound["bound_ms"]}
+    return out
+
+
 def phase_timing(torch, m, inputs):
     out = time_kernels(torch, m, inputs)
+    out.update(time_lane_kernel(torch, m, inputs))
     emit({"phase": "timing", "n": N, "kernels": out})
     return out
 
@@ -3239,6 +3601,11 @@ def modules():
                                       graphs, lanes, mesh, metrics, params,
                                       prng, round, scenarios, state, sweep,
                                       topology, twin, views)
+    try:
+        from consul_tpu_torch.sim import lane_kernel
+    except ImportError:
+        # a checkout from before the lane kernel (kernel_ab.py times one)
+        lane_kernel = None
     from consul_tpu_torch.utils import telemetry
 
     return types.SimpleNamespace(
@@ -3246,7 +3613,7 @@ def modules():
         checkpoint=checkpoint, cli=cli, config=config, coords=coords,
         costmodel=costmodel, cuda_round=cuda_round, faults=faults,
         flight=flight, fused=fused, graft_entry=graft_entry, graphs=graphs,
-        lanes=lanes, mesh=mesh, metrics=metrics,
+        lane_kernel=lane_kernel, lanes=lanes, mesh=mesh, metrics=metrics,
         params=params, prng=prng, round=round, scenarios=scenarios,
         state=state, sweep=sweep, telemetry=telemetry, topology=topology,
         twin=twin, views=views)
@@ -3266,8 +3633,9 @@ def main() -> int:
 
     from consul_tpu_torch.utils import build
 
-    phase_env(torch, build, m.cuda_round, m.fused)
+    phase_env(torch, build, m.cuda_round, m.fused, m.lane_kernel)
     checks, inputs = phase_check(torch, m, dev)
+    phase_lanes(torch, m, dev, inputs)
     headline, launches = phase_headline(torch, m, dev)
     # the draw and sum kernels' launches on every path from here on
     draws0 = _fused_counts(m)
@@ -3330,6 +3698,18 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    # the lane engine's period, at the full model's round (stale_k 1);
+    # bit for bit against the plain body in phase lanes
+    t = timing["lane_round/full"]
+    kernels.append({
+        "name": "lane_round", "route": "cuda",
+        "source": "consul_tpu_torch/csrc/lane_kernels.cu",
+        "replaces": "consul_tpu/sim/round.py:113 (_round_core, lane mode, "
+                    "via :766)",
+        "launches": draw_launches["lane_round"], "max_abs_err": 0.0,
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

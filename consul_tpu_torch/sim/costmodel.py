@@ -57,7 +57,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from consul_tpu_torch.sim import cuda_round, fused, graphs, prng, registry
+from consul_tpu_torch.sim import (cuda_round, fused, graphs, lane_kernel,
+                                  prng, registry)
 from consul_tpu_torch.sim.flight import trace_bytes
 from consul_tpu_torch.sim.round import (make_run_rounds, make_run_rounds_fast,
                                         make_run_rounds_lanes)
@@ -396,6 +397,40 @@ def sum_bound(rows: int, length: int) -> dict:
     could take: every element read once, one f32 a row written, and
     ``length - 1`` additions a row."""
     return _bound(4 * rows * (length + 1), 0, rows * (length - 1))
+
+
+def lane_bound(vals, u, fx=None, stats: str = "write",
+               inst: bool = True) -> dict:
+    """The least time one ``lane_round`` launch could take, from its
+    inputs and outputs: the packed state lanes ``vals`` (``[N]`` or
+    ``[G, N]``), the slot rows ``u``, the 8 scalars and the constant
+    table's row of each point, and the frame ``fx``'s lanes read once,
+    the stack's counter rows read once more when ``stats`` is "add"; the
+    state lanes and the stack rows the launch writes (the 22
+    instantaneous rows with ``inst``, the 10 counter rows unless
+    "skip") written once; over the HBM rate. Its operations: the f32
+    body terms every node does (``BODY_F32_OPS``, and a frame's
+    ``FAULT_F32_OPS`` / ``BYZ_F32_OPS``: the per-node no-ack and Poisson
+    terms), over the f32 rate; no integer work is counted."""
+    rows = vals[0].numel()
+    points = math.prod(vals[0].shape[:-1])
+    node = sum(a.element_size() for a in vals)
+    frame = 0 if fx is None else sum(
+        a.numel() * a.element_size() for a in fx
+        if isinstance(a, torch.Tensor))
+    counters = len(registry.STATS_FIELDS)
+    stack_rows = (registry.N_REDUCE_LANES - counters if inst else 0) \
+        + (counters if stats != "skip" else 0)
+    read = rows * node + u.numel() * u.element_size() \
+        + 4 * (8 + len(lane_kernel.COLUMNS)) * points + frame \
+        + (4 * counters * rows if stats == "add" else 0)
+    written = rows * node + 4 * stack_rows * rows
+    per_node = BODY_F32_OPS
+    if fx is not None:
+        per_node += FAULT_F32_OPS + (BYZ_F32_OPS if fx.attacked is not None
+                                     else 0)
+    return {"read_bytes": read, "written_bytes": written,
+            **_bound(read + written, 0, rows * per_node)}
 
 
 # ---------------------------------------- counted and timed attribution

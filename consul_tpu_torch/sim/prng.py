@@ -535,18 +535,27 @@ def u01_global(k: Key, offset: Start, length: int) -> torch.Tensor:
     return _u01_of(y0)
 
 
+def global_rows(k: torch.Tensor, offset: Start, n: int,
+                slots: tuple) -> torch.Tensor:
+    """``global_u01``'s rows on the kernel's route: one launch of
+    ``[len(slots), n]`` uniforms, row i slot ``slots[i]``'s (the rows the
+    lane kernel reads)."""
+    slots = tuple(slots)
+    return _draw(fused.draw(
+        "u01_global", k[0].expand(len(slots), 1),
+        k[1].expand(len(slots), 1), gen=n, base=_on(offset, k.device),
+        derive=slot_words(slots)))
+
+
 def global_u01(k: torch.Tensor, offset: Start, n: int,
                slots: tuple) -> U01:
     """The lane engine's draws for one round over nodes offset..offset+
     n-1: slots 0-4 from ``split(k, 5)``, slot 5 (byzantine replay) from
     ``fold_in(k, REPLAY_FOLD)``, each through ``u01_global``; ``slots``
-    and the launch as in ``threefry_u01``."""
+    and the launch as in ``threefry_u01`` (``global_rows``)."""
     slots = tuple(slots)
     if fused.routed(k):
-        return _slot_rows(_draw(fused.draw(
-            "u01_global", k[0].expand(len(slots), 1),
-            k[1].expand(len(slots), 1), gen=n, base=_on(offset, k.device),
-            derive=slot_words(slots))), slots)
+        return _slot_rows(global_rows(k, offset, n, slots), slots)
     keys = split(k, 5)
 
     def u01(slot: int) -> torch.Tensor:

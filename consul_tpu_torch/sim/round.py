@@ -17,7 +17,9 @@ versions in ``cuda_round.py``, so they cannot drift:
   the flight recorder, the black box and Vivaldi coordinates riding it;
 * ``make_run_rounds_lanes`` — the exact lane engine: the body in lane
   mode on global-index draws, one fixed-order reduction per staleness-k
-  window (``sim/lanes.py``), bit for bit resumable from its carry.
+  window (``sim/lanes.py``), bit for bit resumable from its carry. On
+  the card its round is one launch of the lane kernel
+  (``sim/lane_kernel.py``), whose plain version is this body.
 
 The live engine and the lane engine also run a grid of constants
 (``sim/sweep.py``): ``[G, N]`` lanes and a ``params.TracedParams`` whose
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import functools
 import itertools
+import math
 from typing import Iterator, Optional
 
 import torch
@@ -61,7 +64,8 @@ from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
                                      detection_gate, frame_at,
                                      frames_at, ipow,
                                      phase_at, scale_frame)
-from consul_tpu_torch.sim import blackbox, flight, graphs, prng, topology
+from consul_tpu_torch.sim import (blackbox, flight, fused, graphs,
+                                  lane_kernel, prng, topology)
 from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim.params import SimParams, TracedParams
@@ -963,16 +967,36 @@ def _grid_scalars(sc: torch.Tensor) -> torch.Tensor:
 def _lane_contributions(state: SimState, scalars: torch.Tensor,
                         key: torch.Tensor, p: SimParams,
                         fx: Optional[FaultFrame] = None,
-                        shard_offset: int = 0):
+                        shard_offset: int = 0, *,
+                        stack: Optional[torch.Tensor] = None,
+                        stats: str = "write", inst: bool = True,
+                        tab: Optional[torch.Tensor] = None):
     """One period in lane mode without the reduction: (state', the
     round's ``[N_REDUCE_LANES, ..., L]`` contribution stack). Stats stay
     on the state untouched; the caller applies the reduced deltas.
     ``shard_offset`` is the global index of the state's first row (a
-    mesh rank's slice): node i draws the same word on any sharding."""
+    mesh rank's slice): node i draws the same word on any sharding.
+
+    On the kernel's route (``fused.routed``) the period is one
+    ``lane_round`` launch on the round's one draw launch; ``stack``,
+    ``stats`` and ``inst`` are its window mode and ``tab`` its constant
+    table (``_lane_window``). The plain body writes a whole new
+    stack."""
     rows = state.status.shape[-1]
     if fx is not None and (p.sweeps("fault_gain") or p.fault_gain != 1.0):
         fx = scale_frame(fx, p.fault_gain)
     vals = state.node_arrays()
+    if fused.routed(vals[0]):
+        slots = draw_slots(p, fx)
+        outs, stack = lane_kernel.lane_round(
+            vals, scalars, prng.global_rows(key, shard_offset, rows, slots),
+            slots, p, fx, stack=stack, stats=stats, inst=inst, tab=tab)
+        return SimState(*outs,
+                        t=state.t + _per_point(p.probe_interval, state.t),
+                        round_idx=state.round_idx + 1,
+                        stats=state.stats), stack
+    if stack is not None:
+        raise ValueError("the plain body writes a new stack a round")
     outs, lanes = _round_body(vals, _grid_scalars(scalars), p,
                               prng.global_u01(key, shard_offset, rows,
                                               draw_slots(p, fx)),
@@ -1017,6 +1041,19 @@ def _lane_window(state: SimState, lanes_prev: torch.Tensor, keys_k,
     the reduced counters are the window's exact totals). ``frames`` is
     each round's fault view (or None)."""
     scalars = lanes_mod.scalars_from_lanes(lanes_prev)
+    if fused.routed(state.status):
+        # one launch a round into one stack: its counter rows summed in
+        # place (pend + rows), the other rows the last round's
+        tab = lane_kernel.table(p, math.prod(state.status.shape[:-1]),
+                                state.status.device)
+        s, stack = state, None
+        for j in range(k):
+            stats = "add" if p.collect_stats and j else \
+                "write" if p.collect_stats or j == k - 1 else "skip"
+            s, stack = _lane_contributions(
+                s, scalars, keys_k[j], p, frames[j], shard_offset,
+                stack=stack, stats=stats, inst=j == k - 1, tab=tab)
+        return s, stack
     s, pend, stack = state, None, None
     for j in range(k):
         s, stack = _lane_contributions(s, scalars, keys_k[j], p,

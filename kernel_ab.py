@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the round kernels, the sum kernel or the draw kernel of two
-checkouts of this repository on one card.
+"""Time the round kernels, the sum kernel, the draw kernel or the lane
+kernel of two checkouts of this repository on one card.
 
-    python3 kernel_ab.py [--sums | --draws] OLD NEW
+    python3 kernel_ab.py [--sums | --draws | --lanes] OLD NEW
 
 OLD and NEW are repository roots (for example a ``git archive`` of the
 parent commit unpacked under ``build/``, and ``.``). They run in the
@@ -31,6 +31,14 @@ design, its launches and device µs by ``chip_smoke._graph_ms``), and
 each engine of
 ``chip_smoke.engine_cases`` on the kernels under the profiler: its
 device µs a round, the draw kernel's share of them and its threefry
+launches a call.
+
+With ``--lanes`` every run times the lane engine's period instead:
+``lane_round`` at ``chip_smoke.lane_timing_cases`` (device ms by
+CUDA-graph replay, its bound, the plain body's ms; a checkout without
+the kernel times none), and each lane-engine case of
+``chip_smoke.engine_cases`` on the kernels under the profiler: its
+device µs and kernels a round, ``lane_round``'s µs a round and its
 launches a call.
 
 Prints one JSON line per run, then one object of the runs in order,
@@ -189,13 +197,63 @@ def draws(root: pathlib.Path) -> dict:
     return {"shapes": shapes, "engines": engines}
 
 
+#: the lane kernel's name in a profile
+LANE_KERNEL_NAMES = r"\blane_round\b"
+
+
+def lanes(root: pathlib.Path) -> dict:
+    """The lane engine of the checkout at ``root``: ``lane_round``'s
+    launches where the checkout has it (``chip_smoke.time_lane_kernel``:
+    device ms by CUDA-graph replay, its bound, the plain body's ms), and
+    each lane-engine case of ``chip_smoke.engine_cases`` on the kernels
+    under the profiler: its device µs and kernels a round, the lane
+    kernel's µs a round and its launches a call."""
+    sys.path.insert(0, str(root))
+    import re
+
+    import torch
+
+    smoke = _smoke()
+    m = smoke.modules()
+    if pathlib.Path(m.fused.__file__).resolve().parents[2] != root:
+        raise RuntimeError(f"imported {m.fused.__file__}, not {root}")
+    dev = torch.device("cuda", 0)
+    kernel, engines = {}, {}
+    if m.lane_kernel is not None:
+        inputs, _ = smoke.check_inputs(torch, m, dev)
+        kernel = {name: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "x_bound")}
+                  for name, t in smoke.time_lane_kernel(torch, m,
+                                                        inputs).items()}
+    names = re.compile(LANE_KERNEL_NAMES)
+    for label, prep, call, rounds, warm, traced in smoke.engine_cases(
+            torch, m, dev):
+        if not label.startswith("lane engine"):
+            continue
+        for _ in range(warm):
+            call(*prep())
+        args = prep()
+        m.fused.reset_launches()
+        call(*args)
+        launches = m.fused.LAUNCHES.get("lane_round", 0)
+        args = prep()
+        _, prof = m.bench.profile_call(lambda: call(*args), rounds, dev)
+        engines[label] = {
+            "device_us_per_round": prof["device_busy_us"] / rounds,
+            "kernels_per_round": prof.get("kernels_per_round"),
+            "lane_round_us_per_round": smoke._us_per_round(prof, names),
+            "lane_round_launches_per_call": launches, "rounds": rounds}
+    return {"kernel": kernel, "engines": engines}
+
+
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--one":
-        fn = {"sums": sums, "draws": draws}.get(argv[1], one)
+        fn = {"sums": sums, "draws": draws,
+              "lanes": lanes}.get(argv[1], one)
         print(json.dumps(fn(pathlib.Path(argv[2]).resolve())), flush=True)
         return 0
     what = "rounds"
-    if argv[:1] in (["--sums"], ["--draws"]):
+    if argv[:1] in (["--sums"], ["--draws"], ["--lanes"]):
         what, argv = argv[0][2:], argv[1:]
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
