@@ -1,0 +1,9 @@
+"""``lane_round``'s share of its roofline: the least time one launch needs
+(``bounds/lane_round.py``, the H100's published peaks) over its mean device
+time a launch in the traced window."""
+
+from gossipbench import trace
+
+
+def read(ctx):
+    return trace.roofline(ctx, "lane_round")
