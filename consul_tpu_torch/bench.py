@@ -1,9 +1,9 @@
 """The port's headline: SWIM rounds per second at 1,048,576 nodes.
 
     python -m consul_tpu_torch.bench            # on the CUDA card
-    python -m consul_tpu_torch.bench --profile  # + where the time goes
+    python -m consul_tpu_torch.bench --profile  # + the roofline ladder
     python -m consul_tpu_torch.bench --smoke    # 65,536 nodes, CPU plain path
-    python -m consul_tpu_torch.bench --chaos [--profile | --smoke]
+    python -m consul_tpu_torch.bench --chaos [--smoke]
     python -m consul_tpu_torch.bench --coords [--smoke]
     python -m consul_tpu_torch.bench --sweep [--smoke]
     python -m consul_tpu_torch.bench --chaos|--sweep [--smoke] \
@@ -33,11 +33,7 @@ on top (``blackbox``: ``default_tracked(n, p.blackbox_k)`` agents, ring
 honest FaultPlans, four byzantine) at 1,048,576 nodes through the fault
 and byz variants of ``round_kernel``: per class the per-phase detection
 report, the host seconds ``compile_plan`` took and the run's rounds per
-second (``--smoke``: 4,096 nodes on the CPU). With ``--profile`` it
-also traces the fault phase of three plan runs (a flapping plan, the
-same at ``fault_gain`` 0.5, a byzantine plan) and the frame building
-alone: the device time per round of the kernel, the fold and the
-frame.
+second (``--smoke``: 4,096 nodes on the CPU).
 
 ``--chaos`` also runs the corroboration_k defense sweep
 (``scenarios.run_byzantine_defense``) at the JAX bench's size: 4,096
@@ -49,10 +45,7 @@ wan and lossy classes at 65,536 nodes, 300 rounds, xla engine
 (``--smoke``: 1,024 nodes, 100 rounds, on the CPU). Per class: the end-
 to-end seconds of the first call, the steady seconds (best of 2 more),
 scenarios and scenario-rounds per second, the peak device memory, the
-chosen constants and the Pareto front. With ``--profile`` it also traces
-``PROFILE_SWEEP_ROUNDS`` rounds of the lan grid on the xla and lanes
-engines: wall and device time per grid round, the device's busy share,
-the device time by kernel and the host-waiting runtime calls.
+chosen constants and the Pareto front.
 
 ``--chaos`` and ``--sweep`` take ``--ckpt-dir D [--resume]``: SIGTERM or
 SIGINT saves (the chaos class in flight at its last chunk, finished
@@ -66,7 +59,7 @@ convergence through a partition and heal, RTT-aware probe deadlines, on
 the live engine) at 65,536 nodes on the card (``--smoke``: 4,096 on the
 CPU).
 
-``--profile`` on the headline also runs the roofline ladder
+``--profile`` (the headline only, on the card) also runs the roofline ladder
 (``costmodel.roofline_table``: xla, fast, lanes at stale_k 1/2/4, overlap
 and the kernel runner at R 1/4/8 on the full-model configuration, 24
 rounds, best of 3, against a measured copy/triad peak) and records the
@@ -128,7 +121,7 @@ from typing import Optional
 import torch
 
 from consul_tpu_torch.config import GossipConfig
-from consul_tpu_torch.faults import compile_plan, frame_at, scale_plan
+from consul_tpu_torch.faults import compile_plan
 from consul_tpu_torch.sim import autotune as autotune_mod
 from consul_tpu_torch.sim import costmodel, graphs, prng, registry
 from consul_tpu_torch.sim import mesh as mesh_mod
@@ -145,10 +138,9 @@ from consul_tpu_torch.sim.metrics import sweep_report
 from consul_tpu_torch.sim.params import SimParams, SweepAxes, grid_params
 from consul_tpu_torch.sim.scenarios import (AUTOTUNE_GRID,
                                             AUTOTUNE_TOPOLOGIES,
-                                            CHAOS_WARMUP_ROUNDS,
-                                            autotune_params, chaos_params,
-                                            chaos_plans, run_byzantine_defense,
-                                            run_chaos, run_coords)
+                                            autotune_params, chaos_plans,
+                                            run_byzantine_defense, run_chaos,
+                                            run_coords)
 from consul_tpu_torch.sim.sweep import SweepResult, make_run_sweep
 from consul_tpu_torch.sim.state import SimState, init_state
 from consul_tpu_torch.utils.platform import default_device, device_name
@@ -561,59 +553,6 @@ def run_sweep_bench(device=None, smoke: bool = False, engine: str = "xla",
     return out
 
 
-#: rounds of the lan grid each engine runs under the profiler
-PROFILE_SWEEP_ROUNDS = 20
-
-
-def profile_sweep(device=None, rounds: int = PROFILE_SWEEP_ROUNDS) -> dict:
-    """Where a grid round's time goes, from ``torch.profiler``: one call
-    of the lan grid (64 points at ``SWEEP_SIZE`` nodes, ``rounds``
-    rounds) per engine after an untraced warm-up call: wall and device
-    busy µs per grid round, the busy share, the ten kernels with the
-    most device time per round, and the host-waiting runtime calls."""
-    dev = default_device(device)
-    if dev.type != "cuda":
-        raise ValueError("profile_sweep traces the card; it has no CPU "
-                         "mode")
-    n = SWEEP_SIZE[0]
-    p = autotune_params("lan", n)
-    tp, _ = grid_params(p, SweepAxes.of(**AUTOTUNE_GRID), dev)
-    key = prng.key(0, device=dev)
-    out = {}
-    for engine in ("xla", "lanes"):
-        run = make_run_sweep(p, rounds, engine=engine, device=dev)
-        run(tp, key)
-        _sync(dev)
-        _, rep = profile_call(lambda: run(tp, key), rounds, dev)
-        top = rep.get("device_us_per_round_by_kernel", {})
-        rep["device_us_per_round_by_kernel"] = dict(list(top.items())[:10])
-        out[engine] = {"n": n, "grid_size": 64,
-                       "device_busy_us_per_round":
-                           rep.get("device_busy_us", 0.0) / rounds, **rep}
-    out["sum_order"] = sum_order_probe(dev, n)
-    return out
-
-
-def sum_order_probe(device, n: int, g: int = 64) -> dict:
-    """Does a row of a ``[g, n]`` f32 tensor sum to the same bits as the
-    row alone? For ``torch.sum(-1)`` the count of rows of 0..1 uniforms
-    whose grid sum differs from the one-row sum, and the largest
-    difference; for ``lanes.tree_sum`` (what the sweep engines use) the
-    same count, 0 by construction."""
-    from consul_tpu_torch.sim.lanes import tree_sum
-
-    gen = torch.Generator(device=device).manual_seed(0)
-    x = torch.rand((g, n), generator=gen, device=device)
-    grid, rows = x.sum(-1), torch.stack([x[i:i + 1].sum(-1)[0]
-                                         for i in range(g)])
-    tgrid, trows = tree_sum(x), torch.stack([tree_sum(x[i:i + 1])[0]
-                                             for i in range(g)])
-    return {"g": g, "n": n,
-            "torch_sum_rows_differ": int((grid != rows).sum()),
-            "torch_sum_max_abs_diff": float((grid - rows).abs().max()),
-            "tree_sum_rows_differ": int((tgrid != trows).sum())}
-
-
 def run_coords_bench(device=None, smoke: bool = False) -> dict:
     """``run_coords`` at ``COORDS_N`` nodes on the card (``smoke``:
     ``COORDS_SMOKE_N`` on the CPU), with its wall time."""
@@ -628,100 +567,19 @@ def run_coords_bench(device=None, smoke: bool = False) -> dict:
             "scenarios": {"coords": report}}
 
 
-def profile_plans(device=None) -> dict:
-    """Where a fault-plan run's time goes, from ``torch.profiler``: the
-    fault phase (60 rounds) of the ``flapping`` class, of the same at
-    ``fault_gain`` 0.5 (the plan blended once by ``scale_plan``) and of the
-    ``eclipse`` class (byz variant), each after its warm-up phase, the
-    traced call a replay of the runner's CUDA graph; and, for each, the
-    frames alone built for the same rounds as the runner builds them
-    (``frame_at``: the device time per round of the per-phase copies,
-    the flap schedule and the gain blend)."""
-    dev = default_device(device)
-    if dev.type != "cuda":
-        raise ValueError("profile_plans traces the card; it has no CPU "
-                         "mode")
-    n = HEADLINE_N
-    key = prng.key(0, device=dev)
-    out = {}
-    for label, name, gain in (("flapping", "flapping", 1.0),
-                              ("flapping_gain_0.5", "flapping", 0.5),
-                              ("eclipse", "eclipse", 1.0)):
-        plan = chaos_plans(n)[name]
-        cp = compile_plan(plan, n, dev)
-        p = chaos_params(n).with_(fault_gain=gain)
-        rounds = plan.phases[1].rounds
-        warm = make_run_rounds_cuda(p, CHAOS_WARMUP_ROUNDS, carry=True,
-                                    plan=cp)
-        state, sc = warm(init_state(n, device=dev), key)
-        run = make_run_rounds_cuda(p, rounds, carry=True, plan=cp)
-        # two untraced calls on copies first (the eager first call, then
-        # the graph's capture): frees the trace of set-up
-        for _ in range(2):
-            run(clone_state(state), key, scalars0=sc.clone())
-        _sync(dev)
-        _, rep = profile_call(lambda: run(state, key, scalars0=sc), rounds,
-                              dev)
-        # the frames as the runner builds them: on the plan it blended
-        # once when it was made, from the device round
-        cpf = cp if gain == 1.0 else scale_plan(cp, gain)
-        r0 = torch.tensor(CHAOS_WARMUP_ROUNDS, dtype=torch.int32,
-                          device=dev)
-
-        def frames():
-            for r in range(rounds):
-                frame_at(cpf, r0 + r, gain)
-
-        _, frame = profile_call(frames, rounds, dev)
-        out[label] = {**rep, "frame_device_us_per_round": (
-                          frame.get("device_busy_us", 0.0) / rounds)}
-        del cp, cpf
-    return out
-
-
 def _short_kernel_name(name: str) -> str:
     for noise in ("(anonymous namespace)::", "at::native::"):
         name = name.replace(noise, "")
     return name.removeprefix("void ")[:96]
 
 
-def profile_runners(device=None) -> dict:
-    """Where a headline run's time goes, from ``torch.profiler``: for one
-    call of each runner — the stable per-round and R=8 runners at the
-    headline's chunk size, and the full-model per-round runner bare,
-    with the flight recorder and with the black box — the wall time
-    (inflated by the profiler's own host cost), the device time by
-    kernel name, the device's busy share of the span from its first
-    kernel's start to its last one's end (1 minus the idle share), and
-    the runtime calls in the window that make the host wait."""
-    dev = default_device(device)
-    if dev.type != "cuda":
-        raise ValueError("profile_runners traces the card; it has no CPU "
-                         "mode")
-    p, p_diag = headline_params(HEADLINE_N), diag_params(HEADLINE_N)
-    key = prng.key(0, device=dev)
-    recorders, _ = recorder_runners(p_diag, 200, HEADLINE_N, dev)
-    cases = [("per_round", make_run_rounds_cuda(p, 500), 500),
-             ("mega", make_run_rounds_cuda(p, 512,
-                                           rounds_per_call=MEGA_RPC), 512)]
-    cases += [(f"full_{name}", run, 200) for name, run in recorders.items()]
-    out = {}
-    for name, run, rounds in cases:
-        state = run(init_state(HEADLINE_N, device=dev),
-                    prng.fold_in(key, 1))   # warm-up
-        _sync(dev)
-        state, out[name] = profile_call(
-            lambda: run(state, prng.fold_in(key, 2)), rounds, dev)
-    return out
-
-
 def profile_call(fn, rounds: int, dev: torch.device):
     """One call of ``fn`` under ``torch.profiler``, closed by a device
     sync: (fn's result, its report). The report holds the wall µs per
     round (inflated by the profiler's own host cost), the device
-    kernels per round, ``device_breakdown`` of the device intervals by
-    short kernel name and ``host_waits``. On the CPU only host activity
-    is traced, and the breakdown says the device was not measured."""
+    kernels per round and ``device_breakdown`` of the device intervals
+    by short kernel name. On the CPU only host activity is traced, and
+    the breakdown says the device was not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -740,22 +598,7 @@ def profile_call(fn, rounds: int, dev: torch.device):
     return result, {"rounds": rounds,
                     "wall_us_per_round": wall / rounds * 1e6,
                     "kernels_per_round": len(spans) / rounds,
-                    **device_breakdown(spans, rounds),
-                    "host_waits": host_waits(prof)}
-
-
-#: CUDA runtime calls that make the host wait for the card: the syncs,
-#: and copies (a copy from pageable host memory syncs its stream first)
-HOST_WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                   "cudaMemcpyAsync", "cudaMemcpy")
-
-
-def host_waits(prof) -> dict:
-    """How many times a traced window called each of
-    ``HOST_WAIT_CALLS``; the window's closing device sync and the copy
-    of the run key's ``fold_in`` data are among them, once each."""
-    return {e.key: e.count for e in prof.key_averages()
-            if e.key in HOST_WAIT_CALLS}
+                    **device_breakdown(spans, rounds)}
 
 
 def device_breakdown(spans, rounds: int) -> dict:
@@ -1314,9 +1157,8 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="65,536 nodes on the CPU through the plain path")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one call of each runner with "
-                         "torch.profiler (device time by kernel, busy "
-                         "share); needs the card")
+                    help="also run the roofline ladder and record "
+                         "PROFILE; the headline only, on the card")
     ap.add_argument("--chaos", action="store_true",
                     help="run the nine chaos classes (fault and byz "
                          "kernel variants) instead of the headline")
@@ -1357,15 +1199,12 @@ def main(argv=None) -> int:
                  "run one at a time".replace("_", "-"))
     if args.ckpt_dir and not (args.chaos or args.sweep):
         ap.error("--ckpt-dir applies to --chaos and --sweep")
-    if args.ckpt_dir and args.profile:
-        ap.error("--profile traces a whole run; it cannot be checkpointed")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
     if args.smoke and args.profile:
         ap.error("--profile traces the card; it cannot run with --smoke")
-    if args.profile and (args.coords or args.autotune or args.mesh
-                         or args.history or args.check_regression):
-        ap.error("--profile applies to the headline, --chaos and --sweep")
+    if args.profile and modes:
+        ap.error("--profile applies to the headline only")
     if (args.family or args.metric) and not args.check_regression:
         ap.error("--family and --metric apply to --check-regression only")
     if args.family not in (None,) + GUARDED_FAMILIES:
@@ -1401,14 +1240,10 @@ def main(argv=None) -> int:
     res["launches"] = dict(LAUNCHES)
     roofline = None
     if args.profile:
-        res["profile"] = profile_plans() if args.chaos \
-            else profile_sweep() if args.sweep else profile_runners()
-        if not (args.chaos or args.sweep):
-            rounds, reps = ROOFLINE_DEPTH
-            roofline = costmodel.roofline_table(
-                diag_params(HEADLINE_N), rounds=rounds, reps=reps)
-            print_roofline(roofline)
-            res["profile"]["roofline"] = roofline
+        rounds, reps = ROOFLINE_DEPTH
+        roofline = costmodel.roofline_table(
+            diag_params(HEADLINE_N), rounds=rounds, reps=reps)
+        print_roofline(roofline)
     print(json.dumps(res))
     if roofline is not None:
         env = profile_record(res, roofline)

@@ -15,7 +15,12 @@ engines and kernels. The modes:
   (``round_kernel`` full variant); each chunk's trace goes through
   ``flight.FlightPublisher`` into ``utils.telemetry.default`` as
   ``sim.*`` counters and gauges, and the report — ``fd_report`` plus
-  ``rounds_per_sec`` — through ``publish_report`` as ``sim.fd.*``;
+  ``rounds_per_sec`` — through ``publish_report`` as ``sim.fd.*``; the
+  registry is armed for the run (``telemetry.armed``), so its
+  ``Samples`` carry the runner's spans a chunk (``sim.runner.call``,
+  ``sim.graph.launch`` ...) in milliseconds, printed to stderr as one
+  ``{"span_ms": {name: {"Count", "Mean", "Max"}}}`` line (stdout keeps
+  the reference's report);
 * ``-gossip-sim-chaos C`` — ``scenarios.run_chaos(C, blackbox=True)``
   (kernel runner: fault or byz variant);
 * ``-gossip-sim-coords`` — ``scenarios.run_coords`` (live engine), the
@@ -198,11 +203,16 @@ def _default(gossip: GossipConfig, n: int, platform: str, dev) -> int:
     p = SimParams.from_gossip_config(gossip, n=n, loss=0.01)
     print(f"==> gossip-sim={platform}: {n} virtual members, {SIM_ROUNDS} "
           f"rounds on {dev.type}")
-    state, _, dt = default_run(p, dev, FlightPublisher())
+    with telemetry.armed(telemetry.default):
+        state, _, dt = default_run(p, dev, FlightPublisher())
     rep = fd_report(state, p)
     publish_report(rep)
     print(json.dumps({"rounds_per_sec": round(SIM_ROUNDS / dt, 1),
                       **rep.to_dict()}, indent=2))
+    print(json.dumps({"span_ms": {
+        s["Name"]: {k: s[k] for k in ("Count", "Mean", "Max")}
+        for s in telemetry.default.snapshot()["Samples"]}}),
+        file=sys.stderr)
     return 0
 
 

@@ -72,7 +72,7 @@ from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
 from consul_tpu_torch.sim.state import (CONF_MAX, NODE_FIELDS,
                                         STATS_FIELDS, TICK_MAX, SimState,
                                         SimStats)
-from consul_tpu_torch.utils import build
+from consul_tpu_torch.utils import build, telemetry
 
 #: the kernels' partials layout (round_kernels.cu; ``_lib`` checks it):
 #: nodes per block step, and most blocks (4 on each of the H100's 132
@@ -713,28 +713,32 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
         if blackbox and tracked is None and bb0 is None:
             raise ValueError("blackbox=True runner needs a tracked id "
                              "tensor (blackbox.default_tracked)")
-        arrays = state.node_arrays()
-        dev = arrays[0].device
-        if scalars0 is not None:
-            scalars0 = scalars0.to(device=dev, dtype=torch.float32)
-        if tracked is not None and bb0 is None:
-            tracked = tracked.to(device=dev, dtype=torch.int32)
-        else:
-            tracked = None
-        t, r, st, coo, trace, bb, scalars = cache(
-            "run", body, arrays, state.t, state.round_idx, state.stats,
-            key.to(dev), scalars0, coo if coords else None,
-            topo if coords else None, tracked if blackbox else None,
-            bb0 if blackbox else None)
-        out = SimState(*arrays, t=t, round_idx=r, stats=st)
-        res = (out, coo) if coords else (out,)
-        if record:
-            res = res + (trace,)
-        if blackbox:
-            res = res + (bb,)
-        if carry:
-            res = res + (scalars,)
-        return res[0] if len(res) == 1 else res
+        with telemetry.span("sim.runner.call"):
+            with telemetry.span("sim.runner.prologue"):
+                arrays = state.node_arrays()
+                dev = arrays[0].device
+                key = key.to(dev)
+                if scalars0 is not None:
+                    scalars0 = scalars0.to(device=dev, dtype=torch.float32)
+                if tracked is not None and bb0 is None:
+                    tracked = tracked.to(device=dev, dtype=torch.int32)
+                else:
+                    tracked = None
+            t, r, st, coo, trace, bb, scalars = cache(
+                "run", body, arrays, state.t, state.round_idx, state.stats,
+                key, scalars0, coo if coords else None,
+                topo if coords else None, tracked if blackbox else None,
+                bb0 if blackbox else None)
+            with telemetry.span("sim.runner.epilogue"):
+                out = SimState(*arrays, t=t, round_idx=r, stats=st)
+                res = (out, coo) if coords else (out,)
+                if record:
+                    res = res + (trace,)
+                if blackbox:
+                    res = res + (bb,)
+                if carry:
+                    res = res + (scalars,)
+                return res[0] if len(res) == 1 else res
 
     run.graphs = cache
     return run

@@ -65,9 +65,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from consul_tpu_torch.sim import fused
+from consul_tpu_torch.utils import telemetry
 
 #: graphs a cache keeps; the least recently used is dropped beyond it
 MAX_GRAPHS = 8
+
+#: a cache key not seen yet (a key seen once maps to None)
+_UNSEEN = object()
 
 #: captures since the process started: ``graphs`` and their ``ms``, so
 #: a caller that times a run can report the capture apart from the
@@ -148,6 +152,15 @@ class _Entry:
         self.pool_bytes = pool_bytes
         self.replays = 0
 
+    def load(self, donated, leaves) -> None:
+        """Copy a call's donated tensors and tensor arguments into the
+        static buffers."""
+        for s, x in zip(self.donated, donated):
+            s.copy_(x)
+        for s, x in zip(self.inputs,
+                        (x for x in leaves if isinstance(x, torch.Tensor))):
+            s.copy_(x)
+
 
 class GraphCache:
     """The captured bodies of one runner, keyed by its static choices
@@ -169,41 +182,57 @@ class GraphCache:
         captured on its second and replayed from then on, on the card;
         eager on the CPU and inside ``eager()``. ``key`` names the
         runner's static choices (hashable); the donated tensors are
-        updated in place; the outputs are fresh tensors."""
-        donated = tuple(donated)
+        updated in place; the outputs are fresh tensors. The call is the
+        span ``sim.graph.call``; on the card it holds ``sim.graph.eager``
+        (a key's first call) or ``sim.graph.capture`` (its second), or
+        ``sim.graph.prepare`` (the key, the copies into the static
+        buffers), ``sim.graph.launch`` (the replay) and
+        ``sim.graph.finish`` (the copies back, the outputs cloned)."""
+        with telemetry.span("sim.graph.call"):
+            return self._call(key, body, tuple(donated), args)
+
+    def _call(self, key, body, donated, args):
         dev = donated[0].device if donated else None
-        leaves, spec = tree_flatten(args)
-        full_key = (key, fused.plain_active(), spec,
-                    tuple(_tensor_spec(x) for x in donated),
-                    tuple(_tensor_spec(x) if isinstance(x, torch.Tensor)
-                          else ("leaf", x) for x in leaves))
         if dev is None or not captures(dev):
             rec = _rehearsal.get()
             if rec is None or (dev is not None and dev.type != "cpu"):
                 return body(donated, *args)
-            with rec.armed(full_key):
+            with rec.armed(self._key(key, donated, args)[2]):
                 return body(donated, *args)
-        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        if full_key not in self._entries:
+        with telemetry.span("sim.graph.prepare"):
+            leaves, spec, full_key = self._key(key, donated, args)
+            entry = self._entries.get(full_key, _UNSEEN)
+            if entry is not None and entry is not _UNSEEN:
+                self._entries.move_to_end(full_key)
+                entry.load(donated, leaves)
+        if entry is _UNSEEN:
             self._remember(full_key, None)
-            return body(donated, *args)
-        entry = self._entries[full_key]
+            with telemetry.span("sim.graph.eager"):
+                return body(donated, *args)
         if entry is None:
-            entry = self._capture(body, donated, leaves, spec)
-            self._remember(full_key, entry)
-        else:
-            self._entries.move_to_end(full_key)
-        for s, x in zip(entry.donated, donated):
-            s.copy_(x)
-        for s, x in zip(entry.inputs, tensors):
-            s.copy_(x)
-        entry.graph.replay()
-        entry.replays += 1
-        for c, d in zip(self.counters, entry.launches):
-            c.update(d)
-        for s, x in zip(entry.donated, donated):
-            x.copy_(s)
-        return _fresh(entry.out)
+            with telemetry.span("sim.graph.capture"):
+                entry = self._capture(body, donated, leaves, spec)
+                self._remember(full_key, entry)
+                entry.load(donated, leaves)
+        with telemetry.span("sim.graph.launch"):
+            entry.graph.replay()
+        with telemetry.span("sim.graph.finish"):
+            entry.replays += 1
+            for c, d in zip(self.counters, entry.launches):
+                c.update(d)
+            for s, x in zip(entry.donated, donated):
+                x.copy_(s)
+            return _fresh(entry.out)
+
+    @staticmethod
+    def _key(key, donated, args) -> tuple:
+        """(the arguments' leaves, their tree spec, the full key)."""
+        leaves, spec = tree_flatten(args)
+        return leaves, spec, (
+            key, fused.plain_active(), spec,
+            tuple(_tensor_spec(x) for x in donated),
+            tuple(_tensor_spec(x) if isinstance(x, torch.Tensor)
+                  else ("leaf", x) for x in leaves))
 
     def _remember(self, key, entry) -> None:
         self._entries[key] = entry

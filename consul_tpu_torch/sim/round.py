@@ -73,6 +73,7 @@ from consul_tpu_torch.sim.state import (ALIVE, ALIVE_AGE, CONF_MAX, DEAD,
                                         LEFT, SLOW_AGE, STATS_FIELDS,
                                         SUSPECT, TICK_MAX, TTL_NEVER,
                                         SimState, SimStats)
+from consul_tpu_torch.utils import telemetry
 
 #: scalar vector layout for the stale-scalar fast path
 #: [n_live, n_elig, n_up_elig, n_slow_up_elig,
@@ -796,8 +797,6 @@ def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
             plan: Optional[CompiledFaultPlan] = None, scalars0=None):
         if scalars0 is not None and not carry:
             raise ValueError("scalars0 needs a carry=True runner")
-        sc = init_scalars(state, p) if scalars0 is None else scalars0
-        keys = prng.round_keys(key, state.round_idx, rounds)
 
         def one_round(d, key_r):
             s = _carry_state(d)
@@ -806,12 +805,19 @@ def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
             _write(d, (*s2.node_arrays(), s2.t, s2.round_idx, *s2.stats,
                        sc2))
 
-        d = _carry(state, sc)
-        plan_key = graphs.pinned(plan) if plan is not None else None
-        for r in range(rounds):
-            cache(("round", plan_key), one_round, d, keys[r])
-        state = _carry_state(d)
-        return (state, d[_CARRY_STATE]) if carry else state
+        with telemetry.span("sim.runner.call"):
+            with telemetry.span("sim.runner.prologue"):
+                sc = init_scalars(state, p) if scalars0 is None \
+                    else scalars0
+                keys = prng.round_keys(key, state.round_idx, rounds)
+                d = _carry(state, sc)
+                plan_key = graphs.pinned(plan) if plan is not None \
+                    else None
+            for r in range(rounds):
+                cache(("round", plan_key), one_round, d, keys[r])
+            with telemetry.span("sim.runner.epilogue"):
+                state = _carry_state(d)
+                return (state, d[_CARRY_STATE]) if carry else state
 
     run.graphs = cache
     return run
@@ -829,11 +835,14 @@ def make_run_rounds(p: SimParams, rounds: int):
         _write(d, (*s2.node_arrays(), s2.t, s2.round_idx, *s2.stats))
 
     def run(state: SimState, key: torch.Tensor) -> SimState:
-        keys = prng.round_keys(key, state.round_idx, rounds)
-        d = _carry(state)
-        for r in range(rounds):
-            cache("round", one_round, d, keys[r])
-        return _carry_state(d)
+        with telemetry.span("sim.runner.call"):
+            with telemetry.span("sim.runner.prologue"):
+                keys = prng.round_keys(key, state.round_idx, rounds)
+                d = _carry(state)
+            for r in range(rounds):
+                cache("round", one_round, d, keys[r])
+            with telemetry.span("sim.runner.epilogue"):
+                return _carry_state(d)
 
     run.graphs = cache
     return run
@@ -1142,8 +1151,6 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     k = p.stale_k
     with_flight = flight_every is not None
     call = cache if cache is not None else graphs.direct
-    if lanes0 is None:
-        lanes0 = init_lanes(state, p, lane_reducer)
     pkey, pleaves = _param_inputs(p)
     plan_key = graphs.pinned(cp) if cp is not None else None
 
@@ -1174,23 +1181,29 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
         return row
 
     if overlap:
-        table = (lanes_mod.seed_table(lanes0, shard_offset)
-                 if table0 is None
-                 else lanes_mod.carry_table(table0, shard_offset))
-        d = _carry(state, lanes0, table)
+        with telemetry.span("sim.runner.prologue"):
+            if lanes0 is None:
+                lanes0 = init_lanes(state, p, lane_reducer)
+            table = (lanes_mod.seed_table(lanes0, shard_offset)
+                     if table0 is None
+                     else lanes_mod.carry_table(table0, shard_offset))
+            d = _carry(state, lanes0, table)
         for m in range(rounds // k):
             call(("overlap", pkey, plan_key), window, d,
                  keys[m * k:(m + 1) * k], pleaves, k, False)
-        s, lv_ready, table = _carry_state(d), d[_CARRY_STATE], d[-1]
-        if return_carry:
-            return s, lv_ready, lane_reducer.gather_table(table)
-        return _apply_lane_stats(s, lane_reducer.fold(table), p)
+        with telemetry.span("sim.runner.epilogue"):
+            s, lv_ready, table = _carry_state(d), d[_CARRY_STATE], d[-1]
+            if return_carry:
+                return s, lv_ready, lane_reducer.gather_table(table)
+            return _apply_lane_stats(s, lane_reducer.fold(table), p)
 
-    dev = state.status.device
-    lead = tuple(state.status.shape[:-1])
-    buf = flight.empty_trace(rounds, flight_every, dev, lead=lead) \
-        if with_flight else None
-    d = _carry(state, lanes0, *(state.stats if with_flight else ()))
+    with telemetry.span("sim.runner.prologue"):
+        if lanes0 is None:
+            lanes0 = init_lanes(state, p, lane_reducer)
+        buf = flight.empty_trace(rounds, flight_every, state.status.device,
+                                 lead=tuple(state.status.shape[:-1])) \
+            if with_flight else None
+        d = _carry(state, lanes0, *(state.stats if with_flight else ()))
     for i0 in range(0, rounds, k):
         count = min(k, rounds - i0)
         i = i0 + count - 1
@@ -1200,11 +1213,12 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
                    keys[i0:i0 + count], pleaves, count, record)
         if record:
             flight.record_row(buf, row, i, flight_every)
-    s, lv = _carry_state(d), d[_CARRY_STATE]
-    out = (s, buf) if with_flight else (s,)
-    if return_carry:
-        out = out + (lv,)
-    return out[0] if len(out) == 1 else out
+    with telemetry.span("sim.runner.epilogue"):
+        s, lv = _carry_state(d), d[_CARRY_STATE]
+        out = (s, buf) if with_flight else (s,)
+        if return_carry:
+            out = out + (lv,)
+        return out[0] if len(out) == 1 else out
 
 
 def drain_overlap(state: SimState, table: torch.Tensor, p: SimParams,
@@ -1274,15 +1288,18 @@ def make_run_rounds_lanes(p: SimParams, rounds: int,
             raise ValueError("table0 is the overlap schedule's "
                              "in-flight carry; this runner is "
                              "synchronous")
-        keys = prng.round_keys(key.to(state.status.device),
-                               state.round_idx, rounds)
-        out = _lane_scan(state, keys, cp if cp is not None else plan, p,
-                         rounds, flight_every, reducer,
-                         overlap=overlap, lanes0=lanes0, table0=table0,
-                         return_carry=carry, cache=cache)
-        if isinstance(out, SimState):
-            return _write_back(state, out)
-        return (_write_back(state, out[0]),) + tuple(out[1:])
+        with telemetry.span("sim.runner.call"):
+            with telemetry.span("sim.runner.prologue"):
+                keys = prng.round_keys(key.to(state.status.device),
+                                       state.round_idx, rounds)
+            out = _lane_scan(state, keys, cp if cp is not None else plan,
+                             p, rounds, flight_every, reducer,
+                             overlap=overlap, lanes0=lanes0, table0=table0,
+                             return_carry=carry, cache=cache)
+            with telemetry.span("sim.runner.epilogue"):
+                if isinstance(out, SimState):
+                    return _write_back(state, out)
+                return (_write_back(state, out[0]),) + tuple(out[1:])
 
     run.graphs = cache
     return run

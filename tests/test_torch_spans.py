@@ -1,0 +1,247 @@
+"""The simulation's spans (``utils/telemetry.py``) and the registry's
+samples.
+
+* With no profiler recording and no registry armed, ``span`` returns the
+  shared ``OFF`` context and a runner's call makes no ``Span``.
+* An armed registry takes every span's duration as a sample; the
+  samples snapshot as go-metrics' aggregate; ``armed`` nests.
+* Under a CPU ``torch.profiler`` every runner's call is one
+  ``sim.runner.call`` tree (paired from its marks by the benchmark's
+  ``gossipbench/spans.py``) holding its prologue, its ``GraphCache``
+  calls and its epilogue, properly nested; the marks enclose no op.
+* The CLI's default mode arms ``telemetry.default``: its snapshot holds
+  a ``sim.runner.call`` sample a chunk, and stderr prints them.
+* On the card (``cuda``): a ``GraphCache`` call's parts, and no device
+  event named after a span.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import threading
+
+import pytest
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from consul_tpu_torch import cli
+from consul_tpu_torch.sim import cuda_round, graphs, prng
+from consul_tpu_torch.sim import round as tround
+from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim.state import SimState, init_state
+from consul_tpu_torch.utils import telemetry
+from gossipbench import spans as bspans
+from test_torch_harness import cuda  # noqa: F401  (fixture)
+
+CPU = torch.device("cpu")
+N = 1024
+ROUNDS = 8
+
+#: every runner that opens a ``sim.runner.call``, by label
+RUNNERS = {
+    "kernel_r1_flight": lambda p: cuda_round.make_run_rounds_cuda(
+        p, ROUNDS, carry=True, flight_every=1),
+    "kernel_r8": lambda p: cuda_round.make_run_rounds_cuda(
+        p, ROUNDS, rounds_per_call=8),
+    "live": lambda p: tround.make_run_rounds(p, ROUNDS),
+    "fast": lambda p: tround.make_run_rounds_fast(p, ROUNDS),
+    "lanes": lambda p: tround.make_run_rounds_lanes(
+        p.with_(stale_k=4), ROUNDS),
+}
+
+
+def _params() -> SimParams:
+    return SimParams(n=N, loss=0.01, fail_per_round=1e-3,
+                     rejoin_per_round=1e-2)
+
+
+def _calls(run, calls: int, dev=CPU):
+    """``calls`` calls of ``run`` from an initial state; returns the
+    last result."""
+    state, key = init_state(N, device=dev), prng.key(5, device=dev)
+    res = None
+    for c in range(calls):
+        res = run(state, prng.fold_in(key, c))
+        state = res if isinstance(res, SimState) else res[0]
+    return res
+
+
+def _samples(reg: telemetry.Metrics) -> dict:
+    return {s["Name"].removeprefix("consul."): s
+            for s in reg.snapshot()["Samples"]}
+
+
+def test_span_is_the_shared_no_op_when_nobody_listens(monkeypatch):
+    assert telemetry.span("sim.runner.call") is telemetry.OFF
+    with telemetry.span("sim.graph.call") as sp:
+        assert sp is telemetry.OFF
+
+    def refuse(name):
+        raise AssertionError(f"a Span {name!r} was made with no listener")
+
+    monkeypatch.setattr(telemetry, "Span", refuse)
+    reg = telemetry.default
+    before = reg.snapshot()["Samples"]
+    for make in RUNNERS.values():
+        _calls(make(_params()), 2)
+    assert reg.snapshot()["Samples"] == before
+
+
+def test_samples_snapshot_as_go_metrics_aggregates():
+    reg = telemetry.Metrics()
+    for v in (1.0, 3.0, 2.0):
+        reg.sample("sim.x", v)
+    t0 = telemetry.time.perf_counter()
+    reg.measure_since("sim.y", t0)
+    got = _samples(reg)
+    assert got["sim.x"] == {"Name": "consul.sim.x", "Count": 3, "Sum": 6.0,
+                            "Min": 1.0, "Max": 3.0, "Mean": 2.0,
+                            "Labels": {}}
+    assert got["sim.y"]["Count"] == 1 and got["sim.y"]["Min"] >= 0.0
+    reg.reset()
+    assert reg.snapshot()["Samples"] == []
+
+
+def test_an_armed_registry_takes_each_span_of_three_calls():
+    reg = telemetry.Metrics()
+    run = cuda_round.make_run_rounds_cuda(_params(), ROUNDS)
+    with telemetry.armed(reg):
+        _calls(run, 3)
+    got = _samples(reg)
+    for name in ("sim.runner.call", "sim.runner.prologue",
+                 "sim.graph.call", "sim.runner.epilogue"):
+        assert got[name]["Count"] == 3, name
+    call = got["sim.runner.call"]
+    assert call["Sum"] >= call["Max"] >= call["Mean"] >= call["Min"] > 0.0
+    # the graph cache's call lies inside the runner's
+    assert got["sim.graph.call"]["Sum"] < call["Sum"]
+    assert telemetry.span("sim.runner.call") is telemetry.OFF
+
+
+def test_armed_nests_and_a_span_knows_its_parent():
+    a, b = telemetry.Metrics(), telemetry.Metrics()
+    seen = {}
+    with telemetry.armed(a):
+        with telemetry.armed(a), telemetry.armed(b):
+            with telemetry.span("sim.outer") as outer:
+                with telemetry.span("sim.inner") as inner:
+                    worker = threading.Thread(
+                        target=lambda: seen.update(
+                            other=telemetry.span("sim.other")
+                            .__enter__()))
+                    worker.start()
+                    worker.join(10)
+        assert not worker.is_alive()
+        with telemetry.span("sim.still") as still:
+            assert still is not telemetry.OFF
+    assert telemetry.span("sim.off") is telemetry.OFF
+    assert inner.parent is outer and outer.parent is None
+    # a span on another thread nests in nothing of this one
+    assert seen["other"].parent is None
+    assert outer.start <= inner.start <= inner.end <= outer.end
+    assert _samples(a)["sim.inner"]["Count"] == 2
+    assert _samples(b)["sim.inner"]["Count"] == 1
+    assert _samples(a)["sim.still"]["Count"] == 1
+
+
+def _nested(sp) -> bool:
+    """Every child lies inside its parent and after its elder sibling."""
+    last = sp.start
+    for c in sp.children:
+        if not (last <= c.start <= c.end <= sp.end) or not _nested(c):
+            return False
+        last = c.end
+    return True
+
+
+@pytest.mark.parametrize("label", sorted(RUNNERS))
+def test_runner_calls_under_the_cpu_profiler(label):
+    run = RUNNERS[label](_params())
+    _calls(run, 1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _calls(run, 2)
+    host = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CPU)
+    roots = bspans.tree(host)
+    assert [r.name for r in roots] == ["sim.runner.call"] * 2
+    for r in roots:
+        kids = [c.name for c in r.children]
+        assert kids[0] == "sim.runner.prologue", kids
+        assert kids[-1] == "sim.runner.epilogue", kids
+        assert "sim.graph.call" in kids
+        assert set(kids) == {"sim.runner.prologue", "sim.graph.call",
+                             "sim.runner.epilogue"}, kids
+        assert _nested(r)
+        # on the CPU a cache call holds its eager body alone
+        assert all(not c.children for c in r.children
+                   if c.name == "sim.graph.call")
+    # a mark encloses no op
+    marks = [(s, e) for s, e, name in host if name.startswith("sim.")]
+    assert len(marks) == 2 * sum(1 for r in roots for _ in r.walk())
+    ops = [s for s, _, name in host if name.startswith("aten::")]
+    assert not any(s < o < e for s, e in marks for o in ops)
+    assert telemetry.span("sim.runner.call") is telemetry.OFF
+
+
+def test_cli_default_mode_samples_each_chunk():
+    reg = telemetry.default
+    reg.reset()
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(["agent", "-dev", "-gossip-sim", "cpu",
+                       "-gossip-sim-nodes", str(N)])
+    assert rc == 0
+    got = _samples(reg)
+    printed = json.loads(err.getvalue().strip().splitlines()[-1])["span_ms"]
+    chunks = cli.SIM_ROUNDS // cli.SIM_CHUNK
+    for name in ("sim.runner.call", "sim.runner.prologue",
+                 "sim.graph.call", "sim.runner.epilogue"):
+        assert got[name]["Count"] == chunks, name
+        assert printed[f"consul.{name}"] == {
+            k: got[name][k] for k in ("Count", "Mean", "Max")}, name
+    assert telemetry.span("sim.runner.call") is telemetry.OFF
+    reg.reset()
+
+
+@pytest.mark.cuda
+def test_graph_cache_parts_on_the_card(cuda):  # noqa: F811
+    cache = graphs.GraphCache()
+    x = torch.zeros(1024, device=cuda)
+    reg = telemetry.Metrics()
+
+    def body(d, y):
+        d[0].add_(y)
+        return d[0] * 2
+
+    y = torch.ones(1024, device=cuda)
+    with telemetry.armed(reg):
+        for _ in range(3):
+            out = cache("k", body, (x,), y)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 3.0))
+    assert torch.equal(out, torch.full_like(x, 6.0))
+    counts = {k: v["Count"] for k, v in _samples(reg).items()}
+    assert counts == {"sim.graph.call": 3, "sim.graph.prepare": 3,
+                      "sim.graph.eager": 1, "sim.graph.capture": 1,
+                      "sim.graph.launch": 2, "sim.graph.finish": 2}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cache("k", body, (x,), y)
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    assert dev and not [n for n in dev if "sim." in n]
+    host = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CPU)
+    roots = bspans.tree(host)
+    assert [r.name for r in roots] == ["sim.graph.call"] * 3
+    assert all([c.name for c in r.children] == [
+        "sim.graph.prepare", "sim.graph.launch", "sim.graph.finish"]
+        for r in roots)
