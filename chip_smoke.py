@@ -12,7 +12,8 @@ non-zero before the result line):
               sum_kernels.cu, lane_kernels.cu: one nvcc each, in
               parallel) and prints, per kernel instantiation, ptxas's
               registers, stack frame and spills (a spill, or a stack
-              frame in a draw, sum or lane kernel, fails the run), its
+              frame in a draw, sum or lane kernel or a live stage, fails
+              the run), its
               static SASS instruction count
               (cuobjdump -sass on the built library) and, for the round
               kernels, the nodes each thread takes.
@@ -243,7 +244,7 @@ non-zero before the result line):
               launches: the lane engine at 1M (16 rounds, stale_k 4,
               flight; one lane_round launch a round, kernels a round and
               device µs a round both ways), the live engine at 1M (8
-              rounds), both on the
+              rounds; each live_round stage once a round), both on the
               byzantine check plan (12 rounds: the churn and replay
               slots), a lan grid round (64 x 65,536) on the xla and
               lanes engines (the lanes grid one lane_round launch a
@@ -267,10 +268,14 @@ non-zero before the result line):
               lane_round's (full, stable, fault, byz, a mid-window
               round, the lan autotune grid 64 x 65,536) beside
               ``costmodel.lane_bound`` and the plain body's time on the
-              same slot rows.
+              same slot rows; and each live_round stage's (the full
+              model and the live cell's WAN with churn, on the check's
+              state) beside ``costmodel.live_bound`` and the plain body's
+              live period on the same draws.
 
 Then the ``kernels`` line (the round kernels' variants, each
-``threefry/<mode>``, ``tree_sum`` and ``lane_round``: launches over the
+``threefry/<mode>``, ``tree_sum``, ``lane_round`` and the live stages
+``live_round/<a|b|c>``: launches over the
 script's paths,
 times at the main path's shapes), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -370,7 +375,7 @@ def kernel_label(symbol: str):
     """The variant whose instantiation a mangled kernel symbol names
     (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>,
     draw_kernel<MODE, index type, ROW, words a thread>, the sum
-    kernels, lane_round<FRAME, BYZ>), or None."""
+    kernels, lane_round<FRAME, BYZ>, live_round<STAGE>), or None."""
     m = re.search(r"draw_kernelILi([0-4])E([il])Lb([01])ELi([14])E", symbol)
     if m:
         return "threefry/" + ("words", "xor", "seeds", "uniform",
@@ -384,6 +389,9 @@ def kernel_label(symbol: str):
     if m:
         return {"00": "lane_round/none", "10": "lane_round/fault",
                 "11": "lane_round/byz"}.get("".join(m.groups()))
+    m = re.search(r"live_roundILi([0-2])E", symbol)
+    if m:
+        return "live_round/" + "abc"[int(m.group(1))]
     m = re.search(r"mega_kernelILb([01])E", symbol)
     if m:
         return "mega_kernel/" + ("stable" if m.group(1) == "1" else "full")
@@ -551,8 +559,9 @@ def phase_env(torch, build, cuda_round, fused, lane_kernel):
     sass = sass_counts(build, lane_kernel.SOURCE)
     lane = {k: {**regs.get(k, {}), "sass_instructions": sass.get(k)}
             for k in set(regs) | set(sass)}
-    # lane_round<FRAME, BYZ>: no frame, an honest one, a byzantine one
-    if len(lane) != 3 or any(
+    # lane_round<FRAME, BYZ>: no frame, an honest one, a byzantine one;
+    # live_round<STAGE>: the live period's stages a, b, c
+    if len(lane) != 6 or any(
             v.get("spill_bytes") != 0 or v.get("stack_bytes") != 0 or
             not v.get("registers") or not v["sass_instructions"]
             for v in lane.values()):
@@ -2785,6 +2794,8 @@ WRAP = 2**32 - 1000
 #: the draw and sum kernels, by their launch counters' names
 DRAW_KERNELS = ("threefry/words", "threefry/xor", "threefry/seeds",
                 "threefry/uniform", "threefry/u01_global", "tree_sum")
+#: the live period's three stages (``live_kernel.NAMES``)
+LIVE_KERNELS = ("live_round/a", "live_round/b", "live_round/c")
 #: the slot sets the engines draw (round.draw_slots): the headline
 #: config's, the full model's (slow), a churn model's, a fault frame's
 #: with the slow model, a byzantine frame's (the replay slot), all six
@@ -3095,6 +3106,8 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
                      "round_kernel_launches": rk}
         rep[side]["lane_round_launches_per_round"] = \
             timed.get("lane_round", 0) / rounds
+        rep[side]["live_round_launches_per_round"] = {
+            k: timed.get(k, 0) / rounds for k in LIVE_KERNELS}
         if side == "kernels":
             launches = counts
             fry = sum(v for k, v in timed.items()
@@ -3123,6 +3136,13 @@ def engine_pair(torch, m, dev, label, prep, call, rounds, warm, traced,
                                                 "grid round lanes")) \
             and per_round != 1:
         bad.append(f"{label}: {per_round} lane_round launches a round")
+    # the live engine: each live_round stage once a round on the kernels;
+    # on a fault plan the plain body
+    live = rep["kernels"]["live_round_launches_per_round"]
+    want = 1.0 if label.startswith("live engine x") else 0.0
+    if dev.type == "cuda" and label.startswith("live engine") \
+            and set(live.values()) != {want}:
+        bad.append(f"{label}: live_round launches a round {live}")
     rep["launches"] = launches
     return rep, bad, launches
 
@@ -3584,9 +3604,65 @@ def time_lane_kernel(torch, m, inputs) -> dict:
     return out
 
 
+def live_timing_cases(m, n) -> list:
+    """(label, params) of each live period ``time_live_kernel`` times:
+    the full model (the slow model, counters) and the live cell's
+    deployment (``gossipbench/configs/wan-1m-churn5.json``: the WAN with
+    5%/min churn) at ``n`` agents."""
+    from gossipbench.program import SIM_FIELDS
+
+    cfg = json.loads((pathlib.Path(__file__).parent / "gossipbench"
+                      / "configs" / "wan-1m-churn5.json").read_text())
+    return [("full", m.bench.diag_params(n)),
+            ("wan-1m-churn5", m.params.SimParams(
+                n=n, **{f: cfg[f] for f in SIM_FIELDS}))]
+
+
+def time_live_kernel(torch, m, inputs) -> dict:
+    """Each stage of a live period (``live_kernel``) on the check state:
+    its ``launch_times`` on the sums its chain gives it, its bound
+    (``costmodel.live_bound``), and the plain body's period on the same
+    draws (the period's, on each of its stages' rows)."""
+    arrays = inputs[0]
+    dev = arrays[0].device
+    n = arrays[0].shape[0]
+    LV = m.live_kernel
+    out = {}
+    for label, p in live_timing_cases(m, n):
+        slots = m.round.draw_slots(p)
+        u01 = m.prng.threefry_u01(m.prng.key(47, device=dev), n, slots)
+        per = LV.Period(arrays, u01, slots, p, None)
+        LV.launch(per, 0, [])
+        sa = [torch.sum(r) for r in per.rows]
+        LV.launch(per, 1, sa)
+        sums = ([], sa, sa + [torch.sum(r) for r in per.rows])
+        state = m.state.SimState(
+            *arrays, t=torch.zeros((), device=dev),
+            round_idx=torch.zeros((), dtype=torch.int32, device=dev),
+            stats=m.state.SimStats.zeros(dev))
+
+        def plain():
+            with m.fused.plain():
+                m.round.round_core(state, None, p, u01)
+
+        plain_ms = _events_ms(torch, plain, 3, warm=1)
+        for stage, name in enumerate(LIVE_KERNELS):
+            def kern(stage=stage):
+                LV.launch(per, stage, sums[stage])
+
+            bound = m.costmodel.live_bound(arrays, slots, stage,
+                                           p.collect_stats, p.has_churn)
+            t = launch_times(torch, kern, 200)
+            out[f"{name} {label}"] = {
+                **t, "plain_ms": plain_ms, **bound,
+                "x_bound": t["ms"] / bound["bound_ms"]}
+    return out
+
+
 def phase_timing(torch, m, inputs):
     out = time_kernels(torch, m, inputs)
     out.update(time_lane_kernel(torch, m, inputs))
+    out.update(time_live_kernel(torch, m, inputs))
     emit({"phase": "timing", "n": N, "kernels": out})
     return out
 
@@ -3606,6 +3682,11 @@ def modules():
     except ImportError:
         # a checkout from before the lane kernel (kernel_ab.py times one)
         lane_kernel = None
+    try:
+        from consul_tpu_torch.sim import live_kernel
+    except ImportError:
+        # a checkout from before the live stages
+        live_kernel = None
     from consul_tpu_torch.utils import telemetry
 
     return types.SimpleNamespace(
@@ -3613,7 +3694,8 @@ def modules():
         checkpoint=checkpoint, cli=cli, config=config, coords=coords,
         costmodel=costmodel, cuda_round=cuda_round, faults=faults,
         flight=flight, fused=fused, graft_entry=graft_entry, graphs=graphs,
-        lane_kernel=lane_kernel, lanes=lanes, mesh=mesh, metrics=metrics,
+        lane_kernel=lane_kernel, lanes=lanes, live_kernel=live_kernel,
+        mesh=mesh, metrics=metrics,
         params=params, prng=prng, round=round, scenarios=scenarios,
         state=state, sweep=sweep, telemetry=telemetry, topology=topology,
         twin=twin, views=views)
@@ -3710,6 +3792,19 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None})
+    # the live period's stages on the live cell's deployment; bit for bit
+    # against the plain body in phases graphs and draws
+    for name in LIVE_KERNELS:
+        t = timing[f"{name} wan-1m-churn5"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "consul_tpu_torch/csrc/lane_kernels.cu",
+            "replaces": "consul_tpu/sim/round.py:113 (_round_core, live "
+                        "mode: the fusions between its sums)",
+            "launches": draw_launches[name], "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 // The exact lane engine's protocol period for Hopper (sm_90a), bound
-// through ctypes.
+// through ctypes; and the live engine's period as three stages around its
+// population sums (live_round<STAGE>, at the end of the file).
 //
 // What it replaces. The JAX package runs the lane engine's round
 // (consul_tpu/sim/round.py:766 _lane_contributions -> _round_core,
@@ -159,6 +160,39 @@ struct FrameArrays {
   const float* spur_susp;
   const float* replay;
   const uint8_t* attacked;
+};
+
+// One stage of a live period (live_round below). Field order must match
+// LiveIO in consul_tpu_torch/sim/live_kernel.py.
+struct LiveIO {
+  const int8_t* status;
+  const int16_t* inc;
+  const float* informed;
+  const int16_t* age;
+  const int16_t* slen;
+  const int16_t* sttl;
+  const int8_t* conf;
+  const int8_t* lh;
+  int8_t* o_status;      // stage c: the new lanes (may be the inputs)
+  int16_t* o_inc;
+  float* o_informed;
+  int16_t* o_age;
+  int16_t* o_slen;
+  int16_t* o_sttl;
+  int8_t* o_conf;
+  int8_t* o_lh;
+  const float* tab;      // the constant table [1, N_COLS]
+  const float* u_churn;  // the round's slot rows (null where not drawn)
+  const float* u_slow;
+  const float* u_ack;
+  const float* u_pois;
+  const float* u_hear;
+  const float* sums[8];  // the population sums (0-d): stage a's, b's rows
+  float* rows;           // stages a and b: [4, stride]
+  int32_t* counts;       // stage c: [7, stride] counter rows
+  float* lat;            // stage c: [stride] latency row
+  long long stride;      // a row's length, padded
+  int stats;             // stage c: write the counter rows
 };
 
 namespace {
@@ -558,9 +592,8 @@ lane_round(const LaneConsts C, const LaneIO io, const FrameArrays fr) {
   }
 }
 
-template <bool FRAME, bool BYZ>
-int launch(const LaneConsts& c, const LaneIO& io, const FrameArrays& fr,
-           cudaStream_t stream) {
+// the card's SMs, asked once
+int card_sms() {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -568,13 +601,282 @@ int launch(const LaneConsts& c, const LaneIO& io, const FrameArrays& fr,
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
   }
+  return sms;
+}
+
+template <bool FRAME, bool BYZ>
+int launch(const LaneConsts& c, const LaneIO& io, const FrameArrays& fr,
+           cudaStream_t stream) {
   // blocks a point: its nodes, at most the card's share a point
   const int need = (c.row_len + THREADS - 1) / THREADS;
-  int cap = sms * BLOCKS_PER_SM / c.points;
+  int cap = card_sms() * BLOCKS_PER_SM / c.points;
   if (cap < 1) cap = 1;
   const dim3 grid(need < cap ? need : cap, c.points);
   lane_round<FRAME, BYZ><<<grid, THREADS, 0, stream>>>(c, io, fr);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ live period
+//
+// What it replaces. The JAX package's live engine (consul_tpu/sim/
+// round.py:649 gossip_round -> _round_core, :113, scalars=None) is one
+// jitted program, which XLA compiles into elementwise fusions between
+// its population sums. The port's plain version (round._round_body with
+// scalars=None: no frame, no grid) is ~420 PyTorch launches a period. It
+// computes its population scalars from this period's own post-churn
+// arrays, in three torch.sum stages each fed by the one before
+// (_round_body's first _sums call, then the pf and the Lifeguard sums,
+// both on the first's scalars). live_round<STAGE> is the body between
+// them, each stage redoing the per-node steps it needs from the packed
+// lanes and the drawn slot rows in registers rather than storing them:
+// a stage is bound by the bytes it moves, and rereading the 15 B of
+// state an agent (16 MB at 1M agents, which the 50 MB L2 holds) costs
+// less than writing and reading back what an earlier stage computed.
+//  a  churn and the slow model; writes the first sums' 4 rows (up,
+//     eligible, up x eligible, slow, up and eligible);
+//  b  a's steps, the population terms from a's sums, the prober's miss
+//     terms, the ack and the Lifeguard update; writes the 4 rows of the
+//     second and third sums (up x pf_fast, up x pf_slow,
+//     w_fail x (lh + 1), w_fail);
+//  c  b's steps and the rest of the period on all 8 sums; writes the 8
+//     lanes narrowed (in place where the wrapper hands it the inputs:
+//     each thread reads its node before it writes it) and, with stats,
+//     the counter rows _stats_add sums (int32, and the f32 latency).
+// The sums stay ATen's, one row each, as the plain body takes them, so
+// the period is bit for bit the plain body's; the arithmetic follows the
+// rules at the top of this file (the stale lane_round's device helpers).
+
+// the per-node state after churn and the slow model (round._round_body's
+// first two steps)
+struct LiveNode {
+  int age, status, inc, slen, sttl, s_conf, lh;
+  float informed;
+  bool up, slow, new_rumor, crash, leave, rejoin;
+};
+
+__device__ __forceinline__ LiveNode live_churn(const LiveIO& io,
+                                               const float* T,
+                                               const LaneConsts& C,
+                                               int i) {
+  LiveNode v;
+  v.age = io.age[i];
+  v.up = v.age < 0;
+  v.slow = v.age == SLOW_AGE;
+  v.status = io.status[i];
+  v.inc = io.inc[i];
+  v.informed = io.informed[i];
+  v.slen = io.slen[i];
+  v.sttl = io.sttl[i];
+  v.s_conf = io.conf[i];
+  v.lh = io.lh[i];
+  v.new_rumor = v.crash = v.leave = v.rejoin = false;
+  if (v.age >= 0) v.age = min(v.age + 1, TICK_MAX);
+  if (C.churn_on) {
+    const float u = io.u_churn[i];
+    v.crash = v.up && (u < T[FAIL]);
+    v.leave = v.up && (u >= T[FAIL]) && (u < T[FAIL_LEAVE]);
+    v.rejoin = !v.up && (u < T[REJOIN]);
+    v.up = (v.up && !(v.crash || v.leave)) || v.rejoin;
+    if (v.crash || v.leave) v.age = 0;
+    if (v.rejoin) v.age = ALIVE_AGE;
+    v.slow = v.slow && v.up;
+    if (v.leave) v.status = LEFT;
+    if (v.rejoin) {
+      v.status = ALIVE;
+      v.inc = min(v.inc + 1, TICK_MAX);
+      v.lh = 0;
+    }
+    if (v.leave || v.rejoin) {
+      v.informed = C.inv_n;
+      v.sttl = TTL_NEVER;
+      v.new_rumor = true;
+    }
+  }
+  if (C.slow_on) {
+    const float u_s = io.u_slow[i];
+    v.slow = (v.slow ? (u_s >= T[RECOVER]) : (u_s < T[SLOW])) && v.up;
+  }
+  return v;
+}
+
+// the live body's population terms (round._round_body's mean-field
+// population, target-side suspicion and Lifeguard scale) from its sums:
+// stage b reads the first four, c all eight
+__device__ __forceinline__ Shared live_derive(const LiveIO& io, bool all,
+                                              const float* T,
+                                              const LaneConsts& C) {
+  Shared d;
+  d.n_live = *io.sums[0];
+  d.n_elig = cmin_lo(*io.sums[1], 1.0f);
+  d.n_up_elig = cmin_lo(*io.sums[2], 1e-9f);
+  d.sbar = *io.sums[3] / d.n_up_elig;
+  d.frac_up_elig = d.n_up_elig / d.n_elig;
+  d.live_frac = d.n_live * C.recip_n;
+  d.e_pf_fast = d.e_pf_slow = d.probe_rate = 0.0f;
+  d.scale = 1.0f;
+  d.log_den = 0.0f;
+  if (all) {
+    const float nl = cmin_lo(d.n_live, 1e-9f);
+    d.e_pf_fast = *io.sums[4] / nl;
+    d.e_pf_slow = *io.sums[5] / nl;
+    d.probe_rate = d.n_live / cmin_lo(d.n_elig - 1.0f, 1.0f);
+    if (C.lifeguard) d.scale = *io.sums[6] / cmin_lo(*io.sums[7], 1e-9f);
+    d.log_den = logf(T[CONF_K] + 1.0f);
+  }
+  return d;
+}
+
+template <int STAGE>
+__global__ void __launch_bounds__(THREADS)
+live_round(const LaneConsts C, const LiveIO io) {
+  __shared__ Shared sh;
+  __shared__ float T[N_COLS];
+  if (threadIdx.x < N_COLS) T[threadIdx.x] = io.tab[threadIdx.x];
+  __syncthreads();
+  if (STAGE > 0 && threadIdx.x == 0) sh = live_derive(io, STAGE == 2, T, C);
+  __syncthreads();
+  const Shared D = sh;
+  const long long S = io.stride;
+  const int amax = (int)T[AMAX];
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < C.rows;
+       i += stride) {
+    LiveNode v = live_churn(io, T, C, i);
+    bool up = v.up;
+    const bool elig = v.status == ALIVE || v.status == SUSPECT;
+    const float upf = f(up);
+    if (STAGE == 0) {
+      const float eligf = f(elig);
+      io.rows[i] = upf;
+      io.rows[S + i] = eligf;
+      io.rows[2 * S + i] = upf * eligf;
+      io.rows[3 * S + i] = f(v.slow && up && elig);
+      continue;
+    }
+
+    // the prober's miss terms, the ack and the Lifeguard update
+    const float gi = v.slow ? T[SF] : 1.0f;
+    const bool patience_on = C.lifeguard && C.slow_on;
+    const float patience = patience_on ? 1.0f - exp2f(-(float)v.lh) : 0.0f;
+    const float pf_fast =
+        noack<false>(gi, 1.0f, patience, 1.0f, 1.0f, D, T, C);
+    const float pf_slow =
+        noack<false>(gi, T[SF], patience, 1.0f, 1.0f, D, T, C);
+    const float mix_i = (1.0f - D.sbar) * pf_fast + D.sbar * pf_slow;
+    const float p_ack = D.frac_up_elig * (1.0f - mix_i);
+    const bool ack = up && (io.u_ack[i] < p_ack);
+    const bool failed = up && !ack;
+    int lh = v.lh;
+    if (C.lifeguard) lh = min(max(lh + (int)failed - (int)ack, 0), amax);
+    if (STAGE == 1) {
+      const float w_fail = upf * (1.0f - p_ack);
+      io.rows[i] = upf * pf_fast;
+      io.rows[S + i] = upf * pf_slow;
+      io.rows[2 * S + i] = w_fail * ((float)lh + 1.0f);
+      io.rows[3 * S + i] = w_fail;
+      continue;
+    }
+
+    // target-side suspicion
+    int status = v.status, inc = v.inc, slen = v.slen, sttl = v.sttl;
+    int s_conf = v.s_conf;
+    float informed = v.informed;
+    bool new_rumor = v.new_rumor;
+    const float base_fail = v.slow ? D.e_pf_slow : D.e_pf_fast;
+    float p_fail_j = up ? base_fail : 1.0f;
+    if (C.gate_on)
+      p_fail_j = p_fail_j * detection_gate(up, 0.0f, 1.0f, T, C);
+    const float lam_fail = D.probe_rate * p_fail_j * f(elig);
+    const int n_fail = trunc_poisson(io.u_pois[i], lam_fail, C);
+
+    // carried suspicion timers advance one tick
+    if (status == SUSPECT) sttl = sttl - 1;
+
+    const bool starts = n_fail > 0 && status == ALIVE;
+    const bool confirms = n_fail > 0 && status == SUSPECT;
+    const int c0 = max(n_fail - 1, 0);
+    const float timeout0 =
+        D.scale * T[SMAX] * shrink(c0, T, C, D.log_den);
+    const float ticks0 = ceilf(timeout0 * C.recip_pi);
+    const int len0 = (int)cmax_hi(ticks0, (float)TICK_MAX);
+    if (starts) {
+      status = SUSPECT;
+      slen = len0;
+      sttl = len0;
+      s_conf = c0;
+      informed = C.inv_n;
+      new_rumor = true;
+    }
+
+    // existing suspicions: independent confirmations shrink the timer
+    const int c_new = min(s_conf + n_fail, CONF_MAX);
+    const float ratio = shrink(c_new, T, C, D.log_den) /
+                        shrink(s_conf, T, C, D.log_den);
+    const int len2 = (int)ceilf((float)slen * ratio);
+    if (confirms) {
+      sttl = sttl - (slen - len2);
+      slen = len2;
+      s_conf = c_new;
+    }
+
+    // refutation (the race)
+    const float lam_hear = T[FANOUT] * informed * T[OML] * gi;
+    const float p_hear = 1.0f - expf(-lam_hear);
+    const bool wrongly =
+        up && (status == SUSPECT || status == DEAD) && !new_rumor;
+    const bool refute = wrongly && (io.u_hear[i] < p_hear);
+    if (refute) {
+      status = ALIVE;
+      inc = min(inc + 1, TICK_MAX);
+      informed = C.inv_n;
+      sttl = TTL_NEVER;
+      slen = 0;
+      s_conf = 0;
+      new_rumor = true;
+    }
+    if (C.lifeguard) lh = min(max(lh + (int)refute, 0), amax);
+
+    // dead declaration
+    const bool declare = status == SUSPECT && sttl <= 0;
+    if (declare) {
+      status = DEAD;
+      informed = C.inv_n;
+      sttl = TTL_NEVER;
+      new_rumor = true;
+    }
+    const float lat = (float)(v.age + 1) * T[PI];
+
+    // epidemic growth
+    const bool grow = !new_rumor && informed < 1.0f;
+    const float lam_g = T[FANOUT] * informed * T[OML];
+    const float grown = informed + (1.0f - informed) * (1.0f - expf(-lam_g));
+    if (grow) informed = grown;
+
+    const int age_out = up ? (v.slow ? SLOW_AGE : ALIVE_AGE) : v.age;
+    io.o_status[i] = (int8_t)status;
+    io.o_inc[i] = (int16_t)inc;
+    io.o_informed[i] = informed;
+    io.o_age[i] = (int16_t)age_out;
+    io.o_slen[i] = (int16_t)slen;
+    io.o_sttl[i] = (int16_t)sttl;
+    io.o_conf[i] = (int8_t)s_conf;
+    io.o_lh[i] = (int8_t)lh;
+    if (io.stats) {
+      // STATS_FIELDS' rows but the latency and the attack counters
+      const bool tp = declare && !up;
+      int32_t* k = io.counts + i;
+      k[0] = starts;
+      k[S] = refute;
+      k[2 * S] = declare && up;
+      k[3 * S] = tp;
+      io.lat[i] = tp ? lat : 0.0f;
+      if (C.churn_on) {
+        k[4 * S] = v.crash;
+        k[5 * S] = v.rejoin;
+        k[6 * S] = v.leave;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -610,6 +912,30 @@ int launch_lane_round(LaneConsts c, LaneIO io, FrameArrays fr, int frame,
     case 2: return launch<true, true>(c, io, fr, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bytes of the struct a live stage takes besides LaneConsts.
+int live_io_size() { return (int)sizeof(LiveIO); }
+
+// One stage (0, 1, 2: a, b, c) of a live period over c.rows nodes of one
+// run (c.points 1). Returns cudaGetLastError() after the launch (0 = ok),
+// or cudaErrorInvalidValue for a stage it does not know or a shape it
+// cannot launch.
+int launch_live_round(LaneConsts c, LiveIO io, int stage, void* stream) {
+  if (c.rows <= 0 || c.points != 1 || c.row_len != c.rows ||
+      io.stride < c.rows)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int need = (c.rows + THREADS - 1) / THREADS;
+  const int cap = card_sms() * BLOCKS_PER_SM;
+  const dim3 grid(need < cap ? need : cap);
+  switch (stage) {
+    case 0: live_round<0><<<grid, THREADS, 0, s>>>(c, io); break;
+    case 1: live_round<1><<<grid, THREADS, 0, s>>>(c, io); break;
+    case 2: live_round<2><<<grid, THREADS, 0, s>>>(c, io); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 const char* lane_kernels_error_string(int code) {

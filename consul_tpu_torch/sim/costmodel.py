@@ -62,7 +62,7 @@ from consul_tpu_torch.sim import (cuda_round, fused, graphs, lane_kernel,
 from consul_tpu_torch.sim.flight import trace_bytes
 from consul_tpu_torch.sim.round import (make_run_rounds, make_run_rounds_fast,
                                         make_run_rounds_lanes)
-from consul_tpu_torch.sim.state import SimState, init_state
+from consul_tpu_torch.sim.state import NODE_FIELDS, SimState, init_state
 from consul_tpu_torch.utils.platform import default_device, device_name
 
 # ------------------------------------------------------ analytic model
@@ -431,6 +431,41 @@ def lane_bound(vals, u, fx=None, stats: str = "write",
                                      else 0)
     return {"read_bytes": read, "written_bytes": written,
             **_bound(read + written, 0, rows * per_node)}
+
+
+#: the state lanes each stage of a live period needs (``live_kernel``):
+#: a churns and tests the slow model (status, down_age), b adds the
+#: Lifeguard update (local_health), c the whole period
+LIVE_STAGE_LANES = (("status", "down_age"),
+                    ("status", "down_age", "local_health"), None)
+#: the slots each stage reads, of those the round draws (c all of them)
+LIVE_STAGE_SLOTS = ((0, 1), (0, 1, 2), None)
+
+
+def live_bound(vals, slots: tuple, stage: int, stats: bool,
+               churn: bool) -> dict:
+    """The least time one launch of live-period stage ``stage`` (0, 1, 2:
+    a, b, c) could take, in bytes over the HBM rate: the state lanes
+    and drawn slot rows it needs (``LIVE_STAGE_LANES``,
+    ``LIVE_STAGE_SLOTS``), its sums and the constant table's row read
+    once; its 4 sum rows (a, b) or the new lanes and, with ``stats``,
+    the counter rows (c: the latency and the first four counters, the
+    three churn counters under ``churn``) written once."""
+    rows = vals[0].numel()
+    lanes = LIVE_STAGE_LANES[stage] or NODE_FIELDS
+    node = sum(a.element_size() for f, a in zip(NODE_FIELDS, vals)
+               if f in lanes)
+    want = LIVE_STAGE_SLOTS[stage]
+    drawn = sum(1 for s in slots if want is None or s in want)
+    read = rows * (node + 4 * drawn) + 4 * (4 * stage
+                                            + len(lane_kernel.COLUMNS))
+    if stage < 2:
+        written = rows * 4 * 4
+    else:
+        written = rows * (sum(a.element_size() for a in vals)
+                          + (4 * (5 + 3 * churn) if stats else 0))
+    return {"read_bytes": read, "written_bytes": written,
+            **_bound(read + written, 0, 0)}
 
 
 # ---------------------------------------- counted and timed attribution

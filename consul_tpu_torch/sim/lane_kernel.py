@@ -51,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -398,63 +399,35 @@ def lane_round(vals: Sequence[torch.Tensor], scal: torch.Tensor,
 # ------------------------------------------------------------------ twin
 
 
-def twin(vals, scal, u, slots, c: LaneConsts, tab: torch.Tensor,
-         fx: Optional[FaultFrame], stack: torch.Tensor, stats: str = "write",
-         inst: bool = True, rule: str = CPU_RULE) -> tuple:
-    """The kernel's period in PyTorch, from the constants ``c`` and the
-    table ``tab`` under the division ``rule`` (``RULES``): a point's
-    terms on 0-d tensors (``[G, 1]`` for a grid), the per-node chain on
-    the lanes' shape in the kernel's (and the plain body's) order.
-    Writes ``stack`` as the kernel does and returns the 8 new lanes in
-    the input dtypes."""
-    if rule not in RULES:
-        raise ValueError(f"rule must be one of {RULES}; got {rule!r}")
-    frame = fx is not None
-    byz = frame and fx.attacked is not None
-    dev = vals[0].device
-    at = {s: i for i, s in enumerate(slots)}
-    grid = vals[0].dim() == 2
+def by_number(x, b, rb, rule: str):
+    """``x / b`` for a Python number ``b`` as ATen divides under ``rule``:
+    a product with its f32 reciprocal ``rb`` on the card, a division on
+    the CPU."""
+    return x * rb if rule == CARD_RULE else x / b
 
+
+def columns(tab: torch.Tensor, grid: bool):
+    """A reader of the table's columns by name: a point's 0-d entry, or
+    a grid's ``[G, 1]`` column."""
     def col(name):
         k = COL[name]
         return tab[:, k:k + 1] if grid else tab[0, k]
 
-    pi = col("probe_interval")
-    amax = col("awareness_max").to(_I32)
-    sf = col("slow_factor")
-    fanout, oml = col("fanout_ticks"), col("one_minus_loss")
+    return col
 
-    def by_number(x, b, rb):
-        return x * rb if rule == CARD_RULE else x / b
 
-    def clamp_lh(x):
-        return torch.minimum(torch.clamp_min(x, 0), amax)
+def _clamp_lh(x, col):
+    return torch.minimum(torch.clamp_min(x, 0),
+                         col("awareness_max").to(_I32))
 
-    # the terms every node of a point shares (derive() in the kernel)
-    if grid:
-        scal = scal.unsqueeze(-1)
-    n_live, n_elig, n_up_elig = scal[0], scal[1], scal[2]
-    sbar = scal[3] / n_up_elig
-    frac_up_elig = n_up_elig / n_elig
-    live_frac = by_number(n_live, c.n_f, c.recip_n)
-    nl = torch.clamp_min(n_live, 1e-9)
-    e_pf_fast, e_pf_slow = scal[4] / nl, scal[5] / nl
-    probe_rate = n_live / torch.clamp_min(n_elig - 1.0, 1.0)
-    if c.lifeguard:
-        scale = scal[6] / scal[7]
-        if byz:
-            scale = torch.clamp_min(scale, 1.0)
-    else:
-        scale = torch.ones((), dtype=_F32, device=dev)
-    log_den = torch.log(col("confirmation_k") + 1.0)
 
-    def shrink(cc):
-        if not c.shrink_on:
-            return torch.ones_like(cc, dtype=_F32)
-        frac = torch.log(cc.to(_F32) + 1.0) / log_den
-        return torch.maximum(1.0 - col("shrink_omr") * frac,
-                             col("shrink_r"))
-
+def churn_twin(vals, u, at: dict, c: LaneConsts, col,
+               fx: Optional[FaultFrame]) -> SimpleNamespace:
+    """A period's first steps in the kernels' (and the plain body's)
+    order: the lanes widened, the dead aged, churn and the slow model.
+    ``at`` maps a slot to its row of ``u``. Returns the per-node tensors
+    by name."""
+    frame = fx is not None
     (status_in, inc_in, informed, age_in, slen_in, sttl_in, conf_in,
      lh_in) = vals
     age = age_in.to(_I32)
@@ -501,12 +474,23 @@ def twin(vals, scal, u, slots, c: LaneConsts, tab: torch.Tensor,
         slow = torch.where(slow, u_s >= col("slow_recover_p"),
                            u_s < col("slow_p")) & up
     slow_eff = (slow | fx.slow_f) & up if frame else slow
+    return SimpleNamespace(
+        age=age, up=up, slow=slow, slow_eff=slow_eff, status=status,
+        inc=inc, informed=informed, slen=slen, sttl=sttl, s_conf=s_conf,
+        lh=lh, new_rumor=new_rumor, crash=crash, leave=leave,
+        rejoin=rejoin)
 
-    elig = (status == ALIVE) | (status == SUSPECT)
-    eligf = elig.to(_F32)
-    g = torch.where(slow_eff, sf, 1.0).to(_F32)
+
+def probe_twin(v: SimpleNamespace, sbar, frac_up_elig, live_frac, u_ack,
+               c: LaneConsts, col, fx: Optional[FaultFrame]) -> tuple:
+    """The prober's side of a period on ``churn_twin``'s nodes ``v`` and
+    a point's population terms: ``(g, pf_fast, pf_slow, p_ack, ack, lh)``,
+    ``lh`` after the Lifeguard update."""
+    frame = fx is not None
+    sf = col("slow_factor")
+    g = torch.where(v.slow_eff, sf, 1.0).to(_F32)
     if c.lifeguard and (frame or c.slow_on):
-        patience = 1.0 - torch.exp2(-lh.to(_F32))
+        patience = 1.0 - torch.exp2(-v.lh.to(_F32))
     else:
         patience = torch.zeros_like(g)
     if frame:
@@ -533,10 +517,68 @@ def twin(vals, scal, u, slots, c: LaneConsts, tab: torch.Tensor,
     pf_slow = noack(sf)
     mix_i = (1.0 - sbar) * pf_fast + sbar * pf_slow
     p_ack = frac_up_elig * (1.0 - mix_i)
-    ack = up & (u[at[U_ACK]] < p_ack)
-    failed = up & ~ack
+    ack = v.up & (u_ack < p_ack)
+    failed = v.up & ~ack
+    lh = v.lh
     if c.lifeguard:
-        lh = clamp_lh(lh + failed.to(_I32) - ack.to(_I32))
+        lh = _clamp_lh(lh + failed.to(_I32) - ack.to(_I32), col)
+    return g, pf_fast, pf_slow, p_ack, ack, lh
+
+
+def twin(vals, scal, u, slots, c: LaneConsts, tab: torch.Tensor,
+         fx: Optional[FaultFrame], stack: torch.Tensor, stats: str = "write",
+         inst: bool = True, rule: str = CPU_RULE) -> tuple:
+    """The kernel's period in PyTorch, from the constants ``c`` and the
+    table ``tab`` under the division ``rule`` (``RULES``): a point's
+    terms on 0-d tensors (``[G, 1]`` for a grid), the per-node chain on
+    the lanes' shape in the kernel's (and the plain body's) order.
+    Writes ``stack`` as the kernel does and returns the 8 new lanes in
+    the input dtypes."""
+    if rule not in RULES:
+        raise ValueError(f"rule must be one of {RULES}; got {rule!r}")
+    frame = fx is not None
+    byz = frame and fx.attacked is not None
+    dev = vals[0].device
+    at = {s: i for i, s in enumerate(slots)}
+    grid = vals[0].dim() == 2
+    col = columns(tab, grid)
+    pi = col("probe_interval")
+    fanout, oml = col("fanout_ticks"), col("one_minus_loss")
+
+    # the terms every node of a point shares (derive() in the kernel)
+    if grid:
+        scal = scal.unsqueeze(-1)
+    n_live, n_elig, n_up_elig = scal[0], scal[1], scal[2]
+    sbar = scal[3] / n_up_elig
+    frac_up_elig = n_up_elig / n_elig
+    live_frac = by_number(n_live, c.n_f, c.recip_n, rule)
+    nl = torch.clamp_min(n_live, 1e-9)
+    e_pf_fast, e_pf_slow = scal[4] / nl, scal[5] / nl
+    probe_rate = n_live / torch.clamp_min(n_elig - 1.0, 1.0)
+    if c.lifeguard:
+        scale = scal[6] / scal[7]
+        if byz:
+            scale = torch.clamp_min(scale, 1.0)
+    else:
+        scale = torch.ones((), dtype=_F32, device=dev)
+    log_den = torch.log(col("confirmation_k") + 1.0)
+
+    def shrink(cc):
+        if not c.shrink_on:
+            return torch.ones_like(cc, dtype=_F32)
+        frac = torch.log(cc.to(_F32) + 1.0) / log_den
+        return torch.maximum(1.0 - col("shrink_omr") * frac,
+                             col("shrink_r"))
+
+    v = churn_twin(vals, u, at, c, col, fx)
+    age, up, slow, slow_eff = v.age, v.up, v.slow, v.slow_eff
+    status, inc, informed = v.status, v.inc, v.informed
+    slen, sttl, s_conf, new_rumor = v.slen, v.sttl, v.s_conf, v.new_rumor
+    crash, leave, rejoin = v.crash, v.leave, v.rejoin
+    elig = (status == ALIVE) | (status == SUSPECT)
+    eligf = elig.to(_F32)
+    g, pf_fast, pf_slow, p_ack, ack, lh = probe_twin(
+        v, sbar, frac_up_elig, live_frac, u[at[U_ACK]], c, col, fx)
 
     base_fail = torch.where(slow_eff, e_pf_slow, e_pf_fast)
     if frame:
@@ -554,7 +596,8 @@ def twin(vals, scal, u, slots, c: LaneConsts, tab: torch.Tensor,
     cdf = term
     for k in range(1, 5):
         n_fail = n_fail + (u_pois > cdf).to(_I32)
-        term = by_number(term * lam_fail, float(k), c.recip_k[k - 1])
+        term = by_number(term * lam_fail, float(k), c.recip_k[k - 1],
+                         rule)
         cdf = cdf + term
 
     sttl = torch.where(status == SUSPECT, sttl - 1, sttl)
@@ -563,7 +606,7 @@ def twin(vals, scal, u, slots, c: LaneConsts, tab: torch.Tensor,
     c0 = torch.clamp_min(n_fail - 1, 0)
     timeout0 = scale * col("susp_max_s") * shrink(c0)
     ticks0 = torch.ceil(timeout0 / pi if c.div_pi
-                        else by_number(timeout0, pi, c.recip_pi))
+                        else by_number(timeout0, pi, c.recip_pi, rule))
     len0 = torch.clamp_max(ticks0, float(TICK_MAX)).to(_I32)
     status = torch.where(starts, SUSPECT, status)
     slen = torch.where(starts, len0, slen)
@@ -595,7 +638,7 @@ def twin(vals, scal, u, slots, c: LaneConsts, tab: torch.Tensor,
     s_conf = torch.where(refute, 0, s_conf)
     new_rumor = new_rumor | refute
     if c.lifeguard:
-        lh = clamp_lh(lh + refute.to(_I32))
+        lh = _clamp_lh(lh + refute.to(_I32), col)
 
     if byz:
         bump = up & (status == ALIVE) & ~new_rumor \

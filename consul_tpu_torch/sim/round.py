@@ -21,6 +21,11 @@ versions in ``cuda_round.py``, so they cannot drift:
   the card its round is one launch of the lane kernel
   (``sim/lane_kernel.py``), whose plain version is this body.
 
+On the card an honest live period of one run (no fault frame, no
+coordinates, no probe events, no grid) is three launches of the live
+stages around its population sums (``sim/live_kernel.py``), whose plain
+version is this body too.
+
 The live engine and the lane engine also run a grid of constants
 (``sim/sweep.py``): ``[G, N]`` lanes and a ``params.TracedParams`` whose
 swept leaves are ``[G, 1]``.
@@ -65,7 +70,7 @@ from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
                                      frames_at, ipow,
                                      phase_at, scale_frame)
 from consul_tpu_torch.sim import (blackbox, flight, fused, graphs,
-                                  lane_kernel, prng, topology)
+                                  lane_kernel, live_kernel, prng, topology)
 from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim.params import SimParams, TracedParams
@@ -612,7 +617,7 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
                p: SimParams, u01: prng.U01,
                fx: Optional[FaultFrame] = None, coords=None, topo=None,
                key: Optional[torch.Tensor] = None, events: bool = False,
-               reduce=None):
+               reduce=None, into: Optional[tuple] = None):
     """ONE protocol period; returns ``(state', scalars')``.
 
     ``scalars=None`` is live mode (``scalars'`` is None);
@@ -628,9 +633,29 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
 
     A grid state (``[G, N]`` lanes, ``[G]`` clock and counters) runs in
     live mode with ``p`` a ``params.TracedParams`` and ``reduce`` the
-    per-row reducer (``lanes.row_sums``)."""
+    per-row reducer (``lanes.row_sums``).
+
+    ``into`` (8 tensors of the state's lanes, or the lanes themselves: a
+    runner's donated carry) receives the new lanes, and the returned
+    state holds them there.
+
+    An honest live period of one run (no frame, coordinates, events or
+    grid) on packed lanes takes the kernels' route where
+    ``fused.routed`` says so: three ``live_kernel`` stages around its
+    sums, bit for bit this body; every other period runs the body."""
     if reduce is not None and scalars is not None:
         raise ValueError("a grid reducer runs the live engine only")
+    vals = state.node_arrays()
+    if scalars is None and fx is None and coords is None and not events \
+            and reduce is None and fused.routed(vals[0]) \
+            and live_kernel.takes(vals, p):
+        outs, counters = live_kernel.live_round(vals, u01, draw_slots(p),
+                                                p, into)
+        st = _stats_add(state.stats, [None] * N_SCALARS + counters) \
+            if p.collect_stats else state.stats
+        return SimState(*outs,
+                        t=state.t + _per_point(p.probe_interval, state.t),
+                        round_idx=state.round_idx + 1, stats=st), None
     if fx is not None and (p.sweeps("fault_gain") or p.fault_gain != 1.0):
         fx = scale_frame(fx, p.fault_gain)
     co = None
@@ -639,13 +664,15 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
             raise ValueError("coords need a topology and the round key")
         co = (coords, topo, key)
     sink = {} if co is not None or events else None
-    vals = state.node_arrays()
     outs, lanes = _round_body(vals, scalars, p, u01, fx=fx, co=co,
                               sink=sink, reduce=reduce)
     st = _stats_add(state.stats, lanes, reduce) \
         if p.collect_stats else state.stats
-    out = SimState(*_cast_like(outs, vals),
-                   t=state.t + _per_point(p.probe_interval, state.t),
+    outs = _cast_like(outs, vals)
+    if into is not None:
+        _write(into, outs)
+        outs = into
+    out = SimState(*outs, t=state.t + _per_point(p.probe_interval, state.t),
                    round_idx=state.round_idx + 1, stats=st)
     sc = None
     if scalars is not None:
@@ -659,16 +686,17 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
 
 def gossip_round(state: SimState, key: torch.Tensor, p: SimParams,
                  fx: Optional[FaultFrame] = None, coords=None, topo=None,
-                 events: bool = False):
+                 events: bool = False, into: Optional[tuple] = None):
     """One period with LIVE population scalars, drawing from ``key``
     exactly as the JAX engines draw (``prng.threefry_u01``). Returns the
     state; with ``coords``/``topo``, ``(state, coords',
     CoordRoundAux)``; ``events=True`` appends the round's
-    ``ProbeEvents``."""
+    ``ProbeEvents``. ``into`` as in ``round_core``."""
     res = round_core(state, None, p,
                      prng.threefry_u01(key, state.status.shape[0],
                                        draw_slots(p, fx)), fx,
-                     coords=coords, topo=topo, key=key, events=events)
+                     coords=coords, topo=topo, key=key, events=events,
+                     into=into)
     if len(res) == 2:
         return res[0]
     out, _, c2, aux, ev = res
@@ -823,24 +851,34 @@ def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
     return run
 
 
+#: periods in one replay of the live runner's captured body: a call of
+#: twice as many or more captures in its first call (its first body runs
+#: eagerly, its second is the capture), and the graph cache's copies in
+#: and out of a replay, host work a replay, are shared by its periods
+LIVE_REPLAY_ROUNDS = 8
+
+
 def make_run_rounds(p: SimParams, rounds: int):
     """A pre-bound live-engine runner: ``run(state, key)`` -> state, the
-    rounds of ``run_rounds``. On the card each round is one replay of a
-    captured round (``graphs.GraphCache``), its key an input; the
+    rounds of ``run_rounds``. On the card a call replays a captured body
+    of ``LIVE_REPLAY_ROUNDS`` periods (``graphs.GraphCache``; the last
+    body of a call holds what is left), its round keys an input; the
     returned state is new, as ``run_rounds``' is."""
     cache = graphs.GraphCache()
 
-    def one_round(d, key_r):
-        s2 = gossip_round(_carry_state(d), key_r, p)
-        _write(d, (*s2.node_arrays(), s2.t, s2.round_idx, *s2.stats))
+    def periods(d, keys_k):
+        for r in range(keys_k.shape[0]):
+            s2 = gossip_round(_carry_state(d), keys_k[r], p, into=d[:8])
+            _write(d[8:], (s2.t, s2.round_idx, *s2.stats))
 
     def run(state: SimState, key: torch.Tensor) -> SimState:
         with telemetry.span("sim.runner.call"):
             with telemetry.span("sim.runner.prologue"):
                 keys = prng.round_keys(key, state.round_idx, rounds)
                 d = _carry(state)
-            for r in range(rounds):
-                cache("round", one_round, d, keys[r])
+            for i0 in range(0, rounds, LIVE_REPLAY_ROUNDS):
+                cache("periods", periods, d,
+                      keys[i0:i0 + LIVE_REPLAY_ROUNDS])
             with telemetry.span("sim.runner.epilogue"):
                 return _carry_state(d)
 
