@@ -375,7 +375,8 @@ def kernel_label(symbol: str):
     """The variant whose instantiation a mangled kernel symbol names
     (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>,
     draw_kernel<MODE, index type, ROW, words a thread>, the sum
-    kernels, lane_round<FRAME, BYZ>, live_round<STAGE>), or None."""
+    kernels, lane_round<FRAME, BYZ>, live_round<STAGE>, flight_row), or
+    None."""
     m = re.search(r"draw_kernelILi([0-4])E([il])Lb([01])ELi([14])E", symbol)
     if m:
         return "threefry/" + ("words", "xor", "seeds", "uniform",
@@ -392,6 +393,8 @@ def kernel_label(symbol: str):
     m = re.search(r"live_roundILi([0-2])E", symbol)
     if m:
         return "live_round/" + "abc"[int(m.group(1))]
+    if re.search(r"\d+flight_rowE", symbol):
+        return "flight_row"
     m = re.search(r"mega_kernelILb([01])E", symbol)
     if m:
         return "mega_kernel/" + ("stable" if m.group(1) == "1" else "full")
@@ -513,9 +516,11 @@ def phase_env(torch, build, cuda_round, fused, lane_kernel):
     layout = cuda_round.kernel_layout()
     kernels = {k: {**regs.get(k, {}), "sass_instructions": sass.get(k),
                    **layout.get(k, {}),
-                   "grid_blocks": cuda_round.GRID_BLOCKS}
+                   "grid_blocks": cuda_round.FLIGHT_BLOCKS
+                   if k == "flight_row" else cuda_round.GRID_BLOCKS}
                for k in sorted(set(regs) | set(sass))}
-    if len(kernels) != 6 or any(v.get("spill_bytes") != 0 or
+    # the four round_kernel variants, the two mega_kernel ones, flight_row
+    if len(kernels) != 7 or any(v.get("spill_bytes") != 0 or
                                 not v.get("registers") or
                                 not v["sass_instructions"]
                                 for v in kernels.values()):
@@ -1074,14 +1079,17 @@ def phase_chaos(torch, m, dev):
     launches = dict(cr.LAUNCHES)
     honest = [k for k in res["classes"]
               if k not in m.scenarios.BYZANTINE_CHAOS]
-    # each class runs twice (an untimed warm-up, then the timed run)
+    # each class runs twice (an untimed warm-up, then the timed run),
+    # recording a flight row a round
     rounds = {k: 2 * sum(res["classes"][c]["rounds"] for c in cls)
               for k, cls in (("round_kernel/fault", honest),
                              ("round_kernel/byz",
                               m.scenarios.BYZANTINE_CHAOS))}
+    rounds["flight_row"] = sum(rounds.values())
     if launches != rounds:
         raise SmokeFailure(f"chaos launched {launches}, expected one "
-                           f"launch per round of both runs: {rounds}")
+                           f"launch per round of both runs and one row a "
+                           f"round: {rounds}")
     bad = chaos_failures(res["classes"])
     if bad:
         raise SmokeFailure("chaos signatures: " + "; ".join(bad))
@@ -1107,7 +1115,9 @@ def recorder_failures(m, s0, out, trace, label, last_row=True) -> list:
     """What a recorded run breaks: column sums against the run's stats
     delta (counters exact, the latency lane within 1e-5 relative, the
     sum of f32 window deltas), and (``last_row``) the last row's gauges
-    against ``flight_row`` of the final state."""
+    against ``flight_row`` of the final state (the informed mean, which
+    the card's ``flight_row`` kernel sums in its own order, within 1e-6
+    relative; every other gauge exact)."""
     fl, st = m.flight, m.state
     bad = []
     cols = fl.trace_columns(trace)
@@ -1127,7 +1137,11 @@ def recorder_failures(m, s0, out, trace, label, last_row=True) -> list:
                          incarnation=out.incarnation, t=out.t,
                          stats_delta=out.stats, phase=-1)
     g = len(fl.GAUGE_COLUMNS)
-    if not bool((trace[-1, :g] == last[:g]).all()):
+    inf = fl.COL["mean_informed"]
+    exact = [i for i in range(g) if i != inf]
+    if not (bool((trace[-1, exact] == last[exact]).all())
+            and abs(float(trace[-1, inf]) - float(last[inf]))
+            <= 1e-6 * abs(float(last[inf]))):
         bad.append(f"{label}: last row {trace[-1, :g].tolist()} is not the "
                    f"final state's {last[:g].tolist()}")
     return bad
@@ -1299,8 +1313,11 @@ def phase_observe(torch, m, dev):
     bad = []
     rec, rbad, rl = observe_recorders(torch, m, dev)
     bad += rbad
-    want = {"per_round": {"round_kernel/full": OBSERVE_ROUNDS},
-            "mega": {"mega_kernel/full": OBSERVE_MEGA_ROUNDS // MEGA_R}}
+    want = {"per_round": {"round_kernel/full": OBSERVE_ROUNDS,
+                          "flight_row": OBSERVE_ROUNDS // OBSERVE_STRIDE},
+            "mega": {"mega_kernel/full": OBSERVE_MEGA_ROUNDS // MEGA_R,
+                     "flight_row":
+                         OBSERVE_MEGA_ROUNDS // OBSERVE_MEGA_STRIDE}}
     for k, v in want.items():
         if rl[k] != v:
             bad.append(f"{k}: launched {rl[k]}, expected {v}")
@@ -1308,14 +1325,16 @@ def phase_observe(torch, m, dev):
     bad += tbad
     for name, got in tl.items():
         kind = "byz" if name in m.scenarios.BYZANTINE_CHAOS else "fault"
-        want_t = {f"round_kernel/{kind}": track[name]["rounds"]}
+        want_t = {f"round_kernel/{kind}": track[name]["rounds"],
+                  "flight_row": track[name]["rounds"]}
         if got != want_t:
             bad.append(f"tracking {name}: launched {got}, expected {want_t}")
     coords, cbad, cl, coo, topo = observe_coords(torch, m, dev)
     bad += cbad
-    if cl != {"round_kernel/full": COORD_ROUNDS}:
+    if cl != {"round_kernel/full": COORD_ROUNDS,
+              "flight_row": COORD_ROUNDS // COORD_STRIDE}:
         bad.append(f"coords: launched {cl}, expected {COORD_ROUNDS} full "
-                   "rounds")
+                   f"rounds and {COORD_ROUNDS // COORD_STRIDE} rows")
     if bad:
         raise SmokeFailure("observe: " + "; ".join(bad))
     coords["device_us"] = coord_round_split(torch, m, coo, topo)
@@ -1659,6 +1678,8 @@ def resume_cuda(torch, m, dev, root, n=N, rounds=RESUME_ROUNDS,
         wall_ms = _sync_ms(torch, dev, t0)
         got = dict(cr.LAUNCHES)
         want = {kname: rounds // rpc} if on_card else {}
+        if on_card and stride is not None:
+            want["flight_row"] = m.flight.n_trace_rows(rounds, stride)
         if got != want:
             bad.append(f"cuda {label}: launched {got}, expected {want}")
         for k, v in got.items():
@@ -1683,7 +1704,8 @@ def resume_cuda(torch, m, dev, root, n=N, rounds=RESUME_ROUNDS,
 def resume_chaos(torch, m, dev, root, n=N, chunk=RESUME_CHUNK):
     """(c) run_chaos cut inside the fault phase and resumed against the
     plain run: the report equal, state, trace and rings bit for bit,
-    one fault or byz launch per round over both segments. Returns
+    one fault or byz launch and one flight row per round over both
+    segments. Returns
     (report, failures, launches)."""
     sc, cr = m.scenarios, m.cuda_round
     on_card = torch.device(dev).type == "cuda"
@@ -1704,7 +1726,8 @@ def resume_chaos(torch, m, dev, root, n=N, chunk=RESUME_CHUNK):
         n_launch = dict(cr.LAUNCHES)
         kname = "round_kernel/" + ("byz" if name in sc.BYZANTINE_CHAOS
                                    else "fault")
-        expect = {kname: plan.total_rounds} if on_card else {}
+        expect = {kname: plan.total_rounds,
+                  "flight_row": plan.total_rounds} if on_card else {}
         if n_launch != expect:
             bad.append(f"chaos {name}: launched {n_launch}, expected "
                        f"{expect}")
@@ -2325,7 +2348,8 @@ def _platform(torch, dev) -> str:
 
 def seams_cli(torch, m, dev, n=N):
     """(a) the CLI's default mode through ``cli.main`` at n nodes: 100
-    full round launches, no false positive, suspicions and refutes under
+    full round launches and 100 ``flight_row`` launches, no false
+    positive, suspicions and refutes under
     ``CLI_FD_CEILING`` of FD_REF, and the registry's ``sim.<counter>``
     totals and ``sim.fd.*`` gauges equal to the report. Returns (report,
     failures, launches); on the CPU the wrappers launch nothing."""
@@ -2343,7 +2367,8 @@ def seams_cli(torch, m, dev, n=N):
             launches
     bad = []
     on_card = torch.device(dev).type == "cuda"
-    want = {"round_kernel/full": m.cli.SIM_ROUNDS} if on_card else {}
+    want = {"round_kernel/full": m.cli.SIM_ROUNDS,
+            "flight_row": m.cli.SIM_ROUNDS} if on_card else {}
     if launches != want:
         bad.append(f"cli default mode launched {launches}, expected {want}")
     node_rounds = n * rep["rounds"]
@@ -2371,7 +2396,8 @@ def seams_cli(torch, m, dev, n=N):
 
 def seams_chaos(torch, m, dev, n=N, name=SEAMS_CHAOS):
     """(b) the CLI's chaos mode on one honest class: its signature
-    (``class_failures``) and one fault launch a round."""
+    (``class_failures``) and one fault launch and one flight row a
+    round."""
     cr = m.cuda_round
     cr.reset_launches()
     t0 = time.perf_counter()
@@ -2383,7 +2409,8 @@ def seams_chaos(torch, m, dev, n=N, name=SEAMS_CHAOS):
     if rc != 0 or "gossip_sim_error" in rep:
         return {"rc": rc, **rep}, [f"cli chaos mode: rc {rc}, {rep}"], \
             launches
-    want = {"round_kernel/fault": rep["rounds"]} \
+    want = {"round_kernel/fault": rep["rounds"],
+            "flight_row": rep["rounds"]} \
         if torch.device(dev).type == "cuda" else {}
     bad = class_failures(name, rep)
     if launches != want:
@@ -3659,10 +3686,58 @@ def time_live_kernel(torch, m, inputs) -> dict:
     return out
 
 
+def time_flight_row(torch, m, inputs) -> dict:
+    """The kernel runner's flight row on the check state: one
+    ``flight_row`` launch's ``launch_times``, its bound
+    (``costmodel.flight_bound``) and its largest gap from
+    ``flight.flight_row``; beside it the plain row as the runner built
+    it before the kernel (the up mask, the window's delta,
+    ``flight_row``, the slot write, the snapshot's two clones): ``ms``
+    eager (CUDA events, ``plain_ms``) and device ms by graph replay
+    (``plain_device_ms``)."""
+    cr, fl = m.cuda_round, m.flight
+    arrays = inputs[0]
+    dev = arrays[0].device
+    lat = m.round.LAT
+    acc = 1000 * torch.arange(1, len(m.state.STATS_FIELDS) + 1,
+                              dtype=torch.int32, device=dev)
+    acc[lat] = 0
+    acc_lat = torch.tensor(5000.0, device=dev)
+    prev, prev_lat = torch.zeros_like(acc), torch.zeros_like(acc_lat)
+    t = torch.tensor(100.0, device=dev)
+    trace = torch.zeros((2, fl.N_COLS), device=dev)
+    scratch = cr.flight_scratch(dev)
+
+    def plain():
+        delta = (acc - prev).to(torch.float32)
+        delta[lat] = acc_lat - prev_lat
+        fl.record_row(trace, fl.flight_row(
+            up=arrays[3] < 0, status=arrays[0], informed=arrays[2],
+            local_health=arrays[7], incarnation=arrays[1], t=t,
+            stats_delta=delta, phase=-1), 1, 1)
+        return acc.clone(), acc_lat.clone()
+
+    def kern():
+        cr.record_flight_row(trace, 0, 1, arrays, t, acc, acc_lat, prev,
+                             prev_lat, scratch=scratch)
+
+    plain()
+    kern()
+    torch.cuda.synchronize()
+    gap = float((trace[0] - trace[1]).abs().max())
+    bound = m.costmodel.flight_bound(arrays)
+    tk = launch_times(torch, kern, 200)
+    return {"flight_row": {
+        **tk, "plain_ms": _events_ms(torch, plain, 20),
+        "plain_device_ms": _graph_ms(torch, plain, 200), **bound,
+        "x_bound": tk["ms"] / bound["bound_ms"], "max_abs_err": gap}}
+
+
 def phase_timing(torch, m, inputs):
     out = time_kernels(torch, m, inputs)
     out.update(time_lane_kernel(torch, m, inputs))
     out.update(time_live_kernel(torch, m, inputs))
+    out.update(time_flight_row(torch, m, inputs))
     emit({"phase": "timing", "n": N, "kernels": out})
     return out
 
@@ -3747,7 +3822,7 @@ def main() -> int:
     # the kernels of the paths; the gated full variant, which no path
     # launches yet, is timed in phase timing only
     for name, t in timing.items():
-        if name not in launches:
+        if name not in launches or name == "flight_row":
             continue
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3805,6 +3880,17 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    # the kernel runner's flight row at N; its rows against
+    # flight.flight_row in phases observe, chaos and seams
+    t = timing["flight_row"]
+    kernels.append({
+        "name": "flight_row", "route": "cuda", "source": source,
+        "replaces": "consul_tpu/sim/flight.py:95 (flight_row, fused into "
+                    "the recorded round)",
+        "launches": launches.get("flight_row", 0),
+        "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

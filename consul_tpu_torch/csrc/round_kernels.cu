@@ -11,6 +11,9 @@
 // for op; the honest instantiations compile the fault terms away, and
 // the STABLE ones (the headline's config: no churn, slow-node model,
 // stats or down_age store) the churn, slow and counter code too.
+// flight_row (the kernel runner's recorded rounds) builds a flight
+// recorder row from the state a round left, in one launch; its note is
+// at the kernel.
 //
 // What bounds them. Not bytes: a round moves 28-72 B/node (8.8-22.6 us
 // at 1,048,576 nodes and 3.35 TB/s), and the state (15.7 MB) even fits
@@ -99,6 +102,16 @@ constexpr int FAULT_NPT = 4, FAULT_MINB = 4;
 constexpr int BYZ_NPT = 2, BYZ_MINB = 2;
 constexpr int MEGA_NPT = 2, MEGA_MINB = 2;
 constexpr int LH_TAB = 32;             // awareness levels a table holds
+// The flight row (consul_tpu_torch/sim/flight.py): 9 gauge columns, the
+// 10 SimStats counters (detect_latency_sum at FLIGHT_LAT), 3 coordinate
+// columns. Its launch: FLIGHT_THREADS threads a block, FLIGHT_NPT
+// consecutive nodes a thread, at most FLIGHT_BLOCKS blocks.
+constexpr int FLIGHT_GAUGES = 9, FLIGHT_STATS = 10, FLIGHT_COORDS = 3;
+constexpr int FLIGHT_COLS = FLIGHT_GAUGES + FLIGHT_STATS + FLIGHT_COORDS;
+constexpr int FLIGHT_LAT = 4;
+constexpr int FLIGHT_THREADS = 256, FLIGHT_NPT = 4;
+constexpr int FLIGHT_TILE = FLIGHT_THREADS * FLIGHT_NPT;
+constexpr int FLIGHT_BLOCKS = 528;
 
 }  // namespace
 
@@ -136,6 +149,28 @@ struct FaultArrays {
   const float* spur_susp;
   const float* replay;
   const uint8_t* attacked;
+};
+
+// One flight row's inputs and outputs. Field order must match FlightArgs
+// in consul_tpu_torch/sim/cuda_round.py.
+struct FlightArgs {
+  const int8_t* status;     // the post-round packed lanes, [rows]
+  const int16_t* inc;
+  const float* informed;
+  const int16_t* age;
+  const int8_t* lh;
+  int rows;
+  float phase_host;         // the phase column when `phase` is null
+  const float* t;           // the clock, 0-d
+  const int64_t* phase;     // faults.phase_at's [1] phase, or null
+  const int32_t* acc;       // the run's int32 counters, [N_STATS]
+  const float* acc_lat;     // and its f32 latency lane, 0-d
+  int32_t* prev;            // the last-recorded snapshot of both, moved
+  float* prev_lat;          //   to acc / acc_lat by the launch
+  const float* coord;       // coords.coord_metrics' [3] row, or null
+  float* row;               // the trace row written, [FLIGHT_COLS]
+  void* partials;           // FLIGHT_BLOCKS rows of FLIGHT_SUMS_BYTES
+  unsigned int* ticket;     // arrival counter, zero between launches
 };
 
 namespace {
@@ -990,6 +1025,168 @@ __global__ void __launch_bounds__(TILE / NPT, MINB)
                         partials);
 }
 
+// ------------------------------------------------------------ flight row
+//
+// One flight-recorder row from the post-round packed state, in place of
+// flight.flight_row's plain ops (~25 launches a row, a [5, N] f32 stack
+// written and read back): the counterpart of the fusion XLA compiles for
+// the JAX runner's recorded round. A launch reads status, incarnation,
+// informed, down_age and local_health once (10 B a node), each thread
+// sums its nodes in registers, each block reduces in a fixed order into
+// its row of the partials, and the last block to arrive (threadfence,
+// ticket) folds the partials in a fixed order and writes the whole row:
+// the clock, the five means, the max, the incarnation sum, the phase,
+// the counters' delta against the snapshot, which it then moves to the
+// counters, and the coordinate columns. Counts, the local-health sum and
+// max and the incarnation sum are exact integers; informed is summed in
+// f64. A mean is its f32 sum times inv_n, as torch's mean kernel takes
+// it, so every share and the local-health mean are the plain row's bits.
+
+// A block's sums: a row of the partials, FLIGHT_SUMS_BYTES long.
+struct FlightSums {
+  long long inc;
+  double informed;
+  int up, suspect, wrong, lh, lh_max;
+};
+constexpr int FLIGHT_SUMS_BYTES = 40;
+static_assert(sizeof(FlightSums) == FLIGHT_SUMS_BYTES,
+              "the host sizes the partials by FLIGHT_SUMS_BYTES");
+
+__device__ __forceinline__ FlightSums flight_zero() {
+  return FlightSums{0, 0.0, 0, 0, 0, 0, -128};
+}
+
+__device__ __forceinline__ void flight_add(FlightSums& s, int status,
+                                           int inc, float informed,
+                                           int age, int lh) {
+  const bool up = age < 0;
+  const bool suspect = status == SUSPECT;
+  s.up += up;
+  s.suspect += suspect;
+  s.wrong += up && (suspect || status == DEAD);
+  s.lh += lh;
+  s.lh_max = max(s.lh_max, lh);
+  s.inc += inc;
+  s.informed += (double)informed;
+}
+
+__device__ __forceinline__ void flight_join(FlightSums& s,
+                                            const FlightSums& o) {
+  s.inc += o.inc;
+  s.informed += o.informed;
+  s.up += o.up;
+  s.suspect += o.suspect;
+  s.wrong += o.wrong;
+  s.lh += o.lh;
+  s.lh_max = max(s.lh_max, o.lh_max);
+}
+
+// Fixed-order reduction over the block; thread 0 returns the block's.
+__device__ FlightSums flight_block_reduce(FlightSums s) {
+  constexpr int WARPS = FLIGHT_THREADS / 32;
+  __shared__ FlightSums warp_sums[WARPS];
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    FlightSums o;
+    o.inc = __shfl_down_sync(all, s.inc, off);
+    o.informed = __shfl_down_sync(all, s.informed, off);
+    o.up = __shfl_down_sync(all, s.up, off);
+    o.suspect = __shfl_down_sync(all, s.suspect, off);
+    o.wrong = __shfl_down_sync(all, s.wrong, off);
+    o.lh = __shfl_down_sync(all, s.lh, off);
+    o.lh_max = __shfl_down_sync(all, s.lh_max, off);
+    flight_join(s, o);
+  }
+  if (lane == 0) warp_sums[warp] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s = warp_sums[0];
+    for (int w = 1; w < WARPS; ++w) flight_join(s, warp_sums[w]);
+  }
+  return s;
+}
+
+// A partials row written by another block, read through L2.
+__device__ __forceinline__ FlightSums flight_load(const FlightSums* p) {
+  FlightSums s;
+  s.inc = __ldcg(&p->inc);
+  s.informed = __ldcg(&p->informed);
+  s.up = __ldcg(&p->up);
+  s.suspect = __ldcg(&p->suspect);
+  s.wrong = __ldcg(&p->wrong);
+  s.lh = __ldcg(&p->lh);
+  s.lh_max = __ldcg(&p->lh_max);
+  return s;
+}
+
+__global__ void __launch_bounds__(FLIGHT_THREADS)
+    flight_row(const FlightArgs A, float inv_n, int vec) {
+  __shared__ bool last;
+  FlightSums* partials = (FlightSums*)A.partials;
+  FlightSums s = flight_zero();
+  const int n = A.rows;
+  const int step = gridDim.x * FLIGHT_TILE;
+  for (int i = blockIdx.x * FLIGHT_TILE + threadIdx.x * FLIGHT_NPT; i < n;
+       i += step) {
+    if (vec && i + FLIGHT_NPT <= n) {
+      const char4 st = *reinterpret_cast<const char4*>(A.status + i);
+      const short4 ic = *reinterpret_cast<const short4*>(A.inc + i);
+      const float4 inf = *reinterpret_cast<const float4*>(A.informed + i);
+      const short4 ag = *reinterpret_cast<const short4*>(A.age + i);
+      const char4 lh = *reinterpret_cast<const char4*>(A.lh + i);
+      flight_add(s, st.x, ic.x, inf.x, ag.x, lh.x);
+      flight_add(s, st.y, ic.y, inf.y, ag.y, lh.y);
+      flight_add(s, st.z, ic.z, inf.z, ag.z, lh.z);
+      flight_add(s, st.w, ic.w, inf.w, ag.w, lh.w);
+    } else {
+      for (int j = i; j < i + FLIGHT_NPT && j < n; ++j)
+        flight_add(s, A.status[j], A.inc[j], A.informed[j], A.age[j],
+                   A.lh[j]);
+    }
+  }
+  s = flight_block_reduce(s);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = s;
+    // the row is visible before the ticket is taken
+    __threadfence();
+    last = atomicAdd(A.ticket, 1u) == gridDim.x - 1;
+    // every block has arrived: the next launch finds the counter at zero
+    if (last) *A.ticket = 0u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  FlightSums f = flight_zero();
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += FLIGHT_THREADS)
+    flight_join(f, flight_load(partials + b));
+  f = flight_block_reduce(f);
+  if (threadIdx.x != 0) return;
+  float* r = A.row;
+  r[0] = *A.t;
+  r[1] = __fmul_rn(__int2float_rn(f.up), inv_n);
+  r[2] = __fmul_rn(__double2float_rn(f.informed), inv_n);
+  r[3] = __fmul_rn(__int2float_rn(f.suspect), inv_n);
+  r[4] = __fmul_rn(__int2float_rn(f.wrong), inv_n);
+  r[5] = __fmul_rn(__int2float_rn(f.lh), inv_n);
+  r[6] = __int2float_rn(f.lh_max);
+  r[7] = __ll2float_rn(f.inc);
+  r[8] = A.phase != nullptr ? __ll2float_rn(*A.phase) : A.phase_host;
+  for (int k = 0; k < FLIGHT_STATS; ++k) {
+    // int32 subtraction wraps, as torch's does
+    const int32_t d = (int32_t)((uint32_t)A.acc[k] - (uint32_t)A.prev[k]);
+    r[FLIGHT_GAUGES + k] = k == FLIGHT_LAT
+                               ? __fsub_rn(*A.acc_lat, *A.prev_lat)
+                               : __int2float_rn(d);
+    A.prev[k] = A.acc[k];
+  }
+  *A.prev_lat = *A.acc_lat;
+  for (int k = 0; k < FLIGHT_COORDS; ++k)
+    r[FLIGHT_GAUGES + FLIGHT_STATS + k] =
+        A.coord != nullptr ? A.coord[k] : 0.0f;
+}
+
 int grid_for(int rows) {
   const int tiles = (rows + TILE - 1) / TILE;
   return tiles < 1 ? 1 : (tiles < GRID_BLOCKS ? tiles : GRID_BLOCKS);
@@ -1109,6 +1306,38 @@ int launch_mega_kernel(RoundParams P, void* status, void* inc,
   else
     launch_mega<false, MEGA_NPT, MEGA_MINB>(P, a, scal, seeds, rounds,
                                             partials, vec, stream);
+  return (int)cudaGetLastError();
+}
+
+// The flight row's layout, for the host's checks and its scratch: the
+// row's columns, its gauge and counter columns, the latency lane's index
+// among the counters, the most blocks (rows of the partials) and the
+// bytes of a partials row.
+void flight_row_layout(int* cols, int* gauges, int* stats, int* lat,
+                       int* blocks, int* sums_bytes) {
+  *cols = FLIGHT_COLS;
+  *gauges = FLIGHT_GAUGES;
+  *stats = FLIGHT_STATS;
+  *lat = FLIGHT_LAT;
+  *blocks = FLIGHT_BLOCKS;
+  *sums_bytes = FLIGHT_SUMS_BYTES;
+}
+
+int launch_flight_row(FlightArgs A, void* stream) {
+  if (A.rows < 1 || !A.status || !A.inc || !A.informed || !A.age || !A.lh ||
+      !A.t || !A.acc || !A.acc_lat || !A.prev || !A.prev_lat || !A.row ||
+      !A.partials || !A.ticket)
+    return (int)cudaErrorInvalidValue;
+  const int vec = aligned16(A.status) && aligned16(A.inc) &&
+                  aligned16(A.informed) && aligned16(A.age) &&
+                  aligned16(A.lh);
+  const int tiles = (A.rows + FLIGHT_TILE - 1) / FLIGHT_TILE;
+  const int blocks = tiles < FLIGHT_BLOCKS ? tiles : FLIGHT_BLOCKS;
+  // the factor torch's mean kernel multiplies a sum by for the plain
+  // row's [5, rows] stack: f32(outputs) / numel, both rounded to f32
+  const float inv_n = 5.0f / (float)(5LL * A.rows);
+  flight_row<<<blocks, FLIGHT_THREADS, 0, (cudaStream_t)stream>>>(A, inv_n,
+                                                                  vec);
   return (int)cudaGetLastError();
 }
 

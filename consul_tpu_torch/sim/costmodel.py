@@ -59,7 +59,7 @@ from torch.utils._pytree import tree_leaves
 
 from consul_tpu_torch.sim import (cuda_round, fused, graphs, lane_kernel,
                                   prng, registry)
-from consul_tpu_torch.sim.flight import trace_bytes
+from consul_tpu_torch.sim.flight import FLIGHT_COLUMNS, trace_bytes
 from consul_tpu_torch.sim.round import (make_run_rounds, make_run_rounds_fast,
                                         make_run_rounds_lanes)
 from consul_tpu_torch.sim.state import NODE_FIELDS, SimState, init_state
@@ -397,6 +397,20 @@ def sum_bound(rows: int, length: int) -> dict:
     could take: every element read once, one f32 a row written, and
     ``length - 1`` additions a row."""
     return _bound(4 * rows * (length + 1), 0, rows * (length - 1))
+
+
+def flight_bound(arrays) -> dict:
+    """The least time one ``flight_row`` launch could take: the five
+    packed lanes a row reads (status, incarnation, informed, down_age,
+    local_health; 10 B a node) read once and the f32 row written once,
+    over the HBM rate. Its counters, clock and snapshot are a few dozen
+    bytes and its operations a handful a node; neither is counted."""
+    rows = arrays[0].shape[0]
+    lanes = (0, 1, 2, 3, 7)
+    read = rows * sum(arrays[i].element_size() for i in lanes)
+    written = 4 * len(FLIGHT_COLUMNS)
+    return {"read_bytes": read, "written_bytes": written,
+            **_bound(read + written, 0, 0)}
 
 
 def lane_bound(vals, u, fx=None, stats: str = "write",

@@ -30,9 +30,11 @@ fallback.
 
 The runner (``make_run_rounds_cuda``) also records what the JAX kernel
 runner records — flight rows, black-box rings and Vivaldi coordinates —
-from the kernels' output tensors with PyTorch ops between launches, as
-the JAX runner builds them outside its kernel; the kernels themselves
-are the same.
+from the kernels' output tensors between launches, as the JAX runner
+builds them outside its kernel. A flight row on the card is one launch
+of a third kernel, ``flight_row`` (``record_flight_row``: the recorded
+round's fusion in the JAX runner; on the CPU ``flight.flight_row``);
+the rings and coordinates are PyTorch ops.
 
 Both kernels write a ``[partials_rows(rows), 18]`` table of per-block
 partial sums (8 population scalars, then the 10 SimStats counters): a
@@ -81,6 +83,10 @@ from consul_tpu_torch.utils import build, telemetry
 TILE = 512
 GRID_BLOCKS = 528
 SOURCE = "round_kernels"
+#: most blocks of a ``flight_row`` launch, and so rows of its partials
+#: scratch, of FLIGHT_SUMS_BYTES each (``_lib`` checks both)
+FLIGHT_BLOCKS = 528
+FLIGHT_SUMS_BYTES = 40
 
 #: launches per kernel and variant since the last ``reset_launches()``;
 #: incremented only where a kernel is launched (never by a plain version)
@@ -144,6 +150,17 @@ class FaultArrays(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_void_p)
                 for f in _FAULT_LANES + ("mid",) + _BYZ_LANES]
+
+
+class FlightArgs(ctypes.Structure):
+    """Mirror of ``struct FlightArgs`` in round_kernels.cu."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "status", "inc", "informed", "age", "lh")] + [
+        ("rows", ctypes.c_int), ("phase_host", ctypes.c_float)] + [
+        (f, ctypes.c_void_p) for f in (
+            "t", "phase", "acc", "acc_lat", "prev", "prev_lat", "coord",
+            "row", "partials", "ticket")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,6 +230,18 @@ def _lib() -> ctypes.CDLL:
                                        ctypes.c_int, ctypes.c_void_p,
                                        ctypes.c_void_p]
     lib.launch_mega_kernel.restype = ctypes.c_int
+    layout = [ctypes.c_int() for _ in range(6)]
+    lib.flight_row_layout(*(ctypes.byref(x) for x in layout))
+    want = (flight.N_COLS, len(flight.GAUGE_COLUMNS), N_STATS, LAT,
+            FLIGHT_BLOCKS, FLIGHT_SUMS_BYTES)
+    got = tuple(x.value for x in layout)
+    if got != want:
+        raise RuntimeError(
+            f"round_kernels.cu writes flight rows of (columns, gauges, "
+            f"counters, latency index, most blocks, partials row bytes) "
+            f"{got}; cuda_round maps {want}")
+    lib.launch_flight_row.argtypes = [FlightArgs, ctypes.c_void_p]
+    lib.launch_flight_row.restype = ctypes.c_int
     lib.round_kernels_error_string.argtypes = [ctypes.c_int]
     lib.round_kernels_error_string.restype = ctypes.c_char_p
     return lib
@@ -463,6 +492,106 @@ def mega_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
     return partials
 
 
+def flight_scratch(dev) -> tuple:
+    """A ``flight_row`` launch's scratch on ``dev``: the blocks' partials
+    and the arrival ticket, zero (each launch leaves it zero again), so
+    one pair serves every launch on a stream."""
+    return (torch.empty((FLIGHT_BLOCKS, FLIGHT_SUMS_BYTES // 8),
+                        dtype=torch.int64, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+
+
+def _check_flight(arrays, trace, t, acc, acc_lat, prev, prev_lat, phase,
+                  coord_row, scratch) -> None:
+    """The card's inputs: the packed lanes (as ``_check_inputs``), and
+    contiguous trace, clock, counters and scratch of their dtypes and
+    sizes on the lanes' device."""
+    dev = arrays[0].device
+    rows = arrays[0].shape[0]
+    for f, a, dt in zip(NODE_FIELDS, arrays, _PACKED_DTYPES):
+        if a.device != dev or a.dtype != dt or a.dim() != 1 \
+                or a.shape[0] != rows or not a.is_contiguous():
+            raise ValueError(f"{f} must be a contiguous ({rows},) {dt} "
+                             f"tensor on {dev}: the packed layout")
+    if trace.dim() != 2 or trace.shape[1] != flight.N_COLS:
+        raise ValueError(f"trace must be [rows, {flight.N_COLS}], not "
+                         f"{tuple(trace.shape)}")
+    want = {"trace": (trace, torch.float32, None),
+            "t": (t, torch.float32, 1),
+            "acc": (acc, torch.int32, N_STATS),
+            "acc_lat": (acc_lat, torch.float32, 1),
+            "prev": (prev, torch.int32, N_STATS),
+            "prev_lat": (prev_lat, torch.float32, 1)}
+    if isinstance(phase, torch.Tensor):
+        want["phase"] = (phase, torch.int64, 1)
+    if coord_row is not None:
+        want["coord_row"] = (coord_row, torch.float32,
+                             len(flight.COORD_COLUMNS))
+    if scratch is not None:
+        want["partials"] = (scratch[0], torch.int64,
+                            FLIGHT_BLOCKS * FLIGHT_SUMS_BYTES // 8)
+        want["ticket"] = (scratch[1], torch.int32, 1)
+    for name, (x, dt, numel) in want.items():
+        if x.device != dev or x.dtype != dt or not x.is_contiguous() \
+                or (numel is not None and x.numel() != numel):
+            raise ValueError(f"{name} must be a contiguous {dt} tensor of "
+                             f"{numel or 'any'} elements on {dev}")
+
+
+def record_flight_row(trace: torch.Tensor, i: int, record_every: int,
+                      arrays, t: torch.Tensor, acc: torch.Tensor,
+                      acc_lat: torch.Tensor, prev: torch.Tensor,
+                      prev_lat: torch.Tensor, phase=-1,
+                      coord_row: Optional[torch.Tensor] = None,
+                      scratch: Optional[tuple] = None) -> None:
+    """The flight row of the post-round packed ``arrays`` into the
+    decimation slot of run-local round ``i`` in ``trace`` (as
+    ``flight.record_row``), IN PLACE: the clock ``t``, the gauges, the
+    phase (a host int, or ``faults.phase_at``'s device phase), the
+    counters' delta — the int32 ``acc`` and the f32 latency lane
+    ``acc_lat`` against their last-recorded snapshot ``prev`` /
+    ``prev_lat``, which then moves to them, in place — and ``coord_row``
+    (zeros when None). CPU tensors build the row with
+    ``flight.flight_row``; CUDA tensors launch ``flight_row``, one
+    launch, on ``scratch`` (``flight_scratch``; made for the call when
+    None)."""
+    dev = arrays[0].device
+    if dev.type == "cpu":
+        delta = (acc - prev).to(torch.float32)
+        delta[LAT] = acc_lat - prev_lat
+        flight.record_row(trace, flight.flight_row(
+            up=arrays[3] < 0, status=arrays[0], informed=arrays[2],
+            local_health=arrays[7], incarnation=arrays[1], t=t,
+            stats_delta=delta, phase=phase, coord_row=coord_row),
+            i, record_every)
+        prev.copy_(acc)
+        prev_lat.copy_(acc_lat)
+        return
+    if coord_row is not None:
+        coord_row = coord_row.to(torch.float32).contiguous()
+    _check_flight(arrays, trace, t, acc, acc_lat, prev, prev_lat, phase,
+                  coord_row, scratch)
+    partials, ticket = flight_scratch(dev) if scratch is None else scratch
+    slot = min(i // record_every, trace.shape[0] - 1)   # record_row's
+    on_device = isinstance(phase, torch.Tensor)
+    lib = _lib()
+    args = FlightArgs(
+        status=arrays[0].data_ptr(), inc=arrays[1].data_ptr(),
+        informed=arrays[2].data_ptr(), age=arrays[3].data_ptr(),
+        lh=arrays[7].data_ptr(), rows=arrays[0].shape[0],
+        phase_host=-1.0 if on_device else float(phase),
+        t=t.data_ptr(), phase=phase.data_ptr() if on_device else None,
+        acc=acc.data_ptr(), acc_lat=acc_lat.data_ptr(),
+        prev=prev.data_ptr(), prev_lat=prev_lat.data_ptr(),
+        coord=None if coord_row is None else coord_row.data_ptr(),
+        row=trace[slot].data_ptr(), partials=partials.data_ptr(),
+        ticket=ticket.data_ptr())
+    rc = lib.launch_flight_row(args,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(lib, rc, "flight_row")
+    LAUNCHES["flight_row"] += 1
+
+
 # ---------------------------------------------------------------- runner
 
 
@@ -566,8 +695,9 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     reference's per-round ``scale_frame``.
 
     ``flight_every=k`` arms the flight recorder: after the launch that
-    ends a window (and the run), a row is built from the updated packed
-    arrays with ``flight.flight_row``; its counter lanes are the delta of
+    ends a window (and the run), ``record_flight_row`` writes a row of
+    the updated packed arrays (one ``flight_row`` launch on the card,
+    ``flight.flight_row`` on the CPU); its counter lanes are the delta of
     the int32 run accumulator against its last-recorded snapshot, its
     phase the plan's (``faults.phase_at``). ``blackbox=True`` adds event
     rings for the ``tracked`` ids (or resumes ``bb0``) on the same
@@ -621,8 +751,10 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
         dev = arrays[0].device
         if dev not in consts:
             consts[dev] = (keep.to(dev), torch.tensor(
-                SCALAR_FLOORS, dtype=torch.float32, device=dev))
-        keep_d, floors = consts[dev]
+                SCALAR_FLOORS, dtype=torch.float32, device=dev),
+                flight_scratch(dev) if record and dev.type == "cuda"
+                else None)
+        keep_d, floors, scratch = consts[dev]
         state = SimState(*arrays, t=t, round_idx=r0, stats=st0)
         fxs = plan_frames(plan, state, rounds, p.fault_gain)
         scalars = init_scalars(state, p) if scalars0 is None \
@@ -674,26 +806,22 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
 
             def rec(carry):
                 (pi, pl), bbc = carry
-                up = arrays[3] < 0
                 crow = coords_mod.coord_metrics(coo, topo, aux) \
                     if coords else None
                 r_abs = r0 + i_last
                 ph = phase_at(plan, r_abs) if plan is not None else -1
-                # the window's delta as one vector (STATS_FIELDS order)
-                delta = (acc_i - pi).to(torch.float32)
-                delta[LAT] = acc_lat - pl
-                flight.record_row(trace, flight.flight_row(
-                    up=up, status=arrays[0], informed=arrays[2],
-                    local_health=arrays[7], incarnation=arrays[1], t=t,
-                    stats_delta=delta, phase=ph, coord_row=crow),
-                    i_last, flight_every)
+                # the row and the window's counter delta; the snapshot
+                # moves to the accumulators in place
+                record_flight_row(trace, i_last, flight_every, arrays, t,
+                                  acc_i, acc_lat, pi, pl, phase=ph,
+                                  coord_row=crow, scratch=scratch)
                 if bbc is not None:
                     bbc = blackbox_mod.record(
                         bbc, round_idx=r_abs, phase=ph,
                         status=arrays[0], incarnation=arrays[1],
-                        susp_conf=arrays[6], up=up,
+                        susp_conf=arrays[6], up=arrays[3] < 0,
                         attacked=None if fx is None else fx.attacked)
-                return (acc_i.clone(), acc_lat.clone()), bbc
+                return (pi, pl), bbc
 
             prev, bb = flight.maybe_record((prev, bb), i_last, rounds,
                                            flight_every, rec)

@@ -89,9 +89,10 @@ def flight_row(*, up, status, informed, local_health, incarnation, t,
     is a 0-d tensor, ``phase`` a host int (-1 without a plan), written
     by a fill, not a copy from host memory, so a row never makes the
     host wait, or the device phase of ``faults.phase_at``; ``coord_row`` is the round's ``coords.coord_metrics`` or
-    None (zeros). The four means reduce one stacked [5, N] tensor: a
-    row costs about twenty launches, which is what the host pays per
-    recorded round."""
+    None (zeros). The five means reduce one stacked [5, N] tensor. This
+    is the plain row: the kernel runner builds its rows on the card in
+    one launch (``cuda_round.record_flight_row``), which the tests hold
+    to this function."""
     dev = status.device
     upb = up if up.dtype == torch.bool else up != 0
     suspect = status == SUSPECT

@@ -637,7 +637,8 @@ def test_port_loads_the_reference_file(ref, tmp_path):
 def test_cuda_engine_resume_on_the_card(cuda, tmp_path, rpc, plan):
     """The kernels through the resumable engine at 65,536 nodes: cut,
     saved, loaded, resumed — bit for bit the straight kernel run, with
-    exactly one launch per call over both segments."""
+    exactly one launch per call over both segments, and one
+    ``flight_row`` launch a recorded row."""
     n, rounds = 65_536, 32
     p = P.with_(n=n)
     cp = _plan_for(plan, n, cuda)
@@ -653,6 +654,8 @@ def test_cuda_engine_resume_on_the_card(cuda, tmp_path, rpc, plan):
     rr = ck.run_resumable(p, rounds, key, resume=True, **kw)
     _eq(sf, rr.state, "card resume")
     assert np.array_equal(trf.cpu().numpy(), rr.trace)
+    rows = cuda_round.LAUNCHES.pop("flight_row")
+    assert rows == rounds // 8
     assert sum(cuda_round.LAUNCHES.values()) == rounds // rpc
 
 

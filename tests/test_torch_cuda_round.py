@@ -23,6 +23,7 @@ from consul_tpu_torch import bench
 from consul_tpu_torch import faults as tfaults
 from consul_tpu_torch.sim import costmodel
 from consul_tpu_torch.sim import cuda_round as cr
+from consul_tpu_torch.sim import flight
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim import round as tround
 from consul_tpu_torch.sim import state as tstate
@@ -379,7 +380,9 @@ def test_kernel_report_parsers():
                  "tree_sum/t4v4",
              "_ZN12_GLOBAL__N_110sum_kernelILi2ELi1EEEvPKf7SumPlanPfS4_Pi":
                  "tree_sum/t2v1",
-             "_ZN12_GLOBAL__N_16philoxEjjj": None}
+             "_ZN12_GLOBAL__N_16philoxEjjj": None,
+             "_ZN12_GLOBAL__N_110flight_rowE10FlightArgsfi": "flight_row",
+             "_ZN12_GLOBAL__N_119flight_block_reduceE10FlightSums": None}
     for symbol, label in names.items():
         assert chip_smoke.kernel_label(symbol) == label
     ptxas = "\n".join(
@@ -553,6 +556,170 @@ def test_megakernel_refuses_a_plan():
                                 plan=_plan("byz"))
 
 
+# ------------------------------------------------------------ flight row
+
+
+def _flight_inputs(n, device, big_inc=False, offset=0, seed=5):
+    """Packed post-round lanes for a flight row — alive, suspect, dead
+    and left agents, up (down_age -1 or -2) and down, local health over
+    0..awareness_max, informed in [0, 1] with exact 0s and 1s,
+    incarnations up to 39 (up to 32,767 with ``big_inc``: the sum then
+    passes 2^24) — each lane ``offset`` elements into its buffer (not
+    16-byte aligned when odd); and the run's counters and their
+    snapshot."""
+    g = torch.Generator().manual_seed(seed)
+    status = torch.tensor([tstate.ALIVE, tstate.SUSPECT, tstate.DEAD,
+                           tstate.LEFT])[torch.randint(0, 4, (n,),
+                                                       generator=g)]
+    age = torch.randint(-2, 40, (n,), generator=g)
+    age = torch.where(age < 10, torch.where(age < 4, -1, -2), age)
+    informed = torch.rand(n, generator=g)
+    informed[torch.randint(0, n, (n // 8,), generator=g)] = 1.0
+    informed[torch.randint(0, n, (n // 8,), generator=g)] = 0.0
+    lh = torch.randint(0, FULL.awareness_max + 1, (n,), generator=g)
+    inc = torch.randint(0, 32768 if big_inc else 40, (n,), generator=g)
+
+    def lane(vals, dt):
+        buf = torch.zeros(n + offset, dtype=dt, device=device)
+        buf[offset:].copy_(vals.to(dt))
+        return buf[offset:]
+
+    arrays = list(tstate.init_state(n, device=device).node_arrays())
+    for i, v in ((0, status), (1, inc), (2, informed), (3, age), (7, lh)):
+        arrays[i] = lane(v, arrays[i].dtype)
+    acc = torch.randint(1_000, 2**30, (tround.N_STATS,), generator=g,
+                        dtype=torch.int32)
+    acc[tround.LAT] = 0
+    prev = acc - torch.randint(0, 1_000, (tround.N_STATS,), generator=g,
+                               dtype=torch.int32)
+    lat = torch.rand(2, generator=g) * 1e4
+    t = torch.tensor(1234.5)
+    return (tuple(arrays), *(x.to(device) for x in (
+        t, acc, lat.max().reshape(()), prev, lat.min().reshape(()))))
+
+
+def _flight_phase(kind, device):
+    return {"none": -1, "host": 3,
+            "device": torch.tensor([2], dtype=torch.int64,
+                                   device=device)}[kind]
+
+
+def _plain_flight_row(arrays, t, acc, acc_lat, prev, prev_lat, phase,
+                      coord_row):
+    delta = (acc - prev).to(torch.float32)
+    delta[tround.LAT] = acc_lat - prev_lat
+    return flight.flight_row(up=arrays[3] < 0, status=arrays[0],
+                             informed=arrays[2], local_health=arrays[7],
+                             incarnation=arrays[1], t=t, stats_delta=delta,
+                             phase=phase, coord_row=coord_row)
+
+
+@pytest.mark.parametrize("phase", ["none", "host", "device"])
+@pytest.mark.parametrize("coord", [False, True])
+def test_flight_row_cpu_route_is_flight_row(phase, coord):
+    """On the CPU ``record_flight_row`` writes ``flight.flight_row``'s
+    row into the window's slot, moves the snapshot to the counters in
+    place, and launches nothing."""
+    arrays, t, acc, acc_lat, prev, prev_lat = _flight_inputs(1000, "cpu")
+    ph = _flight_phase(phase, "cpu")
+    crow = torch.tensor([0.25, 0.5, 0.125]) if coord else None
+    want = _plain_flight_row(arrays, t, acc, acc_lat, prev, prev_lat, ph,
+                             crow)
+    trace = torch.zeros((3, flight.N_COLS))
+    cr.reset_launches()
+    cr.record_flight_row(trace, 13, 10, arrays, t, acc, acc_lat, prev,
+                         prev_lat, phase=ph, coord_row=crow)
+    assert dict(cr.LAUNCHES) == {}
+    assert torch.equal(trace[1], want)
+    assert not trace[0].any() and not trace[2].any()
+    assert torch.equal(prev, acc) and torch.equal(prev_lat, acc_lat)
+    assert float(trace[1, flight.COL["fault_phase"]]) == \
+        {"none": -1.0, "host": 3.0, "device": 2.0}[phase]
+
+
+FLIGHT_REFUSALS = {
+    "wide_incarnation": ("arrays", lambda a: (a[0], a[1].to(torch.int32))
+                         + a[2:], "incarnation"),
+    "strided_status": ("arrays", lambda a: (torch.stack([a[0], a[0]], 1)
+                                            [:, 0],) + a[1:], "status"),
+    "int64_counters": ("acc", lambda x: x.to(torch.int64), "acc"),
+    "short_snapshot": ("prev", lambda x: x[:-1], "prev"),
+    "f64_clock": ("t", lambda x: x.double(), "t"),
+    "int32_phase": ("phase", lambda x: torch.tensor([1], dtype=torch.int32),
+                    "phase"),
+    "wide_coords": ("coord_row", lambda x: torch.zeros(4), "coord_row"),
+    "short_partials": ("scratch", lambda x: (x[0][:-1], x[1]), "partials"),
+}
+
+
+@pytest.mark.parametrize("case", list(FLIGHT_REFUSALS))
+def test_flight_row_launch_checks_refuse_what_the_kernel_does_not_take(
+        case):
+    """``record_flight_row``'s checks before a launch, on CPU tensors:
+    the packed lanes, int32 counters of N_STATS, f32 0-d clock and
+    latency lanes, an int64 device phase, a [3] f32 coordinate row and
+    a whole partials scratch; anything else is refused by name."""
+    arrays, t, acc, acc_lat, prev, prev_lat = _flight_inputs(64, "cpu")
+    args = dict(arrays=arrays, trace=torch.zeros((2, flight.N_COLS)), t=t,
+                acc=acc, acc_lat=acc_lat, prev=prev, prev_lat=prev_lat,
+                phase=torch.tensor([0]), coord_row=torch.zeros(3),
+                scratch=cr.flight_scratch("cpu"))
+    cr._check_flight(**args)
+    name, bad, match = FLIGHT_REFUSALS[case]
+    args[name] = bad(args[name])
+    with pytest.raises(ValueError, match=match):
+        cr._check_flight(**args)
+
+
+def test_flight_bound_counts_the_rows_lanes_and_the_row():
+    arrays = tstate.init_state(1000, device="cpu").node_arrays()
+    b = costmodel.flight_bound(arrays)
+    assert b["read_bytes"] == 10 * 1000
+    assert b["written_bytes"] == 4 * flight.N_COLS
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(
+        (10_000 + 88) / costmodel.HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("rpc,stride,plan", [(1, 1, "byz"), (1, 3, "fault"),
+                                             (4, 8, None)])
+def test_kernel_runner_cpu_route_records_plain_rows(rpc, stride, plan):
+    """The kernel runner on the CPU builds each row with
+    ``flight.flight_row`` — the rows of the run cut at every window end,
+    the plan's phase among them — and launches no ``flight_row``."""
+    n, rounds = 2048, 24 if plan is None else 14
+    cp = None if plan is None else _plan(plan, n)
+    p = CHURN.with_(n=n)
+    key = prng.key(8)
+    s0 = tstate.with_crashed(tstate.init_state(n, device="cpu"),
+                             torch.arange(0, n, 89))
+    cr.reset_launches()
+    fin, trace = cr.make_run_rounds_cuda(
+        p, rounds, rounds_per_call=rpc, plan=cp, flight_every=stride)(
+        bench.clone_state(s0), key)
+    assert sum(cr.LAUNCHES.values()) == 0
+    rows, s, sc, done = [], bench.clone_state(s0), None, 0
+    while done < rounds:
+        step = min(stride, rounds - done)
+        prev = s.stats
+        s, sc = cr.make_run_rounds_cuda(p, step, rounds_per_call=rpc,
+                                        carry=True, plan=cp)(
+            s, key, scalars0=sc)
+        ph = -1 if cp is None else tfaults.phase_at(cp, s.round_idx - 1)
+        rows.append(flight.flight_row(
+            up=s.up, status=s.status, informed=s.informed,
+            local_health=s.local_health, incarnation=s.incarnation, t=s.t,
+            stats_delta=flight.stats_delta(s.stats, prev), phase=ph))
+        done += step
+    assert torch.equal(trace, torch.stack(rows))
+    for f in tstate.NODE_FIELDS:
+        assert torch.equal(getattr(fin, f), getattr(s, f)), f
+    if cp is not None:
+        phases = trace[:, flight.COL["fault_phase"]]
+        assert phases.min() < phases.max() == len(
+            chip_smoke.check_plans(n)[plan].phases) - 1
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -673,3 +840,120 @@ def test_cuda_sweep_engine_is_the_per_point_runner_on_the_card(cuda, rpc):
             assert torch.equal(getattr(row, f), getattr(st, f)), (i, f)
         for a, b in zip(row.stats, st.stats):
             assert torch.equal(a, b)
+
+
+#: (n, big incarnations, lane offset) of the flight row's card cases: one
+#: agent, both sides of a tile and of the card's block count, a ragged
+#: edge, the flagship size, an incarnation sum past 2^24, lanes that are
+#: not 16-byte aligned
+FLIGHT_SHAPES = [(1, False, 0), (511, False, 0), (512, False, 0),
+                 (1000, False, 0), (65_539, False, 0), (2**20, False, 0),
+                 (2**20, True, 0), (1000, False, 1), (65_539, False, 3)]
+
+
+def _exact_inc_sum(arrays) -> int:
+    return int(arrays[1].to(torch.int64).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLIGHT_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("phase", ["none", "host", "device"])
+@pytest.mark.parametrize("coord", [False, True])
+def test_flight_row_kernel_matches_flight_row_on_the_card(cuda, shape,
+                                                          phase, coord):
+    """One ``flight_row`` launch against ``flight.flight_row`` on the same
+    card tensors: clock, shares, local-health mean and max, phase,
+    counters and coordinates bit for bit; the informed mean within 1e-6
+    relative; the incarnation sum the exact sum rounded to f32 (the
+    plain f32 sum's bits where that sum is exact); the snapshot moved
+    in place; the same bits on a second launch; nothing written past
+    the partials scratch, and the ticket left at zero."""
+    n, big, offset = shape
+    arrays, t, acc, acc_lat, prev, prev_lat = _flight_inputs(
+        n, cuda, big_inc=big, offset=offset)
+    ph = _flight_phase(phase, cuda)
+    crow = torch.tensor([0.25, 0.5, 0.125], device=cuda) if coord else None
+    want = _plain_flight_row(arrays, t, acc, acc_lat, prev, prev_lat, ph,
+                             crow)
+    rows = cr.FLIGHT_BLOCKS * cr.FLIGHT_SUMS_BYTES // 8
+    guarded = torch.full((rows + 64,), -7, dtype=torch.int64, device=cuda)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    traces = []
+    for _ in range(2):
+        trace = torch.zeros((3, flight.N_COLS), device=cuda)
+        snap, snap_lat = prev.clone(), prev_lat.clone()
+        cr.reset_launches()
+        cr.record_flight_row(trace, 13, 10, arrays, t, acc, acc_lat, snap,
+                             snap_lat, phase=ph, coord_row=crow,
+                             scratch=(guarded[:rows], ticket))
+        torch.cuda.synchronize()
+        assert dict(cr.LAUNCHES) == {"flight_row": 1}
+        assert bool((guarded[rows:] == -7).all()) and int(ticket) == 0
+        assert torch.equal(snap, acc) and torch.equal(snap_lat, acc_lat)
+        assert not trace[0].any() and not trace[2].any()
+        traces.append(trace)
+    assert torch.equal(traces[0].view(torch.int32),
+                       traces[1].view(torch.int32))
+    got = traces[0][1]
+    exact = _exact_inc_sum(arrays)
+    for name, i in flight.COL.items():
+        if name == "mean_informed":
+            torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0)
+        elif name == "inc_bumps":
+            assert float(got[i]) == float(torch.tensor(float(exact)))
+            if exact < 2**24:
+                assert torch.equal(got[i], want[i])
+        else:
+            assert torch.equal(got[i], want[i]), name
+    if big:
+        assert exact > 2**24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rpc,stride,plan", [(1, 1, None), (4, 8, None),
+                                             (1, 1, "byz")])
+def test_kernel_runner_flight_rows_on_the_card(cuda, rpc, stride, plan):
+    """The kernel runner's trace on the card — its rows ``flight_row``
+    launches inside the captured graph — equals ``flight.flight_row`` of
+    the same run cut at every window end: every column but the informed
+    mean bit for bit, that one within 1e-6 relative; one launch a row,
+    replays counted."""
+    n = 65_536
+    rounds = 24 if plan is None else chip_smoke.check_plans(n)[
+        plan].total_rounds
+    cp = None if plan is None else _plan(plan, n, cuda)
+    p = (FULL if plan else CHURN).with_(n=n)
+    key = prng.key(12, device=cuda)
+    s0 = tstate.with_crashed(tstate.init_state(n, device=cuda),
+                             torch.arange(0, n, 89, device=cuda))
+    run = cr.make_run_rounds_cuda(p, rounds, rounds_per_call=rpc, plan=cp,
+                                  flight_every=stride)
+    for _ in range(2):   # the key's eager call, then its capture
+        run(bench.clone_state(s0), key)
+    cr.reset_launches()
+    fin, trace = run(bench.clone_state(s0), key)   # a replay
+    torch.cuda.synchronize()
+    assert cr.LAUNCHES["flight_row"] == flight.n_trace_rows(rounds, stride)
+    rows, s, sc, done = [], bench.clone_state(s0), None, 0
+    while done < rounds:
+        step = min(stride, rounds - done)
+        prev = s.stats
+        s, sc = cr.make_run_rounds_cuda(p, step, rounds_per_call=rpc,
+                                        carry=True, plan=cp)(
+            s, key, scalars0=sc)
+        ph = -1 if cp is None else tfaults.phase_at(cp, s.round_idx - 1)
+        rows.append(flight.flight_row(
+            up=s.up, status=s.status, informed=s.informed,
+            local_health=s.local_health, incarnation=s.incarnation, t=s.t,
+            stats_delta=flight.stats_delta(s.stats, prev), phase=ph))
+        done += step
+    want = torch.stack(rows)
+    for f in tstate.NODE_FIELDS:
+        assert torch.equal(getattr(fin, f), getattr(s, f)), f
+    inf = flight.COL["mean_informed"]
+    torch.testing.assert_close(trace[:, inf], want[:, inf], rtol=1e-6,
+                               atol=0)
+    keep = [i for i in range(flight.N_COLS) if i != inf]
+    assert torch.equal(trace[:, keep], want[:, keep])
+    assert float(trace[:, flight.COL["suspicions"]].sum()) > 0
