@@ -564,6 +564,60 @@ class FaultFrame(NamedTuple):
     attacked: Optional[torch.Tensor] = None
 
 
+#: the frame's lanes as the kernels take them (``FaultArrays`` in
+#: round_kernels.cu, ``FrameArrays`` in lane_kernels.cu): the honest
+#: lanes, then ``mid``, then the byzantine lanes; the masks are bool,
+#: every other lane f32
+FRAME_LANES = ("psend", "precv", "suspw", "hear_w", "slow_f", "crash_p",
+               "rejoin_p", "leave_p")
+BYZ_LANES = ("forge_ack", "spur_susp", "replay", "attacked")
+FRAME_MASKS = ("slow_f", "attacked")
+FRAME_ABI = FRAME_LANES + ("mid",) + BYZ_LANES
+
+
+def frame_lanes(fx: FaultFrame) -> tuple:
+    """The names of the lanes a kernel reads of ``fx``, in
+    ``FRAME_ABI`` order: the byzantine ones on a byzantine frame only."""
+    return FRAME_LANES + ("mid",) + (BYZ_LANES if fx.attacked is not None
+                                     else ())
+
+
+def frame_pointers(fx: FaultFrame) -> dict:
+    """The device pointers of ``frame_lanes(fx)``, by name: a kernel's
+    frame struct."""
+    return {f: getattr(fx, f).data_ptr() for f in frame_lanes(fx)}
+
+
+def check_frame(fx: FaultFrame, dev: torch.device, shapes: tuple) -> None:
+    """Refuse, by lane name, a frame a kernel cannot take: every lane a
+    contiguous tensor on ``dev`` of one of ``shapes`` (``((N,),)``, or
+    ``((N,), (G, N))`` where a grid may give a row a point), f32 and the
+    masks bool; ``mid`` contiguous f32, one a row of the lanes."""
+    rows = tuple(fx.psend.shape)
+    if rows not in shapes:
+        raise ValueError(f"fault lanes must be of shape "
+                         f"{' or '.join(map(str, shapes))}, not {rows}")
+    for f in frame_lanes(fx):
+        if f == "mid":
+            continue
+        a = getattr(fx, f)
+        if a is None:
+            raise ValueError(f"fault frame lacks {f}: a byzantine frame "
+                             "carries all four byzantine lanes")
+        dt = torch.bool if f in FRAME_MASKS else torch.float32
+        if a.device != dev or a.dtype != dt or tuple(a.shape) != rows \
+                or not a.is_contiguous():
+            raise ValueError(
+                f"fault lane {f} must be a contiguous {dt} {rows} tensor "
+                f"on {dev}; it is {a.dtype} {tuple(a.shape)} on "
+                f"{a.device}")
+    mids = math.prod(rows[:-1])
+    if fx.mid.device != dev or fx.mid.dtype != torch.float32 \
+            or fx.mid.numel() != mids or not fx.mid.is_contiguous():
+        raise ValueError(f"fault frame mid must be {mids} contiguous f32 "
+                         f"on {dev}")
+
+
 class PlanSchedule(NamedTuple):
     """What a frame's host-side phase lookup needs, read once per run:
     the phase starts, and which phases flap or release former

@@ -59,8 +59,10 @@ from typing import Optional, Sequence
 
 import torch
 
-from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
-                                     detection_gate, phase_at, scale_plan)
+from consul_tpu_torch.faults import (FRAME_ABI, CompiledFaultPlan,
+                                     FaultFrame, check_frame,
+                                     detection_gate, frame_pointers,
+                                     phase_at, scale_plan)
 from consul_tpu_torch.sim import blackbox as blackbox_mod
 from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim import flight, graphs, prng, topology
@@ -71,9 +73,8 @@ from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
                                         _trunc_poisson, clamp_scalars,
                                         init_scalars, pf_arrays,
                                         plan_frames)
-from consul_tpu_torch.sim.state import (CONF_MAX, NODE_FIELDS,
-                                        STATS_FIELDS, TICK_MAX, SimState,
-                                        SimStats)
+from consul_tpu_torch.sim.state import (CONF_MAX, STATS_FIELDS, TICK_MAX,
+                                        SimState, SimStats, check_packed)
 from consul_tpu_torch.utils import build, telemetry
 
 #: the kernels' partials layout (round_kernels.cu; ``_lib`` checks it):
@@ -91,9 +92,6 @@ FLIGHT_SUMS_BYTES = 40
 #: launches per kernel and variant since the last ``reset_launches()``;
 #: incremented only where a kernel is launched (never by a plain version)
 LAUNCHES: collections.Counter = collections.Counter()
-
-_PACKED_DTYPES = (torch.int8, torch.int16, torch.float32, torch.int16,
-                  torch.int16, torch.int16, torch.int8, torch.int8)
 
 
 def reset_launches() -> None:
@@ -137,19 +135,10 @@ class RoundParams(ctypes.Structure):
             "stats_on", "write_age")]
 
 
-#: the frame lanes the fault variants read, in ``FaultArrays`` order;
-#: ``mid`` (0-d) sits between the honest and the byzantine lanes
-_FAULT_LANES = ("psend", "precv", "suspw", "hear_w", "slow_f", "crash_p",
-                "rejoin_p", "leave_p")
-_BYZ_LANES = ("forge_ack", "spur_susp", "replay", "attacked")
-_MASKS = ("slow_f", "attacked")
-
-
 class FaultArrays(ctypes.Structure):
     """Mirror of ``struct FaultArrays`` in round_kernels.cu."""
 
-    _fields_ = [(f, ctypes.c_void_p)
-                for f in _FAULT_LANES + ("mid",) + _BYZ_LANES]
+    _fields_ = [(f, ctypes.c_void_p) for f in FRAME_ABI]
 
 
 class FlightArgs(ctypes.Structure):
@@ -255,22 +244,8 @@ def _check_launch(lib, rc: int, what: str) -> None:
 
 def _check_inputs(arrays: Sequence[torch.Tensor], scalars: torch.Tensor,
                   seeds: torch.Tensor) -> int:
-    if len(arrays) != len(NODE_FIELDS):
-        raise ValueError(f"expected {len(NODE_FIELDS)} node arrays "
-                         f"({', '.join(NODE_FIELDS)}), got {len(arrays)}")
+    rows, = check_packed(arrays, "the round kernels")
     dev = arrays[0].device
-    rows = arrays[0].shape[0]
-    for f, a, dt in zip(NODE_FIELDS, arrays, _PACKED_DTYPES):
-        if a.device != dev:
-            raise ValueError(f"{f} is on {a.device}, expected {dev}")
-        if a.dtype != dt:
-            raise ValueError(f"{f} has dtype {a.dtype}; the kernels take "
-                             f"the packed layout ({dt})")
-        if a.dim() != 1 or a.shape[0] != rows:
-            raise ValueError(f"{f} has shape {tuple(a.shape)}, expected "
-                             f"({rows},)")
-        if not a.is_contiguous():
-            raise ValueError(f"{f} is not contiguous")
     if (scalars.device != dev or scalars.dtype != torch.float32
             or tuple(scalars.shape) != (N_SCALARS,)
             or not scalars.is_contiguous()):
@@ -281,40 +256,6 @@ def _check_inputs(arrays: Sequence[torch.Tensor], scalars: torch.Tensor,
         raise ValueError(f"seeds must be a contiguous 1-D int32 tensor "
                          f"on {dev}")
     return rows
-
-
-def _check_frame(fx: FaultFrame, rows: int, dev: torch.device) -> None:
-    """The fault lanes must be contiguous [rows] tensors on the state's
-    device: f32, the masks bool; ``mid`` a one-element f32 tensor."""
-    lanes = _FAULT_LANES + (_BYZ_LANES if fx.attacked is not None else ())
-    for f in lanes:
-        a = getattr(fx, f)
-        dt = torch.bool if f in _MASKS else torch.float32
-        if a is None:
-            raise ValueError(f"fault frame lacks {f}: a byzantine frame "
-                             "carries all four byzantine lanes")
-        if a.device != dev:
-            raise ValueError(f"fault lane {f} is on {a.device}, expected "
-                             f"{dev}")
-        if a.dtype != dt:
-            raise ValueError(f"fault lane {f} has dtype {a.dtype}, "
-                             f"expected {dt}")
-        if tuple(a.shape) != (rows,):
-            raise ValueError(f"fault lane {f} has shape {tuple(a.shape)}, "
-                             f"expected ({rows},)")
-        if not a.is_contiguous():
-            raise ValueError(f"fault lane {f} is not contiguous")
-    if (fx.mid.device != dev or fx.mid.dtype != torch.float32
-            or fx.mid.numel() != 1):
-        raise ValueError(f"fault frame mid must be a one-element f32 "
-                         f"tensor on {dev}")
-
-
-def _fault_arrays(fx: FaultFrame) -> FaultArrays:
-    byz = fx.attacked is not None
-    return FaultArrays(**{
-        f: getattr(fx, f).data_ptr()
-        for f in _FAULT_LANES + ("mid",) + (_BYZ_LANES if byz else ())})
 
 
 def _partials_out(out, rows, dev):
@@ -443,7 +384,7 @@ def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
         raise IndexError(f"seed index {r} outside seeds[{seeds.shape[0]}]")
     dev = arrays[0].device
     if fx is not None:
-        _check_frame(fx, rows, dev)
+        check_frame(fx, dev, ((rows,),))
     partials = _partials_out(out, rows, dev)
     if dev.type == "cpu":
         outs, sums = block_round_ref(arrays, scalars, seeds[r], p, fx=fx)
@@ -459,8 +400,9 @@ def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
         rc = lib.launch_round_kernel(kernel_params(p, rows), *ptrs, *tail)
     else:
         rc = lib.launch_round_kernel_fault(
-            kernel_params(p, rows), *ptrs, _fault_arrays(fx),
-            int(fx.attacked is not None), *tail)
+            kernel_params(p, rows), *ptrs,
+            FaultArrays(**frame_pointers(fx)), int(fx.attacked is not None),
+            *tail)
     _check_launch(lib, rc, "round_kernel")
     LAUNCHES[f"round_kernel/{variant(p, fx)}"] += 1
     return partials
@@ -503,16 +445,11 @@ def flight_scratch(dev) -> tuple:
 
 def _check_flight(arrays, trace, t, acc, acc_lat, prev, prev_lat, phase,
                   coord_row, scratch) -> None:
-    """The card's inputs: the packed lanes (as ``_check_inputs``), and
-    contiguous trace, clock, counters and scratch of their dtypes and
-    sizes on the lanes' device."""
+    """The card's inputs: the packed lanes, and contiguous trace, clock,
+    counters and scratch of their dtypes and sizes on the lanes'
+    device."""
+    check_packed(arrays, "flight_row")
     dev = arrays[0].device
-    rows = arrays[0].shape[0]
-    for f, a, dt in zip(NODE_FIELDS, arrays, _PACKED_DTYPES):
-        if a.device != dev or a.dtype != dt or a.dim() != 1 \
-                or a.shape[0] != rows or not a.is_contiguous():
-            raise ValueError(f"{f} must be a contiguous ({rows},) {dt} "
-                             f"tensor on {dev}: the packed layout")
     if trace.dim() != 2 or trace.shape[1] != flight.N_COLS:
         raise ValueError(f"trace must be [rows, {flight.N_COLS}], not "
                          f"{tuple(trace.shape)}")
@@ -717,11 +654,10 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     argument shape and replayed after (``graphs.GraphCache``: the JAX
     runner's one jitted program); ``LAUNCHES`` counts what each replay
     launches. ``graphs.eager()`` runs it launch by launch, as the CPU
-    always does. The state's per-node tensors are updated IN PLACE —
-    the stand-in for JAX's buffer donation: the passed state and the
-    returned one share them; every other returned tensor is fresh. The
-    combinations the JAX runner refuses are refused by name
-    (``_refuse``)."""
+    always does. The state is donated (``graphs``' module doc): the
+    passed state and the returned one share the per-node tensors; every
+    other returned tensor is fresh. The combinations the JAX runner
+    refuses are refused by name (``_refuse``)."""
     R = rounds_per_call
     _refuse(p, R, plan, coords, flight_every, blackbox)
     if rounds % R:

@@ -20,13 +20,16 @@ does it:
   ``copy_``, replays the graph, and clones the outputs out of the pool,
   as a jitted call returns fresh buffers: a caller who keeps call 1's
   stats or trace never sees call 2 overwrite them;
-* ``donated`` tensors are the per-node arrays a body updates in place
-  (JAX's donation): they are copied into the static buffers before the
-  replay and back after it, so the caller's tensors hold the result.
-  The cache keys on shapes, not on data pointers: a restored or resumed
-  state (a checkpoint load, a twin chunk, a sweep point) arrives in new
-  tensors, and a pointer key would capture anew for each, while the two
-  copies move 2 x 15 B a node a call;
+* the ``carry`` is the caller's state, donated (JAX's
+  ``donate_argnums=0``): a tree of tensors (a ``SimState``, or a
+  ``NamedTuple`` of one and named extras) that the body updates in
+  place (``assign``), keyed as the arguments are. Its tensors are copied
+  into the static buffers before the replay and back after it, so the
+  caller's tensors hold the result. The cache keys on shapes, not on
+  data pointers: a restored or resumed state (a checkpoint load, a twin
+  chunk, a sweep point) arrives in new tensors, and a pointer key would
+  capture anew for each, while the two copies move 2 x 15 B a node a
+  call;
 * ``counters`` (the kernel wrappers' launch counters; the draw and sum
   kernels' ``fused.LAUNCHES`` always) count what each call launches:
   the capture launches nothing, so its increments are taken back, and
@@ -34,6 +37,12 @@ does it:
 * the key holds the ``fused.plain()`` switch: a body captured with the
   draw and sum kernels is not replayed where the plain versions were
   asked for.
+
+Every runner whose reference donates holds one contract: the returned
+state holds the caller's per-node tensors, updated in place; its clock,
+round and counters are private copies the runner makes once a call, and
+every other output is fresh. A caller that needs a state after passing
+it clones it first, as a JAX caller must.
 
 A failed capture or replay raises; nothing falls back to the eager
 body: a body that syncs (a host read, a copy from pageable host memory)
@@ -62,7 +71,8 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
+                                 tree_unflatten)
 
 from consul_tpu_torch.sim import fused
 from consul_tpu_torch.utils import telemetry
@@ -119,47 +129,59 @@ class pinned:
         return isinstance(other, pinned) and other.obj is self.obj
 
 
-def direct(key, body: Callable, donated: Sequence[torch.Tensor], *args):
-    """A ``GraphCache`` call that never captures: ``body(donated,
-    *args)`` (a mesh rank's collectives cannot be captured)."""
-    return body(tuple(donated), *args)
+def direct(key, body: Callable, carry, *args):
+    """A ``GraphCache`` call that never captures: ``body(carry, *args)``
+    (a mesh rank's collectives cannot be captured)."""
+    return body(carry, *args)
 
 
-def _tensor_spec(x: torch.Tensor) -> tuple:
-    return (tuple(x.shape), x.dtype, x.device)
+def assign(dst, src) -> None:
+    """Write the tensors of ``src`` into those of ``dst`` in place, leaf
+    by leaf: a body's new value of its carry. A leaf that already is the
+    carry's own tensor is left alone."""
+    dl, sl = tree_leaves(dst), tree_leaves(src)
+    if len(dl) != len(sl):
+        raise ValueError(f"a carry of {len(dl)} leaves cannot take "
+                         f"{len(sl)}")
+    for d, x in zip(dl, sl):
+        if isinstance(d, torch.Tensor) and d is not x:
+            d.copy_(x)
 
 
-def _fresh(tree):
+def fresh(tree):
+    """``tree`` with every tensor cloned: a caller's copy of a state it
+    keeps (a runner that does not donate), or a call's outputs."""
     return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
                     else x, tree)
 
 
-class _Entry:
-    """One captured body: its graph, static inputs and outputs, the
-    launches one replay makes, and what the capture cost."""
+def _tensors(leaves) -> list:
+    return [x for x in leaves if isinstance(x, torch.Tensor)]
 
-    __slots__ = ("graph", "donated", "inputs", "out", "launches",
+
+def _load(dst: list, src: list) -> None:
+    for d, x in zip(dst, src):
+        d.copy_(x)
+
+
+class _Entry:
+    """One captured body: its graph, its static inputs (the carry's
+    tensors first, ``donated`` of them) and outputs, the launches one
+    replay makes, and what the capture cost."""
+
+    __slots__ = ("graph", "inputs", "donated", "out", "launches",
                  "capture_ms", "pool_bytes", "replays")
 
-    def __init__(self, graph, donated, inputs, out, launches, capture_ms,
+    def __init__(self, graph, inputs, donated, out, launches, capture_ms,
                  pool_bytes):
         self.graph = graph
-        self.donated = donated
         self.inputs = inputs
+        self.donated = donated
         self.out = out
         self.launches = launches
         self.capture_ms = capture_ms
         self.pool_bytes = pool_bytes
         self.replays = 0
-
-    def load(self, donated, leaves) -> None:
-        """Copy a call's donated tensors and tensor arguments into the
-        static buffers."""
-        for s, x in zip(self.donated, donated):
-            s.copy_(x)
-        for s, x in zip(self.inputs,
-                        (x for x in leaves if isinstance(x, torch.Tensor))):
-            s.copy_(x)
 
 
 class GraphCache:
@@ -176,63 +198,64 @@ class GraphCache:
         # no graph's live tensors sit in memory another graph writes
         self._pool = None
 
-    def __call__(self, key, body: Callable, donated: Sequence[torch.Tensor],
-                 *args):
-        """``body(donated, *args)``: eager on a key's first call,
-        captured on its second and replayed from then on, on the card;
-        eager on the CPU and inside ``eager()``. ``key`` names the
-        runner's static choices (hashable); the donated tensors are
-        updated in place; the outputs are fresh tensors. The call is the
-        span ``sim.graph.call``; on the card it holds ``sim.graph.eager``
-        (a key's first call) or ``sim.graph.capture`` (its second), or
+    def __call__(self, key, body: Callable, carry, *args):
+        """``body(carry, *args)``: eager on a key's first call, captured
+        on its second and replayed from then on, on the card; eager on
+        the CPU and inside ``eager()``. ``key`` names the runner's
+        static choices (hashable); the carry's tensors are updated in
+        place; the outputs are fresh tensors. The call is the span
+        ``sim.graph.call``; on the card it holds ``sim.graph.eager`` (a
+        key's first call) or ``sim.graph.capture`` (its second), or
         ``sim.graph.prepare`` (the key, the copies into the static
         buffers), ``sim.graph.launch`` (the replay) and
         ``sim.graph.finish`` (the copies back, the outputs cloned)."""
         with telemetry.span("sim.graph.call"):
-            return self._call(key, body, tuple(donated), args)
+            return self._call(key, body, carry, args)
 
-    def _call(self, key, body, donated, args):
-        dev = donated[0].device if donated else None
+    def _call(self, key, body, carry, args):
+        # one tree, the carry's leaves first
+        leaves, spec = tree_flatten((carry, args))
+        tensors = _tensors(leaves)
+        dev = tensors[0].device if tensors else None
         if dev is None or not captures(dev):
             rec = _rehearsal.get()
             if rec is None or (dev is not None and dev.type != "cpu"):
-                return body(donated, *args)
-            with rec.armed(self._key(key, donated, args)[2]):
-                return body(donated, *args)
+                return body(carry, *args)
+            with rec.armed(self._key(key, leaves, spec)):
+                return body(carry, *args)
         with telemetry.span("sim.graph.prepare"):
-            leaves, spec, full_key = self._key(key, donated, args)
+            full_key = self._key(key, leaves, spec)
             entry = self._entries.get(full_key, _UNSEEN)
             if entry is not None and entry is not _UNSEEN:
                 self._entries.move_to_end(full_key)
-                entry.load(donated, leaves)
+                _load(entry.inputs, tensors)
         if entry is _UNSEEN:
             self._remember(full_key, None)
             with telemetry.span("sim.graph.eager"):
-                return body(donated, *args)
+                return body(carry, *args)
         if entry is None:
             with telemetry.span("sim.graph.capture"):
-                entry = self._capture(body, donated, leaves, spec)
+                entry = self._capture(body, leaves, spec,
+                                      len(_tensors(tree_leaves(carry))))
                 self._remember(full_key, entry)
-                entry.load(donated, leaves)
+                _load(entry.inputs, tensors)
         with telemetry.span("sim.graph.launch"):
             entry.graph.replay()
         with telemetry.span("sim.graph.finish"):
             entry.replays += 1
             for c, d in zip(self.counters, entry.launches):
                 c.update(d)
-            for s, x in zip(entry.donated, donated):
-                x.copy_(s)
-            return _fresh(entry.out)
+            _load(tensors[:entry.donated], entry.inputs)
+            return fresh(entry.out)
 
     @staticmethod
-    def _key(key, donated, args) -> tuple:
-        """(the arguments' leaves, their tree spec, the full key)."""
-        leaves, spec = tree_flatten(args)
-        return leaves, spec, (
-            key, fused.plain_active(), spec,
-            tuple(_tensor_spec(x) for x in donated),
-            tuple(_tensor_spec(x) if isinstance(x, torch.Tensor)
-                  else ("leaf", x) for x in leaves))
+    def _key(key, leaves, spec) -> tuple:
+        """The full key: the runner's, the ``plain()`` switch, the tree
+        of the carry and the arguments, and each leaf's spec."""
+        return (key, fused.plain_active(), spec,
+                tuple((tuple(x.shape), x.dtype, x.device)
+                      if isinstance(x, torch.Tensor) else ("leaf", x)
+                      for x in leaves))
 
     def _remember(self, key, entry) -> None:
         self._entries[key] = entry
@@ -240,15 +263,15 @@ class GraphCache:
         while len(self._entries) > MAX_GRAPHS:
             self._entries.popitem(last=False)
 
-    def _capture(self, body, donated, leaves, spec) -> _Entry:
+    def _capture(self, body, leaves, spec, donated: int) -> _Entry:
         """Capture ``body`` over static buffers (filled by ``copy_``
         before each replay, so they start empty); the key's eager first
         call was the warm-up."""
-        dev = donated[0].device
-        s_donated = tuple(torch.empty_like(x) for x in donated)
         s_leaves = [torch.empty_like(x) if isinstance(x, torch.Tensor)
                     else x for x in leaves]
-        s_args = tree_unflatten(s_leaves, spec)
+        s_carry, s_args = tree_unflatten(s_leaves, spec)
+        inputs = _tensors(s_leaves)
+        dev = inputs[0].device
         before = [collections.Counter(c) for c in self.counters]
         t0 = time.perf_counter()
         reserved0 = torch.cuda.memory_reserved(dev)
@@ -265,7 +288,7 @@ class GraphCache:
                 graph.capture_begin(pool=self._pool,
                                     capture_error_mode="thread_local")
                 try:
-                    out = body(s_donated, *s_args)
+                    out = body(s_carry, *s_args)
                 except BaseException:
                     with contextlib.suppress(RuntimeError):
                         graph.capture_end()
@@ -284,9 +307,7 @@ class GraphCache:
                 c.update(b)
         capture_ms = (time.perf_counter() - t0) * 1e3
         CAPTURES.update(graphs=1, ms=capture_ms)
-        return _Entry(graph, s_donated,
-                      [x for x in s_leaves if isinstance(x, torch.Tensor)],
-                      out, launches, capture_ms,
+        return _Entry(graph, inputs, donated, out, launches, capture_ms,
                       torch.cuda.memory_reserved(dev) - reserved0)
 
     def stats(self) -> list:

@@ -57,12 +57,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from consul_tpu_torch.faults import FaultFrame, ipow
+from consul_tpu_torch.faults import (FRAME_ABI, FaultFrame, check_frame,
+                                     frame_lanes, frame_pointers, ipow)
 from consul_tpu_torch.sim import fused, registry
 from consul_tpu_torch.sim.params import TracedParams
 from consul_tpu_torch.sim.state import (ALIVE, ALIVE_AGE, CONF_MAX, DEAD,
                                         LEFT, NODE_FIELDS, SLOW_AGE,
-                                        SUSPECT, TICK_MAX, TTL_NEVER)
+                                        SUSPECT, TICK_MAX, TTL_NEVER,
+                                        check_packed)
 
 SOURCE = "lane_kernels"
 NAME = "lane_round"
@@ -85,19 +87,8 @@ U_CHURN, U_SLOW, U_ACK, U_POIS, U_HEAR, U_REPLAY = range(6)
 _SLOT_FIELDS = ("u_churn", "u_slow", "u_ack", "u_pois", "u_hear",
                 "u_replay")
 
-_PACKED = (torch.int8, torch.int16, torch.float32, torch.int16,
-           torch.int16, torch.int16, torch.int8, torch.int8)
 _F32 = torch.float32
 _I32 = torch.int32
-
-#: the frame lanes the kernel reads, in ``FrameArrays`` order; ``mid``
-#: (0-d, or [G, 1] under a swept fault_gain) sits between the honest and
-#: the byzantine lanes
-FRAME_LANES = ("psend", "precv", "suspw", "hear_w", "slow_f", "crash_p",
-               "rejoin_p", "leave_p")
-BYZ_LANES = ("forge_ack", "spur_susp", "replay", "attacked")
-_MASKS = ("slow_f", "attacked")
-
 
 def _columns(p) -> tuple:
     """A point's constants by the plain body's expressions (``p`` a
@@ -148,8 +139,7 @@ class LaneIO(ctypes.Structure):
 class FrameArrays(ctypes.Structure):
     """Mirror of ``struct FrameArrays`` in lane_kernels.cu."""
 
-    _fields_ = [(f, ctypes.c_void_p)
-                for f in FRAME_LANES + ("mid",) + BYZ_LANES]
+    _fields_ = [(f, ctypes.c_void_p) for f in FRAME_ABI]
 
 
 def _swept(p) -> tuple:
@@ -268,21 +258,8 @@ def _check(vals, scal, u, slots, fx, stack, stats, tab) -> tuple:
     the lanes' shape, and ``mid`` one f32 or one a point; the stack
     ``[N_ROWS, *shape]`` f32 (given for ``stats="add"``); the table
     ``[G, len(COLUMNS)]``. Returns (the lanes' shape, the points)."""
-    if len(vals) != len(NODE_FIELDS):
-        raise ValueError(f"expected {len(NODE_FIELDS)} node lanes, got "
-                         f"{len(vals)}")
-    dev, shape = vals[0].device, tuple(vals[0].shape)
-    if len(shape) not in (1, 2):
-        raise ValueError(f"lane_round takes (N,) or (G, N) lanes; got "
-                         f"{shape}")
-    points, n = math.prod(shape[:-1]), shape[-1]
-    for f, a, dt in zip(NODE_FIELDS, vals, _PACKED):
-        if a.device != dev or a.dtype != dt or tuple(a.shape) != shape \
-                or not a.is_contiguous():
-            raise ValueError(
-                f"lane_round takes the packed layout as contiguous "
-                f"{shape} lanes on {dev}: {f} is {a.dtype} "
-                f"{tuple(a.shape)} on {a.device} (want {dt})")
+    shape = check_packed(vals, NAME, (1, 2))
+    dev, points, n = vals[0].device, math.prod(shape[:-1]), shape[-1]
 
     def bad(t, want_shape, dtype=_F32):
         return t.device != dev or t.dtype != dtype \
@@ -298,21 +275,7 @@ def _check(vals, scal, u, slots, fx, stack, stats, tab) -> tuple:
         raise ValueError(f"slot rows must be contiguous f32 "
                          f"({len(slots)}, {n}) on {dev}")
     if fx is not None:
-        lanes = FRAME_LANES + (BYZ_LANES if fx.attacked is not None
-                               else ())
-        rows = tuple(fx.psend.shape)
-        if rows not in ((n,), shape):
-            raise ValueError(f"fault lanes must be ({n},) or {shape}")
-        for f in lanes:
-            a = getattr(fx, f)
-            if a is None or bad(a, rows, torch.bool if f in _MASKS
-                                else _F32):
-                raise ValueError(f"fault lane {f} must be contiguous "
-                                 f"{rows} on {dev}")
-        mids = points if rows == shape else 1
-        if fx.mid.device != dev or fx.mid.dtype != _F32 \
-                or fx.mid.numel() != mids or not fx.mid.is_contiguous():
-            raise ValueError(f"fault frame mid must be {mids} f32 on {dev}")
+        check_frame(fx, dev, ((n,), shape))
     if stats not in STATS_MODES:
         raise ValueError(f"stats must be one of {tuple(STATS_MODES)}")
     if stack is None and stats == "add":
@@ -345,11 +308,7 @@ def lane_args(vals, scal, u, slots, outs, stack, fx, stats: str,
                                and fx.psend.shape == vals[0].shape
                                and vals[0].dim() == 2),
                 **{f: at.get(s) for s, f in enumerate(_SLOT_FIELDS)})
-    fr = FrameArrays()
-    if fx is not None:
-        names = FRAME_LANES + ("mid",) + (BYZ_LANES if kind == "byz"
-                                          else ())
-        fr = FrameArrays(**{f: getattr(fx, f).data_ptr() for f in names})
+    fr = FrameArrays() if fx is None else FrameArrays(**frame_pointers(fx))
     return io, fr, FRAME_KINDS[kind]
 
 
@@ -388,9 +347,8 @@ def lane_round(vals: Sequence[torch.Tensor], scal: torch.Tensor,
                                               fused._stream(vals[0])),
                         NAME, lib.lane_kernels_error_string)
     fused.LAUNCHES[NAME] += 1
-    frame = () if fx is None else tuple(
-        getattr(fx, f) for f in FRAME_LANES + ("mid",) + BYZ_LANES
-        if getattr(fx, f) is not None)
+    frame = () if fx is None else tuple(getattr(fx, f)
+                                        for f in frame_lanes(fx))
     fused._observe((*vals, scal, tab, u, *frame)
                    + ((stack,) if stats == "add" else ()), (*outs, stack))
     return outs, stack

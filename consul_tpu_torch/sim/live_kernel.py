@@ -50,8 +50,8 @@ import torch
 from consul_tpu_torch.sim import fused
 from consul_tpu_torch.sim import lane_kernel as LK
 from consul_tpu_torch.sim.params import SimParams
-from consul_tpu_torch.sim.state import (ALIVE, NODE_FIELDS, STATS_FIELDS,
-                                        SUSPECT)
+from consul_tpu_torch.sim.state import (ALIVE, NODE_FIELDS, PACKED_DTYPES,
+                                        STATS_FIELDS, SUSPECT)
 
 STAGES = ("a", "b", "c")
 NAMES = tuple(f"live_round/{s}" for s in STAGES)
@@ -91,7 +91,7 @@ def takes(vals: Sequence[torch.Tensor], p) -> bool:
     dev, shape = vals[0].device, vals[0].shape
     return len(shape) == 1 and all(
         a.device == dev and a.dtype == dt and a.shape == shape
-        and a.is_contiguous() for a, dt in zip(vals, LK._PACKED))
+        and a.is_contiguous() for a, dt in zip(vals, PACKED_DTYPES))
 
 
 @functools.lru_cache(maxsize=None)

@@ -35,9 +35,8 @@ rank, so on one card only a world of 1 runs on NCCL; gloo can put
 several ranks on one card (a correctness check, not scaling).
 
 Not ported: the reference's ``unroll`` (an HLO-audit knob; a Python
-loop has nothing to unroll) and its buffer donation (the runners write
-the final per-node tensors into the input state's, as the single-device
-engines do).
+loop has nothing to unroll). The runners donate the rank's slice as the
+single-device engines do (``graphs``' module doc).
 """
 
 from __future__ import annotations
@@ -59,7 +58,7 @@ from consul_tpu_torch.faults import CompiledFaultPlan, shard_plan
 from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.params import SimParams
-from consul_tpu_torch.sim.round import _lane_scan, _write_back
+from consul_tpu_torch.sim.round import _lane_scan, own_scalars
 from consul_tpu_torch.sim.state import NODE_FIELDS, SimState, init_state
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
@@ -282,12 +281,10 @@ def _make_mesh_run(p: SimParams, rounds: int, mesh: Mesh, per_dc: bool,
         local_plan = None if full_plan is None else shard_plan(
             full_plan, offset, offset + rows)
         keys = prng.round_keys(key.to(mesh.device), state.round_idx, rounds)
-        out = _lane_scan(state, keys, local_plan, p, rounds, flight_every,
-                         reducer, shard_offset=offset, overlap=overlap,
-                         lanes0=lanes0, table0=table0, return_carry=carry)
-        if isinstance(out, SimState):
-            return _write_back(state, out)
-        return (_write_back(state, out[0]),) + tuple(out[1:])
+        return _lane_scan(own_scalars(state), keys, local_plan, p, rounds,
+                          flight_every, reducer, shard_offset=offset,
+                          overlap=overlap, lanes0=lanes0, table0=table0,
+                          return_carry=carry)
 
     return run
 

@@ -61,7 +61,7 @@ from __future__ import annotations
 import functools
 import itertools
 import math
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
@@ -670,7 +670,7 @@ def round_core(state: SimState, scalars: Optional[torch.Tensor],
         if p.collect_stats else state.stats
     outs = _cast_like(outs, vals)
     if into is not None:
-        _write(into, outs)
+        graphs.assign(into, outs)
         outs = into
     out = SimState(*outs, t=state.t + _per_point(p.probe_interval, state.t),
                    round_idx=state.round_idx + 1, stats=st)
@@ -788,25 +788,21 @@ def _params_from(p, leaves: tuple):
                         p.point)
 
 
-def _carry(state: SimState, *extra) -> list:
-    """A private copy of a run's state (and ``extra`` tensors) as one
-    flat list of tensors, the donated carry of a window body."""
-    return [x.clone() for x in (*state.node_arrays(), state.t,
-                                state.round_idx, *state.stats, *extra)]
+def own_scalars(state: SimState) -> SimState:
+    """``state`` as a runner's carry holds it: the caller's per-node
+    tensors (donated, updated in place) and private copies of its clock,
+    round and counters (see ``graphs``' module doc)."""
+    return state._replace(t=state.t.clone(),
+                          round_idx=state.round_idx.clone(),
+                          stats=SimStats(*[x.clone() for x in state.stats]))
 
 
-def _carry_state(d) -> SimState:
-    return SimState(*d[:8], t=d[8], round_idx=d[9],
-                    stats=SimStats(*d[10:10 + N_STATS]))
+class FastCarry(NamedTuple):
+    """The stale-scalar runner's carry: the state and the scalars the
+    next round reads."""
 
-
-#: a carry's tensors after the state's: [8 lanes, t, round, stats]
-_CARRY_STATE = 10 + N_STATS
-
-
-def _write(dst, src) -> None:
-    for d, x in zip(dst, src):
-        d.copy_(x)
+    state: SimState
+    scalars: torch.Tensor
 
 
 def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
@@ -817,8 +813,8 @@ def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
     would recompute live sums instead). ``plan`` shapes each round with
     its ``fault_frame``. On the card each round is one replay of a
     captured round (``graphs.GraphCache``), its key an input and its
-    frame looked up on the device from the carried round; the returned
-    state is new, as the eager loop's is."""
+    frame looked up on the device from the carried round. The state is
+    donated (``graphs``' module doc)."""
     cache = graphs.GraphCache()
 
     def run(state: SimState, key: torch.Tensor,
@@ -826,26 +822,24 @@ def make_run_rounds_fast(p: SimParams, rounds: int, carry: bool = False):
         if scalars0 is not None and not carry:
             raise ValueError("scalars0 needs a carry=True runner")
 
-        def one_round(d, key_r):
-            s = _carry_state(d)
-            fx = frame_at(plan, s.round_idx) if plan is not None else None
-            s2, sc2 = gossip_round_fast(s, d[_CARRY_STATE], key_r, p, fx)
-            _write(d, (*s2.node_arrays(), s2.t, s2.round_idx, *s2.stats,
-                       sc2))
+        def one_round(c, key_r):
+            fx = frame_at(plan, c.state.round_idx) if plan is not None \
+                else None
+            graphs.assign(c, FastCarry(*gossip_round_fast(
+                c.state, c.scalars, key_r, p, fx)))
 
         with telemetry.span("sim.runner.call"):
             with telemetry.span("sim.runner.prologue"):
-                sc = init_scalars(state, p) if scalars0 is None \
-                    else scalars0
+                c = FastCarry(own_scalars(state),
+                              init_scalars(state, p) if scalars0 is None
+                              else scalars0.clone())
                 keys = prng.round_keys(key, state.round_idx, rounds)
-                d = _carry(state, sc)
                 plan_key = graphs.pinned(plan) if plan is not None \
                     else None
             for r in range(rounds):
-                cache(("round", plan_key), one_round, d, keys[r])
+                cache(("round", plan_key), one_round, c, keys[r])
             with telemetry.span("sim.runner.epilogue"):
-                state = _carry_state(d)
-                return (state, d[_CARRY_STATE]) if carry else state
+                return tuple(c) if carry else c.state
 
     run.graphs = cache
     return run
@@ -862,25 +856,26 @@ def make_run_rounds(p: SimParams, rounds: int):
     """A pre-bound live-engine runner: ``run(state, key)`` -> state, the
     rounds of ``run_rounds``. On the card a call replays a captured body
     of ``LIVE_REPLAY_ROUNDS`` periods (``graphs.GraphCache``; the last
-    body of a call holds what is left), its round keys an input; the
-    returned state is new, as ``run_rounds``' is."""
+    body of a call holds what is left), its round keys an input. The
+    state is donated (``graphs``' module doc): each period writes its
+    lanes into the state's own (``round_core(into=)``)."""
     cache = graphs.GraphCache()
 
-    def periods(d, keys_k):
+    def periods(s, keys_k):
         for r in range(keys_k.shape[0]):
-            s2 = gossip_round(_carry_state(d), keys_k[r], p, into=d[:8])
-            _write(d[8:], (s2.t, s2.round_idx, *s2.stats))
+            graphs.assign(s, gossip_round(s, keys_k[r], p,
+                                          into=s.node_arrays()))
 
     def run(state: SimState, key: torch.Tensor) -> SimState:
         with telemetry.span("sim.runner.call"):
             with telemetry.span("sim.runner.prologue"):
                 keys = prng.round_keys(key, state.round_idx, rounds)
-                d = _carry(state)
+                s = own_scalars(state)
             for i0 in range(0, rounds, LIVE_REPLAY_ROUNDS):
-                cache("periods", periods, d,
+                cache("periods", periods, s,
                       keys[i0:i0 + LIVE_REPLAY_ROUNDS])
             with telemetry.span("sim.runner.epilogue"):
-                return _carry_state(d)
+                return s
 
     run.graphs = cache
     return run
@@ -998,11 +993,10 @@ def make_run_rounds_flight(p: SimParams, rounds: int,
 # body in lane mode on the global-index draws (prng.u01_global), one
 # fixed-order reduction of the [N_REDUCE_LANES, ..., L] contribution
 # stack per staleness-k window (sim/lanes.py), stats and flight rows
-# from the reduced lane vector. Windows are Python loops here; the state
-# is carried across rounds as new tensors and written into the input's
-# per-node tensors at the end of a run (the stand-in for JAX's buffer
-# donation). Every function takes one run ([N] lanes, SimParams) or a
-# grid ([G, N] lanes, params.TracedParams) alike.
+# from the reduced lane vector. Windows are Python loops here, each
+# writing its state into the carry's tensors (``LaneCarry``). Every
+# function takes one run ([N] lanes, SimParams) or a grid ([G, N] lanes,
+# params.TracedParams) alike.
 
 
 def _grid_scalars(sc: torch.Tensor) -> torch.Tensor:
@@ -1153,6 +1147,17 @@ def _apply_lane_stats(s: SimState, lv: torch.Tensor,
         s.stats, lanes_mod.stats_delta_from_lanes(lv)))
 
 
+class LaneCarry(NamedTuple):
+    """The lane engine's carry: the state, the last window's reduced
+    lane vector, and the counters at the last flight row (with a
+    recorder) or the pre-fold block table (under overlap)."""
+
+    state: SimState
+    lanes: torch.Tensor
+    prev: Optional[SimStats] = None
+    table: Optional[torch.Tensor] = None
+
+
 def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
                rounds: int, flight_every: Optional[int], lane_reducer, *,
                shard_offset: int = 0, overlap: bool = False, lanes0=None,
@@ -1167,8 +1172,10 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     captured window, replayed ``rounds // stale_k`` times, its keys an
     input and its frames and phase looked up on the device from the
     carried round; ``graphs.direct`` runs it as it stands). The window
-    updates a private copy of the run's state, lane vector and flight
-    snapshot in place.
+    updates a ``LaneCarry`` in place, whose state is ``state``: every
+    tensor of it, the clock, round and counters too (a runner passes
+    ``own_scalars(state)``; the sweep, whose reference does not donate,
+    a copy). The returned state is that carry's.
 
     ``overlap=True`` carries the pre-fold block table and folds it one
     window late (window m consumes window m-2's reduction); the first
@@ -1192,70 +1199,61 @@ def _lane_scan(state: SimState, keys: torch.Tensor, cp, p: SimParams,
     pkey, pleaves = _param_inputs(p)
     plan_key = graphs.pinned(cp) if cp is not None else None
 
-    def window(d, keys_k, leaves, count, record):
+    def window(c, keys_k, leaves, count, record):
         pp = _params_from(p, leaves)
-        s = _carry_state(d)
-        r = s.round_idx
         frames = [None] * count if cp is None else \
-            list(frames_at(cp, r, count))
+            list(frames_at(cp, c.state.round_idx, count))
         if overlap:
-            pending = lane_reducer.fold_start(d[_CARRY_STATE + 1])
-        s2, stack = _lane_window(s, d[_CARRY_STATE], keys_k, frames, pp,
+            pending = lane_reducer.fold_start(c.table)
+        s2, stack = _lane_window(c.state, c.lanes, keys_k, frames, pp,
                                  count, shard_offset)
         lv = lane_reducer.fold_finish(pending) if overlap \
             else lane_reducer(stack)
         s2 = _apply_lane_stats(s2, lv, pp)
-        if overlap:
-            _write(d[_CARRY_STATE + 1:], (lane_reducer.partials(stack),))
         row = None
         if record:
-            prev = SimStats(*d[_CARRY_STATE + 1:])
             ph = phase_at(cp, s2.round_idx - 1) if cp is not None else -1
             row = flight.row_from_lanes(lv, pp.n, s2.t, ph,
-                                        flight.stats_delta(s2.stats, prev))
-            _write(d[_CARRY_STATE + 1:], s2.stats)
-        _write(d[:_CARRY_STATE + 1], (*s2.node_arrays(), s2.t,
-                                      s2.round_idx, *s2.stats, lv))
+                                        flight.stats_delta(s2.stats, c.prev))
+        graphs.assign(c, LaneCarry(
+            s2, lv, s2.stats if record else c.prev,
+            lane_reducer.partials(stack) if overlap else None))
         return row
 
+    with telemetry.span("sim.runner.prologue"):
+        lanes = init_lanes(state, p, lane_reducer) if lanes0 is None \
+            else lanes0.clone()
+        if overlap:
+            c = LaneCarry(state, lanes, table=(
+                lanes_mod.seed_table(lanes, shard_offset) if table0 is None
+                else lanes_mod.carry_table(table0, shard_offset)))
+        else:
+            c = LaneCarry(state, lanes, prev=SimStats(
+                *[x.clone() for x in state.stats]) if with_flight else None)
+            buf = flight.empty_trace(
+                rounds, flight_every, state.status.device,
+                lead=tuple(state.status.shape[:-1])) if with_flight else None
     if overlap:
-        with telemetry.span("sim.runner.prologue"):
-            if lanes0 is None:
-                lanes0 = init_lanes(state, p, lane_reducer)
-            table = (lanes_mod.seed_table(lanes0, shard_offset)
-                     if table0 is None
-                     else lanes_mod.carry_table(table0, shard_offset))
-            d = _carry(state, lanes0, table)
         for m in range(rounds // k):
-            call(("overlap", pkey, plan_key), window, d,
+            call(("overlap", pkey, plan_key), window, c,
                  keys[m * k:(m + 1) * k], pleaves, k, False)
         with telemetry.span("sim.runner.epilogue"):
-            s, lv_ready, table = _carry_state(d), d[_CARRY_STATE], d[-1]
             if return_carry:
-                return s, lv_ready, lane_reducer.gather_table(table)
-            return _apply_lane_stats(s, lane_reducer.fold(table), p)
-
-    with telemetry.span("sim.runner.prologue"):
-        if lanes0 is None:
-            lanes0 = init_lanes(state, p, lane_reducer)
-        buf = flight.empty_trace(rounds, flight_every, state.status.device,
-                                 lead=tuple(state.status.shape[:-1])) \
-            if with_flight else None
-        d = _carry(state, lanes0, *(state.stats if with_flight else ()))
+                return c.state, c.lanes, lane_reducer.gather_table(c.table)
+            return _apply_lane_stats(c.state, lane_reducer.fold(c.table), p)
     for i0 in range(0, rounds, k):
         count = min(k, rounds - i0)
         i = i0 + count - 1
         record = with_flight and ((i + 1) % flight_every == 0
                                   or i + 1 >= rounds)
-        row = call(("window", pkey, plan_key, count, record), window, d,
+        row = call(("window", pkey, plan_key, count, record), window, c,
                    keys[i0:i0 + count], pleaves, count, record)
         if record:
             flight.record_row(buf, row, i, flight_every)
     with telemetry.span("sim.runner.epilogue"):
-        s, lv = _carry_state(d), d[_CARRY_STATE]
-        out = (s, buf) if with_flight else (s,)
+        out = (c.state, buf) if with_flight else (c.state,)
         if return_carry:
-            out = out + (lv,)
+            out = out + (c.lanes,)
         return out[0] if len(out) == 1 else out
 
 
@@ -1267,15 +1265,6 @@ def drain_overlap(state: SimState, table: torch.Tensor, p: SimParams,
     if lane_reducer is None:
         lane_reducer = lanes_mod.reduce_lanes_single
     return _apply_lane_stats(state, lane_reducer.fold(table), p)
-
-
-def _write_back(state: SimState, final: SimState) -> SimState:
-    """Write ``final``'s per-node tensors into ``state``'s (updated in
-    place, as the kernel runner's) and return the final state on them."""
-    for a, b in zip(state.node_arrays(), final.node_arrays()):
-        a.copy_(b)
-    return SimState(*state.node_arrays(), t=final.t,
-                    round_idx=final.round_idx, stats=final.stats)
 
 
 def make_run_rounds_lanes(p: SimParams, rounds: int,
@@ -1295,7 +1284,7 @@ def make_run_rounds_lanes(p: SimParams, rounds: int,
     with the returned carry (``lanes0=``, ``table0=``, then
     ``drain_overlap``) is bit for bit the uncut run. ``plan`` (or a
     per-call ``cp``) shapes each round with its ``fault_frame``. The
-    state's per-node tensors are updated in place. The reference's
+    state is donated (``graphs``' module doc). The reference's
     ``unroll`` (an HLO-audit knob) is left out: a Python loop has
     nothing to unroll."""
     if lane_blocks is not None and lane_blocks != lanes_mod.LANE_BLOCKS:
@@ -1330,14 +1319,11 @@ def make_run_rounds_lanes(p: SimParams, rounds: int,
             with telemetry.span("sim.runner.prologue"):
                 keys = prng.round_keys(key.to(state.status.device),
                                        state.round_idx, rounds)
-            out = _lane_scan(state, keys, cp if cp is not None else plan,
-                             p, rounds, flight_every, reducer,
-                             overlap=overlap, lanes0=lanes0, table0=table0,
-                             return_carry=carry, cache=cache)
-            with telemetry.span("sim.runner.epilogue"):
-                if isinstance(out, SimState):
-                    return _write_back(state, out)
-                return (_write_back(state, out[0]),) + tuple(out[1:])
+                state = own_scalars(state)
+            return _lane_scan(state, keys, cp if cp is not None else plan,
+                              p, rounds, flight_every, reducer,
+                              overlap=overlap, lanes0=lanes0, table0=table0,
+                              return_carry=carry, cache=cache)
 
     run.graphs = cache
     return run

@@ -51,6 +51,8 @@ _PACKED = {name: _TORCH_DTYPE[d] for name, d, _ in
            registry.STATE_PACKED_FIELDS}
 #: per-node fields, in kernel array order
 NODE_FIELDS = tuple(name for name, _, _ in registry.STATE_PACKED_FIELDS)
+#: their packed dtypes, in the same order: the layout the kernels take
+PACKED_DTYPES = tuple(_PACKED[f] for f in NODE_FIELDS)
 #: fields whose unpacked twin widens to int32
 _WIDENED = ("incarnation", "down_age", "susp_len", "susp_ttl",
             "susp_conf")
@@ -115,6 +117,28 @@ class SimState(NamedTuple):
     def node_arrays(self) -> tuple:
         """The 8 per-node tensors in kernel array order."""
         return tuple(getattr(self, f) for f in NODE_FIELDS)
+
+
+def check_packed(vals, what: str, dims: tuple = (1,)) -> tuple:
+    """Refuse, by field name, lanes that ``what`` (a kernel) cannot take:
+    the 8 per-node tensors in ``NODE_FIELDS`` order and the packed
+    dtypes, contiguous, of one shape of ``dims`` dimensions, on one
+    device. Returns that shape."""
+    if len(vals) != len(NODE_FIELDS):
+        raise ValueError(f"{what} takes {len(NODE_FIELDS)} node lanes "
+                         f"({', '.join(NODE_FIELDS)}), got {len(vals)}")
+    dev, shape = vals[0].device, tuple(vals[0].shape)
+    if len(shape) not in dims:
+        raise ValueError(f"{what} takes lanes of {dims} dimensions; got "
+                         f"{shape}")
+    for f, a, dt in zip(NODE_FIELDS, vals, PACKED_DTYPES):
+        if a.device != dev or a.dtype != dt or tuple(a.shape) != shape \
+                or not a.is_contiguous():
+            raise ValueError(
+                f"{what} takes the packed layout as contiguous {shape} "
+                f"lanes on {dev}: {f} is {a.dtype} {tuple(a.shape)} on "
+                f"{a.device} (want {dt})")
+    return shape
 
 
 def _dtype(field: str, packed: bool) -> torch.dtype:

@@ -52,14 +52,23 @@ from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim.params import (GridSpec, SimParams, TracedParams,
                                          _point_param, grid_params,
                                          point_params)
-from consul_tpu_torch.sim.round import (_CARRY_STATE, _carry,
-                                        _carry_state, _lane_scan,
-                                        _param_inputs, _params_from,
-                                        _write, draw_slots, round_core)
+from consul_tpu_torch.sim.round import (_lane_scan, _param_inputs,
+                                        _params_from, draw_slots,
+                                        round_core)
 from consul_tpu_torch.sim.state import SimState, SimStats, init_state
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
 ENGINES = ("xla", "lanes", "cuda")
+
+
+class GridCarry(NamedTuple):
+    """The live grid's carry: the state, its coordinates (with
+    ``coords``) and the counters at the last flight row (with a
+    recorder)."""
+
+    state: SimState
+    coords: Optional[coords_mod.CoordState] = None
+    prev: Optional[SimStats] = None
 
 
 def _xla_scan(state: SimState, tp, keys: torch.Tensor, rounds: int,
@@ -72,63 +81,61 @@ def _xla_scan(state: SimState, tp, keys: torch.Tensor, rounds: int,
     coordinate columns. Each round is one call of ``cache`` (a
     ``graphs.GraphCache``: one captured grid round, replayed ``rounds``
     times, its key an input, its frame and phase looked up on the device
-    from the carried round) on a private copy of the grid's state."""
+    from the carried round) on a ``GridCarry`` of ``state`` and
+    ``coords``, both updated in place."""
     rows = state.status.shape[-1]
     pkey, pleaves = _param_inputs(tp)
     buf = flight.empty_trace(rounds, flight_every, state.status.device,
                              lead=tuple(state.status.shape[:-1])) \
         if flight_every is not None else None
-    nc = len(coords) if coords is not None else 0
-    d = _carry(state, *(coords if coords is not None else ()),
-               *(state.stats if flight_every is not None else ()))
+    c = GridCarry(state, coords, SimStats(*[x.clone() for x in state.stats])
+                  if flight_every is not None else None)
 
-    def grid_round(d, key_i, leaves, record):
+    def grid_round(c, key_i, leaves, record):
         pp = _params_from(tp, leaves)
-        s = _carry_state(d)
+        s = c.state
         fx = frame_at(cp, s.round_idx) if cp is not None else None
         u01 = prng.threefry_u01(key_i, rows, draw_slots(pp, fx))
-        aux = None
+        aux = c2 = None
         if coords is None:
             s2, _ = round_core(s, None, pp, u01, fx,
                                reduce=lanes_mod.row_sums)
-            c2 = ()
         else:
-            c = coords_mod.CoordState(*d[_CARRY_STATE:_CARRY_STATE + nc])
-            s2, _, c2, aux, _ = round_core(s, None, pp, u01, fx, coords=c,
-                                           topo=topo, key=key_i,
+            s2, _, c2, aux, _ = round_core(s, None, pp, u01, fx,
+                                           coords=c.coords, topo=topo,
+                                           key=key_i,
                                            reduce=lanes_mod.row_sums)
         row = None
         if record:
-            prev = SimStats(*d[_CARRY_STATE + nc:])
             ph = phase_at(cp, s2.round_idx - 1) if cp is not None else -1
             crow = coords_mod.coord_metrics(c2, topo, aux) \
                 if coords is not None else None
             row = flight.grid_flight_row(
                 up=s2.up, status=s2.status, informed=s2.informed,
                 local_health=s2.local_health, incarnation=s2.incarnation,
-                t=s2.t, stats_delta=flight.stats_delta(s2.stats, prev),
+                t=s2.t, stats_delta=flight.stats_delta(s2.stats, c.prev),
                 phase=ph, coord_row=crow)
-            _write(d[_CARRY_STATE + nc:], s2.stats)
-        _write(d[:_CARRY_STATE + nc], (*s2.node_arrays(), s2.t,
-                                       s2.round_idx, *s2.stats, *c2))
+        graphs.assign(c, GridCarry(s2, c2, s2.stats if record else c.prev))
         return row
 
     plan_key = graphs.pinned(cp) if cp is not None else None
     for i in range(rounds):
         record = flight_every is not None and (
             (i + 1) % flight_every == 0 or i + 1 >= rounds)
-        row = cache(("grid", pkey, plan_key, record), grid_round, d,
+        row = cache(("grid", pkey, plan_key, record), grid_round, c,
                     keys[i], pleaves, record)
         if record:
             flight.record_row(buf, row, i, flight_every)
-    return _carry_state(d), buf
+    return c.state, buf
 
 
 def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
                engine: str, coords: bool = False, topo=None):
     """The grid runner ``(state, tp, keys, cp) -> (state, trace|None)``:
     ONE function serves the grid and the one-point run; with ``coords``
-    every point starts from ``init_coords`` and relaxes over ``topo``."""
+    every point starts from ``init_coords`` and relaxes over ``topo``.
+    It runs on a copy of ``state`` (the reference's sweep does not
+    donate) and returns the copy."""
     if engine not in ENGINES:
         raise ValueError(f"unknown sweep engine {engine!r} "
                          f"(expected one of {ENGINES})")
@@ -148,8 +155,9 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
         lanes_mod.check_flight_config(p, flight_every)
 
         def solo(state, tp, keys, cp):
-            out = _lane_scan(state, keys, cp, tp, rounds, flight_every,
-                             lanes_mod.reduce_lanes_single, cache=cache)
+            out = _lane_scan(graphs.fresh(state), keys, cp, tp, rounds,
+                             flight_every, lanes_mod.reduce_lanes_single,
+                             cache=cache)
             return out if flight_every is not None else (out, None)
 
         solo.graphs = cache
@@ -162,8 +170,8 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
             c0 = coords_mod.CoordState(*[
                 x.repeat(lead + (1,) * x.dim()) for x in
                 coords_mod.init_coords(p.n, device=state.status.device)])
-        return _xla_scan(state, tp, keys, rounds, flight_every, cp, cache,
-                         coords=c0, topo=topo)
+        return _xla_scan(graphs.fresh(state), tp, keys, rounds,
+                         flight_every, cp, cache, coords=c0, topo=topo)
 
     solo.graphs = cache
     return solo

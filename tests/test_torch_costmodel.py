@@ -42,7 +42,7 @@ import torch
 from consul_tpu_torch import bench
 from consul_tpu_torch.config import GossipConfig
 from consul_tpu_torch.sim import costmodel as cm
-from consul_tpu_torch.sim import cuda_round, registry
+from consul_tpu_torch.sim import cuda_round, graphs, registry
 from consul_tpu_torch.sim import round as tround
 from consul_tpu_torch.sim import state as tstate
 from consul_tpu_torch.sim.params import SimParams
@@ -145,13 +145,12 @@ def test_marginal_protocol_cancels_init_work():
     from consul_tpu_torch.sim import prng
 
     key = prng.round_keys(prng.key(0), 0, 1)[0]
-    d = tround._carry(s, sc)
+    c = tround.FastCarry(tround.own_scalars(s), sc)
     with cm.OpCounter() as one:
-        s2, sc2 = tround.gossip_round_fast(s, sc, key, p)
-        # the runner writes each round into the buffers it carries (a
-        # CUDA graph of one round replays on them)
-        tround._write(d, (*s2.node_arrays(), s2.t, s2.round_idx,
-                          *s2.stats, sc2))
+        # the runner writes each round into the carry (a CUDA graph of
+        # one round replays on it)
+        graphs.assign(c, tround.FastCarry(*tround.gossip_round_fast(
+            c.state, c.scalars, key, p)))
     with cm.OpCounter() as run1:
         tround.make_run_rounds_fast(p, 1)(
             tstate.init_state(1024, device=CPU), prng.key(0))

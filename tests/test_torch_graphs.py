@@ -262,6 +262,37 @@ def test_rehearsal_refuses_host_reads_and_finds_baked_values():
     assert int(cache("item", reads["item"], (x,))[0]) == 0
 
 
+def test_a_body_gets_its_state_carry_by_name_and_updates_it_in_place():
+    """A ``GraphCache`` body gets the carry as the caller's tree (a
+    ``SimState``, read by name) and writes its new value into the
+    caller's tensors with ``graphs.assign``; the call is keyed by the
+    carry's structure, and two calls run the same ops."""
+    cache = graphs.GraphCache()
+    s = tround.own_scalars(tstate.init_state(64, device="cpu"))
+    lanes = s.node_arrays()
+
+    def body(c, step):
+        assert isinstance(c, tstate.SimState)
+        graphs.assign(c, c._replace(informed=c.informed * 0.5,
+                                    t=c.t + step,
+                                    round_idx=c.round_idx + 1))
+        return c.t * 2.0
+
+    with graphs.rehearse() as rec:
+        for _ in range(2):
+            out = cache("halve", body, s, torch.tensor(1.5))
+        cache("halve", lambda c, step: c[0] * step, (s.informed,),
+              torch.tensor(1.5))
+    assert all(a is b for a, b in zip(s.node_arrays(), lanes))
+    assert torch.all(s.informed == 0.25)
+    assert float(s.t) == 3.0 and int(s.round_idx) == 2
+    assert float(out) == 6.0
+    (k1, ops1), (k2, ops2), (k3, _) = rec.calls
+    assert k1 == k2 and ops1 == ops2 and k3 != k1
+    with pytest.raises(ValueError, match="leaves"):
+        graphs.assign(s, s.node_arrays())
+
+
 def test_seeds_from_a_device_start_equal_an_int_start():
     k = prng.key(11)
     for start in (0, 5, 2**20 + 3):

@@ -313,7 +313,7 @@ def test_lane_args_point_at_every_tensor(kind):
         got = np.ctypeslib.as_array(
             (ctypes.c_float * N).from_address(ptr))
         assert np.array_equal(got, row.numpy())
-    for f in LK.FRAME_LANES + ("mid",) + LK.BYZ_LANES:
+    for f in tfaults.FRAME_ABI:
         t = None if fx is None else getattr(fx, f)
         assert getattr(fr, f) == (None if t is None else t.data_ptr())
 
@@ -677,13 +677,15 @@ def test_lane_bound_counts_the_launch_bytes(stats, inst, slots, frame,
     in all (54.5 µs at 3.35 TB/s)."""
     n = 1 << 20
     meta = torch.device("meta")
-    vals = tuple(torch.empty(n, dtype=dt, device=meta) for dt in LK._PACKED)
+    vals = tuple(torch.empty(n, dtype=dt, device=meta)
+                 for dt in tstate.PACKED_DTYPES)
     u = torch.empty((slots, n), device=meta)
     fx = None
     if frame:
-        lanes = {f: torch.empty(n, dtype=torch.bool if f in LK._MASKS
+        lanes = {f: torch.empty(n, dtype=torch.bool
+                                if f in tfaults.FRAME_MASKS
                                 else torch.float32, device=meta)
-                 for f in LK.FRAME_LANES + LK.BYZ_LANES}
+                 for f in tfaults.FRAME_LANES + tfaults.BYZ_LANES}
         if frame == "fault":
             lanes.update(forge_ack=None, spur_susp=None, replay=None,
                          attacked=None)

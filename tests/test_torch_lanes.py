@@ -367,10 +367,74 @@ def test_lane_run_cut_at_a_window_and_resumed_is_bitwise(overlap):
     assert a.t == b.t and a.round_idx == b.round_idx == 32
 
 
-def test_lane_runner_updates_the_state_in_place():
-    p = tround.SimParams(n=256, loss=0.05)
+def _eager_kernel(s, key, p, rounds):
+    """The kernel runner's rounds as plain per-round calls: each
+    ``block_round_ref`` on the last round's clamped partial sums."""
+    from consul_tpu_torch.sim import cuda_round as cr
+
+    arrays, sc = s.node_arrays(), tround.init_scalars(s, p)
+    seeds = prng.round_seeds(key, 0, rounds)
+    for r in range(rounds):
+        arrays, part = cr.block_round_ref(arrays, sc, seeds[r], p)
+        sc = tround.clamp_scalars(part.sum(0)[:8])
+    return arrays
+
+
+def _eager_fast(s, key, p, rounds):
+    sc = tround.init_scalars(s, p)
+    keys = prng.round_keys(key, s.round_idx, rounds)
+    for r in range(rounds):
+        s, sc = tround.gossip_round_fast(s, sc, keys[r], p)
+    return s
+
+
+def _eager_lanes(s, key, p, rounds):
+    red = tlanes.reduce_lanes_single
+    lv = tround.init_lanes(s, p, red)
+    keys = prng.round_keys(key, s.round_idx, rounds)
+    for r in range(rounds):
+        s, lv = tround.gossip_round_lanes(s, lv, keys[r], p,
+                                          lane_reducer=red)
+    return s
+
+
+def _kernel_runner(p, rounds):
+    from consul_tpu_torch.sim import cuda_round as cr
+
+    return cr.make_run_rounds_cuda(p, rounds)
+
+
+DONATING_RUNNERS = {
+    "kernel": (_kernel_runner, _eager_kernel),
+    "live": (tround.make_run_rounds,
+             lambda s, key, p, r: tround.run_rounds(s, key, p, r)[0]),
+    "fast": (tround.make_run_rounds_fast, _eager_fast),
+    "lanes": (tround.make_run_rounds_lanes, _eager_lanes)}
+
+
+@pytest.mark.parametrize("engine", list(DONATING_RUNNERS))
+def test_runner_updates_the_state_in_place(engine):
+    """Every runner whose reference donates returns the caller's
+    per-node tensors, updated, bit for bit its rounds run eagerly one by
+    one; the clock, round and counters come back as new tensors and the
+    caller's keep their values."""
+    make, eager = DONATING_RUNNERS[engine]
+    p = tround.SimParams(n=256, loss=0.05, fail_per_round=0.01,
+                         rejoin_per_round=0.05)
+    rounds = 12
     s = tstate.init_state(256, device="cpu")
-    ptrs = [a.data_ptr() for a in s.node_arrays()]
-    out = tround.make_run_rounds_lanes(p, 6)(s, prng.key(1))
-    assert [a.data_ptr() for a in out.node_arrays()] == ptrs
-    assert int(out.round_idx) == 6 and float(out.t) == 6.0
+    want = eager(tstate.init_state(256, device="cpu"), prng.key(1), p,
+                 rounds)
+    lanes = s.node_arrays()
+    out = make(p, rounds)(s, prng.key(1))
+    assert all(a is b for a, b in zip(out.node_arrays(), lanes))
+    for a, b in zip(out.node_arrays(), want[:8]):
+        assert torch.equal(a, b)
+    assert int(out.round_idx) == rounds and int(s.round_idx) == 0
+    assert float(out.t) == rounds and float(s.t) == 0.0
+    assert out.t is not s.t
+    assert all(x is not y for x, y in zip(out.stats, s.stats))
+    if engine != "kernel":
+        for a, b in zip(out.stats, want.stats):
+            assert torch.equal(a, b)
+        assert int(out.stats.crashes) > 0

@@ -423,11 +423,14 @@ def test_every_variant_is_the_plain_body_on_the_card(cuda, name):
 
 
 #: the aten ops a 2-period call of the live runner dispatches inside
-#: ``fused.plain()`` at 1,024 agents, from the tree before the stages
+#: ``fused.plain()`` at 1,024 agents: the tree before the stages counted
+#: the periods' same ops, and besides them 8 clones of the lanes and a
+#: copy onto itself of each counter a period leaves as it was, which the
+#: donated carry does not make
 PLAIN_OPS_2_PERIODS = {
-    "wan-1m-churn5": 2495, "lan-1m": 2495, "no lifeguard": 2425,
-    "slow model": 2809, "stats off": 2411, "no churn": 2097,
-    "corroboration_k=1": 2545}
+    "wan-1m-churn5": 2483, "lan-1m": 2483, "no lifeguard": 2413,
+    "slow model": 2797, "stats off": 2383, "no churn": 2079,
+    "corroboration_k=1": 2533}
 
 
 def _plain_ops(p, dev) -> int:
@@ -442,8 +445,8 @@ def _plain_ops(p, dev) -> int:
 @pytest.mark.parametrize("name", list(PLAIN_OPS_2_PERIODS))
 def test_plain_route_dispatches_as_before(name):
     """Inside ``fused.plain()`` the live runner's periods dispatch the
-    plain body's ops, as many as before the stages (and launch no
-    kernel)."""
+    plain body's ops, as before the stages, around the ops of its
+    donated carry (and launch no kernel)."""
     fused.reset_launches()
     assert _plain_ops(_variants()[name], CPU) == PLAIN_OPS_2_PERIODS[name]
     assert not fused.LAUNCHES
@@ -453,7 +456,8 @@ def test_plain_route_dispatches_as_before(name):
 def test_plain_route_launches_as_before_on_the_card(cuda):
     """On the card too: the ops the plain route dispatches, and its
     device operations (the profiler's, an eager 8-period call at 65,536
-    agents) as the tree before the stages counted them."""
+    agents) as the tree before the stages counted them, less the
+    clones the donated carry does not make."""
     from torch.profiler import ProfilerActivity, profile
 
     for name, want in PLAIN_OPS_2_PERIODS.items():
@@ -473,6 +477,6 @@ def test_plain_route_launches_as_before_on_the_card(cuda):
     assert len(ops) == PLAIN_DEVICE_OPS_8_PERIODS
 
 
-#: the device operations of that call, as the tree before the stages
-#: counted them on an H100
-PLAIN_DEVICE_OPS_8_PERIODS = 9476
+#: the device operations of that call: as the tree before the stages
+#: counted them on an H100, less the 8 clones of the lanes
+PLAIN_DEVICE_OPS_8_PERIODS = 9468
