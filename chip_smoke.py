@@ -24,7 +24,10 @@ non-zero before the result line):
               frame of an all-primitive honest plan, one byz-variant
               launch on a frame of the four byzantine primitives with
               corroboration_k=2 (both on the chaos suite's config, and
-              again on the full one), and one R=8 and one R=4
+              again on the full one), the byz-variant launch once more
+              on that round read in place (the plan's phase rows at the
+              device phase, as the kernel runner hands it over on the
+              card), and one R=8 and one R=4
               mega_kernel launch per honest variant, each held against
               its plain PyTorch version on the same inputs (int lanes
               exact — at most 2 nodes may differ, each only where a
@@ -615,7 +618,7 @@ def compare(torch, m, name, arrays, scal, seeds, p, mega, fx=None):
         k_part = cr.mega_kernel(k_arrays, scal, seeds, p)
     else:
         ref_out, ref_part = cr.block_round_ref(arrays, scal, seeds[0], p,
-                                               fx=fx)
+                                               fx=plain_frame(m, fx))
         k_part = cr.round_kernel(k_arrays, scal, seeds, 0, p, fx=fx)
     torch.cuda.synchronize()
     fields = m.state.NODE_FIELDS
@@ -633,7 +636,8 @@ def compare(torch, m, name, arrays, scal, seeds, p, mega, fx=None):
     margin_max = None
     if n_bad:
         margins = plain_margins(m, arrays, scal,
-                                seeds if mega else seeds[:1], p, fx)
+                                seeds if mega else seeds[:1], p,
+                                plain_frame(m, fx))
         margin_max = float(margins[bad].max())
         if n_bad > MAX_INT_MISMATCH or margin_max >= MARGIN_ULPS:
             raise SmokeFailure(
@@ -674,14 +678,27 @@ def compare(torch, m, name, arrays, scal, seeds, p, mega, fx=None):
 
 def check_frames(m, dev) -> dict:
     """The fault views the check and the timing feed the fault
-    variants, with each plan's host seconds in compile_plan."""
+    variants, with each plan's host seconds in compile_plan; and, as
+    "byz in place", the byzantine round as the kernel runner hands it
+    to the kernel on the card (``faults.frames_in_place``)."""
     out = {}
     for name, plan in check_plans(N).items():
         t0 = time.perf_counter()
         cp = m.faults.compile_plan(plan, N, dev)
         out[name] = (m.faults.fault_frame(cp, CHECK_ROUNDS[name]),
                      time.perf_counter() - t0)
+        if name == "byz":
+            out["byz in place"] = (next(m.faults.frames_in_place(
+                cp, cp.starts.new_tensor(CHECK_ROUNDS[name]), 1)), None)
     return out
+
+
+def plain_frame(m, fx):
+    """The frame the plain version takes for the kernel's ``fx``: an
+    in-place frame resolved to its round's lanes."""
+    if isinstance(fx, m.faults.InPlaceFrame):
+        return fx.resolve()
+    return fx
 
 
 def check_inputs(torch, m, dev):
@@ -693,7 +710,7 @@ def check_inputs(torch, m, dev):
     seeds = m.prng.round_seeds(m.prng.key(11, device=dev), 100, MEGA_R)
     frames = check_frames(m, dev)
     return ((arrays, scal, seeds, {k: v[0] for k, v in frames.items()}),
-            {k: v[1] for k, v in frames.items()})
+            {k: v[1] for k, v in frames.items() if v[1] is not None})
 
 
 def phase_check(torch, m, dev):
@@ -721,6 +738,8 @@ def phase_check(torch, m, dev):
             ("round_kernel/fault slow+tcp", p_full, False, fx_fault),
             ("round_kernel/byz slow+tcp", p_full.with_(corroboration_k=2),
              False, fx_byz),
+            ("round_kernel/byz in place", p_chaos.with_(corroboration_k=2),
+             False, frames["byz in place"]),
             ("mega_kernel/stable", p_stable, True, None),
             ("mega_kernel/full", p_full, True, None),
             (f"mega_kernel/stable R={TUNE_R}", p_stable, True, None),
@@ -1085,11 +1104,11 @@ def phase_chaos(torch, m, dev):
               for k, cls in (("round_kernel/fault", honest),
                              ("round_kernel/byz",
                               m.scenarios.BYZANTINE_CHAOS))}
-    rounds["flight_row"] = sum(rounds.values())
+    rounds["flight_row"] = rounds["frame/in_place"] = sum(rounds.values())
     if launches != rounds:
         raise SmokeFailure(f"chaos launched {launches}, expected one "
-                           f"launch per round of both runs and one row a "
-                           f"round: {rounds}")
+                           f"launch per round of both runs, its frame "
+                           f"read in place, and one row a round: {rounds}")
     bad = chaos_failures(res["classes"])
     if bad:
         raise SmokeFailure("chaos signatures: " + "; ".join(bad))
@@ -1326,6 +1345,7 @@ def phase_observe(torch, m, dev):
     for name, got in tl.items():
         kind = "byz" if name in m.scenarios.BYZANTINE_CHAOS else "fault"
         want_t = {f"round_kernel/{kind}": track[name]["rounds"],
+                  "frame/in_place": track[name]["rounds"],
                   "flight_row": track[name]["rounds"]}
         if got != want_t:
             bad.append(f"tracking {name}: launched {got}, expected {want_t}")
@@ -1727,6 +1747,7 @@ def resume_chaos(torch, m, dev, root, n=N, chunk=RESUME_CHUNK):
         kname = "round_kernel/" + ("byz" if name in sc.BYZANTINE_CHAOS
                                    else "fault")
         expect = {kname: plan.total_rounds,
+                  "frame/in_place": plan.total_rounds,
                   "flight_row": plan.total_rounds} if on_card else {}
         if n_launch != expect:
             bad.append(f"chaos {name}: launched {n_launch}, expected "
@@ -2410,6 +2431,7 @@ def seams_chaos(torch, m, dev, n=N, name=SEAMS_CHAOS):
         return {"rc": rc, **rep}, [f"cli chaos mode: rc {rc}, {rep}"], \
             launches
     want = {"round_kernel/fault": rep["rounds"],
+            "frame/in_place": rep["rounds"],
             "flight_row": rep["rounds"]} \
         if torch.device(dev).type == "cuda" else {}
     bad = class_failures(name, rep)
@@ -2456,7 +2478,8 @@ def seams_twin(torch, m, dev, root, n=N, chunk=SEAMS_TWIN_CHUNK):
     proof_s = time.perf_counter() - t2
     launches = dict(cr.LAUNCHES)
     after_mid = rounds - sim.mid_cursor
-    want = {"round_kernel/fault": rounds + after_mid} \
+    want = {"round_kernel/fault": rounds + after_mid,
+            "frame/in_place": rounds + after_mid} \
         if torch.device(dev).type == "cuda" else {}
     st = sim.state.stats
     stats = {f: int(getattr(st, f)) for f in
@@ -3498,7 +3521,8 @@ def launch_times(torch, kern, reps) -> dict:
 
 def timing_cases(m, inputs) -> list:
     """(name, params, mega, frame) of each variant ``time_kernels``
-    times: the six of the paths and the gated full variant."""
+    times: the six of the paths, the gated full variant, and the byz one
+    on its frame read in place, as the kernel runner hands it over."""
     b = m.bench
     frames = inputs[3]
     p_full, p_chaos = b.diag_params(N), m.scenarios.chaos_params(N)
@@ -3510,7 +3534,9 @@ def timing_cases(m, inputs) -> list:
             ("mega_kernel/full", p_full, True, None),
             ("round_kernel/fault", p_chaos, False, frames["fault"]),
             ("round_kernel/byz", p_chaos.with_(corroboration_k=2), False,
-             frames["byz"])]
+             frames["byz"]),
+            ("round_kernel/byz in place", p_chaos.with_(corroboration_k=2),
+             False, frames["byz in place"])]
 
 
 def kernel_call(m, inputs, p, mega, fx):
@@ -3541,19 +3567,19 @@ def time_kernels(torch, m, inputs) -> dict:
     out = {}
     for name, p, mega, fx in timing_cases(m, inputs):
         kern, rounds, reps = kernel_call(m, inputs, p, mega, fx)
-        ref_out = None
+        pfx, ref_out = plain_frame(m, fx), None
         if fx is not None:
             ref_out, _ = cr.block_round_ref(arrays, scal, seeds[0], p,
-                                            fx=fx)
+                                            fx=pfx)
         if mega:
             def plain():
                 cr.mega_round_ref(arrays, scal, seeds, p)
         else:
             def plain():
-                cr.block_round_ref(arrays, scal, seeds[0], p, fx=fx)
+                cr.block_round_ref(arrays, scal, seeds[0], p, fx=pfx)
         out[name] = {**launch_times(torch, kern, reps),
                      "plain_ms": _events_ms(torch, plain, 3, warm=1),
-                     **m.costmodel.kernel_bound(p, arrays, rounds, fx=fx,
+                     **m.costmodel.kernel_bound(p, arrays, rounds, fx=pfx,
                                                 out=ref_out),
                      "rounds_per_launch": rounds}
     return out

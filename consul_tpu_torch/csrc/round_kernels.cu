@@ -64,6 +64,10 @@
 //    the same node -> row map on the host;
 //  * the 8 stale population scalars and the per-round seeds are read
 //    from device memory, so a multi-round run never syncs the host;
+//  * the fault variants read the kernel runner's frame in place: the
+//    plan's phase rows, each lane's stride between phases and the device
+//    phase (FaultArrays), so no gather of the round's lanes precedes the
+//    launch;
 //  * the STABLE variant (write_age == 0) never stores down_age, so a
 //    dead row's age stays frozen: the TPU kernel's behaviour;
 //  * detection_gate (forged acks, k-of-m corroboration) runs whenever
@@ -102,6 +106,7 @@ constexpr int FAULT_NPT = 4, FAULT_MINB = 4;
 constexpr int BYZ_NPT = 2, BYZ_MINB = 2;
 constexpr int MEGA_NPT = 2, MEGA_MINB = 2;
 constexpr int LH_TAB = 32;             // awareness levels a table holds
+constexpr int FRAME_ABI_LANES = 13;    // a fault frame's pointers (mid too)
 // The flight row (consul_tpu_torch/sim/flight.py): 9 gauge columns, the
 // 10 SimStats counters (detect_latency_sum at FLIGHT_LAT), 3 coordinate
 // columns. Its launch: FLIGHT_THREADS threads a block, FLIGHT_NPT
@@ -134,7 +139,11 @@ struct RoundParams {
 
 // One round's fault frame: [rows] lanes and the 0-d `mid`. Field order
 // must match FaultArrays in consul_tpu_torch/sim/cuda_round.py. The
-// byzantine pointers are null on an honest frame.
+// byzantine pointers are null on an honest frame. With a device `phase`
+// each pointer is a lane's phase-0 row of the plan, and the round's lane
+// starts phase * stride[lane] elements of the lane's type past it
+// (`stride` in the pointers' order; 0 for a lane that is the round's);
+// a null `phase` reads every lane as it is.
 struct FaultArrays {
   const float* psend;
   const float* precv;
@@ -149,6 +158,8 @@ struct FaultArrays {
   const float* spur_susp;
   const float* replay;
   const uint8_t* attacked;
+  const int64_t* phase;
+  int64_t stride[FRAME_ABI_LANES];
 };
 
 // One flight row's inputs and outputs. Field order must match FlightArgs
@@ -825,6 +836,33 @@ __device__ __forceinline__ void put_node(Group<NPT>& g, int j,
   seti(g.lh, j, s.lh);
 }
 
+// The frame's lanes at the device phase: each pointer moved by the phase
+// times its stride (0 for a null lane). The honest kernels read no
+// frame, so they take it as it is.
+template <bool FAULT>
+__device__ __forceinline__ FaultArrays frame_at_phase(const FaultArrays& F) {
+  if constexpr (!FAULT) {
+    return F;
+  } else {
+    const int64_t ph = F.phase ? *F.phase : 0;
+    FaultArrays G = F;
+    G.psend += ph * F.stride[0];
+    G.precv += ph * F.stride[1];
+    G.suspw += ph * F.stride[2];
+    G.hear_w += ph * F.stride[3];
+    G.slow_f += ph * F.stride[4];
+    G.crash_p += ph * F.stride[5];
+    G.rejoin_p += ph * F.stride[6];
+    G.leave_p += ph * F.stride[7];
+    G.mid += ph * F.stride[8];
+    G.forge_ack += ph * F.stride[9];
+    G.spur_susp += ph * F.stride[10];
+    G.replay += ph * F.stride[11];
+    G.attacked += ph * F.stride[12];
+    return G;
+  }
+}
+
 template <bool FAULT, bool BYZ, int NPT>
 __device__ __forceinline__ FaultGroup<NPT> load_fault_group(
     const FaultArrays& F, int i, int n, bool wide) {
@@ -914,7 +952,8 @@ __global__ void __launch_bounds__(TILE / NPT, MINB)
   build_tables<FAULT, BYZ, STABLE, THREADS>(T, scal, P);
   const Shared D = T.D;
   const uint32_t sd = (uint32_t)seed[0];
-  const float mid = FAULT ? *F.mid : 1.0f;
+  const FaultArrays Fp = frame_at_phase<FAULT>(F);
+  const float mid = FAULT ? *Fp.mid : 1.0f;
   const bool write_age = FAULT || (!STABLE && P.write_age);
   const int n = P.rows;
   const int step = gridDim.x * TILE;
@@ -934,7 +973,7 @@ __global__ void __launch_bounds__(TILE / NPT, MINB)
   for (; i < n; i += step) {
     const bool wide = vec && i + NPT <= n;
     const FaultGroup<NPT> fcur =
-        load_fault_group<FAULT, BYZ, NPT>(F, i, n, wide);
+        load_fault_group<FAULT, BYZ, NPT>(Fp, i, n, wide);
     Group<NPT> cur;
     if (PREFETCH) {
       cur = g;
@@ -1208,12 +1247,24 @@ int arrays_aligned(const Arrays& a) {
          aligned16(a.conf) && aligned16(a.lh);
 }
 
+// A lane's row is 16-byte aligned at every phase when its base is and
+// its stride between phases is a multiple of 16 bytes.
+bool lane_aligned(const void* p, int64_t stride, int bytes) {
+  return aligned16(p) && (stride * bytes) % 16 == 0;
+}
+
 int frame_aligned(const FaultArrays& F) {
-  return aligned16(F.psend) && aligned16(F.precv) && aligned16(F.suspw) &&
-         aligned16(F.hear_w) && aligned16(F.slow_f) && aligned16(F.crash_p) &&
-         aligned16(F.rejoin_p) && aligned16(F.leave_p) &&
-         aligned16(F.forge_ack) && aligned16(F.spur_susp) &&
-         aligned16(F.replay) && aligned16(F.attacked);
+  const int64_t* s = F.stride;
+  return lane_aligned(F.psend, s[0], 4) && lane_aligned(F.precv, s[1], 4) &&
+         lane_aligned(F.suspw, s[2], 4) && lane_aligned(F.hear_w, s[3], 4) &&
+         lane_aligned(F.slow_f, s[4], 1) &&
+         lane_aligned(F.crash_p, s[5], 4) &&
+         lane_aligned(F.rejoin_p, s[6], 4) &&
+         lane_aligned(F.leave_p, s[7], 4) &&
+         lane_aligned(F.forge_ack, s[9], 4) &&
+         lane_aligned(F.spur_susp, s[10], 4) &&
+         lane_aligned(F.replay, s[11], 4) &&
+         lane_aligned(F.attacked, s[12], 1);
 }
 
 template <bool FAULT, bool BYZ, bool STABLE, int NPT, int MINB>

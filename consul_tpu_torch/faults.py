@@ -30,6 +30,11 @@ The tensor half replaces the reference's jnp half:
   whenever the plan has them (``any_flap`` / ``any_release``, settled by
   ``compile_plan`` on the host), which leaves a phase that has none as
   it is, so every frame is ``fault_frame``'s bit for bit;
+* ``frames_in_place`` — the kernel runner's frames on the card: no lane
+  is materialized; each names its phase-0 row of the plan, its stride
+  between phases and the device phase, and the ``fault`` / ``byz``
+  round kernel reads the phase's row in place (only the flap and
+  release rewrites stay fresh lanes);
 * ``detection_gate`` (and ``_binom_tail_ge``) for a static
   ``corroboration_k`` and for a swept one (a ``[G, 1]`` leaf of a
   ``params.TracedParams``, where a grid may put k = 0 beside k >= 1).
@@ -726,53 +731,171 @@ def frame_at(cp: CompiledFaultPlan, round_idx: torch.Tensor,
     return next(frames_at(cp, round_idx, 1, gain))
 
 
-def frames_at(cp: CompiledFaultPlan, round0: torch.Tensor, rounds: int,
-              gain: float = 1.0) -> Iterator[FaultFrame]:
-    """``frame_at`` of the ``rounds`` rounds from the device round
-    ``round0``, each frame built as it is taken. The phases, the rounds'
-    offsets in them and ``mid`` are looked up for all the rounds at
-    once: a few launches a call, none a round."""
+def plan_phases(cp: CompiledFaultPlan, round0: torch.Tensor,
+                rounds: int) -> tuple:
+    """The ``rounds`` absolute rounds from the device round ``round0``
+    (``[rounds]``, the dtype of ``starts``) and the phase of each
+    (``[rounds]`` int64, clipped as ``active_phase`` clips): one
+    ``searchsorted`` for all of them, no host read."""
     r = round0.reshape(-1)[:1].to(cp.starts.dtype) + torch.arange(
         rounds, dtype=cp.starts.dtype, device=cp.starts.device)
     phs = (torch.searchsorted(cp.starts, r, right=True) - 1).clamp_(
         0, cp.starts.shape[0] - 1)
+    return r, phs
+
+
+def frames_at(cp: CompiledFaultPlan, round0: torch.Tensor, rounds: int,
+              gain: float = 1.0,
+              phases: Optional[tuple] = None) -> Iterator[FaultFrame]:
+    """``frame_at`` of the ``rounds`` rounds from the device round
+    ``round0``, each frame built as it is taken. The phases (``phases``,
+    ``plan_phases``' lookup when the caller has made it), the rounds'
+    offsets in them and ``mid`` are looked up for all the rounds at
+    once: a few launches a call, none a round."""
+    r, phs = plan_phases(cp, round0, rounds) if phases is None else phases
     rels = r - cp.starts.index_select(0, phs)
     mids = cp.mid.index_select(0, phs)
     for i in range(rounds):
         yield _frame(cp, phs[i:i + 1], rels[i:i + 1], mids[i], gain)
 
 
-def _frame(cp: CompiledFaultPlan, ph: torch.Tensor, rel: torch.Tensor,
-           mid: torch.Tensor, gain: float) -> FaultFrame:
-    def take(x):
-        # the phase's row moved as int64 words where it splits into them:
-        # a gather's cost is per element, so wider elements move it faster
-        k = 8 // x.element_size()
-        if all(d % k == 0 for d in (
-                x.shape[-1], x.storage_offset(), *x.stride()[:-1])):
-            return x.view(torch.int64).index_select(0, ph)[0].view(x.dtype)
-        return x.index_select(0, ph)[0]
+def _take(x: torch.Tensor, ph: torch.Tensor) -> torch.Tensor:
+    """Phase ``ph``'s row of the per-phase tensor ``x``, a fresh tensor:
+    moved as int64 words where it splits into them (a gather's cost is
+    per element, so wider elements move it faster)."""
+    k = 8 // x.element_size()
+    if all(d % k == 0 for d in (
+            x.shape[-1], x.storage_offset(), *x.stride()[:-1])):
+        return x.view(torch.int64).index_select(0, ph)[0].view(x.dtype)
+    return x.index_select(0, ph)[0]
 
-    f = dict(zip(ROW_LANES, take(cp.rows)))
-    m = dict(zip(MASK_LANES, take(cp.masks)))
-    crash_p, rejoin_p = f["crash_p"], f["rejoin_p"]
+
+def _churn_rewrites(cp: CompiledFaultPlan, ph: torch.Tensor,
+                    rel: torch.Tensor, crash_p: torch.Tensor,
+                    rejoin_p: torch.Tensor,
+                    flap_release: Optional[torch.Tensor],
+                    gain: float) -> tuple:
+    """The phase's ``crash_p`` and ``rejoin_p`` after the flap and release
+    rewrites the plan has (``any_flap``, ``any_release``; the phase's
+    ``flap_release`` row is needed only for the second): on a phase
+    without them they come out as they went in."""
     level = float(gain)
     if cp.any_flap:
-        half = take(cp.flap_half)
+        half = _take(cp.flap_half, ph)
         cycle = (rel // torch.clamp_min(half, 1)) % 2
         flap_on = half > 0
         down = flap_on & (cycle == 1)
         crash_p = torch.where(down, level, crash_p)
         rejoin_p = torch.where(flap_on & ~down, level, rejoin_p)
     if cp.any_release:
-        rejoin_p = torch.where(m["flap_release"] & (rel == 0), level,
-                               rejoin_p)
+        rejoin_p = torch.where(flap_release & (rel == 0), level, rejoin_p)
+    return crash_p, rejoin_p
+
+
+def _frame(cp: CompiledFaultPlan, ph: torch.Tensor, rel: torch.Tensor,
+           mid: torch.Tensor, gain: float) -> FaultFrame:
+    f = dict(zip(ROW_LANES, _take(cp.rows, ph)))
+    m = dict(zip(MASK_LANES, _take(cp.masks, ph)))
+    crash_p, rejoin_p = _churn_rewrites(cp, ph, rel, f["crash_p"],
+                                        f["rejoin_p"], m["flap_release"],
+                                        gain)
     return FaultFrame(
         psend=f["psend"], precv=f["precv"], suspw=f["suspw"],
         hear_w=f["hear_w"], mid=mid, slow_f=m["slow_f"],
         crash_p=crash_p, rejoin_p=rejoin_p, leave_p=f["leave_p"],
         forge_ack=f.get("forge_ack"), spur_susp=f.get("spur_susp"),
         replay=f.get("replay"), attacked=m.get("attacked"))
+
+
+class InPlaceFrame(NamedTuple):
+    """A round's fault frame read in place from its plan, as the kernel
+    runner hands it to ``round_kernel`` on the card. ``lanes`` holds, for
+    each lane a kernel reads (``frame_lanes``, ``mid`` among them), the
+    plan's phase-0 row (a view) or a fresh lane the round rewrote;
+    ``strides`` the elements of the lane's dtype from one phase's row to
+    the next (0 for a fresh lane); ``phase`` the round's device phase
+    (``[1]`` int64); ``phases`` the plan's number of phases. The round's
+    lane f starts ``phase * strides[f]`` elements past ``lanes.f``."""
+
+    lanes: FaultFrame
+    strides: dict
+    phase: torch.Tensor
+    phases: int
+
+    def lane(self, f: str) -> Optional[torch.Tensor]:
+        """The round's lane ``f``: a stride-0 lane as it is, else the
+        phase's row picked by the device phase from the phase rows
+        ``as_strided`` lays over the lane's storage (a fresh tensor; no
+        host read)."""
+        b, s = getattr(self.lanes, f), self.strides.get(f, 0)
+        if b is None or s == 0:
+            return b
+        rows = b.as_strided((self.phases, *b.shape), (s, *b.stride()),
+                            b.storage_offset())
+        return rows.index_select(0, self.phase)[0]
+
+    def resolve(self) -> FaultFrame:
+        """The frame the kernel reads, every lane the round's (``lane``)."""
+        return FaultFrame(**{f: self.lane(f) for f in FaultFrame._fields})
+
+
+def frames_in_place(cp: CompiledFaultPlan, round0: torch.Tensor,
+                    rounds: int, gain: float = 1.0,
+                    phases: Optional[tuple] = None
+                    ) -> Iterator[InPlaceFrame]:
+    """``frames_at``'s rounds as ``InPlaceFrame``s on ``cp``'s phase rows
+    and each round's device phase (``phases``, ``plan_phases``' lookup,
+    made here when None): no lane is gathered, except that on a plan
+    with flap or release rewrites ``crash_p`` and ``rejoin_p`` are the
+    fresh lanes ``frames_at`` makes (stride 0). Each frame's
+    ``resolve()`` is ``frames_at``'s frame bit for bit."""
+    r, phs = plan_phases(cp, round0, rounds) if phases is None else phases
+    fresh = ("crash_p", "rejoin_p") if cp.any_flap or cp.any_release \
+        else ()
+    base = FaultFrame(**{f: None if getattr(cp, f) is None
+                         else getattr(cp, f)[0]
+                         for f in FaultFrame._fields})
+    strides = {f: 0 if f in fresh else getattr(cp, f).stride(0)
+               for f in frame_lanes(base)}
+    if fresh:
+        rels = r - cp.starts.index_select(0, phs)
+    for i in range(rounds):
+        ph, lanes = phs[i:i + 1], base
+        if fresh:
+            crash_p, rejoin_p = _churn_rewrites(
+                cp, ph, rels[i:i + 1], _take(cp.crash_p, ph),
+                _take(cp.rejoin_p, ph),
+                _take(cp.flap_release, ph) if cp.any_release else None,
+                gain)
+            lanes = base._replace(crash_p=crash_p, rejoin_p=rejoin_p)
+        yield InPlaceFrame(lanes, strides, ph, cp.starts.shape[0])
+
+
+def check_in_place(fx: InPlaceFrame, dev: torch.device, rows: int) -> None:
+    """Refuse, by name, an in-place frame a kernel cannot take: lanes as
+    ``check_frame`` takes them (each one phase's row), one contiguous
+    int64 phase on ``dev``, and each lane's stride 0 or at least a row,
+    with the last phase's row inside the lane's storage. The phase's
+    value is the device's (``plan_phases`` clips it to the plan)."""
+    check_frame(fx.lanes, dev, ((rows,),))
+    ph = fx.phase
+    if ph.device != dev or ph.dtype != torch.int64 or ph.numel() != 1 \
+            or not ph.is_contiguous():
+        raise ValueError(f"fault frame phase must be one contiguous int64 "
+                         f"on {dev}; it is {ph.dtype} "
+                         f"{tuple(ph.shape)} on {ph.device}")
+    if fx.phases < 1:
+        raise ValueError(f"fault frame of {fx.phases} phases")
+    for f in frame_lanes(fx.lanes):
+        a, s = getattr(fx.lanes, f), fx.strides.get(f)
+        if not isinstance(s, int) or s < 0 or 0 < s < a.numel():
+            raise ValueError(f"fault lane {f}: phase stride {s} is neither "
+                             f"0 (a fresh lane) nor a row of "
+                             f"{a.numel()} elements or more")
+        end = a.storage_offset() + (fx.phases - 1) * s + a.numel()
+        if end * a.element_size() > a.untyped_storage().nbytes():
+            raise ValueError(f"fault lane {f}: phase {fx.phases - 1} at "
+                             f"stride {s} lies past the lane's storage")
 
 
 def scale_frame(fx: FaultFrame, gain) -> FaultFrame:

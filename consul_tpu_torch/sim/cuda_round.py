@@ -6,7 +6,9 @@ Two CUDA kernels (``csrc/round_kernels.cu``) carry the hot loop:
 * ``round_kernel`` — one protocol period per launch; replaces the TPU
   kernel ``_round_kernel`` (pallas_round.py:439) in all four of its
   variants: stable and full (honest), ``fault`` (a fault plan's frame:
-  8 per-node lanes and ``mid``) and ``byz`` (4 more byzantine lanes).
+  8 per-node lanes and ``mid``) and ``byz`` (4 more byzantine lanes);
+  a frame's lanes are the round's, or the plan's phase rows, which the
+  kernel reads at the device phase (``faults.InPlaceFrame``).
   Per round it reads 15 B/node of state and writes 13 B/node in the
   stable variant, 15 B/node in the others; the fault variants read 29 /
   42 B/node of frame besides (29,360,128 B / 31,457,280 B / 61,865,984 B
@@ -55,14 +57,17 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import itertools
 from typing import Optional, Sequence
 
 import torch
 
 from consul_tpu_torch.faults import (FRAME_ABI, CompiledFaultPlan,
-                                     FaultFrame, check_frame,
-                                     detection_gate, frame_pointers,
-                                     phase_at, scale_plan)
+                                     FaultFrame, InPlaceFrame, check_frame,
+                                     check_in_place, detection_gate,
+                                     frame_pointers, frames_at,
+                                     frames_in_place, plan_phases,
+                                     scale_plan)
 from consul_tpu_torch.sim import blackbox as blackbox_mod
 from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim import flight, graphs, prng, topology
@@ -71,8 +76,7 @@ from consul_tpu_torch.sim.round import (LAT, N_LANES, N_SCALARS, N_STATS,
                                         SCALAR_FLOORS, _cast_like,
                                         _round_body, _shrink,
                                         _trunc_poisson, clamp_scalars,
-                                        init_scalars, pf_arrays,
-                                        plan_frames)
+                                        init_scalars, pf_arrays)
 from consul_tpu_torch.sim.state import (CONF_MAX, STATS_FIELDS, TICK_MAX,
                                         SimState, SimStats, check_packed)
 from consul_tpu_torch.utils import build, telemetry
@@ -89,8 +93,10 @@ SOURCE = "round_kernels"
 FLIGHT_BLOCKS = 528
 FLIGHT_SUMS_BYTES = 40
 
-#: launches per kernel and variant since the last ``reset_launches()``;
-#: incremented only where a kernel is launched (never by a plain version)
+#: launches per kernel and variant since the last ``reset_launches()``,
+#: and by ``frame/in_place`` / ``frame/gathered`` the fault launches by
+#: how their frame reached the kernel (``round_kernel``); incremented
+#: only where a kernel is launched (never by a plain version)
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -98,9 +104,12 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def variant(p: SimParams, fx: Optional[FaultFrame] = None) -> str:
-    """'byz' / 'fault' for a byzantine / honest fault frame; else
-    'full' when a round can change down_age, 'stable' when not."""
+def variant(p: SimParams, fx=None) -> str:
+    """'byz' / 'fault' for a byzantine / honest fault frame (a
+    ``FaultFrame`` or an ``InPlaceFrame``); else 'full' when a round can
+    change down_age, 'stable' when not."""
+    if isinstance(fx, InPlaceFrame):
+        fx = fx.lanes
     if fx is not None:
         return "fault" if fx.attacked is None else "byz"
     return "full" if p.age_mutable else "stable"
@@ -136,9 +145,26 @@ class RoundParams(ctypes.Structure):
 
 
 class FaultArrays(ctypes.Structure):
-    """Mirror of ``struct FaultArrays`` in round_kernels.cu."""
+    """Mirror of ``struct FaultArrays`` in round_kernels.cu: the lanes'
+    pointers in ``FRAME_ABI`` order, the device phase (null for a frame
+    whose lanes are the round's) and each lane's stride between phases,
+    in elements of its dtype (0: the lane is the round's)."""
 
-    _fields_ = [(f, ctypes.c_void_p) for f in FRAME_ABI]
+    _fields_ = [(f, ctypes.c_void_p) for f in FRAME_ABI] + [
+        ("phase", ctypes.c_void_p),
+        ("stride", ctypes.c_int64 * len(FRAME_ABI))]
+
+
+def fault_arrays(fx) -> FaultArrays:
+    """The kernel's ``FaultArrays`` of a gathered ``FaultFrame`` (no
+    phase, every stride 0) or of an ``InPlaceFrame`` (its phase rows,
+    its device phase and its strides)."""
+    if not isinstance(fx, InPlaceFrame):
+        return FaultArrays(**frame_pointers(fx))
+    return FaultArrays(
+        **frame_pointers(fx.lanes), phase=fx.phase.data_ptr(),
+        stride=(ctypes.c_int64 * len(FRAME_ABI))(
+            *(fx.strides.get(f, 0) for f in FRAME_ABI)))
 
 
 class FlightArgs(ctypes.Structure):
@@ -374,20 +400,28 @@ def mega_round_ref(arrays, scalars, seeds, p: SimParams):
 def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
                  r: int, p: SimParams,
                  out: Optional[torch.Tensor] = None,
-                 fx: Optional[FaultFrame] = None) -> torch.Tensor:
+                 fx=None) -> torch.Tensor:
     """One period over ``arrays`` (updated IN PLACE) with the stale
     ``scalars``, seed ``seeds[r]`` and, for the fault variants, the
-    round's fault view ``fx``; returns the [partials_rows, 18] partial sums.
-    CPU tensors run ``block_round_ref``."""
+    round's fault view ``fx``: a ``FaultFrame``, or an ``InPlaceFrame``
+    whose phase rows the kernel reads in place; returns the
+    [partials_rows, 18] partial sums. CPU tensors run
+    ``block_round_ref`` (an ``InPlaceFrame`` resolved first). A launch
+    with a frame also counts its route, ``frame/in_place`` or
+    ``frame/gathered``."""
     rows = _check_inputs(arrays, scalars, seeds)
     if not 0 <= r < seeds.shape[0]:
         raise IndexError(f"seed index {r} outside seeds[{seeds.shape[0]}]")
     dev = arrays[0].device
-    if fx is not None:
+    in_place = isinstance(fx, InPlaceFrame)
+    if in_place:
+        check_in_place(fx, dev, rows)
+    elif fx is not None:
         check_frame(fx, dev, ((rows,),))
     partials = _partials_out(out, rows, dev)
     if dev.type == "cpu":
-        outs, sums = block_round_ref(arrays, scalars, seeds[r], p, fx=fx)
+        outs, sums = block_round_ref(arrays, scalars, seeds[r], p,
+                                     fx=fx.resolve() if in_place else fx)
         for a, o in zip(arrays, outs):
             a.copy_(o)
         partials.copy_(sums)
@@ -400,11 +434,12 @@ def round_kernel(arrays, scalars: torch.Tensor, seeds: torch.Tensor,
         rc = lib.launch_round_kernel(kernel_params(p, rows), *ptrs, *tail)
     else:
         rc = lib.launch_round_kernel_fault(
-            kernel_params(p, rows), *ptrs,
-            FaultArrays(**frame_pointers(fx)), int(fx.attacked is not None),
-            *tail)
+            kernel_params(p, rows), *ptrs, fault_arrays(fx),
+            int(variant(p, fx) == "byz"), *tail)
     _check_launch(lib, rc, "round_kernel")
     LAUNCHES[f"round_kernel/{variant(p, fx)}"] += 1
+    if fx is not None:
+        LAUNCHES["frame/in_place" if in_place else "frame/gathered"] += 1
     return partials
 
 
@@ -484,7 +519,7 @@ def record_flight_row(trace: torch.Tensor, i: int, record_every: int,
     """The flight row of the post-round packed ``arrays`` into the
     decimation slot of run-local round ``i`` in ``trace`` (as
     ``flight.record_row``), IN PLACE: the clock ``t``, the gauges, the
-    phase (a host int, or ``faults.phase_at``'s device phase), the
+    phase (a host int, or a ``[1]`` int64 device phase), the
     counters' delta — the int32 ``acc`` and the f32 latency lane
     ``acc_lat`` against their last-recorded snapshot ``prev`` /
     ``prev_lat``, which then moves to them, in place — and ``coord_row``
@@ -625,9 +660,13 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
 
     ``plan`` (``faults.compile_plan`` on the state's device) threads a
     FaultPlan through the kernel: each round's frame, keyed by the
-    absolute round on the device (``faults.frame_at``), feeds the
-    ``fault`` (honest plan) or ``byz`` (byzantine plan) variant of
-    ``round_kernel``. When ``p.fault_gain`` is not 1 the plan is blended
+    absolute round on the device (the call's phases looked up once,
+    ``faults.plan_phases``), feeds the ``fault`` (honest plan) or ``byz``
+    (byzantine plan) variant of ``round_kernel``. On the card the frame
+    is read in place (``faults.frames_in_place``: the kernel indexes the
+    plan's phase rows by the device phase; ``frame/in_place``); on the
+    CPU the plain version takes ``faults.frames_at``'s gathered lanes.
+    When ``p.fault_gain`` is not 1 the plan is blended
     once here (``scale_plan``), which gives every frame the bits of the
     reference's per-round ``scale_frame``.
 
@@ -636,7 +675,7 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
     the updated packed arrays (one ``flight_row`` launch on the card,
     ``flight.flight_row`` on the CPU); its counter lanes are the delta of
     the int32 run accumulator against its last-recorded snapshot, its
-    phase the plan's (``faults.phase_at``). ``blackbox=True`` adds event
+    phase the plan's (the call's phase lookup). ``blackbox=True`` adds event
     rings for the ``tracked`` ids (or resumes ``bb0``) on the same
     rounds, with the frame's attack mask on byzantine plans. On the
     megakernel rows and rings land on call boundaries only, stamped with
@@ -692,7 +731,16 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                 else None)
         keep_d, floors, scratch = consts[dev]
         state = SimState(*arrays, t=t, round_idx=r0, stats=st0)
-        fxs = plan_frames(plan, state, rounds, p.fault_gain)
+        fxs, phs = itertools.repeat(None), None
+        if plan is not None:
+            # the phases looked up once a call serve the frames and the
+            # recorder; on the card the kernel reads the plan's rows in
+            # place at the device phase, on the CPU the plain version
+            # takes gathered frames
+            phases = plan_phases(plan, r0, rounds)
+            phs = phases[1]
+            fxs = (frames_in_place if dev.type == "cuda" else frames_at)(
+                plan, r0, rounds, p.fault_gain, phases=phases)
         scalars = init_scalars(state, p) if scalars0 is None \
             else scalars0.clone()
         seeds = prng.round_seeds(key, r0, rounds)
@@ -745,7 +793,7 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                 crow = coords_mod.coord_metrics(coo, topo, aux) \
                     if coords else None
                 r_abs = r0 + i_last
-                ph = phase_at(plan, r_abs) if plan is not None else -1
+                ph = -1 if phs is None else phs[i_last:i_last + 1]
                 # the row and the window's counter delta; the snapshot
                 # moves to the accumulators in place
                 record_flight_row(trace, i_last, flight_every, arrays, t,
@@ -756,7 +804,9 @@ def make_run_rounds_cuda(p: SimParams, rounds: int,
                         bbc, round_idx=r_abs, phase=ph,
                         status=arrays[0], incarnation=arrays[1],
                         susp_conf=arrays[6], up=arrays[3] < 0,
-                        attacked=None if fx is None else fx.attacked)
+                        attacked=None if fx is None else
+                        fx.lane("attacked") if isinstance(fx, InPlaceFrame)
+                        else fx.attacked)
                 return (pi, pl), bbc
 
             prev, bb = flight.maybe_record((prev, bb), i_last, rounds,

@@ -656,6 +656,8 @@ def test_cuda_engine_resume_on_the_card(cuda, tmp_path, rpc, plan):
     assert np.array_equal(trf.cpu().numpy(), rr.trace)
     rows = cuda_round.LAUNCHES.pop("flight_row")
     assert rows == rounds // 8
+    frames = cuda_round.LAUNCHES.pop("frame/in_place", 0)
+    assert frames == (0 if cp is None else rounds)
     assert sum(cuda_round.LAUNCHES.values()) == rounds // rpc
 
 

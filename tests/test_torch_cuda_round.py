@@ -772,7 +772,8 @@ def test_fault_kernels_match_plain_on_the_card(cuda, name):
     want, want_part = cr.block_round_ref(arrays, scal, seeds[0], p, fx=fx)
     part = cr.round_kernel(work, scal, seeds, 0, p, fx=fx)
     torch.cuda.synchronize()
-    assert dict(cr.LAUNCHES) == {f"round_kernel/{name}": 1}
+    assert dict(cr.LAUNCHES) == {f"round_kernel/{name}": 1,
+                                 "frame/gathered": 1}
     for f, a, b in zip(tstate.NODE_FIELDS, work, want):
         if f == "informed":
             torch.testing.assert_close(a, b, rtol=4 * 2**-23, atol=0)
@@ -807,7 +808,8 @@ def test_runner_with_a_byzantine_plan_on_the_card(cuda):
     out = cr.make_run_rounds_cuda(SimParams(n=n, loss=0.05),
                                   plan.total_rounds, plan=cp)(
         tstate.init_state(n, device=cuda), prng.key(3, device=cuda))
-    assert dict(cr.LAUNCHES) == {"round_kernel/byz": plan.total_rounds}
+    assert dict(cr.LAUNCHES) == {"round_kernel/byz": plan.total_rounds,
+                                 "frame/in_place": plan.total_rounds}
     assert int(out.stats.attack_suspicions) > 0
     assert int(out.stats.crashes) > 0
 
@@ -957,3 +959,116 @@ def test_kernel_runner_flight_rows_on_the_card(cuda, rpc, stride, plan):
     keep = [i for i in range(flight.N_COLS) if i != inf]
     assert torch.equal(trace[:, keep], want[:, keep])
     assert float(trace[:, flight.COL["suspicions"]].sum()) > 0
+
+
+def _in_place_plans(n):
+    """Three-phase plans: an honest one without a flap (every lane read
+    in place), a byzantine one, and the honest check plan, whose flap
+    the phase flip releases (``crash_p`` / ``rejoin_p`` fresh lanes)."""
+    plans = chip_smoke.check_plans(n)
+    honest, byz = plans["fault"], plans["byz"]
+    return {"honest": tfaults.FaultPlan(phases=tuple(
+                tfaults.Phase(rounds=ph.rounds, name=ph.name,
+                              faults=tuple(f for f in ph.faults
+                                           if not isinstance(f,
+                                                             tfaults.Flap)))
+                for ph in honest.phases)),
+            "byz": tfaults.FaultPlan(phases=byz.phases + (
+                tfaults.Phase(rounds=3, name="recover"),)),
+            "flap": honest}
+
+
+def _guarded(cp):
+    """``cp`` with its packed rows, masks and ``mid`` at the head of
+    storage twice their phases long, and the guard behind them: NaN
+    rows and ``mid``s, all-true masks (each read would show)."""
+    P = cp.starts.shape[0]
+    rows = torch.full((2 * P, *cp.rows.shape[1:]), float("nan"),
+                      device=cp.rows.device)
+    masks = torch.ones((2 * P, *cp.masks.shape[1:]), dtype=torch.bool,
+                       device=cp.masks.device)
+    mid = torch.full((2 * P,), float("nan"), device=cp.mid.device)
+    rows[:P], masks[:P], mid[:P] = cp.rows, cp.masks, cp.mid
+    guarded = tfaults._packed(cp._replace(mid=mid[:P]), rows[:P],
+                              masks[:P])
+    return guarded, (rows[P:].clone(), masks[P:].clone(), mid[P:].clone()), \
+        (rows[P:], masks[P:], mid[P:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["honest", "byz", "flap"])
+@pytest.mark.parametrize("n", [1024, 2**20])
+def test_in_place_frame_kernels_match_the_gathered_frame_on_the_card(
+        cuda, n, plan):
+    """The ``fault`` / ``byz`` round kernel on an in-place frame against
+    the same launch on ``frames_at``'s gathered frame of the same round:
+    arrays and partials bit for bit on every round of a three-phase plan
+    and two past its end, from state both launches carry; one count of
+    each route a launch; the guard behind the plan's last phase neither
+    read nor written."""
+    fp = _in_place_plans(n)[plan]
+    cp, before, guard = _guarded(tfaults.compile_plan(fp, n, cuda))
+    p = FULL.with_(n=n, corroboration_k=2 if plan == "byz" else 0)
+    arrays, scal = _warm(p=CHURN.with_(n=n), n=n, device=cuda)
+    rounds = fp.total_rounds + 2
+    start = torch.zeros((), dtype=torch.int32, device=cuda)
+    seeds = prng.round_seeds(prng.key(9, device=cuda), 0, rounds)
+    a, b = (tuple(x.clone() for x in arrays) for _ in range(2))
+    sa, sb = scal.clone(), scal.clone()
+    kind = "byz" if plan == "byz" else "fault"
+    cr.reset_launches()
+    for r, (gx, ix) in enumerate(zip(
+            tfaults.frames_at(cp, start, rounds),
+            tfaults.frames_in_place(cp, start, rounds))):
+        assert cr.variant(p, ix) == kind
+        pa = cr.round_kernel(a, sa, seeds, r, p, fx=gx)
+        pb = cr.round_kernel(b, sb, seeds, r, p, fx=ix)
+        for f, x, y in zip(tstate.NODE_FIELDS, a, b):
+            assert torch.equal(x, y), (r, f)
+        assert torch.equal(pa.view(torch.int32), pb.view(torch.int32)), r
+        sa = tround.clamp_scalars(pa.sum(0)[:8])
+        sb = tround.clamp_scalars(pb.sum(0)[:8])
+    torch.cuda.synchronize()
+    assert dict(cr.LAUNCHES) == {f"round_kernel/{kind}": 2 * rounds,
+                                 "frame/gathered": rounds,
+                                 "frame/in_place": rounds}
+    for want, got in zip(before, guard):
+        assert torch.equal(want.view(torch.uint8), got.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_kernel_runner_reads_the_chaos_plan_in_place_on_the_card(cuda):
+    """The kernel runner under the chaos class ``eclipse`` at 2^20 agents
+    (the ``lan-1m.chaos`` cell's plan), replayed, against its
+    ``graphs.eager()`` run: state, counters and flight trace bit for
+    bit; every period one ``byz`` launch whose frame is read in place
+    and one flight row; the trace's phase column each period's
+    phase."""
+    from consul_tpu_torch.sim import graphs, scenarios
+
+    n = 2**20
+    fp = scenarios.chaos_plans(n)["eclipse"]
+    cp = tfaults.compile_plan(fp, n, cuda)
+    p = scenarios.chaos_params(n)
+    rounds = fp.total_rounds
+    run = cr.make_run_rounds_cuda(p, rounds, plan=cp, flight_every=1)
+    key = prng.key(17, device=cuda)
+    s0 = tstate.init_state(n, device=cuda)
+    with graphs.eager():
+        want, want_trace = run(bench.clone_state(s0), key)
+    for _ in range(2):   # the key's eager call, then its capture
+        run(bench.clone_state(s0), key)
+    cr.reset_launches()
+    got, trace = run(bench.clone_state(s0), key)   # a replay
+    torch.cuda.synchronize()
+    assert dict(cr.LAUNCHES) == {"round_kernel/byz": rounds,
+                                 "frame/in_place": rounds,
+                                 "flight_row": rounds}
+    for f in tstate.NODE_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f, x, y in zip(tstate.STATS_FIELDS, got.stats, want.stats):
+        assert torch.equal(x, y), f
+    assert torch.equal(trace.view(torch.int32), want_trace.view(torch.int32))
+    phases = [float(tfaults.active_phase(cp, r)) for r in range(rounds)]
+    assert trace[:, flight.COL["fault_phase"]].tolist() == phases
+    assert int(got.stats.attack_suspicions) > 0

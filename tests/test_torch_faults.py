@@ -561,3 +561,183 @@ def test_phase_reports_match_reference_given_phase_end_rows(ref):
     short = tstate.SimStats(*[np.asarray(x)[:plan.starts[2]]
                               for x in trace])
     assert len(phase_reports(short, plan, tp)) == 2
+
+
+# ------------------------------------------------------ the in-place frame
+
+
+def _no_flap(plan):
+    """``plan`` without its flaps: no phase rewrites a lane."""
+    return tf.FaultPlan(phases=tuple(
+        tf.Phase(rounds=ph.rounds, name=ph.name, faults=tuple(
+            f for f in ph.faults if not isinstance(f, tf.Flap)))
+        for ph in plan.phases))
+
+
+def _port_params(n, **kw):
+    """``_params``' port half, without the reference."""
+    return tparams.SimParams.from_gossip_config(
+        TGossip.lan(), n=n, loss=0.05, tcp_fallback=False,
+        slow_per_round=0.002, collect_stats=True, **kw)
+
+
+#: plans of three phases each: flaps and a release (``honest``, ``byz``),
+#: neither (``loss``, an honest plan; ``eclipse``, the chaos class)
+IN_PLACE_PLANS = {"honest": _honest_plan, "byz": _byz_plan,
+                  "loss": lambda n: _no_flap(_honest_plan(n)),
+                  "eclipse": lambda n: chaos_plans(n)["eclipse"]}
+
+
+@pytest.mark.parametrize("gain", [1.0, 0.5])
+@pytest.mark.parametrize("plan", list(IN_PLACE_PLANS))
+def test_in_place_frames_resolve_to_frames_at(plan, gain):
+    """Each in-place frame's phase-0 rows, strides and device phase,
+    laid over the plan's storage by ``as_strided``, are ``frames_at``'s
+    lanes bit for bit on every round of the plan and three past its
+    end, from a start inside a phase too; every lane but a rewritten
+    ``crash_p`` / ``rejoin_p`` is a view of the plan's packed tensors at
+    the stride between phases, never a gathered lane."""
+    n = 1024
+    fp = IN_PLACE_PLANS[plan](n)
+    cp = tf.compile_plan(fp, n, "cpu")
+    if gain != 1.0:
+        cp = tf.scale_plan(cp, gain)
+    rewrites = cp.any_flap or cp.any_release
+    assert rewrites == (plan in ("honest", "byz"))
+    total = fp.total_rounds + 3
+    for r0 in (0, fp.starts[1] - 1):
+        start = torch.tensor(r0, dtype=torch.int32)
+        _, phs = tf.plan_phases(cp, start, total - r0)
+        gathered = list(tf.frames_at(cp, start, total - r0, gain))
+        in_place = list(tf.frames_in_place(cp, start, total - r0, gain))
+        assert len(in_place) == len(gathered) == total - r0
+        for i, (want, fx) in enumerate(zip(gathered, in_place)):
+            r = r0 + i
+            assert int(fx.phase) == tf.active_phase(cp, r) == int(phs[i])
+            assert fx.phases == len(fp.phases)
+            tf.check_in_place(fx, torch.device("cpu"), n)
+            got = fx.resolve()
+            for f in tf.FaultFrame._fields:
+                a, b = getattr(want, f), getattr(got, f)
+                assert (a is None) == (b is None), (r, f)
+                if a is not None:
+                    assert a.dtype == b.dtype and a.shape == b.shape, (r, f)
+                    assert torch.equal(a, b), (r, f)
+            for f in tf.frame_lanes(fx.lanes):
+                lane, s = getattr(fx.lanes, f), fx.strides[f]
+                if rewrites and f in ("crash_p", "rejoin_p"):
+                    assert s == 0
+                    continue
+                packed = cp.mid if f == "mid" else cp.masks \
+                    if f in tf.FRAME_MASKS else cp.rows
+                assert lane.untyped_storage().data_ptr() == \
+                    packed.untyped_storage().data_ptr(), f
+                assert s == packed.stride(0) > 0, f
+                # the phase row the kernel reads: base + phase * stride
+                row = lane.as_strided(lane.shape, lane.stride(),
+                                      lane.storage_offset() + int(fx.phase)
+                                      * s)
+                assert torch.equal(row, getattr(got, f)), (r, f)
+
+
+def _in_place_frame(n=1024, name="byz"):
+    cp = tf.compile_plan(IN_PLACE_PLANS[name](n), n, "cpu")
+    return cp, next(tf.frames_in_place(cp, torch.tensor(4), 1))
+
+
+IN_PLACE_REFUSALS = {
+    "psend": lambda fx: fx._replace(lanes=fx.lanes._replace(
+        psend=fx.lanes.psend.double())),
+    "slow_f": lambda fx: fx._replace(lanes=fx.lanes._replace(
+        slow_f=fx.lanes.slow_f.to(torch.int8))),
+    "replay": lambda fx: fx._replace(lanes=fx.lanes._replace(replay=None)),
+    "hear_w": lambda fx: fx._replace(strides={**fx.strides,
+                                              "hear_w": 1023}),
+    "suspw": lambda fx: fx._replace(strides={**fx.strides, "suspw": -4}),
+    "attacked": lambda fx: fx._replace(strides={
+        **fx.strides, "attacked": 2 * fx.strides["attacked"]}),
+    "mid": lambda fx: fx._replace(strides={**fx.strides, "mid": 3}),
+    "phase": lambda fx: fx._replace(phase=fx.phase.to(torch.int32)),
+    "phases": lambda fx: fx._replace(phases=0),
+}
+
+
+@pytest.mark.parametrize("case", list(IN_PLACE_REFUSALS))
+def test_in_place_frame_refusals_name_the_lane(case):
+    """A lane of the wrong dtype or missing, a stride inside a row or
+    negative, a stride that puts the last phase's row past the lane's
+    storage, and a phase that is not one int64 are refused by name, by
+    ``check_in_place`` and so by ``round_kernel`` before any launch."""
+    _, fx = _in_place_frame()
+    bad = IN_PLACE_REFUSALS[case](fx)
+    match = {"phases": "phases", "phase": "phase"}.get(case, case)
+    with pytest.raises(ValueError, match=match):
+        tf.check_in_place(bad, torch.device("cpu"), 1024)
+    p = _port_params(1024)
+    s = tstate.init_state(1024, device="cpu")
+    seeds = prng.round_seeds(prng.key(0), 0, 1)
+    with pytest.raises(ValueError, match=match):
+        cuda_round.round_kernel(s.node_arrays(), tround.init_scalars(s, p),
+                                seeds, 0, p, fx=bad)
+
+
+@pytest.mark.parametrize("name", ["loss", "byz"])
+def test_wrapper_takes_an_in_place_frame_as_its_gathered_frame(name):
+    """``round_kernel`` on the CPU resolves an in-place frame and runs
+    the plain version on it: the same arrays and partials as the
+    gathered frame of the same round, its variant the frame's, and no
+    launch counted."""
+    n = 1024
+    cp = tf.compile_plan(IN_PLACE_PLANS[name](n), n, "cpu")
+    p = _port_params(n, corroboration_k=2 if name == "byz" else 0)
+    s = tstate.with_crashed(tstate.init_state(n, device="cpu"),
+                            torch.arange(0, n, 37))
+    scal = tround.init_scalars(s, p)
+    seeds = prng.round_seeds(prng.key(3), 0, 1)
+    start = torch.tensor(4, dtype=torch.int32)
+    want_fx = next(tf.frames_at(cp, start, 1))
+    fx = next(tf.frames_in_place(cp, start, 1))
+    assert cuda_round.variant(p, fx) == cuda_round.variant(p, want_fx) \
+        == ("byz" if name == "byz" else "fault")
+    cuda_round.reset_launches()
+    got = tuple(a.clone() for a in s.node_arrays())
+    want = tuple(a.clone() for a in s.node_arrays())
+    part = cuda_round.round_kernel(got, scal, seeds, 0, p, fx=fx)
+    want_part = cuda_round.round_kernel(want, scal, seeds, 0, p, fx=want_fx)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(part, want_part)
+    assert dict(cuda_round.LAUNCHES) == {}
+
+
+def test_kernel_runner_routes_frames_by_device(monkeypatch):
+    """The kernel runner looks the call's phases up once and hands them
+    to the frames and the recorder: on the CPU it takes
+    ``frames_at``'s gathered frames (never ``frames_in_place``, the
+    card's route), once a call, and counts no launch; its flight rows'
+    phase column is each period's phase."""
+    n = 1024
+    fp = IN_PLACE_PLANS["eclipse"](n)
+    cp = tf.compile_plan(fp, n, "cpu")
+    calls = {"frames_at": 0, "frames_in_place": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            assert kw["phases"][1].shape == (a[2],)
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(cuda_round, "frames_at",
+                        counted("frames_at", tf.frames_at))
+    monkeypatch.setattr(cuda_round, "frames_in_place",
+                        counted("frames_in_place", tf.frames_in_place))
+    p = _port_params(n)
+    run = cuda_round.make_run_rounds_cuda(p, fp.total_rounds, plan=cp,
+                                          flight_every=1)
+    cuda_round.reset_launches()
+    _, trace = run(tstate.init_state(n, device="cpu"), prng.key(1))
+    assert calls == {"frames_at": 1, "frames_in_place": 0}
+    assert dict(cuda_round.LAUNCHES) == {}
+    from consul_tpu_torch.sim import flight
+    want = [float(tf.active_phase(cp, r)) for r in range(fp.total_rounds)]
+    assert trace[:, flight.COL["fault_phase"]].tolist() == want
