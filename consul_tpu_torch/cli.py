@@ -23,9 +23,13 @@ engines and kernels. The modes:
   the reference's report);
 * ``-gossip-sim-chaos C`` — ``scenarios.run_chaos(C, blackbox=True)``
   (kernel runner: fault or byz variant);
-* ``-gossip-sim-coords`` — ``scenarios.run_coords`` (live engine), the
-  per-round curves trimmed; the report carries ``coords_publish_error``
-  because no agent runs here to publish the coordinates into;
+* ``-gossip-sim-coords`` — ``scenarios.run_coords`` (live engine, built
+  by ``scenarios.coords_setup``), the per-round curves trimmed; the
+  report carries ``coords_publish_error`` because no agent runs here to
+  publish the coordinates into; a registry of its own is armed for the
+  run, and its spans and the coordinate counters
+  (``sim.coords.updates``, ``sim.coords.deadline_misses``) go to stderr
+  as one ``{"span_ms": ..., "counters": ...}`` line;
 * ``-gossip-sim-sweep T[:R]`` — ``scenarios.run_autotune(T, rounds=R)``
   (120 by default), published as ``sim.sweep.*`` gauges, the grid
   trimmed to the winner, the chosen constants and the Pareto rows.
@@ -149,7 +153,8 @@ def _coords(n: int, platform: str, dev) -> int:
     print(f"==> gossip-sim={platform} coords: {n} virtual members on "
           f"{dev.type}")
     t0 = time.perf_counter()
-    rep, _ = scenarios.run_coords(n=n, device=dev)
+    with telemetry.armed(telemetry.Metrics()) as m:
+        rep, _ = scenarios.run_coords(n=n, device=dev)
     rep["wall_s"] = round(time.perf_counter() - t0, 2)
     fl = rep.pop("flight", None)
     if fl:
@@ -159,7 +164,21 @@ def _coords(n: int, platform: str, dev) -> int:
         "dev agent unavailable: this command runs no agent; publish "
         "coordinates with the control plane's agent")
     print(json.dumps(rep, indent=2))
+    _print_spans(m, counters=True)
     return 0
+
+
+def _print_spans(m: telemetry.Metrics, counters: bool = False) -> None:
+    """The armed registry's spans (and, with ``counters``, its counters)
+    as one JSON line on stderr: stdout keeps the reference's report."""
+    snap = m.snapshot()
+    line = {"span_ms": {s["Name"]: {k: s[k] for k in ("Count", "Mean",
+                                                      "Max")}
+                        for s in snap["Samples"]}}
+    if counters:
+        line["counters"] = {c["Name"]: c["Count"]
+                            for c in snap["Counters"]}
+    print(json.dumps(line), file=sys.stderr)
 
 
 def _chaos(name: str, n: int, platform: str, dev) -> int:
@@ -209,10 +228,7 @@ def _default(gossip: GossipConfig, n: int, platform: str, dev) -> int:
     publish_report(rep)
     print(json.dumps({"rounds_per_sec": round(SIM_ROUNDS / dt, 1),
                       **rep.to_dict()}, indent=2))
-    print(json.dumps({"span_ms": {
-        s["Name"]: {k: s[k] for k in ("Count", "Mean", "Max")}
-        for s in telemetry.default.snapshot()["Samples"]}}),
-        file=sys.stderr)
+    _print_spans(telemetry.default)
     return 0
 
 

@@ -15,7 +15,8 @@ Vivaldi client (serf/coordinate, the reference's
 coincident-point branch draws its direction from the step's key
 (``prng.uniform``, the reference's threefry words). Everything is
 elementwise math and [N]-sized gathers. The eight constants are a copy
-of the reference client's.
+of the reference client's. ``coord_metrics`` runs under the span
+``sim.coords.metrics`` (``utils.telemetry``, the device-annotated form).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from consul_tpu_torch.faults import ipow
 from consul_tpu_torch.sim import prng
 from consul_tpu_torch.sim.lanes import tree_sum
 from consul_tpu_torch.sim.topology import Topology, true_rtt
+from consul_tpu_torch.utils import telemetry
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
 DIMENSION = 8
@@ -197,10 +199,13 @@ N_COORD_METRICS = 3
 
 class CoordRoundAux(NamedTuple):
     """The cheap per-round byproducts ``coord_metrics`` needs, so the
-    percentiles run only on recorded rounds."""
+    percentiles run only on recorded rounds, and the masks a runner's
+    coordinate counters sum (None where the round does not make them)."""
 
     pair_j: torch.Tensor  # [N] int32 — this round's probe targets
     drift: torch.Tensor   # 0-d f32 — mean position moved this round (s)
+    relaxed: Optional[torch.Tensor] = None  # [N] bool — acked, relaxed
+    late: Optional[torch.Tensor] = None     # [N] bool — ack past deadline
 
 
 def round_drift(prev: CoordState, cur: CoordState) -> torch.Tensor:
@@ -242,13 +247,14 @@ def coord_metrics(cur: CoordState, topo: Topology,
     round's mean drift. One sort serves both percentiles
     (``torch.quantile`` would sort twice and refuses inputs above 2^24
     elements; 1,048,576 nodes is 2^20)."""
-    n = cur.vec.shape[-2]
-    i = torch.arange(n, device=cur.vec.device)
-    est = estimate_rtt(cur, i, aux.pair_j)
-    truth = true_rtt(topo, i, aux.pair_j)
-    rel = torch.abs(est - truth) / torch.clamp_min(truth, 1e-9)
-    med, p99 = _percentiles(rel, (50.0, 99.0))
-    return torch.stack([med, p99, aux.drift.to(_F32)], dim=-1)
+    with telemetry.span("sim.coords.metrics", device=True):
+        n = cur.vec.shape[-2]
+        i = torch.arange(n, device=cur.vec.device)
+        est = estimate_rtt(cur, i, aux.pair_j)
+        truth = true_rtt(topo, i, aux.pair_j)
+        rel = torch.abs(est - truth) / torch.clamp_min(truth, 1e-9)
+        med, p99 = _percentiles(rel, (50.0, 99.0))
+        return torch.stack([med, p99, aux.drift.to(_F32)], dim=-1)
 
 
 def coordinate_updates(coords: CoordState, count: Optional[int] = None,

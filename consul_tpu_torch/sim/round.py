@@ -68,7 +68,7 @@ import torch
 from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
                                      detection_gate, frame_at,
                                      frames_at, ipow,
-                                     phase_at, scale_frame)
+                                     phase_at, plan_phases, scale_frame)
 from consul_tpu_torch.sim import (blackbox, flight, fused, graphs,
                                   lane_kernel, live_kernel, prng, topology)
 from consul_tpu_torch.sim import lanes as lanes_mod
@@ -349,32 +349,35 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     timely = late_in = pair_j = rtt_obs = None
     if co is not None:
         coords, topo, key = co
-        k_pair, k_jit, k_dir, k_q = prng.split(
-            prng.SubKey(key, prng.COORD_FOLD), 4)
-        rows = status.shape[-1]
-        i_all = torch.arange(rows, device=status.device)
-        pair_j = topology.sample_pairs(rows, k_pair)
-        rtt_obs = topology.sample_rtt(topo, i_all, pair_j, k_jit)
-        if p.coords_timeout:
-            # the ack must beat max(timeout, min(mult·estimate,
-            # interval))·(LH+1); the target side folds the chance that
-            # a random prober's deadline loses to this node's jittered
-            # RTT into its miss rate (1 - Phi(ln(d/rtt)/sigma))
-            def deadline(est, health):
-                return torch.clamp_min(torch.clamp_max(
-                    p.coord_timeout_mult * est, p.probe_interval),
-                    p.probe_timeout) * (health.to(_F32) + 1.0)
+        with telemetry.span("sim.coords.step", device=True):
+            k_pair, k_jit, k_dir, k_q = prng.split(
+                prng.SubKey(key, prng.COORD_FOLD), 4)
+            rows = status.shape[-1]
+            i_all = torch.arange(rows, device=status.device)
+            pair_j = topology.sample_pairs(rows, k_pair)
+            rtt_obs = topology.sample_rtt(topo, i_all, pair_j, k_jit)
+            if p.coords_timeout:
+                # the ack must beat max(timeout, min(mult·estimate,
+                # interval))·(LH+1); the target side folds the chance
+                # that a random prober's deadline loses to this node's
+                # jittered RTT into its miss rate (1 - Phi(ln(d/rtt)/
+                # sigma))
+                def deadline(est, health):
+                    return torch.clamp_min(torch.clamp_max(
+                        p.coord_timeout_mult * est, p.probe_interval),
+                        p.probe_timeout) * (health.to(_F32) + 1.0)
 
-            est = coords_mod.estimate_rtt(coords, i_all, pair_j)
-            timely = rtt_obs <= deadline(est, lh)
-            q_in = topology.sample_pairs(rows, k_q)
-            rtt_in = topology.true_rtt(topo, q_in, i_all)
-            dl_in = deadline(coords_mod.estimate_rtt(coords, q_in, i_all),
-                             lh[..., q_in])
-            sig = torch.clamp_min(topo.jitter_sigma, 1e-6)
-            z = torch.log(torch.clamp_min(dl_in, 1e-9)
-                          / torch.clamp_min(rtt_in, 1e-9)) / sig
-            late_in = 1.0 - torch.special.ndtr(z)
+                est = coords_mod.estimate_rtt(coords, i_all, pair_j)
+                timely = rtt_obs <= deadline(est, lh)
+                q_in = topology.sample_pairs(rows, k_q)
+                rtt_in = topology.true_rtt(topo, q_in, i_all)
+                dl_in = deadline(
+                    coords_mod.estimate_rtt(coords, q_in, i_all),
+                    lh[..., q_in])
+                sig = torch.clamp_min(topo.jitter_sigma, 1e-6)
+                z = torch.log(torch.clamp_min(dl_in, 1e-9)
+                              / torch.clamp_min(rtt_in, 1e-9)) / sig
+                late_in = 1.0 - torch.special.ndtr(z)
 
     # ------------------------------------------------- prober-side probe
     mix_i = (1.0 - sbar) * pf_fast + sbar * pf_slow
@@ -388,12 +391,15 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
         ack = ack & timely
     failed = up & ~ack
     if co is not None:
-        # coordinates relax where the probe round trip completed
-        c2 = coords_mod.vivaldi_step(coords, None, pair_j, rtt_obs, k_dir,
-                                     ack & up[..., pair_j])
-        sink["coords"] = c2
-        sink["aux"] = coords_mod.CoordRoundAux(
-            pair_j=pair_j, drift=coords_mod.round_drift(coords, c2))
+        with telemetry.span("sim.coords.step", device=True):
+            # coordinates relax where the probe round trip completed
+            relaxed = ack & up[..., pair_j]
+            c2 = coords_mod.vivaldi_step(coords, None, pair_j, rtt_obs,
+                                         k_dir, relaxed)
+            sink["coords"] = c2
+            sink["aux"] = coords_mod.CoordRoundAux(
+                pair_j=pair_j, drift=coords_mod.round_drift(coords, c2),
+                relaxed=relaxed, late=late)
     if p.lifeguard:
         lh = _clamp_lh(lh + failed.to(_I32) - ack.to(_I32), p)
 
@@ -928,56 +934,87 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
     arms the black box — rings written on recorded rounds with the
     live engine's probe events — and appends the final BlackboxState;
     ``ring_len`` defaults to ``p.blackbox_ring``, and ``bb0`` resumes
-    from a captured ring set."""
+    from a captured ring set.
+
+    The call runs under the span ``sim.runner.call`` (with its
+    ``.prologue`` and ``.epilogue``); with coordinates and a registry
+    armed (``utils.telemetry.armed``) it sums ``COORD_COUNTERS`` on the
+    device and publishes them there once, in the epilogue."""
     if not p.collect_stats:
         raise ValueError(
             "the flight recorder's counter columns ride the SimStats "
             "counters; build SimParams with collect_stats=True")
-    with_bb = tracked is not None or bb0 is not None
-    if bb0 is None and with_bb:
-        bb0 = blackbox.init_blackbox(state, tracked,
-                                     ring_len or p.blackbox_ring)
-    keys = prng.round_keys(key, state.round_idx, rounds)
-    r0 = state.round_idx
-    buf = flight.empty_trace(rounds, record_every, state.status.device)
-    prev, bb, c = state.stats, bb0, coords
-    for i, fx in enumerate(plan_frames(plan, state, rounds)):
-        ph = phase_at(plan, r0 + i) if plan is not None else -1
-        # the attack mask disarms with a zero gain, as the stats do
-        atk = None
-        if fx is not None and fx.attacked is not None:
-            atk = fx.attacked if p.fault_gain > 0.0 \
-                else torch.zeros_like(fx.attacked)
-        # events=True: the five-field return whatever the options
-        u01 = prng.threefry_u01(keys[i], state.status.shape[0],
-                                draw_slots(p, fx))
-        s2, _, c2, aux, ev = round_core(
-            state, None, p, u01, fx, coords=c, topo=topo, key=keys[i],
-            events=True)
+    with telemetry.span("sim.runner.call"):
+        with telemetry.span("sim.runner.prologue"):
+            with_bb = tracked is not None or bb0 is not None
+            if bb0 is None and with_bb:
+                bb0 = blackbox.init_blackbox(state, tracked,
+                                             ring_len or p.blackbox_ring)
+            keys = prng.round_keys(key, state.round_idx, rounds)
+            r0 = state.round_idx
+            buf = flight.empty_trace(rounds, record_every,
+                                     state.status.device)
+            # the call's phases, one lookup: its frames and flight rows
+            phases = plan_phases(plan, r0, rounds) if plan is not None \
+                else None
+            frames = itertools.repeat(None, rounds) if plan is None \
+                else frames_at(plan, r0, rounds, phases=phases)
+            # the coordinate counters, summed only for an armed registry
+            counts = [] if coords is not None and telemetry.listening() \
+                else None
+            prev, bb, c = state.stats, bb0, coords
+        for i, fx in enumerate(frames):
+            ph = phases[1][i:i + 1] if phases is not None else -1
+            # the attack mask disarms with a zero gain, as the stats do
+            atk = None
+            if fx is not None and fx.attacked is not None:
+                atk = fx.attacked if p.fault_gain > 0.0 \
+                    else torch.zeros_like(fx.attacked)
+            # events=True: the five-field return whatever the options
+            u01 = prng.threefry_u01(keys[i], state.status.shape[0],
+                                    draw_slots(p, fx))
+            s2, _, c2, aux, ev = round_core(
+                state, None, p, u01, fx, coords=c, topo=topo, key=keys[i],
+                events=True)
 
-        def rec(carry):
-            pv, bbc = carry
-            crow = coords_mod.coord_metrics(c2, topo, aux) \
-                if coords is not None else None
-            flight.record_row(buf, flight.flight_row(
-                up=s2.up, status=s2.status, informed=s2.informed,
-                local_health=s2.local_health, incarnation=s2.incarnation,
-                t=s2.t, stats_delta=flight.stats_delta(s2.stats, pv),
-                phase=ph, coord_row=crow), i, record_every)
-            if with_bb:
-                bbc = blackbox.record(
-                    bbc, round_idx=r0 + i, phase=ph, status=s2.status,
-                    incarnation=s2.incarnation, susp_conf=s2.susp_conf,
-                    up=s2.up, probe=ev, indirect_checks=p.indirect_checks,
-                    attacked=atk)
-            return s2.stats, bbc
+            def rec(carry):
+                pv, bbc = carry
+                crow = coords_mod.coord_metrics(c2, topo, aux) \
+                    if coords is not None else None
+                flight.record_row(buf, flight.flight_row(
+                    up=s2.up, status=s2.status, informed=s2.informed,
+                    local_health=s2.local_health,
+                    incarnation=s2.incarnation, t=s2.t,
+                    stats_delta=flight.stats_delta(s2.stats, pv),
+                    phase=ph, coord_row=crow), i, record_every)
+                if with_bb:
+                    bbc = blackbox.record(
+                        bbc, round_idx=r0 + i, phase=ph, status=s2.status,
+                        incarnation=s2.incarnation,
+                        susp_conf=s2.susp_conf, up=s2.up, probe=ev,
+                        indirect_checks=p.indirect_checks, attacked=atk)
+                return s2.stats, bbc
 
-        prev, bb = flight.maybe_record((prev, bb), i, rounds, record_every,
-                                       rec)
-        state, c = s2, c2
-    out = (state,) if coords is None else (state, c)
-    out = out + (buf,)
-    return out + (bb,) if with_bb else out
+            prev, bb = flight.maybe_record((prev, bb), i, rounds,
+                                           record_every, rec)
+            if counts is not None:
+                late = aux.late if aux.late is not None \
+                    else torch.zeros_like(aux.relaxed)
+                counts.append(torch.stack([aux.relaxed.sum(), late.sum()]))
+            state, c = s2, c2
+        with telemetry.span("sim.runner.epilogue"):
+            if counts:
+                telemetry.count(dict(zip(
+                    COORD_COUNTERS, torch.stack(counts).sum(0).tolist())))
+            out = (state,) if coords is None else (state, c)
+            out = out + (buf,)
+            return out + (bb,) if with_bb else out
+
+
+#: the coordinate counters a flight run publishes, once a call, to the
+#: armed registries (``utils.telemetry.count``): acked probe pairs
+#: relaxed, and direct probes whose ack came past their deadline
+COORD_COUNTERS = ("sim.coords.updates", "sim.coords.deadline_misses")
 
 
 def make_run_rounds_flight(p: SimParams, rounds: int,

@@ -9,7 +9,7 @@ which runs one class through the kernel runner
 through ``checkpoint.run_resumable(engine="cuda")``) and reports
 per-phase detection quality and curves from its flight trace, with the
 black box on request; ``run_chaos_suite`` with its ``ProgressManifest``;
-``coords_plan`` and ``run_coords``, the cold-start Vivaldi
+``coords_plan``, ``coords_setup`` and ``run_coords``, the cold-start Vivaldi
 convergence through a partition and heal on the live engine
 (``round.run_rounds_flight``) with RTT-aware probe deadlines;
 ``run_byzantine_defense``, the corroboration_k sweep against a
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -47,7 +47,8 @@ from consul_tpu_torch.sim.round import run_rounds, run_rounds_flight
 from consul_tpu_torch.sim.sweep import run_sweep
 from consul_tpu_torch.sim.state import (ALIVE, DEAD, SUSPECT,
                                         check_saturation, init_state)
-from consul_tpu_torch.sim.topology import TopologyParams, make_topology
+from consul_tpu_torch.sim.topology import (Topology, TopologyParams,
+                                           make_topology)
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
 # ------------------------------------------------------ partition-heal
@@ -411,6 +412,41 @@ def coords_plan(n: int) -> FaultPlan:
     ))
 
 
+class CoordsSetup(NamedTuple):
+    """What a coordinates run is built from (``coords_setup``)."""
+
+    p: SimParams
+    plan: FaultPlan
+    cp: CompiledFaultPlan
+    topo: Topology
+
+
+def coords_params(n: int) -> SimParams:
+    """The coordinates scenario's configuration: memberlist's LAN config,
+    TCP fallback off, RTT-aware probe deadlines (``coords_timeout``) on,
+    stats on."""
+    return SimParams.from_gossip_config(GossipConfig.lan(), n=n,
+                                        tcp_fallback=False,
+                                        coords_timeout=True)
+
+
+def coords_setup(n: int, seed: int = 0, p: Optional[SimParams] = None,
+                 topo_params: Optional[TopologyParams] = None,
+                 device: DeviceLike = None) -> CoordsSetup:
+    """The set-up of a coordinates run of ``n`` agents: its parameters
+    (``p``, else ``coords_params(n)``), ``coords_plan(n)`` and its
+    compiled form on ``device``, and the topology of ``topo_params``
+    (else ``TopologyParams``' defaults at ``n``, drawn from ``seed``).
+    ``run_coords`` and the benchmark's coordinates driver both build
+    from it."""
+    dev = default_device(device)
+    plan = coords_plan(n)
+    topo = make_topology(topo_params if topo_params is not None
+                         else TopologyParams(n=n, seed=seed), dev)
+    return CoordsSetup(p=coords_params(n) if p is None else p, plan=plan,
+                       cp=compile_plan(plan, n, dev), topo=topo)
+
+
 def run_coords(n: int = 4096, seed: int = 0,
                p: Optional[SimParams] = None,
                topo_params: Optional[TopologyParams] = None,
@@ -422,18 +458,13 @@ def run_coords(n: int = 4096, seed: int = 0,
     relative RTT-error curves and the first round under
     ``COORDS_CONVERGED_MED_ERR``."""
     dev = default_device(device)
-    plan = coords_plan(n)
-    if p is None:
-        p = SimParams.from_gossip_config(GossipConfig.lan(), n=n,
-                                         tcp_fallback=False,
-                                         coords_timeout=True)
-    topo = make_topology(topo_params if topo_params is not None
-                         else TopologyParams(n=n, seed=seed), dev)
-    cp = compile_plan(plan, n, dev)
+    su = coords_setup(n, seed=seed, p=p, topo_params=topo_params,
+                      device=dev)
+    p, plan = su.p, su.plan
     state, coords, trace = run_rounds_flight(
         init_state(n, device=dev), prng.key(seed, device=dev), p,
-        plan.total_rounds, plan=cp, coords=init_coords(n, device=dev),
-        topo=topo)
+        plan.total_rounds, plan=su.cp, coords=init_coords(n, device=dev),
+        topo=su.topo)
     cols = trace_columns(trace)
     med = cols["rtt_err_med"]
     below = (med < COORDS_CONVERGED_MED_ERR).nonzero()[0]

@@ -27,6 +27,11 @@ listens:
 
 Otherwise ``span`` returns the shared ``OFF`` context: no allocation,
 no clock read.
+
+``count(values)`` adds a runner's device-summed counters to the armed
+registries, once a call (the coordinate counters of
+``round.run_rounds_flight``); ``listening()`` says whether one is armed,
+so that a runner sums them only then.
 """
 
 from __future__ import annotations
@@ -137,25 +142,35 @@ def _mark(name: str) -> None:
 class Span:
     """One stretch of host code: its ``name``, ``start`` and ``end``
     (``time.perf_counter`` seconds) and the span it nests in on the same
-    thread (``parent``, None at the top)."""
+    thread (``parent``, None at the top). ``device``: held open as one
+    record function while a profiler records, in place of the two
+    marks."""
 
-    __slots__ = ("name", "parent", "start", "end")
+    __slots__ = ("name", "parent", "start", "end", "device", "_open")
 
-    def __init__(self, name: str) -> None:
+    def __init__(self, name: str, device: bool = False) -> None:
         self.name = name
-        self.parent = self.start = self.end = None
+        self.device = device
+        self.parent = self.start = self.end = self._open = None
 
     def __enter__(self) -> "Span":
         self.parent = getattr(_stack, "top", None)
         _stack.top = self
         if _profiler._is_profiler_enabled:
-            _mark(self.name + ":b")
+            if self.device:
+                self._open = _profiler.record_function(self.name)
+                self._open.__enter__()
+            else:
+                _mark(self.name + ":b")
         self.start = time.perf_counter()
         return self
 
     def __exit__(self, *exc) -> bool:
         self.end = time.perf_counter()
-        if _profiler._is_profiler_enabled:
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
+        elif _profiler._is_profiler_enabled and not self.device:
             _mark(self.name + ":e")
         _stack.top = self.parent
         ms = (self.end - self.start) * 1e3
@@ -164,12 +179,32 @@ class Span:
         return False
 
 
-def span(name: str):
+def span(name: str, device: bool = False):
     """A context for the stretch of host code ``name``: a ``Span`` while
-    a ``torch.profiler`` records or a registry is armed, else ``OFF``."""
+    a ``torch.profiler`` records or a registry is armed, else ``OFF``.
+    ``device=True`` asks for the form the profiler annotates on the
+    device (the module's doc)."""
     if _armed or _profiler._is_profiler_enabled:
-        return Span(name)
+        return Span(name, device)
     return OFF
+
+
+def count(values: dict) -> None:
+    """Add each of ``values`` (name -> a number, or a 0-d tensor, read
+    here) to the armed registries' counters; reads nothing when none is
+    armed. A runner publishes its device-summed counters so, once a
+    call."""
+    if not _armed:
+        return
+    read = {k: float(v) for k, v in values.items()}
+    for m in _armed:
+        for k, v in read.items():
+            m.incr(k, v)
+
+
+def listening() -> bool:
+    """Is a registry armed? (A runner sums its counters only then.)"""
+    return bool(_armed)
 
 
 @contextlib.contextmanager

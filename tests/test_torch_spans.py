@@ -245,3 +245,28 @@ def test_graph_cache_parts_on_the_card(cuda):  # noqa: F811
     assert all([c.name for c in r.children] == [
         "sim.graph.prepare", "sim.graph.launch", "sim.graph.finish"]
         for r in roots)
+
+
+@pytest.mark.cuda
+def test_a_device_span_is_annotated_on_the_card(cuda):  # noqa: F811
+    """``span(name, device=True)`` held open across its launches: the
+    profiler gives its device time an event named after it, which
+    holds the launches' operations, while a plain span's marks get
+    none."""
+    x = torch.randn(1 << 20, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with telemetry.span("sim.runner.call"):
+            with telemetry.span("sim.coords.step", device=True):
+                y = (x * 2).sum()
+            z = y + 1
+        torch.cuda.synchronize()
+    dev = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [(s, e) for s, e, n in dev if n == "sim.coords.step"]
+    assert len(marks) == 1 and float(z) == float(y) + 1
+    ops = [(s, e) for s, e, n in dev if not n.startswith("sim.")]
+    inside = [o for o in ops if marks[0][0] <= o[0] <= o[1] <= marks[0][1]]
+    assert len(inside) >= 2 and len(inside) < len(ops)
+    assert not [n for _, _, n in dev if n.startswith("sim.runner")]
