@@ -9,11 +9,11 @@ non-zero before the result line):
 1. env      — the card, the device count, its name and power limit from
               nvidia-smi; builds the CUDA kernels from
               consul_tpu_torch/csrc (round_kernels.cu, prng_kernels.cu,
-              sum_kernels.cu, lane_kernels.cu: one nvcc each, in
-              parallel) and prints, per kernel instantiation, ptxas's
-              registers, stack frame and spills (a spill, or a stack
-              frame in a draw, sum or lane kernel or a live stage, fails
-              the run), its
+              sum_kernels.cu, lane_kernels.cu, coord_kernels.cu: one
+              nvcc each, in parallel) and prints, per kernel
+              instantiation, ptxas's registers, stack frame and spills
+              (a spill, or a stack frame in a draw, sum, lane or
+              coordinate kernel or a live stage, fails the run), its
               static SASS instruction count
               (cuobjdump -sass on the built library) and, for the round
               kernels, the nodes each thread takes.
@@ -81,7 +81,15 @@ non-zero before the result line):
               classes (1% loss: the ring totals must equal the flight
               counters); and 120 rounds at 1,048,576 nodes with Vivaldi
               coordinates (stride 10; the last median RTT error under
-              the reference's 0.3 and below the first), with the device
+              the reference's 0.3 and below the first; exactly a
+              coord_probe and a vivaldi_relax launch a round and a
+              coord_quality launch a recorded round); 16 periods of the
+              coordinates cell's path at 1,048,576 agents
+              (run_rounds_flight on scenarios.coords_setup, deadlines
+              and the partition plan on, stride 4) with the same exact
+              coordinate launches, against its plain route on the card
+              (coordinate columns within 1e-6, the rest and the state
+              equal); each run's launches counted from zero; the device
               µs of a coordinate round's parts: draws, ``vivaldi_step``,
               ``coord_metrics``; and the host µs and launches of one
               flight row and one black-box record.
@@ -274,12 +282,20 @@ non-zero before the result line):
               same slot rows; and each live_round stage's (the full
               model and the live cell's WAN with churn, on the check's
               state) beside ``costmodel.live_bound`` and the plain body's
-              live period on the same draws.
+              live period on the same draws; and each coordinate launch
+              (coord_probe with the deadlines, vivaldi_relax,
+              coord_quality; sim/coord_kernel.py) on the coordinates
+              cell's period at 1,048,576 agents, 30 periods from a cold
+              start, beside ``costmodel.coord_bound`` and its plain
+              version (the ATen route it replaces: eager, and its device
+              time by graph replay), every output bit for bit the plain
+              version's (the relaxation's moved distances and their mean
+              against the plain drift too).
 
 Then the ``kernels`` line (the round kernels' variants, each
 ``threefry/<mode>``, ``tree_sum``, ``lane_round`` and the live stages
-``live_round/<a|b|c>``: launches over the
-script's paths,
+``live_round/<a|b|c>``, the coordinate launches: launches over the
+script's paths (the coordinate launches over phase observe's two runs),
 times at the main path's shapes), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 """
@@ -378,8 +394,8 @@ def kernel_label(symbol: str):
     """The variant whose instantiation a mangled kernel symbol names
     (round_kernel<FAULT, BYZ, STABLE, ...>, mega_kernel<STABLE, ...>,
     draw_kernel<MODE, index type, ROW, words a thread>, the sum
-    kernels, lane_round<FRAME, BYZ>, live_round<STAGE>, flight_row), or
-    None."""
+    kernels, lane_round<FRAME, BYZ>, live_round<STAGE>, flight_row, the
+    coordinate kernels), or None."""
     m = re.search(r"draw_kernelILi([0-4])E([il])Lb([01])ELi([14])E", symbol)
     if m:
         return "threefry/" + ("words", "xor", "seeds", "uniform",
@@ -396,6 +412,9 @@ def kernel_label(symbol: str):
     m = re.search(r"live_roundILi([0-2])E", symbol)
     if m:
         return "live_round/" + "abc"[int(m.group(1))]
+    m = re.search(r"\d+(coord_probe|vivaldi_relax|coord_quality)E", symbol)
+    if m:
+        return m.group(1)
     if re.search(r"\d+flight_rowE", symbol):
         return "flight_row"
     m = re.search(r"mega_kernelILb([01])E", symbol)
@@ -509,10 +528,10 @@ def word_loop_sass(text: str) -> dict:
     return out
 
 
-def phase_env(torch, build, cuda_round, fused, lane_kernel):
+def phase_env(torch, build, cuda_round, fused, lane_kernel, coord_kernel):
     t0 = time.perf_counter()
     reports = build.build([cuda_round.SOURCE, *fused.SOURCES,
-                           lane_kernel.SOURCE])
+                           lane_kernel.SOURCE, coord_kernel.SOURCE])
     build_s = time.perf_counter() - t0
     regs = ptxas_report(reports[cuda_round.SOURCE])
     sass = sass_counts(build, cuda_round.SOURCE)
@@ -576,6 +595,17 @@ def phase_env(torch, build, cuda_round, fused, lane_kernel):
         raise SmokeFailure(f"lane kernel report incomplete, spilling or "
                            f"with a stack frame: {lane}")
     kernels.update(lane)
+    regs = ptxas_report(reports[coord_kernel.SOURCE])
+    sass = sass_counts(build, coord_kernel.SOURCE)
+    coord = {k: {**regs.get(k, {}), "sass_instructions": sass.get(k)}
+             for k in set(regs) | set(sass)}
+    if set(coord) != set(coord_kernel.NAMES) or any(
+            v.get("spill_bytes") != 0 or v.get("stack_bytes") != 0 or
+            not v.get("registers") or not v["sass_instructions"]
+            for v in coord.values()):
+        raise SmokeFailure(f"coordinate kernel report incomplete, spilling "
+                           f"or with a stack frame: {coord}")
+    kernels.update(coord)
     emit({"phase": "env", "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": nvidia_smi(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1231,6 +1261,7 @@ def observe_coords(torch, m, dev, n=N, rounds=COORD_ROUNDS,
     run = cr.make_run_rounds_cuda(p, rounds, coords=True,
                                   flight_every=stride)
     cr.reset_launches()
+    m.coord_kernel.reset_launches()
     t0 = time.perf_counter()
     _, coo, trace = run(m.state.init_state(n, device=dev),
                         m.prng.key(0, device=dev),
@@ -1238,15 +1269,92 @@ def observe_coords(torch, m, dev, n=N, rounds=COORD_ROUNDS,
     med = trace[:, fl.COL["rtt_err_med"]].tolist()
     wall = time.perf_counter() - t0
     launches = dict(cr.LAUNCHES)
+    coord_launches = dict(m.coord_kernel.LAUNCHES)
     bad = []
+    want = {"coord_probe": rounds, "vivaldi_relax": rounds,
+            "coord_quality": rounds // stride}
+    if torch.device(dev).type == "cuda" and coord_launches != want:
+        bad.append(f"coords: coordinate kernels launched {coord_launches}, "
+                   f"expected {want}")
     if not (med[-1] < COORD_MED_BOUND and med[-1] < med[0]):
         bad.append(f"coords: median RTT error {med} does not fall under "
                    f"{COORD_MED_BOUND}")
     return ({"n": n, "rounds": rounds, "record_every": stride,
              "rtt_err_med": med,
              "rtt_err_p99": trace[:, fl.COL["rtt_err_p99"]].tolist(),
-             "wall_us_per_round": wall / rounds * 1e6},
-            bad, launches, coo, topo)
+             "wall_us_per_round": wall / rounds * 1e6,
+             "coord_launches": coord_launches},
+            bad, {**launches, **coord_launches}, coo, topo)
+
+
+#: periods and flight stride of the coordinates cell's path in phase
+#: observe
+COORD_FLIGHT_ROUNDS, COORD_FLIGHT_STRIDE = 16, 4
+
+
+@contextlib.contextmanager
+def _plain_coords(m):
+    """Route the coordinate round to its plain versions on the card."""
+    on_card = m.coords._on_card
+    m.coords._on_card = lambda x: False
+    try:
+        yield
+    finally:
+        m.coords._on_card = on_card
+
+
+def observe_coords_flight(torch, m, dev, n=N, rounds=COORD_FLIGHT_ROUNDS,
+                          stride=COORD_FLIGHT_STRIDE):
+    """The coordinates cell's path: the live engine's flight runner with
+    coordinates, RTT-aware deadlines and the partition plan
+    (``scenarios.coords_setup``), ``rounds`` periods at ``n`` agents and
+    a flight row every ``stride``. Its coordinate launches are counted
+    from zero (one ``coord_probe`` and one ``vivaldi_relax`` a period,
+    one ``coord_quality`` a recorded period) and its trace is held
+    against the plain route's on the card: the coordinate columns within
+    1e-6, every other column and the final state equal. Returns (report,
+    failures, launches)."""
+    fl = m.flight
+    su = m.scenarios.coords_setup(n, device=dev)
+    on_card = torch.device(dev).type == "cuda"
+
+    def trial():
+        out = m.round.run_rounds_flight(
+            m.state.init_state(n, device=dev), m.prng.key(3, device=dev),
+            su.p, rounds, record_every=stride, plan=su.cp,
+            coords=m.coords.init_coords(n, device=dev), topo=su.topo)
+        if on_card:
+            torch.cuda.synchronize()
+        return out
+
+    m.coord_kernel.reset_launches()
+    t0 = time.perf_counter()
+    s1, c1, tr1 = trial()
+    wall = time.perf_counter() - t0
+    launches = dict(m.coord_kernel.LAUNCHES)
+    with _plain_coords(m):
+        s2, c2, tr2 = trial()
+    cols = [fl.COL[f] for f in fl.COORD_COLUMNS]
+    rest = [i for i in range(fl.N_COLS) if i not in cols]
+    gap = float((tr1[:, cols] - tr2[:, cols]).abs().max())
+    bad = []
+    want = {"coord_probe": rounds, "vivaldi_relax": rounds,
+            "coord_quality": fl.n_trace_rows(rounds, stride)}
+    if on_card and launches != want:
+        bad.append(f"coords flight: coordinate kernels launched "
+                   f"{launches}, expected {want}")
+    if not gap <= 1e-6 or not torch.equal(tr1[:, rest], tr2[:, rest]) \
+            or _bit_diffs(torch, s1.node_arrays(), s2.node_arrays()):
+        bad.append(f"coords flight: the kernels' run is not the plain "
+                   f"route's (coordinate columns {gap} apart)")
+    return ({"n": n, "rounds": rounds, "record_every": stride,
+             "deadlines": su.p.coords_timeout,
+             "wall_us_per_round": wall / rounds * 1e6,
+             "trace_gap": gap,
+             "coords_max_abs_err": max(
+                 float((a.double() - b.double()).abs().max())
+                 for a, b in zip(c1, c2)),
+             "coord_launches": launches}, bad, launches)
 
 
 def coord_round_split(torch, m, coo, topo, n=N) -> dict:
@@ -1351,21 +1459,25 @@ def phase_observe(torch, m, dev):
             bad.append(f"tracking {name}: launched {got}, expected {want_t}")
     coords, cbad, cl, coo, topo = observe_coords(torch, m, dev)
     bad += cbad
-    if cl != {"round_kernel/full": COORD_ROUNDS,
-              "flight_row": COORD_ROUNDS // COORD_STRIDE}:
-        bad.append(f"coords: launched {cl}, expected {COORD_ROUNDS} full "
+    got = {k: v for k, v in cl.items() if k not in m.coord_kernel.NAMES}
+    if got != {"round_kernel/full": COORD_ROUNDS,
+               "flight_row": COORD_ROUNDS // COORD_STRIDE}:
+        bad.append(f"coords: launched {got}, expected {COORD_ROUNDS} full "
                    f"rounds and {COORD_ROUNDS // COORD_STRIDE} rows")
+    live_coords, lbad, ll = observe_coords_flight(torch, m, dev)
+    bad += lbad
     if bad:
         raise SmokeFailure("observe: " + "; ".join(bad))
     coords["device_us"] = coord_round_split(torch, m, coo, topo)
     host = recorder_host_costs(torch, m, dev)
     launches: dict = {}
-    for part in (rl, tl, {"coords": cl}):
+    for part in (rl, tl, {"coords": cl, "coords_flight": ll}):
         for counts in part.values():
             for k, v in counts.items():
                 launches[k] = launches.get(k, 0) + v
     emit({"phase": "observe", "recorders": rec, "host_us": host,
-          "tracking": track, "coords": coords, "launches": launches})
+          "tracking": track, "coords": coords,
+          "coords_flight": live_coords, "launches": launches})
     return launches
 
 
@@ -3759,11 +3871,103 @@ def time_flight_row(torch, m, inputs) -> dict:
         "x_bound": tk["ms"] / bound["bound_ms"], "max_abs_err": gap}}
 
 
+#: periods the timed coordinate state relaxes from a cold start first
+COORD_TIMING_WARM = 30
+
+
+def coord_timing_case(torch, m, dev, n=N, warm=COORD_TIMING_WARM) -> dict:
+    """The coordinates cell's period at ``n`` agents (``coords_setup``:
+    its latency map and deadlines), its coordinates relaxed ``warm``
+    periods from a cold start: the inputs of each coordinate launch."""
+    co, prng = m.coords, m.prng
+    su = m.scenarios.coords_setup(n, device=dev)
+    key = prng.key(61, device=dev)
+    c = co.init_coords(n, device=dev)
+    up = torch.ones(n, dtype=torch.bool, device=dev)
+    for r in range(warm):
+        k_pair, k_jit, k_dir, _ = prng.split(prng.fold_in(key, r), 4)
+        j = m.topology.sample_pairs(n, k_pair)
+        rtt, _, _ = co.probe(c, su.topo, j, k_jit)
+        c, _, _ = co.relax(c, j, rtt, k_dir, up, up)
+    k_pair, k_jit, k_dir, k_q = prng.split(prng.fold_in(key, warm), 4)
+    j = m.topology.sample_pairs(n, k_pair)
+    p = su.p
+    return {"topo": su.topo, "coords": c, "pair_j": j,
+            "q_in": m.topology.sample_pairs(n, k_q),
+            "z": prng.normal(k_jit, (n,)), "k_dir": k_dir,
+            "lh": torch.zeros(n, dtype=torch.int32, device=dev), "up": up,
+            "deadline": (p.coord_timeout_mult, p.probe_interval,
+                         p.probe_timeout)}
+
+
+def _coord_outputs(torch, m, name, c, got, want) -> list:
+    """(output, the launch's, the plain version's) of every output a
+    coordinate launch shares with its plain version on the inputs ``c``:
+    the relaxation's new state field by field, its gate, each agent's
+    moved distance against the plain step's and their mean against the
+    plain drift."""
+    if name == "vivaldi_relax":
+        (new, relaxed, moved), (c2, w_relaxed, drift) = got, want
+        d = c2.vec - c.vec
+        return [*zip(new._fields, new, c2),
+                ("relaxed", relaxed, w_relaxed),
+                ("moved", moved, torch.sqrt(torch.sum(d * d, dim=-1))),
+                ("drift", m.coords._mean_moved(moved), drift)]
+    if name == "coord_probe":
+        return list(zip(("rtt_obs", "timely", "late_in"), got, want))
+    return [("rel", got, want)]
+
+
+def time_coord_kernels(torch, m, dev, n=N) -> dict:
+    """Each coordinate launch (``coord_kernel``) on the coordinates
+    cell's period at ``n`` agents (``coord_timing_case``): every output
+    bit for bit its plain version's on the card, its ``launch_times``,
+    its bound (``costmodel.coord_bound``), and its plain version's
+    times, the ATen route it replaces: eager by CUDA events
+    (``plain_ms``) and its device time by graph replay
+    (``plain_device_ms``)."""
+    CK, co = m.coord_kernel, m.coords
+    k = coord_timing_case(torch, m, dev, n)
+    c, topo, j = k["coords"], k["topo"], k["pair_j"]
+    dl = (k["q_in"], k["lh"], k["deadline"])
+    rtt, _, _ = CK.probe(c, topo, j, k["z"])
+    u = m.prng.uniform(k["k_dir"], n * CK.DIMS)
+    cases = {
+        "coord_probe": (lambda: CK.probe(c, topo, j, k["z"], *dl),
+                        lambda: co.probe_plain(c, topo, j, k["z"], *dl)),
+        "vivaldi_relax": (
+            lambda: CK.relax(c, j, rtt, u, k["up"], k["up"]),
+            lambda: co.relax_plain(c, j, rtt, k["k_dir"], k["up"],
+                                   k["up"])),
+        "coord_quality": (lambda: CK.quality(c, topo, j),
+                          lambda: co.quality_plain(c, topo, j))}
+    bounds = m.costmodel.coord_bound(n, topo_dims=topo.pos.shape[-1])
+    out = {}
+    for name, (kern, plain) in cases.items():
+        pairs = _coord_outputs(torch, m, name, c, kern(), plain())
+        gaps = {f: float((a.double() - b.double()).abs().max())
+                if a.shape == b.shape else None for f, a, b in pairs}
+        bad = [f for f, a, b in pairs if a.dtype != b.dtype
+               or a.shape != b.shape or not torch.equal(a, b)]
+        if bad:
+            raise SmokeFailure(f"{name}: {bad} differ from the plain "
+                               f"version's (max abs err {gaps})")
+        t = launch_times(torch, kern, 200)
+        out[name] = {**t, "plain_ms": _events_ms(torch, plain, 5),
+                     "plain_device_ms": _graph_ms(torch, plain, 20,
+                                                  per_graph=5),
+                     **bounds[name], "x_bound": t["ms"]
+                     / bounds[name]["bound_ms"],
+                     "max_abs_err": max(gaps.values())}
+    return out
+
+
 def phase_timing(torch, m, inputs):
     out = time_kernels(torch, m, inputs)
     out.update(time_lane_kernel(torch, m, inputs))
     out.update(time_live_kernel(torch, m, inputs))
     out.update(time_flight_row(torch, m, inputs))
+    out.update(time_coord_kernels(torch, m, inputs[0][0].device))
     emit({"phase": "timing", "n": N, "kernels": out})
     return out
 
@@ -3779,6 +3983,11 @@ def modules():
                                       prng, round, scenarios, state, sweep,
                                       topology, twin, views)
     try:
+        from consul_tpu_torch.sim import coord_kernel
+    except ImportError:
+        # a checkout from before the coordinate kernels
+        coord_kernel = None
+    try:
         from consul_tpu_torch.sim import lane_kernel
     except ImportError:
         # a checkout from before the lane kernel (kernel_ab.py times one)
@@ -3792,7 +4001,8 @@ def modules():
 
     return types.SimpleNamespace(
         autotune=autotune, bench=bench, blackbox=blackbox,
-        checkpoint=checkpoint, cli=cli, config=config, coords=coords,
+        checkpoint=checkpoint, cli=cli, config=config,
+        coord_kernel=coord_kernel, coords=coords,
         costmodel=costmodel, cuda_round=cuda_round, faults=faults,
         flight=flight, fused=fused, graft_entry=graft_entry, graphs=graphs,
         lane_kernel=lane_kernel, lanes=lanes, live_kernel=live_kernel,
@@ -3816,7 +4026,8 @@ def main() -> int:
 
     from consul_tpu_torch.utils import build
 
-    phase_env(torch, build, m.cuda_round, m.fused, m.lane_kernel)
+    phase_env(torch, build, m.cuda_round, m.fused, m.lane_kernel,
+              m.coord_kernel)
     checks, inputs = phase_check(torch, m, dev)
     phase_lanes(torch, m, dev, inputs)
     headline, launches = phase_headline(torch, m, dev)
@@ -3848,7 +4059,8 @@ def main() -> int:
     # the kernels of the paths; the gated full variant, which no path
     # launches yet, is timed in phase timing only
     for name, t in timing.items():
-        if name not in launches or name == "flight_row":
+        if name not in launches or name == "flight_row" \
+                or name in m.coord_kernel.NAMES:
             continue
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -3917,6 +4129,21 @@ def main() -> int:
         "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None})
+    # the coordinate round's launches on the coordinates cell's period,
+    # counted on the paths of phase observe; against their plain
+    # versions there, and bit for bit in phase timing
+    for name in m.coord_kernel.NAMES:
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "consul_tpu_torch/csrc/coord_kernels.cu",
+            "replaces": "consul_tpu/sim/coords.py (vivaldi_step, "
+                        "estimate_rtt), consul_tpu/sim/topology.py "
+                        "(true_rtt, sample_rtt): XLA fusions",
+            "launches": launches.get(name, 0),
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

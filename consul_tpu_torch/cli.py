@@ -28,7 +28,8 @@ engines and kernels. The modes:
   report carries ``coords_publish_error`` because no agent runs here to
   publish the coordinates into; a registry of its own is armed for the
   run, and its spans and the coordinate counters
-  (``sim.coords.updates``, ``sim.coords.deadline_misses``) go to stderr
+  (``sim.coords.updates``, ``sim.coords.deadline_misses``,
+  ``sim.coords.kernel_launches``) go to stderr
   as one ``{"span_ms": ..., "counters": ...}`` line;
 * ``-gossip-sim-sweep T[:R]`` — ``scenarios.run_autotune(T, rounds=R)``
   (120 by default), published as ``sim.sweep.*`` gauges, the grid

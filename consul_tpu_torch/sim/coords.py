@@ -17,17 +17,28 @@ coincident-point branch draws its direction from the step's key
 elementwise math and [N]-sized gathers. The eight constants are a copy
 of the reference client's. ``coord_metrics`` runs under the span
 ``sim.coords.metrics`` (``utils.telemetry``, the device-annotated form).
+
+A period's coordinate round is three steps, each routed by the tensors'
+device: ``probe`` (the probe pairs' observed round trips and, with
+RTT-aware deadlines, ``timely`` and ``late_in``), ``relax``
+(``vivaldi_step``'s full form, the gate and the drift) and
+``coord_metrics``' per-agent error (``quality``). On the card each is
+one launch of ``sim/coord_kernel.py`` (``csrc/coord_kernels.cu``), as is
+every full-form ``vivaldi_step``; on the CPU their plain versions here
+run (``probe_plain``, ``relax_plain`` / ``vivaldi_step_plain``,
+``quality_plain``), which the kernels follow op for op.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from consul_tpu_torch.faults import ipow
-from consul_tpu_torch.sim import prng
+from consul_tpu_torch.sim import coord_kernel, prng
 from consul_tpu_torch.sim.lanes import tree_sum
 from consul_tpu_torch.sim.topology import Topology, true_rtt
 from consul_tpu_torch.utils import telemetry
@@ -105,6 +116,10 @@ def nearest_k(coords: CoordState, q: int, k: int):
     return idx.to(torch.int32), -neg
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
+
+
 def vivaldi_step(coords: CoordState, i, j, rtt_s: torch.Tensor,
                  key: torch.Tensor,
                  upd: Optional[torch.Tensor] = None) -> CoordState:
@@ -113,7 +128,29 @@ def vivaldi_step(coords: CoordState, i, j, rtt_s: torch.Tensor,
     for every row in order (no scatter). Rows with ``upd`` false or a
     non-positive RTT keep their coordinate. With ``i`` None the
     coordinates may be a grid's (``[G, N, ...]``, one set per point):
-    every point relaxes over the same pairs and draws."""
+    every point relaxes over the same pairs and draws. The full form on
+    the card is one ``vivaldi_relax`` launch; the scatter form and CPU
+    tensors run ``vivaldi_step_plain``."""
+    if i is None and _on_card(coords.vec):
+        dev = coords.vec.device
+        return _relax_launch(coords, torch.as_tensor(j, device=dev),
+                             rtt_s, key, upd, None)[0]
+    return vivaldi_step_plain(coords, i, j, rtt_s, key, upd)
+
+
+def _relax_launch(coords: CoordState, pair_j: torch.Tensor,
+                  rtt_s: torch.Tensor, key: torch.Tensor, ack, up) -> tuple:
+    rows, dims = coords.vec.shape[-2:]
+    return coord_kernel.relax(
+        coords, pair_j.to(torch.int32).contiguous(),
+        rtt_s.to(_F32).contiguous(), prng.uniform(key, rows * dims), ack,
+        up)
+
+
+def vivaldi_step_plain(coords: CoordState, i, j, rtt_s: torch.Tensor,
+                       key: torch.Tensor,
+                       upd: Optional[torch.Tensor] = None) -> CoordState:
+    """``vivaldi_step`` in plain PyTorch, on any device."""
     full = i is None
     dev = coords.vec.device
     n, dims = coords.vec.shape[-2:]
@@ -197,6 +234,80 @@ def vivaldi_step(coords: CoordState, i, j, rtt_s: torch.Tensor,
 N_COORD_METRICS = 3
 
 
+def probe(coords: Optional[CoordState], topo: Topology,
+          pair_j: torch.Tensor, key: torch.Tensor,
+          q_in: Optional[torch.Tensor] = None,
+          lh: Optional[torch.Tensor] = None,
+          deadline: Optional[tuple] = None) -> tuple:
+    """A period's probes: each agent's observed round trip to its target
+    ``pair_j`` (the truth times the unit-median lognormal jitter drawn
+    from ``key``, as ``topology.sample_rtt``), and with RTT-aware
+    deadlines (``q_in``, the random prober of each agent; ``lh``, the
+    local health; ``deadline`` = (multiplier, probe interval, probe
+    timeout), floats or a grid's ``[G, 1]`` leaves) whether the ack beat
+    ``max(timeout, min(mult x estimate, interval)) x (lh + 1)``
+    (``timely``) and the chance that a random prober's deadline loses to
+    this agent's jittered round trip (``late_in``, 1 - Phi(ln(d / rtt) /
+    sigma)). Returns (rtt_obs ``[N]``, timely, late_in), the last two
+    None without deadlines. On the card one ``coord_probe`` launch."""
+    z = prng.normal(key, tuple(pair_j.shape))
+    if _on_card(pair_j):
+        return coord_kernel.probe(coords, topo, pair_j, z, q_in, lh,
+                                  deadline)
+    return probe_plain(coords, topo, pair_j, z, q_in, lh, deadline)
+
+
+def probe_plain(coords: Optional[CoordState], topo: Topology,
+                pair_j: torch.Tensor, z: torch.Tensor,
+                q_in: Optional[torch.Tensor] = None,
+                lh: Optional[torch.Tensor] = None,
+                deadline: Optional[tuple] = None) -> tuple:
+    """``probe`` in plain PyTorch on the jitter normal ``z``."""
+    i_all = torch.arange(pair_j.shape[-1], device=pair_j.device)
+    rtt_obs = true_rtt(topo, i_all, pair_j) \
+        * torch.exp(topo.jitter_sigma * z)
+    if q_in is None:
+        return rtt_obs, None, None
+    mult, interval, timeout = deadline
+
+    def dl(est, health):
+        return torch.clamp_min(torch.clamp_max(mult * est, interval),
+                               timeout) * (health.to(_F32) + 1.0)
+
+    timely = rtt_obs <= dl(estimate_rtt(coords, i_all, pair_j), lh)
+    rtt_in = true_rtt(topo, q_in, i_all)
+    dl_in = dl(estimate_rtt(coords, q_in, i_all), lh[..., q_in])
+    sig = torch.clamp_min(topo.jitter_sigma, 1e-6)
+    z_in = torch.log(torch.clamp_min(dl_in, 1e-9)
+                     / torch.clamp_min(rtt_in, 1e-9)) / sig
+    return rtt_obs, timely, 1.0 - torch.special.ndtr(z_in)
+
+
+def relax(coords: CoordState, pair_j: torch.Tensor, rtt_obs: torch.Tensor,
+          key: torch.Tensor, ack: torch.Tensor,
+          up: Optional[torch.Tensor] = None) -> tuple:
+    """A period's relaxation: every agent whose probe was acked and
+    whose target is up (``ack & up[..., pair_j]``; ``up`` None gates no
+    target) relaxes toward ``pair_j`` at ``rtt_obs`` (``vivaldi_step``'s
+    full form, its direction drawn from ``key``). Returns (coords', the
+    gate, the round's drift as ``round_drift``). On the card one
+    ``vivaldi_relax`` launch and the drift's mean."""
+    if _on_card(coords.vec):
+        c2, relaxed, moved = _relax_launch(coords, pair_j, rtt_obs, key,
+                                           ack, up)
+        return c2, relaxed, _mean_moved(moved)
+    return relax_plain(coords, pair_j, rtt_obs, key, ack, up)
+
+
+def relax_plain(coords: CoordState, pair_j: torch.Tensor,
+                rtt_obs: torch.Tensor, key: torch.Tensor, ack: torch.Tensor,
+                up: Optional[torch.Tensor] = None) -> tuple:
+    """``relax`` in plain PyTorch."""
+    relaxed = ack if up is None else ack & up[..., pair_j]
+    c2 = vivaldi_step_plain(coords, None, pair_j, rtt_obs, key, relaxed)
+    return c2, relaxed, round_drift(coords, c2)
+
+
 class CoordRoundAux(NamedTuple):
     """The cheap per-round byproducts ``coord_metrics`` needs, so the
     percentiles run only on recorded rounds, and the masks a runner's
@@ -213,7 +324,10 @@ def round_drift(prev: CoordState, cur: CoordState) -> torch.Tensor:
     grid's coordinates, each mean a ``lanes.tree_sum`` so a grid row is
     its one-point run bit for bit."""
     d = cur.vec - prev.vec
-    moved = torch.sqrt(torch.sum(d * d, dim=-1))
+    return _mean_moved(torch.sqrt(torch.sum(d * d, dim=-1)))
+
+
+def _mean_moved(moved: torch.Tensor) -> torch.Tensor:
     if moved.dim() == 1:
         return torch.mean(moved)
     return tree_sum(moved) / float(moved.shape[-1])
@@ -225,7 +339,16 @@ def _percentiles(x: torch.Tensor, qs: Sequence[float]) -> list:
     folded on the host, so only the two gathers and the blend run on
     the device (and nothing makes the host wait)."""
     s = torch.sort(x, dim=-1).values
-    n = np.float32(s.shape[-1])
+    return [s[..., lo_i] * w_lo + s[..., hi_i] * w_hi
+            for lo_i, hi_i, w_lo, w_hi in _blend(s.shape[-1], tuple(qs))]
+
+
+@functools.lru_cache(maxsize=None)
+def _blend(length: int, qs: tuple) -> tuple:
+    """Each percentile's (low index, high index, low weight, high
+    weight) in a sorted row of ``length``: the reference's f32 folds,
+    made once a length."""
+    n = np.float32(length)
     one = np.float32(1.0)
     out = []
     for q in qs:
@@ -233,10 +356,9 @@ def _percentiles(x: torch.Tensor, qs: Sequence[float]) -> list:
         lo, hi = np.floor(pos), np.ceil(pos)
         w_hi = np.float32(pos - lo)
         w_lo = np.float32(one - w_hi)
-        lo_i = int(min(max(lo, 0), n - 1))
-        hi_i = int(min(max(hi, 0), n - 1))
-        out.append(s[..., lo_i] * float(w_lo) + s[..., hi_i] * float(w_hi))
-    return out
+        out.append((int(min(max(lo, 0), n - 1)), int(min(max(hi, 0), n - 1)),
+                    float(w_lo), float(w_hi)))
+    return tuple(out)
 
 
 def coord_metrics(cur: CoordState, topo: Topology,
@@ -248,13 +370,28 @@ def coord_metrics(cur: CoordState, topo: Topology,
     (``torch.quantile`` would sort twice and refuses inputs above 2^24
     elements; 1,048,576 nodes is 2^20)."""
     with telemetry.span("sim.coords.metrics", device=True):
-        n = cur.vec.shape[-2]
-        i = torch.arange(n, device=cur.vec.device)
-        est = estimate_rtt(cur, i, aux.pair_j)
-        truth = true_rtt(topo, i, aux.pair_j)
-        rel = torch.abs(est - truth) / torch.clamp_min(truth, 1e-9)
-        med, p99 = _percentiles(rel, (50.0, 99.0))
+        med, p99 = _percentiles(quality(cur, topo, aux.pair_j),
+                                (50.0, 99.0))
         return torch.stack([med, p99, aux.drift.to(_F32)], dim=-1)
+
+
+def quality(cur: CoordState, topo: Topology,
+            pair_j: torch.Tensor) -> torch.Tensor:
+    """Each agent's relative RTT-estimate error to its target ``pair_j``
+    against the no-jitter truth, ``[..., N]``: on the card one
+    ``coord_quality`` launch."""
+    if _on_card(cur.vec):
+        return coord_kernel.quality(cur, topo, pair_j)
+    return quality_plain(cur, topo, pair_j)
+
+
+def quality_plain(cur: CoordState, topo: Topology,
+                  pair_j: torch.Tensor) -> torch.Tensor:
+    """``quality`` in plain PyTorch."""
+    i = torch.arange(cur.vec.shape[-2], device=cur.vec.device)
+    est = estimate_rtt(cur, i, pair_j)
+    truth = true_rtt(topo, i, pair_j)
+    return torch.abs(est - truth) / torch.clamp_min(truth, 1e-9)
 
 
 def coordinate_updates(coords: CoordState, count: Optional[int] = None,

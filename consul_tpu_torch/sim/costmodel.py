@@ -57,8 +57,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from consul_tpu_torch.sim import (cuda_round, fused, graphs, lane_kernel,
-                                  prng, registry)
+from consul_tpu_torch.sim import (coord_kernel, cuda_round, fused, graphs,
+                                  lane_kernel, prng, registry)
 from consul_tpu_torch.sim.flight import FLIGHT_COLUMNS, trace_bytes
 from consul_tpu_torch.sim.round import (make_run_rounds, make_run_rounds_fast,
                                         make_run_rounds_lanes)
@@ -480,6 +480,47 @@ def live_bound(vals, slots: tuple, stage: int, stats: bool,
                           + (4 * (5 + 3 * churn) if stats else 0))
     return {"read_bytes": read, "written_bytes": written,
             **_bound(read + written, 0, 0)}
+
+
+#: bytes an agent's coordinate rows take in one point: the ``[8]``
+#: position, error, height, the ``[20]`` ring and its cursor (the
+#: adjustment is rewritten from the ring, never read by the relaxation)
+COORD_ROW_BYTES = 4 * coord_kernel.DIMS + 4 + 4 + 4 * coord_kernel.WINDOW \
+    + 4
+
+
+def coord_bound(n: int, points: int = 0, topo_dims: int = 4,
+                deadlines: bool = True) -> dict:
+    """The least time each coordinate launch (``coord_kernel.NAMES``)
+    could take at ``n`` agents (``points`` > 0: a grid of that many),
+    in bytes over the HBM rate, each input read once and each output
+    written once, whatever a launch reads again (a target's rows):
+
+    * ``coord_probe`` — the latency map (a ``topo_dims`` row and a
+      height an agent), the pairs and the jitter normal in, the round
+      trips out; with ``deadlines`` the random probers, and a point's
+      positions, heights, adjustments and local health in, ``timely``
+      (1 B) and ``late_in`` out;
+    * ``vivaldi_relax`` — the pairs and round trips, a point's rows
+      (``COORD_ROW_BYTES``) and its two gates in; its new rows, the
+      adjustment, the gate and the moved distance out. The direction
+      draws are read only for coincident agents (a cold start) and are
+      not counted;
+    * ``coord_quality`` — the latency map and the pairs, a point's
+      positions, heights and adjustments in, the relative error out.
+
+    Their operations (a few dozen f32 terms an agent) are not counted."""
+    g = max(points, 1)
+    map_bytes = 4 * topo_dims + 4
+    estimate = 4 * coord_kernel.DIMS + 4 + 4
+    probe = n * (map_bytes + 4 + 4 + 4)
+    if deadlines:
+        probe += n * 4 + g * n * (estimate + 4 + 1 + 4)
+    relax = n * (4 + 4) + g * n * (
+        COORD_ROW_BYTES + 1 + 1 + COORD_ROW_BYTES + 4 + 1 + 4)
+    quality = n * (map_bytes + 4) + g * n * (estimate + 4)
+    return {name: _bound(b, 0, 0) for name, b in zip(
+        coord_kernel.NAMES, (probe, relax, quality))}
 
 
 # ---------------------------------------- counted and timed attribution

@@ -36,7 +36,9 @@ from the kernels' output tensors between launches, as the JAX runner
 builds them outside its kernel. A flight row on the card is one launch
 of a third kernel, ``flight_row`` (``record_flight_row``: the recorded
 round's fusion in the JAX runner; on the CPU ``flight.flight_row``);
-the rings and coordinates are PyTorch ops.
+the rings are PyTorch ops, and the coordinate round on the card is a
+``coord_probe`` and a ``vivaldi_relax`` launch (``sim/coord_kernel.py``;
+``coord_round``) and a ``coord_quality`` launch a recorded round.
 
 Both kernels write a ``[partials_rows(rows), 18]`` table of per-block
 partial sums (8 population scalars, then the 10 SimStats counters): a
@@ -623,17 +625,17 @@ def coord_round(coo: coords_mod.CoordState, topo: topology.Topology,
     """One round's Vivaldi update over the kernel's output: explicit
     pairs and their observed RTTs from ``split(key, 4)``, probers acking
     at the population rate of the scalars ``sc`` the kernel consumed.
-    Returns (coords', CoordRoundAux)."""
+    Returns (coords', CoordRoundAux). On the card the probes and the
+    relaxation are one ``coord_probe`` and one ``vivaldi_relax`` launch
+    (``coords.probe``, ``coords.relax``)."""
     n = up.shape[0]
     k_pair, k_jit, k_dir, k_ack = prng.split(key, 4)
-    i_all = torch.arange(n, device=up.device)
     pair_j = topology.sample_pairs(n, k_pair)
-    rtt_obs = topology.sample_rtt(topo, i_all, pair_j, k_jit)
+    rtt_obs, _, _ = coords_mod.probe(coo, topo, pair_j, k_jit)
     acked = up & (prng.uniform(k_ack, n) < coord_ack_rate(sc))
-    coo2 = coords_mod.vivaldi_step(coo, None, pair_j, rtt_obs, k_dir,
-                                   acked & up[pair_j])
-    return coo2, coords_mod.CoordRoundAux(
-        pair_j=pair_j, drift=coords_mod.round_drift(coo, coo2))
+    coo2, _, drift = coords_mod.relax(coo, pair_j, rtt_obs, k_dir, acked,
+                                      up)
+    return coo2, coords_mod.CoordRoundAux(pair_j=pair_j, drift=drift)
 
 
 def make_run_rounds_cuda(p: SimParams, rounds: int,

@@ -31,7 +31,8 @@ does it:
   capture anew for each, while the two copies move 2 x 15 B a node a
   call;
 * ``counters`` (the kernel wrappers' launch counters; the draw and sum
-  kernels' ``fused.LAUNCHES`` always) count what each call launches:
+  kernels' ``fused.LAUNCHES`` and the coordinate kernels'
+  ``coord_kernel.LAUNCHES`` always) count what each call launches:
   the capture launches nothing, so its increments are taken back, and
   the captured launches are added on every replay;
 * the key holds the ``fused.plain()`` switch: a body captured with the
@@ -74,7 +75,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import (tree_flatten, tree_leaves, tree_map,
                                  tree_unflatten)
 
-from consul_tpu_torch.sim import fused
+from consul_tpu_torch.sim import coord_kernel, fused
 from consul_tpu_torch.utils import telemetry
 
 #: graphs a cache keeps; the least recently used is dropped beyond it
@@ -190,7 +191,8 @@ class GraphCache:
     ``MAX_GRAPHS`` keys, least recently used dropped first."""
 
     def __init__(self, counters: Sequence[collections.Counter] = ()):
-        self.counters = tuple(counters) + (fused.LAUNCHES,)
+        self.counters = tuple(counters) + (fused.LAUNCHES,
+                                           coord_kernel.LAUNCHES)
         # key -> _Entry, or None for a key seen once (run eagerly)
         self._entries: collections.OrderedDict = collections.OrderedDict()
         # one memory pool for the cache's graphs: they replay one at a

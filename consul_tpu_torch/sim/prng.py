@@ -356,8 +356,13 @@ def randint(k: Key, shape: Shape, minval: int,
     else:
         k1, k2 = split(k, 2)
         hi, lo = bits(k1, count), bits(k2, count)
-    off = (((hi % span) * mult) & MASK) + lo % span
-    off = (off & MASK) % span
+    if mult:
+        off = (((hi % span) * mult) & MASK) + lo % span
+        off = (off & MASK) % span
+    else:
+        # a span above 2^16: the high word's term is 0, and lo % span
+        # (below 2^32) is already the wrapped remainder
+        off = lo % span
     return (off + minval).to(torch.int32).view(shape)
 
 

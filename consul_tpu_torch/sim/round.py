@@ -41,7 +41,10 @@ a round also draws explicit probe targets and their observed RTTs from
 ``fold_in(key, prng.COORD_FOLD)`` (off the round's own five keys, so a
 run without coordinates draws exactly what it did before), relaxes the
 acked probers' coordinates and, with ``SimParams.coords_timeout``, makes
-each ack race an RTT-aware deadline. ``events=True`` surfaces the
+each ack race an RTT-aware deadline; on the card the probes, the
+relaxation and the quality row are one launch each
+(``coords.probe`` / ``relax`` / ``coord_metrics``, ``sim/coord_kernel.py``).
+``events=True`` surfaces the
 round's probe lifecycle (``blackbox.ProbeEvents``) for the black box.
 
 Per-node randomness comes from a caller-supplied source ``u01(slot)``
@@ -69,8 +72,9 @@ from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
                                      detection_gate, frame_at,
                                      frames_at, ipow,
                                      phase_at, plan_phases, scale_frame)
-from consul_tpu_torch.sim import (blackbox, flight, fused, graphs,
-                                  lane_kernel, live_kernel, prng, topology)
+from consul_tpu_torch.sim import (blackbox, coord_kernel, flight, fused,
+                                  graphs, lane_kernel, live_kernel, prng,
+                                  topology)
 from consul_tpu_torch.sim import lanes as lanes_mod
 from consul_tpu_torch.sim import coords as coords_mod
 from consul_tpu_torch.sim.params import SimParams, TracedParams
@@ -353,31 +357,21 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
             k_pair, k_jit, k_dir, k_q = prng.split(
                 prng.SubKey(key, prng.COORD_FOLD), 4)
             rows = status.shape[-1]
-            i_all = torch.arange(rows, device=status.device)
             pair_j = topology.sample_pairs(rows, k_pair)
-            rtt_obs = topology.sample_rtt(topo, i_all, pair_j, k_jit)
             if p.coords_timeout:
                 # the ack must beat max(timeout, min(mult·estimate,
                 # interval))·(LH+1); the target side folds the chance
                 # that a random prober's deadline loses to this node's
                 # jittered RTT into its miss rate (1 - Phi(ln(d/rtt)/
                 # sigma))
-                def deadline(est, health):
-                    return torch.clamp_min(torch.clamp_max(
-                        p.coord_timeout_mult * est, p.probe_interval),
-                        p.probe_timeout) * (health.to(_F32) + 1.0)
-
-                est = coords_mod.estimate_rtt(coords, i_all, pair_j)
-                timely = rtt_obs <= deadline(est, lh)
-                q_in = topology.sample_pairs(rows, k_q)
-                rtt_in = topology.true_rtt(topo, q_in, i_all)
-                dl_in = deadline(
-                    coords_mod.estimate_rtt(coords, q_in, i_all),
-                    lh[..., q_in])
-                sig = torch.clamp_min(topo.jitter_sigma, 1e-6)
-                z = torch.log(torch.clamp_min(dl_in, 1e-9)
-                              / torch.clamp_min(rtt_in, 1e-9)) / sig
-                late_in = 1.0 - torch.special.ndtr(z)
+                rtt_obs, timely, late_in = coords_mod.probe(
+                    coords, topo, pair_j, k_jit,
+                    q_in=topology.sample_pairs(rows, k_q), lh=lh,
+                    deadline=(p.coord_timeout_mult, p.probe_interval,
+                              p.probe_timeout))
+            else:
+                rtt_obs, _, _ = coords_mod.probe(coords, topo, pair_j,
+                                                 k_jit)
 
     # ------------------------------------------------- prober-side probe
     mix_i = (1.0 - sbar) * pf_fast + sbar * pf_slow
@@ -393,13 +387,11 @@ def _round_body(vals, scal, p: SimParams, u01: prng.U01,
     if co is not None:
         with telemetry.span("sim.coords.step", device=True):
             # coordinates relax where the probe round trip completed
-            relaxed = ack & up[..., pair_j]
-            c2 = coords_mod.vivaldi_step(coords, None, pair_j, rtt_obs,
-                                         k_dir, relaxed)
+            c2, relaxed, drift = coords_mod.relax(coords, pair_j, rtt_obs,
+                                                  k_dir, ack, up)
             sink["coords"] = c2
             sink["aux"] = coords_mod.CoordRoundAux(
-                pair_j=pair_j, drift=coords_mod.round_drift(coords, c2),
-                relaxed=relaxed, late=late)
+                pair_j=pair_j, drift=drift, relaxed=relaxed, late=late)
     if p.lifeguard:
         lh = _clamp_lh(lh + failed.to(_I32) - ack.to(_I32), p)
 
@@ -939,7 +931,8 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
     The call runs under the span ``sim.runner.call`` (with its
     ``.prologue`` and ``.epilogue``); with coordinates and a registry
     armed (``utils.telemetry.armed``) it sums ``COORD_COUNTERS`` on the
-    device and publishes them there once, in the epilogue."""
+    device (the kernel launches on the host) and publishes them there
+    once, in the epilogue."""
     if not p.collect_stats:
         raise ValueError(
             "the flight recorder's counter columns ride the SimStats "
@@ -962,6 +955,7 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
             # the coordinate counters, summed only for an armed registry
             counts = [] if coords is not None and telemetry.listening() \
                 else None
+            launched = coord_kernel.launches()
             prev, bb, c = state.stats, bb0, coords
         for i, fx in enumerate(frames):
             ph = phases[1][i:i + 1] if phases is not None else -1
@@ -1005,7 +999,8 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
         with telemetry.span("sim.runner.epilogue"):
             if counts:
                 telemetry.count(dict(zip(
-                    COORD_COUNTERS, torch.stack(counts).sum(0).tolist())))
+                    COORD_COUNTERS, torch.stack(counts).sum(0).tolist()
+                    + [coord_kernel.launches() - launched])))
             out = (state,) if coords is None else (state, c)
             out = out + (buf,)
             return out + (bb,) if with_bb else out
@@ -1013,8 +1008,11 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
 
 #: the coordinate counters a flight run publishes, once a call, to the
 #: armed registries (``utils.telemetry.count``): acked probe pairs
-#: relaxed, and direct probes whose ack came past their deadline
-COORD_COUNTERS = ("sim.coords.updates", "sim.coords.deadline_misses")
+#: relaxed, direct probes whose ack came past their deadline, and the
+#: coordinate kernels' launches (``coord_kernel.LAUNCHES``; 0 on the
+#: CPU, where the plain versions run)
+COORD_COUNTERS = ("sim.coords.updates", "sim.coords.deadline_misses",
+                  "sim.coords.kernel_launches")
 
 
 def make_run_rounds_flight(p: SimParams, rounds: int,

@@ -17,7 +17,6 @@ and the latency map scaled a thousandfold with the deadlines off."""
 
 import dataclasses
 import functools
-import types
 
 import pytest
 import torch
@@ -222,13 +221,13 @@ def test_the_control_fails():
 
 
 def _ring_never_written(monkeypatch, variant):
-    step = coords_mod.vivaldi_step
+    step = coords_mod.vivaldi_step_plain
 
     def broken(coords, *a, **kw):
         return step(coords, *a, **kw)._replace(
             adj_samples=coords.adj_samples, adjustment=coords.adjustment)
 
-    monkeypatch.setattr(coords_mod, "vivaldi_step", broken)
+    monkeypatch.setattr(coords_mod, "vivaldi_step_plain", broken)
 
 
 def _gravity_off(monkeypatch, variant):
@@ -240,9 +239,16 @@ def _deadline_from_truth(monkeypatch, variant):
     cfg, _ = _variant(variant)
     topo = topology.make_topology(
         DRIVER.topology_params(cfg["topology"], 1024), CPU)
-    view = types.SimpleNamespace(**vars(coords_mod))
-    view.estimate_rtt = lambda c, i, j: topology.true_rtt(topo, i, j)
-    monkeypatch.setattr(round_mod, "coords_mod", view)
+    probe = coords_mod.probe_plain
+
+    def broken(*a, **kw):
+        # the deadlines' estimates (and only theirs) from the truth
+        with monkeypatch.context() as m:
+            m.setattr(coords_mod, "estimate_rtt",
+                      lambda c, i, j: topology.true_rtt(topo, i, j))
+            return probe(*a, **kw)
+
+    monkeypatch.setattr(coords_mod, "probe_plain", broken)
 
 
 @pytest.mark.parametrize("defect,variant", [

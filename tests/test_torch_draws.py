@@ -54,7 +54,8 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from consul_tpu_torch.sim import costmodel, fused, graphs, lanes, prng
+from consul_tpu_torch.sim import (coord_kernel, costmodel, fused, graphs,
+                                  lanes, prng)
 from consul_tpu_torch.sim import round as tround
 from test_torch_harness import cuda, ref  # noqa: F401  (fixtures)
 
@@ -758,7 +759,8 @@ def test_kernel_launchers_refuse_cpu_tensors():
 
 def test_graph_cache_counts_the_kernels_and_keys_on_the_switch():
     cache = graphs.GraphCache(counters=())
-    assert cache.counters == (fused.LAUNCHES,)
+    assert cache.counters == (fused.LAUNCHES, coord_kernel.LAUNCHES)
+    assert cache.counters[1] is coord_kernel.LAUNCHES
     assert not fused.plain_active()
     with fused.plain():
         assert fused.plain_active()
@@ -1133,3 +1135,21 @@ def test_draw_kernel_labels_and_word_loop_parser():
     inner = got["threefry/u01_global/i32/row/v4"]
     assert inner["per_word"] == (76 * 3 + 1 + 1) / 4
     assert inner["by_op_per_word"]["SHF"] == 76 / 4
+
+
+def test_broadcast_shape_is_torchs():
+    """The draw wrapper's shape broadcast is ``torch.broadcast_shapes``,
+    refusals included, over random shapes with 0, 1 and wider dims."""
+    rng = np.random.default_rng(5)
+    for _ in range(2000):
+        shapes = [tuple(int(d) for d in rng.choice([0, 1, 2, 3, 5],
+                                                  rng.integers(0, 5)))
+                  for _ in range(rng.integers(1, 5))]
+        try:
+            want = tuple(torch.broadcast_shapes(*shapes))
+        except RuntimeError:
+            with pytest.raises(ValueError, match="do not broadcast"):
+                fused.broadcast_shape(*shapes)
+            continue
+        assert fused.broadcast_shape(*shapes) == want, shapes
+    assert fused.broadcast_shape() == ()

@@ -493,9 +493,10 @@ def test_run_chaos_on_the_recorder_matches_the_cut_run():
 
 def test_chip_smoke_observe_phase_on_the_plain_path():
     """``chip_smoke.py``'s observe phase, rehearsed on the CPU at small
-    sizes: the recorders' checks, exhaustive tracking and the
-    coordinates' convergence all pass (the launch counts and the device
-    timings need the card)."""
+    sizes: the recorders' checks, exhaustive tracking, the coordinates'
+    convergence and the coordinates cell's path against its plain route
+    all pass (the launch counts and the device timings need the
+    card)."""
     import chip_smoke
 
     m = chip_smoke.modules()
@@ -514,6 +515,10 @@ def test_chip_smoke_observe_phase_on_the_plain_path():
     assert len(coords["rtt_err_med"]) == chip_smoke.COORD_ROUNDS // \
         chip_smoke.COORD_STRIDE
     assert coo.vec.shape == (4096, tcoords.DIMENSION)
+    live, bad, launches = chip_smoke.observe_coords_flight(
+        torch, m, "cpu", n=1024, rounds=8, stride=4)
+    assert bad == [] and launches == {}, live
+    assert live["trace_gap"] == 0.0 and live["coords_max_abs_err"] == 0.0
     # a broken recorder is caught: a trace whose counters miss a round
     s0 = tstate.init_state(512, device="cpu")
     p = m.bench.diag_params(512)

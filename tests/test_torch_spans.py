@@ -270,3 +270,64 @@ def test_a_device_span_is_annotated_on_the_card(cuda):  # noqa: F811
     inside = [o for o in ops if marks[0][0] <= o[0] <= o[1] <= marks[0][1]]
     assert len(inside) >= 2 and len(inside) < len(ops)
     assert not [n for _, _, n in dev if n.startswith("sim.runner")]
+
+
+def _coords_flight(dev, n: int, rounds: int):
+    from consul_tpu_torch.sim import coords, scenarios
+
+    su = scenarios.coords_setup(n, device=dev)
+    return tround.run_rounds_flight(
+        init_state(n, device=dev), prng.key(9, device=dev), su.p, rounds,
+        plan=su.cp, coords=coords.init_coords(n, device=dev), topo=su.topo)
+
+
+def _counters(m: telemetry.Metrics) -> dict:
+    return {x["Name"]: x["Count"] for x in m.snapshot()["Counters"]}
+
+
+def test_an_armed_coordinates_run_publishes_its_kernel_launches():
+    """``sim.coords.kernel_launches`` rides the coordinate counters, once
+    a call: 0 on the CPU, where the plain versions run."""
+    m = telemetry.Metrics()
+    with telemetry.armed(m):
+        _coords_flight(torch.device("cpu"), 128, 3)
+    got = _counters(m)
+    assert tround.COORD_COUNTERS[-1] == "sim.coords.kernel_launches"
+    assert got["consul.sim.coords.kernel_launches"] == 0.0
+    assert got["consul.sim.coords.updates"] > 0
+
+
+@pytest.mark.cuda
+def test_the_coordinate_kernels_fall_under_their_spans(cuda):  # noqa: F811
+    """On the card each period's ``coord_probe`` and ``vivaldi_relax``
+    fall under a ``sim.coords.step`` annotation and its
+    ``coord_quality`` under ``sim.coords.metrics``, with no ATen row or
+    element gather under either; an armed run counts three launches a
+    recorded period."""
+    n, rounds = 4096, 3
+    _coords_flight(cuda, n, rounds)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _coords_flight(cuda, n, rounds)
+        torch.cuda.synchronize()
+    dev = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = {k: [(s, e) for s, e, name in dev if name == k]
+             for k in ("sim.coords.step", "sim.coords.metrics")}
+    assert [len(v) for v in spans.values()] == [2 * rounds, rounds]
+
+    def under(k):
+        return [name for s, e, name in dev if not name.startswith("sim.")
+                and any(a <= s <= e <= b for a, b in spans[k])]
+
+    step, metrics = under("sim.coords.step"), under("sim.coords.metrics")
+    assert sum("coord_probe" in x for x in step) == rounds
+    assert sum("vivaldi_relax" in x for x in step) == rounds
+    assert sum("coord_quality" in x for x in metrics) == rounds
+    assert not [x for x in step + metrics
+                if "gather" in x or "index_elementwise" in x]
+    m = telemetry.Metrics()
+    with telemetry.armed(m):
+        _coords_flight(cuda, n, rounds)
+    assert _counters(m)["consul.sim.coords.kernel_launches"] == 3 * rounds
