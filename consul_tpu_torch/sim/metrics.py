@@ -23,6 +23,7 @@ from consul_tpu_torch.sim import blackbox as blackbox_mod
 from consul_tpu_torch.sim.flight import FLIGHT_COLUMNS, trace_columns
 from consul_tpu_torch.sim.params import SimParams
 from consul_tpu_torch.sim.state import SimState, SimStats
+from consul_tpu_torch.utils import telemetry
 
 
 @dataclass
@@ -314,69 +315,71 @@ def sweep_report(result, fp_budget: float = 1.0) -> dict:
     in one copy (f64, exact for int32 and f32). The winner is the front
     point with the lowest latency within ``fp_budget`` false positives
     per node-hour, else the lowest-FP front point; a point that declared
-    no real death has latency None and never wins."""
-    from consul_tpu_torch.sim.params import SWEEPABLE_FIELDS
+    no real death has latency None and never wins. It runs under the
+    span ``sim.sweep.report``."""
+    with telemetry.span("sim.sweep.report"):
+        from consul_tpu_torch.sim.params import SWEEPABLE_FIELDS
 
-    states = result.states
-    st = states.stats
-    fields = list(SimStats._fields)
-    host = torch.stack(
-        [getattr(st, f).to(torch.float64) for f in fields]
-        + [states.t.to(torch.float64),
-           (states.down_age < 0).to(torch.float64).mean(-1)]).cpu().numpy()
-    col = {f: host[i] for i, f in enumerate(fields)}
-    sim_s, live = host[len(fields)], host[len(fields) + 1]
-    swept = sorted(k for k in result.tp.leaves if k in SWEEPABLE_FIELDS)
-    rows: list = []
-    for i, pp in enumerate(result.points):
-        tdd = int(col["true_deaths_declared"][i])
-        fp = int(col["false_positives"][i])
-        crashes = int(col["crashes"][i])
-        node_hours = pp.n * float(sim_s[i]) / 3600.0
-        lat = (float(col["detect_latency_sum"][i]) / tdd if tdd else None)
-        rows.append({
-            "point": i,
-            "params": {k: getattr(pp, k) for k in swept},
-            "mean_detect_latency_s": lat,
-            "fp_per_node_hour": (fp / node_hours if node_hours > 0
-                                 else 0.0),
-            "msg_load": round(message_load(pp), 4),
-            "false_positives": fp,
-            "true_deaths_declared": tdd,
-            "suspicions": int(col["suspicions"][i]),
-            "refutes": int(col["refutes"][i]),
-            "crashes": crashes,
-            "missed_detections": max(crashes - tdd, 0),
-            "missed_detection_rate": (max(crashes - tdd, 0) / crashes
-                                      if crashes else 0.0),
-            "attack_suspicions": int(col["attack_suspicions"][i]),
-            "attack_false_positives": int(
-                col["attack_false_positives"][i]),
-            "live_fraction": float(live[i]),
-        })
-    front = pareto_front(rows, SWEEP_OBJECTIVES)
-    for i in front:
-        rows[i]["pareto"] = True
-    eligible = [i for i in front
-                if rows[i]["mean_detect_latency_s"] is not None
-                and rows[i]["fp_per_node_hour"] <= fp_budget]
-    if eligible:
-        winner = min(eligible,
-                     key=lambda i: (rows[i]["mean_detect_latency_s"],
-                                    rows[i]["msg_load"]))
-    else:
-        measured = [i for i in front
-                    if rows[i]["mean_detect_latency_s"] is not None]
-        pool = measured or front
-        winner = min(pool, key=lambda i: (rows[i]["fp_per_node_hour"],
-                                          rows[i]["msg_load"]))
-    return {
-        "grid_size": len(rows),
-        "rounds": result.rounds,
-        "swept": swept,
-        "objectives": list(SWEEP_OBJECTIVES),
-        "fp_budget_per_node_hour": fp_budget,
-        "pareto": front,
-        "winner": rows[winner],
-        "points": rows,
-    }
+        states = result.states
+        st = states.stats
+        fields = list(SimStats._fields)
+        host = torch.stack(
+            [getattr(st, f).to(torch.float64) for f in fields]
+            + [states.t.to(torch.float64),
+               (states.down_age < 0).to(torch.float64).mean(-1)]).cpu().numpy()
+        col = {f: host[i] for i, f in enumerate(fields)}
+        sim_s, live = host[len(fields)], host[len(fields) + 1]
+        swept = sorted(k for k in result.tp.leaves if k in SWEEPABLE_FIELDS)
+        rows: list = []
+        for i, pp in enumerate(result.points):
+            tdd = int(col["true_deaths_declared"][i])
+            fp = int(col["false_positives"][i])
+            crashes = int(col["crashes"][i])
+            node_hours = pp.n * float(sim_s[i]) / 3600.0
+            lat = (float(col["detect_latency_sum"][i]) / tdd if tdd else None)
+            rows.append({
+                "point": i,
+                "params": {k: getattr(pp, k) for k in swept},
+                "mean_detect_latency_s": lat,
+                "fp_per_node_hour": (fp / node_hours if node_hours > 0
+                                     else 0.0),
+                "msg_load": round(message_load(pp), 4),
+                "false_positives": fp,
+                "true_deaths_declared": tdd,
+                "suspicions": int(col["suspicions"][i]),
+                "refutes": int(col["refutes"][i]),
+                "crashes": crashes,
+                "missed_detections": max(crashes - tdd, 0),
+                "missed_detection_rate": (max(crashes - tdd, 0) / crashes
+                                          if crashes else 0.0),
+                "attack_suspicions": int(col["attack_suspicions"][i]),
+                "attack_false_positives": int(
+                    col["attack_false_positives"][i]),
+                "live_fraction": float(live[i]),
+            })
+        front = pareto_front(rows, SWEEP_OBJECTIVES)
+        for i in front:
+            rows[i]["pareto"] = True
+        eligible = [i for i in front
+                    if rows[i]["mean_detect_latency_s"] is not None
+                    and rows[i]["fp_per_node_hour"] <= fp_budget]
+        if eligible:
+            winner = min(eligible,
+                         key=lambda i: (rows[i]["mean_detect_latency_s"],
+                                        rows[i]["msg_load"]))
+        else:
+            measured = [i for i in front
+                        if rows[i]["mean_detect_latency_s"] is not None]
+            pool = measured or front
+            winner = min(pool, key=lambda i: (rows[i]["fp_per_node_hour"],
+                                              rows[i]["msg_load"]))
+        return {
+            "grid_size": len(rows),
+            "rounds": result.rounds,
+            "swept": swept,
+            "objectives": list(SWEEP_OBJECTIVES),
+            "fp_budget_per_node_hour": fp_budget,
+            "pareto": front,
+            "winner": rows[winner],
+            "points": rows,
+        }

@@ -14,6 +14,14 @@ to every point), swept constants enter only elementwise arithmetic, and
 every population sum goes through ``lanes.tree_sum``, a fixed tree of
 f32 additions whatever G is.
 
+Spans and counters (``utils/telemetry.py``): a call of the grid runner
+(and of the one-point runner) runs under ``sim.runner.call``, its start
+(the ``[G]`` initial state, the copy the engine runs on, the key
+stream) under ``sim.sweep.prologue``; while a registry is armed it
+publishes ``sim.sweep.point_rounds`` (points x periods) and
+``sim.sweep.windows`` (the engine's graph-cache calls: windows on the
+lanes engine, rounds on the xla engine), once a call.
+
 Engines:
 
 * ``"xla"`` — the live engine (``round.round_core``) with per-row sums,
@@ -56,6 +64,7 @@ from consul_tpu_torch.sim.round import (_lane_scan, _param_inputs,
                                         _params_from, draw_slots,
                                         round_core)
 from consul_tpu_torch.sim.state import SimState, SimStats, init_state
+from consul_tpu_torch.utils import telemetry
 from consul_tpu_torch.utils.platform import DeviceLike, default_device
 
 ENGINES = ("xla", "lanes", "cuda")
@@ -134,8 +143,9 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
     """The grid runner ``(state, tp, keys, cp) -> (state, trace|None)``:
     ONE function serves the grid and the one-point run; with ``coords``
     every point starts from ``init_coords`` and relaxes over ``topo``.
-    It runs on a copy of ``state`` (the reference's sweep does not
-    donate) and returns the copy."""
+    It updates ``state`` in place and returns it: the caller hands it a
+    copy (``_grid_call``; the reference's sweep does not donate).
+    ``solo.windows`` is the graph-cache calls a run makes."""
     if engine not in ENGINES:
         raise ValueError(f"unknown sweep engine {engine!r} "
                          f"(expected one of {ENGINES})")
@@ -155,12 +165,12 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
         lanes_mod.check_flight_config(p, flight_every)
 
         def solo(state, tp, keys, cp):
-            out = _lane_scan(graphs.fresh(state), keys, cp, tp, rounds,
-                             flight_every, lanes_mod.reduce_lanes_single,
-                             cache=cache)
+            out = _lane_scan(state, keys, cp, tp, rounds, flight_every,
+                             lanes_mod.reduce_lanes_single, cache=cache)
             return out if flight_every is not None else (out, None)
 
         solo.graphs = cache
+        solo.windows = -(-rounds // p.stale_k)
         return solo
 
     def solo(state, tp, keys, cp):
@@ -170,10 +180,11 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
             c0 = coords_mod.CoordState(*[
                 x.repeat(lead + (1,) * x.dim()) for x in
                 coords_mod.init_coords(p.n, device=state.status.device)])
-        return _xla_scan(graphs.fresh(state), tp, keys, rounds,
-                         flight_every, cp, cache, coords=c0, topo=topo)
+        return _xla_scan(state, tp, keys, rounds, flight_every, cp, cache,
+                         coords=c0, topo=topo)
 
     solo.graphs = cache
+    solo.windows = rounds
     return solo
 
 
@@ -189,6 +200,24 @@ def _broadcast_state(p: SimParams, g: int, device) -> SimState:
     return SimState(*[rep(a) for a in s0.node_arrays()], t=rep(s0.t),
                     round_idx=rep(s0.round_idx),
                     stats=SimStats(*[rep(x) for x in s0.stats]))
+
+
+def _grid_call(solo, p: SimParams, rounds: int, g: int, tp, key, plan,
+               dev):
+    """One call of a ``g``-point runner under ``sim.runner.call``: its
+    start under ``sim.sweep.prologue`` (``init_state`` G times, the copy
+    the engine runs on, the absolute-round key stream from round 0: the
+    keys every engine draws from a fresh state), the engine, and the
+    sweep's counters to an armed registry."""
+    with telemetry.span("sim.runner.call"):
+        with telemetry.span("sim.sweep.prologue"):
+            states = graphs.fresh(_broadcast_state(p, g, dev))
+            keys = prng.round_keys(key.to(dev), 0, rounds)
+        out = solo(states, tp, keys, plan)
+        if telemetry.listening():
+            telemetry.count({"sim.sweep.point_rounds": g * rounds,
+                             "sim.sweep.windows": solo.windows})
+        return out
 
 
 def take_point(states: SimState, i: int) -> SimState:
@@ -307,11 +336,8 @@ def make_run_sweep(p: SimParams, rounds: int, *,
             raise ValueError("expected [G]-leaved grid TracedParams "
                              "(build with grid_params); for a single "
                              "point use make_run_point")
-        states = _broadcast_state(p, tp.grid_shape[0], dev)
-        # the absolute-round key stream from round 0: the keys every
-        # engine draws from a fresh state
-        keys = prng.round_keys(key.to(dev), 0, rounds)
-        return solo(states, tp, keys, plan)
+        return _grid_call(solo, p, rounds, tp.grid_shape[0], tp, key, plan,
+                          dev)
 
     run.graphs = solo.graphs
     return run
@@ -333,8 +359,7 @@ def make_run_point(p: SimParams, rounds: int, *,
         if tp.grid_shape or not tp.point:
             raise ValueError("expected one-point params "
                              "(params.point_params)")
-        keys = prng.round_keys(key.to(dev), 0, rounds)
-        state, trace = solo(_broadcast_state(p, 1, dev), tp, keys, plan)
+        state, trace = _grid_call(solo, p, rounds, 1, tp, key, plan, dev)
         return take_point(state, 0), (None if trace is None else trace[0])
 
     return run

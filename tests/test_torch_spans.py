@@ -11,6 +11,12 @@ samples.
   calls and its epilogue, properly nested; the marks enclose no op.
 * The CLI's default mode arms ``telemetry.default``: its snapshot holds
   a ``sim.runner.call`` sample a chunk, and stderr prints them.
+* A sweep's call (the ``xla`` and ``lanes`` grid engines) is one
+  ``sim.runner.call`` opening with ``sim.sweep.prologue`` (the lane
+  engine's own prologue and epilogue nested after it), its report one
+  ``sim.sweep.report``; an armed registry counts
+  ``sim.sweep.point_rounds`` and ``sim.sweep.windows`` once a call, and
+  nothing is counted unarmed.
 * On the card (``cuda``): a ``GraphCache`` call's parts, and no device
   event named after a span.
 """
@@ -30,7 +36,10 @@ from torch.profiler import ProfilerActivity, profile
 from consul_tpu_torch import cli
 from consul_tpu_torch.sim import cuda_round, graphs, prng
 from consul_tpu_torch.sim import round as tround
-from consul_tpu_torch.sim.params import SimParams
+from consul_tpu_torch.sim import sweep
+from consul_tpu_torch.sim.metrics import sweep_report
+from consul_tpu_torch.sim.params import (SimParams, SweepAxes, grid_params,
+                                         point_params)
 from consul_tpu_torch.sim.state import SimState, init_state
 from consul_tpu_torch.utils import telemetry
 from gossipbench import spans as bspans
@@ -206,6 +215,84 @@ def test_cli_default_mode_samples_each_chunk():
             k: got[name][k] for k in ("Count", "Mean", "Max")}, name
     assert telemetry.span("sim.runner.call") is telemetry.OFF
     reg.reset()
+
+
+#: a 2 x 2 grid of the autotuner's axes
+SWEEP_GRID = {"gossip_nodes": (2.0, 4.0), "suspicion_mult": (2.0, 6.0)}
+#: graph-cache calls a sweep call makes: a window (stale_k 4) or a round
+SWEEP_WINDOWS = {"lanes": ROUNDS // 4, "xla": ROUNDS}
+
+
+def _sweep(engine: str):
+    """(the runner, its grid, the grid's points) of a 4-point sweep."""
+    p = _params().with_(stale_k=4 if engine == "lanes" else 1)
+    tp, points = grid_params(p, SweepAxes.of(**SWEEP_GRID), CPU)
+    return (sweep.make_run_sweep(p, ROUNDS, engine=engine, device=CPU), tp,
+            points)
+
+
+def _report(states, tp, points) -> dict:
+    return sweep_report(sweep.SweepResult(
+        states=states, trace=None, tp=tp, points=points, rounds=ROUNDS,
+        flight_every=None))
+
+
+@pytest.mark.parametrize("engine", sorted(SWEEP_WINDOWS))
+def test_a_sweep_call_and_its_report_under_the_cpu_profiler(engine):
+    run, tp, points = _sweep(engine)
+    key = prng.key(5, device=CPU)
+    run(tp, key)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        states, _ = run(tp, key)
+        _report(states, tp, points)
+    host = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CPU)
+    roots = bspans.tree(host)
+    assert [r.name for r in roots] == ["sim.runner.call", "sim.sweep.report"]
+    call = roots[0]
+    kids = [c.name for c in call.children]
+    assert kids[0] == "sim.sweep.prologue", kids
+    assert kids.count("sim.graph.call") == SWEEP_WINDOWS[engine]
+    if engine == "lanes":
+        # the lane engine's prologue and epilogue, inside the call
+        assert kids[1] == "sim.runner.prologue", kids
+        assert kids[-1] == "sim.runner.epilogue", kids
+        assert set(kids) == {"sim.sweep.prologue", "sim.runner.prologue",
+                             "sim.graph.call", "sim.runner.epilogue"}
+    else:
+        assert set(kids) == {"sim.sweep.prologue", "sim.graph.call"}
+    assert _nested(call) and call.end <= roots[1].start
+    assert not roots[1].children
+    assert telemetry.span("sim.runner.call") is telemetry.OFF
+
+
+@pytest.mark.parametrize("engine", sorted(SWEEP_WINDOWS))
+def test_an_armed_sweep_counts_its_point_rounds(engine, monkeypatch):
+    """``sim.sweep.point_rounds`` is G x periods a call (a one-point run
+    1 x periods), ``sim.sweep.windows`` the graph-cache calls; the spans
+    land as samples; unarmed, nothing is counted."""
+    run, tp, points = _sweep(engine)
+    key = prng.key(5, device=CPU)
+    g = len(points)
+    reg = telemetry.Metrics()
+    with telemetry.armed(reg):
+        for c in range(2):
+            states, _ = run(tp, prng.fold_in(key, c))
+        _report(states, tp, points)
+        sweep.make_run_point(tp.static, ROUNDS, engine=engine,
+                             device=CPU)(point_params(tp, 1), key)
+    got = _counters(reg)
+    assert got["consul.sim.sweep.point_rounds"] == (2 * g + 1) * ROUNDS
+    assert got["consul.sim.sweep.windows"] == 3 * SWEEP_WINDOWS[engine]
+    samples = _samples(reg)
+    for name, count in (("sim.runner.call", 3), ("sim.sweep.prologue", 3),
+                        ("sim.sweep.report", 1)):
+        assert samples[name]["Count"] == count, name
+    reads = []
+    monkeypatch.setattr(telemetry, "count", reads.append)
+    run(tp, key)
+    assert reads == []
 
 
 @pytest.mark.cuda
