@@ -1332,7 +1332,8 @@ def observe_coords_flight(torch, m, dev, n=N, rounds=COORD_FLIGHT_ROUNDS,
     s1, c1, tr1 = trial()
     wall = time.perf_counter() - t0
     launches = dict(m.coord_kernel.LAUNCHES)
-    with _plain_coords(m):
+    # eager: the runner's cache would replay the kernels' bodies
+    with _plain_coords(m), m.graphs.eager():
         s2, c2, tr2 = trial()
     cols = [fl.COL[f] for f in fl.COORD_COLUMNS]
     rest = [i for i in range(fl.N_COLS) if i not in cols]

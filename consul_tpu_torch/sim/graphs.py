@@ -37,7 +37,17 @@ does it:
   the captured launches are added on every replay;
 * the key holds the ``fused.plain()`` switch: a body captured with the
   draw and sum kernels is not replayed where the plain versions were
-  asked for.
+  asked for;
+* a body that opens a device span (``telemetry.span(..., device=True)``:
+  the coordinate step and the quality row) is captured a second time as
+  a run of graphs cut where it opens and closes one, its outputs copied
+  into the first capture's. While a profiler records, a replay launches
+  those parts, each captured inside such a span inside that span again,
+  so the profiler annotates a replay's device time as it annotates an
+  eager call's; otherwise it launches the one graph (each launch of a
+  part costs the host tens of µs: 48 more a coordinates body cost its
+  cell ~4-10% of its rate). The parts share the cache's pool and replay
+  in the order of their capture, which is what makes the sharing safe.
 
 Every runner whose reference donates holds one contract: the returned
 state holds the caller's per-node tensors, updated in place; its clock,
@@ -68,6 +78,7 @@ import collections
 import contextlib
 import contextvars
 import time
+import warnings
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -165,17 +176,70 @@ def _load(dst: list, src: list) -> None:
         d.copy_(x)
 
 
-class _Entry:
-    """One captured body: its graph, its static inputs (the carry's
-    tensors first, ``donated`` of them) and outputs, the launches one
-    replay makes, and what the capture cost."""
+class _Parts:
+    """A body captured as a run of graphs, cut at each device span it
+    opens or closes (``telemetry.cutting``; one graph where nothing
+    cuts): ``(span, graph)`` parts, ``span`` the name of the innermost
+    device span open while the part was captured (None outside any)."""
 
-    __slots__ = ("graph", "inputs", "donated", "out", "launches",
+    def __init__(self, pool):
+        self.pool = pool
+        self.parts: list = []
+        self._open: list = []
+        self._graph = None
+
+    def begin(self) -> None:
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode="thread_local")
+
+    def end(self) -> None:
+        graph, self._graph = self._graph, None
+        with warnings.catch_warnings():
+            # two cuts in a row leave an empty part, which replays as
+            # nothing
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            graph.capture_end()
+        self.parts.append((self._open[-1] if self._open else None, graph))
+
+    def abandon(self) -> None:
+        """End a capture the body's error left open."""
+        if self._graph is not None:
+            with contextlib.suppress(RuntimeError):
+                self._graph.capture_end()
+            self._graph = None
+
+    def cut(self, name: Optional[str]) -> None:
+        """A device span opens (``name``) or closes (None)."""
+        self.end()
+        if name is None:
+            self._open.pop()
+        else:
+            self._open.append(name)
+        self.begin()
+
+    def replay(self) -> None:
+        for name, graph in self.parts:
+            if name is None:
+                graph.replay()
+            else:
+                with telemetry.span(name, device=True):
+                    graph.replay()
+
+
+class _Entry:
+    """One captured body: its graph and, for a body with device spans,
+    its ``_Parts``; its static inputs (the carry's tensors first,
+    ``donated`` of them) and outputs, the launches one replay makes, and
+    what the capture cost."""
+
+    __slots__ = ("graph", "parts", "inputs", "donated", "out", "launches",
                  "capture_ms", "pool_bytes", "replays")
 
-    def __init__(self, graph, inputs, donated, out, launches, capture_ms,
-                 pool_bytes):
+    def __init__(self, graph, parts, inputs, donated, out, launches,
+                 capture_ms, pool_bytes):
         self.graph = graph
+        self.parts = parts
         self.inputs = inputs
         self.donated = donated
         self.out = out
@@ -242,7 +306,10 @@ class GraphCache:
                 self._remember(full_key, entry)
                 _load(entry.inputs, tensors)
         with telemetry.span("sim.graph.launch"):
-            entry.graph.replay()
+            if entry.parts is not None and telemetry.annotating():
+                entry.parts.replay()
+            else:
+                entry.graph.replay()
         with telemetry.span("sim.graph.finish"):
             entry.replays += 1
             for c, d in zip(self.counters, entry.launches):
@@ -277,9 +344,9 @@ class GraphCache:
         before = [collections.Counter(c) for c in self.counters]
         t0 = time.perf_counter()
         reserved0 = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        whole, parts, spans = _Parts(self._pool), None, []
         side = torch.cuda.Stream(dev)
         try:
             # capture_begin/end rather than the torch.cuda.graph context,
@@ -287,21 +354,15 @@ class GraphCache:
             # cache on entry (seconds after a large eager phase)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                graph.capture_begin(pool=self._pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    out = body(s_carry, *s_args)
-                except BaseException:
-                    with contextlib.suppress(RuntimeError):
-                        graph.capture_end()
-                    # an invalidated capture leaves its pool recording:
-                    # the cache's next capture takes a new one
-                    self._pool = None
-                    raise
-                graph.capture_end()
+                out = self._record(whole, spans.append, body, s_carry,
+                                   s_args)
+                launches = [c - b for c, b in zip(self.counters, before)]
+                if spans:
+                    parts = _Parts(self._pool)
+                    self._record(parts, parts.cut, lambda *a: assign(
+                        out, body(*a)), s_carry, s_args)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
-            launches = [c - b for c, b in zip(self.counters, before)]
         finally:
             # the capture launched nothing: each replay counts its launches
             for c, b in zip(self.counters, before):
@@ -309,15 +370,33 @@ class GraphCache:
                 c.update(b)
         capture_ms = (time.perf_counter() - t0) * 1e3
         CAPTURES.update(graphs=1, ms=capture_ms)
-        return _Entry(graph, inputs, donated, out, launches, capture_ms,
+        return _Entry(whole.parts[0][1], parts, inputs, donated, out,
+                      launches, capture_ms,
                       torch.cuda.memory_reserved(dev) - reserved0)
+
+    def _record(self, graph: _Parts, cut, body, s_carry, s_args):
+        """``body``'s launches captured into ``graph``, each device span
+        it opens or closes handed to ``cut``; returns its outputs."""
+        graph.begin()
+        try:
+            with telemetry.cutting(cut):
+                out = body(s_carry, *s_args)
+        except BaseException:
+            graph.abandon()
+            # an invalidated capture leaves its pool recording: the
+            # cache's next capture takes a new one
+            self._pool = None
+            raise
+        graph.end()
+        return out
 
     def stats(self) -> list:
         """Per captured graph: capture ms, the bytes
         the capture added to the cache's memory pool (its peak: the pool
-        keeps its segments), replays so far and the launches one replay
-        counts."""
+        keeps its segments), the parts it was cut into, replays so far
+        and the launches one replay counts."""
         return [{"capture_ms": e.capture_ms, "pool_bytes": e.pool_bytes,
+                 "parts": len(e.parts.parts) if e.parts else 1,
                  "replays": e.replays,
                  "launches": [dict(d) for d in e.launches]}
                 for e in self._entries.values() if e is not None]

@@ -71,7 +71,7 @@ import torch
 from consul_tpu_torch.faults import (CompiledFaultPlan, FaultFrame,
                                      detection_gate, frame_at,
                                      frames_at, ipow,
-                                     phase_at, plan_phases, scale_frame)
+                                     phase_at, scale_frame)
 from consul_tpu_torch.sim import (blackbox, coord_kernel, flight, fused,
                                   graphs, lane_kernel, live_kernel, prng,
                                   topology)
@@ -908,6 +908,79 @@ def run_rounds_coords(state: SimState, coords, topo, key: torch.Tensor,
     return state, coords, torch.stack(trace)
 
 
+class FlightCarry(NamedTuple):
+    """The flight runner's carry: the state and coordinates, the trace
+    buffer, the stats at the last recorded row, the black box (None
+    unless armed) and the ``[2]`` int64 device sums of the first two
+    ``COORD_COUNTERS`` (None unless coordinates ride a run while a
+    registry is armed)."""
+
+    state: SimState
+    coords: Optional[coords_mod.CoordState]
+    trace: torch.Tensor
+    prev: SimStats
+    bb: Optional[blackbox.BlackboxState]
+    counts: Optional[torch.Tensor]
+
+
+#: the flight runner's captured bodies, shared by its calls: a caller
+#: calls the free function each time, so the cache outlives a call
+FLIGHT_GRAPHS = graphs.GraphCache()
+
+
+def _flight_periods(c: FlightCarry, keys_k: torch.Tensor, r0: torch.Tensor,
+                    p: SimParams, plan, topo, record_every: int,
+                    records: tuple) -> None:
+    """``len(records)`` periods of ``run_rounds_flight`` on the carry
+    ``c``, period r drawing from ``keys_k[r]`` and recording iff
+    ``records[r]``: a row into the trace slot of its run-local round
+    (its round less the call's first, ``r0``) and the black box's
+    events. The frame and the phase are looked up on the device from
+    the carried round."""
+    s, co, prev, bb, counts = c.state, c.coords, c.prev, c.bb, c.counts
+    for r, rec in enumerate(records):
+        rnd = s.round_idx
+        fx = frame_at(plan, rnd) if plan is not None else None
+        ph = phase_at(plan, rnd) if plan is not None else -1
+        # events=True: the five-field return whatever the options
+        u01 = prng.threefry_u01(keys_k[r], s.status.shape[0],
+                                draw_slots(p, fx))
+        s2, _, c2, aux, ev = round_core(s, None, p, u01, fx, coords=co,
+                                        topo=topo, key=keys_k[r],
+                                        events=True)
+        if rec:
+            crow = coords_mod.coord_metrics(c2, topo, aux) \
+                if co is not None else None
+            row = flight.flight_row(
+                up=s2.up, status=s2.status, informed=s2.informed,
+                local_health=s2.local_health,
+                incarnation=s2.incarnation, t=s2.t,
+                stats_delta=flight.stats_delta(s2.stats, prev),
+                phase=ph, coord_row=crow)
+            # flight.record_row's slot, from the device round
+            slot = torch.div(rnd - r0, record_every, rounding_mode="floor")
+            slot = slot.clamp_max(c.trace.shape[0] - 1).to(torch.int64)
+            c.trace.index_copy_(0, slot.reshape(1), row.unsqueeze(0))
+            if bb is not None:
+                # the attack mask disarms with a zero gain, as the stats do
+                atk = None
+                if fx is not None and fx.attacked is not None:
+                    atk = fx.attacked if p.fault_gain > 0.0 \
+                        else torch.zeros_like(fx.attacked)
+                bb = blackbox.record(
+                    bb, round_idx=rnd, phase=ph, status=s2.status,
+                    incarnation=s2.incarnation, susp_conf=s2.susp_conf,
+                    up=s2.up, probe=ev, indirect_checks=p.indirect_checks,
+                    attacked=atk)
+            prev = s2.stats
+        if counts is not None:
+            late = aux.late if aux.late is not None \
+                else torch.zeros_like(aux.relaxed)
+            counts = counts + torch.stack([aux.relaxed.sum(), late.sum()])
+        s, co = s2, c2
+    graphs.assign(c, FlightCarry(s, co, c.trace, prev, bb, counts))
+
+
 def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
                       rounds: int, record_every: int = 1,
                       plan: Optional[CompiledFaultPlan] = None,
@@ -926,7 +999,14 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
     arms the black box — rings written on recorded rounds with the
     live engine's probe events — and appends the final BlackboxState;
     ``ring_len`` defaults to ``p.blackbox_ring``, and ``bb0`` resumes
-    from a captured ring set.
+    from a captured ring set (its rings written in place).
+
+    On the card a call replays captured bodies of
+    ``LIVE_REPLAY_ROUNDS`` periods (``FLIGHT_GRAPHS``; the last body of
+    a call holds what is left). The round keys and the call's first
+    round are a body's inputs; the plan, the topology and which of its
+    periods record are parts of its key. The state and coordinates are
+    not donated: the returned ones are fresh.
 
     The call runs under the span ``sim.runner.call`` (with its
     ``.prologue`` and ``.epilogue``); with coordinates and a registry
@@ -943,67 +1023,39 @@ def run_rounds_flight(state: SimState, key: torch.Tensor, p: SimParams,
             if bb0 is None and with_bb:
                 bb0 = blackbox.init_blackbox(state, tracked,
                                              ring_len or p.blackbox_ring)
+            elif bb0 is not None:
+                bb0 = graphs.fresh(bb0)._replace(ring=bb0.ring)
             keys = prng.round_keys(key, state.round_idx, rounds)
-            r0 = state.round_idx
-            buf = flight.empty_trace(rounds, record_every,
-                                     state.status.device)
-            # the call's phases, one lookup: its frames and flight rows
-            phases = plan_phases(plan, r0, rounds) if plan is not None \
-                else None
-            frames = itertools.repeat(None, rounds) if plan is None \
-                else frames_at(plan, r0, rounds, phases=phases)
+            r0 = state.round_idx.clone()
             # the coordinate counters, summed only for an armed registry
-            counts = [] if coords is not None and telemetry.listening() \
-                else None
+            counts = torch.zeros(2, dtype=torch.int64, device=r0.device) \
+                if coords is not None and telemetry.listening() else None
+            c = FlightCarry(graphs.fresh(state), graphs.fresh(coords),
+                            flight.empty_trace(rounds, record_every,
+                                               state.status.device),
+                            graphs.fresh(state.stats), bb0, counts)
             launched = coord_kernel.launches()
-            prev, bb, c = state.stats, bb0, coords
-        for i, fx in enumerate(frames):
-            ph = phases[1][i:i + 1] if phases is not None else -1
-            # the attack mask disarms with a zero gain, as the stats do
-            atk = None
-            if fx is not None and fx.attacked is not None:
-                atk = fx.attacked if p.fault_gain > 0.0 \
-                    else torch.zeros_like(fx.attacked)
-            # events=True: the five-field return whatever the options
-            u01 = prng.threefry_u01(keys[i], state.status.shape[0],
-                                    draw_slots(p, fx))
-            s2, _, c2, aux, ev = round_core(
-                state, None, p, u01, fx, coords=c, topo=topo, key=keys[i],
-                events=True)
-
-            def rec(carry):
-                pv, bbc = carry
-                crow = coords_mod.coord_metrics(c2, topo, aux) \
-                    if coords is not None else None
-                flight.record_row(buf, flight.flight_row(
-                    up=s2.up, status=s2.status, informed=s2.informed,
-                    local_health=s2.local_health,
-                    incarnation=s2.incarnation, t=s2.t,
-                    stats_delta=flight.stats_delta(s2.stats, pv),
-                    phase=ph, coord_row=crow), i, record_every)
-                if with_bb:
-                    bbc = blackbox.record(
-                        bbc, round_idx=r0 + i, phase=ph, status=s2.status,
-                        incarnation=s2.incarnation,
-                        susp_conf=s2.susp_conf, up=s2.up, probe=ev,
-                        indirect_checks=p.indirect_checks, attacked=atk)
-                return s2.stats, bbc
-
-            prev, bb = flight.maybe_record((prev, bb), i, rounds,
-                                           record_every, rec)
-            if counts is not None:
-                late = aux.late if aux.late is not None \
-                    else torch.zeros_like(aux.relaxed)
-                counts.append(torch.stack([aux.relaxed.sum(), late.sum()]))
-            state, c = s2, c2
+            body = functools.partial(_flight_periods, p=p, plan=plan,
+                                     topo=topo, record_every=record_every)
+            consts = (p, record_every,
+                      graphs.pinned(plan) if plan is not None else None,
+                      graphs.pinned(topo) if topo is not None else None)
+        for i0 in range(0, rounds, LIVE_REPLAY_ROUNDS):
+            i1 = min(i0 + LIVE_REPLAY_ROUNDS, rounds)
+            records = tuple(flight.maybe_record(
+                False, i, rounds, record_every, lambda _: True)
+                for i in range(i0, i1))
+            FLIGHT_GRAPHS(("flight", records) + consts,
+                          functools.partial(body, records=records), c,
+                          keys[i0:i1], r0)
         with telemetry.span("sim.runner.epilogue"):
-            if counts:
+            if counts is not None and rounds:
                 telemetry.count(dict(zip(
-                    COORD_COUNTERS, torch.stack(counts).sum(0).tolist()
+                    COORD_COUNTERS, c.counts.tolist()
                     + [coord_kernel.launches() - launched])))
-            out = (state,) if coords is None else (state, c)
-            out = out + (buf,)
-            return out + (bb,) if with_bb else out
+            out = (c.state,) if coords is None else (c.state, c.coords)
+            out = out + (c.trace,)
+            return out + (c.bb,) if with_bb else out
 
 
 #: the coordinate counters a flight run publishes, once a call, to the

@@ -28,6 +28,12 @@ listens:
 Otherwise ``span`` returns the shared ``OFF`` context: no allocation,
 no clock read.
 
+A ``device=True`` span also marks where a CUDA graph capture cuts its
+body (``graphs.GraphCache``): inside ``cutting(cut)`` such a span calls
+``cut(name)`` as it opens and ``cut(None)`` as it closes, whoever
+listens, so that a replay can launch the part captured inside it
+inside the span again while a profiler records (``annotating``).
+
 ``count(values)`` adds a runner's device-summed counters to the armed
 registries, once a call (the coordinate counters of
 ``round.run_rounds_flight``); ``listening()`` says whether one is armed,
@@ -156,6 +162,9 @@ class Span:
     def __enter__(self) -> "Span":
         self.parent = getattr(_stack, "top", None)
         _stack.top = self
+        cut = getattr(_stack, "cut", None) if self.device else None
+        if cut is not None:
+            cut(self.name)
         if _profiler._is_profiler_enabled:
             if self.device:
                 self._open = _profiler.record_function(self.name)
@@ -172,6 +181,10 @@ class Span:
             self._open = None
         elif _profiler._is_profiler_enabled and not self.device:
             _mark(self.name + ":e")
+        cut = getattr(_stack, "cut", None) if self.device else None
+        if cut is not None and exc[0] is None:
+            # on an error the capture is abandoned where it stands
+            cut(None)
         _stack.top = self.parent
         ms = (self.end - self.start) * 1e3
         for m in _armed:
@@ -184,9 +197,28 @@ def span(name: str, device: bool = False):
     a ``torch.profiler`` records or a registry is armed, else ``OFF``.
     ``device=True`` asks for the form the profiler annotates on the
     device (the module's doc)."""
-    if _armed or _profiler._is_profiler_enabled:
+    if (_armed or _profiler._is_profiler_enabled
+            or (device and getattr(_stack, "cut", None) is not None)):
         return Span(name, device)
     return OFF
+
+
+def annotating() -> bool:
+    """Does a profiler record, so that a device span is annotated?"""
+    return _profiler._is_profiler_enabled
+
+
+@contextlib.contextmanager
+def cutting(cut):
+    """Inside this block (on this thread) each ``device=True`` span
+    calls ``cut(name)`` as it opens and ``cut(None)`` as it closes: a
+    CUDA graph capture that cuts its body there."""
+    prev = getattr(_stack, "cut", None)
+    _stack.cut = cut
+    try:
+        yield
+    finally:
+        _stack.cut = prev
 
 
 def count(values: dict) -> None:

@@ -17,8 +17,13 @@ samples.
   ``sim.sweep.report``; an armed registry counts
   ``sim.sweep.point_rounds`` and ``sim.sweep.windows`` once a call, and
   nothing is counted unarmed.
+* A device span cuts a capture (``telemetry.cutting``) whoever
+  listens, and a body captured so replays each part inside the device
+  span it was captured in (``graphs._Parts``, on a stand-in graph).
 * On the card (``cuda``): a ``GraphCache`` call's parts, and no device
-  event named after a span.
+  event named after a span; a replayed body's device span annotated as
+  an eager one is, from its parts while a profiler records and from one
+  graph otherwise, with the same outputs.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ RUNNERS = {
     "fast": lambda p: tround.make_run_rounds_fast(p, ROUNDS),
     "lanes": lambda p: tround.make_run_rounds_lanes(
         p.with_(stale_k=4), ROUNDS),
+    "flight": lambda p: tround.make_run_rounds_flight(p, ROUNDS),
 }
 
 
@@ -154,6 +160,104 @@ def test_armed_nests_and_a_span_knows_its_parent():
     assert _samples(a)["sim.inner"]["Count"] == 2
     assert _samples(b)["sim.inner"]["Count"] == 1
     assert _samples(a)["sim.still"]["Count"] == 1
+
+
+def test_a_device_span_cuts_a_capture_whoever_listens():
+    """Inside ``cutting(cut)`` each device span calls ``cut(name)`` as it
+    opens and ``cut(None)`` as it closes, with no profiler or registry;
+    a plain span calls nothing, and outside the block nothing is
+    called."""
+    cuts = []
+    with telemetry.span("sim.coords.step", device=True) as sp:
+        assert sp is telemetry.OFF
+    with telemetry.cutting(cuts.append):
+        with telemetry.span("sim.runner.call") as plain:
+            with telemetry.span("sim.coords.step", device=True) as sp:
+                with telemetry.span("sim.coords.metrics", device=True):
+                    pass
+        assert plain is telemetry.OFF and sp is not telemetry.OFF
+    with telemetry.span("sim.coords.step", device=True):
+        pass
+    assert cuts == ["sim.coords.step", "sim.coords.metrics", None, None]
+
+
+class _StandInGraph:
+    """A ``torch.cuda.CUDAGraph`` on the host: what it captured is the
+    list of tags written between its ``capture_begin`` and
+    ``capture_end``, and a replay writes them again."""
+
+    log: list = []
+
+    def __init__(self):
+        self.tags = None
+
+    def capture_begin(self, pool=None, capture_error_mode=None):
+        self.tags = []
+        _StandInGraph.log = self.tags
+
+    def capture_end(self):
+        _StandInGraph.log = []
+
+    def replay(self):
+        _StandInGraph.log.extend(self.tags)
+
+
+def test_a_captured_body_replays_its_parts_inside_their_spans(monkeypatch):
+    """``graphs._Parts`` cuts a body where it opens and closes a device
+    span, and a replay launches the parts in order, each inside the
+    span it was captured in (an armed registry samples each span once a
+    replay); a body with no device span is one part."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+
+    def launch(tag):
+        _StandInGraph.log.append(tag)
+
+    def body():
+        launch("draws")
+        with telemetry.span("sim.coords.step", device=True):
+            launch("probe")
+        launch("ack")
+        with telemetry.span("sim.coords.step", device=True):
+            launch("relax")
+        with telemetry.span("sim.coords.metrics", device=True):
+            launch("quality")
+        launch("row")
+
+    parts = graphs._Parts(pool=None)
+    parts.begin()
+    with telemetry.cutting(parts.cut):
+        body()
+    parts.end()
+    assert [(name, g.tags) for name, g in parts.parts] == [
+        (None, ["draws"]), ("sim.coords.step", ["probe"]), (None, ["ack"]),
+        ("sim.coords.step", ["relax"]), (None, []),
+        ("sim.coords.metrics", ["quality"]), (None, ["row"])]
+    replayed, reg = [], telemetry.Metrics()
+    _StandInGraph.log = replayed
+    with telemetry.armed(reg):
+        parts.replay()
+    assert replayed == ["draws", "probe", "ack", "relax", "quality", "row"]
+    got = _samples(reg)
+    assert got["sim.coords.step"]["Count"] == 2
+    assert got["sim.coords.metrics"]["Count"] == 1
+    whole = graphs._Parts(pool=None)
+    whole.begin()
+    with telemetry.cutting(whole.cut):
+        launch("all")
+    whole.end()
+    assert [(name, g.tags) for name, g in whole.parts] == [(None, ["all"])]
+    # an error inside a device span leaves the capture where it stands
+    broken = graphs._Parts(pool=None)
+    broken.begin()
+    with pytest.raises(ZeroDivisionError):
+        with telemetry.cutting(broken.cut):
+            with telemetry.span("sim.coords.step", device=True):
+                launch("probe")
+                1 / 0
+    assert [g.tags for _, g in broken.parts] == [[]]
+    assert broken._graph.tags == ["probe"]
+    broken.abandon()
+    assert broken._graph is None
 
 
 def _nested(sp) -> bool:
@@ -357,6 +461,51 @@ def test_a_device_span_is_annotated_on_the_card(cuda):  # noqa: F811
     inside = [o for o in ops if marks[0][0] <= o[0] <= o[1] <= marks[0][1]]
     assert len(inside) >= 2 and len(inside) < len(ops)
     assert not [n for _, _, n in dev if n.startswith("sim.runner")]
+
+
+@pytest.mark.cuda
+def test_a_replayed_device_span_is_annotated_on_the_card(cuda):  # noqa: F811
+    """A ``GraphCache`` body with a device span, replayed: the profiler
+    gives the span's part an event named after it that holds its
+    operations and no other, as an eager call's span gets. Unprofiled,
+    a replay launches the one graph, with the same carry and outputs."""
+    cache = graphs.GraphCache()
+    x0 = torch.randn(1 << 20, device=cuda)
+
+    def body(d):
+        y = d[0] * 3
+        with telemetry.span("sim.coords.step", device=True):
+            # an integer scan: a float one on the card may add in
+            # another order from one launch to the next
+            z = (y.sin() * y * 64).to(torch.int32).cumsum(0)
+        d[0].copy_(z / z.abs().max())
+        return z[-1] + 1
+
+    for _ in range(2):
+        cache("k", body, (x0.clone(),))
+    x = x0.clone()
+    whole = cache("k", body, (x,))
+    torch.cuda.synchronize()
+    by_parts = x0.clone()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = cache("k", body, (by_parts,))
+        torch.cuda.synchronize()
+    assert [e["parts"] for e in cache.stats()] == [3]
+    assert torch.equal(by_parts, x) and torch.equal(out, whole)
+    host = [e.name for e in prof.events()
+            if e.device_type == DeviceType.CPU]
+    assert host.count("cudaGraphLaunch") == 3
+    dev = [(e.time_range.start, e.time_range.end, e.name)
+           for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [(s, e) for s, e, n in dev if n == "sim.coords.step"]
+    assert len(marks) == 1
+    ops = [(s, e, n) for s, e, n in dev if not n.startswith("sim.")]
+    inside = [n for s, e, n in ops if marks[0][0] <= s <= e <= marks[0][1]]
+    assert any("sin" in n for n in inside)
+    assert any("Scan" in n for n in inside)
+    assert not [n for n in inside if "reduce" in n]
+    assert len(inside) < len(ops)
 
 
 def _coords_flight(dev, n: int, rounds: int):
