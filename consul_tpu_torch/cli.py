@@ -18,19 +18,25 @@ engines and kernels. The modes:
   ``rounds_per_sec`` — through ``publish_report`` as ``sim.fd.*``; the
   registry is armed for the run (``telemetry.armed``), so its
   ``Samples`` carry the runner's spans a chunk (``sim.runner.call``,
-  ``sim.graph.launch`` ...) in milliseconds, printed to stderr as one
-  ``{"span_ms": {name: {"Count", "Mean", "Max"}}}`` line (stdout keeps
-  the reference's report);
+  ``sim.graph.launch`` ...) in milliseconds; then the same chunks run
+  again, untimed and unpublished, under a ``telemetry.timeline``, which
+  puts each span on the device's clock (so ``rounds_per_sec`` and the
+  samples carry none of its cost). Both go to stderr as one
+  ``{"span_ms": {name: {"Count", "Mean", "Max", "device_ms",
+  "wait_ms"}}, "idle_pct": ...}`` line (stdout keeps the reference's
+  report; the device fields are null on the CPU);
 * ``-gossip-sim-chaos C`` — ``scenarios.run_chaos(C, blackbox=True)``
   (kernel runner: fault or byz variant);
 * ``-gossip-sim-coords`` — ``scenarios.run_coords`` (live engine, built
   by ``scenarios.coords_setup``), the per-round curves trimmed; the
   report carries ``coords_publish_error`` because no agent runs here to
   publish the coordinates into; a registry of its own is armed for the
-  run, and its spans and the coordinate counters
-  (``sim.coords.updates``, ``sim.coords.deadline_misses``,
-  ``sim.coords.kernel_launches``) go to stderr
-  as one ``{"span_ms": ..., "counters": ...}`` line;
+  run, then the trial runs again under a timeline (so ``wall_s``
+  carries none of its cost), and the spans, their device fields and
+  the coordinate counters (``sim.coords.updates``,
+  ``sim.coords.deadline_misses``, ``sim.coords.kernel_launches``) go
+  to stderr as one ``{"span_ms": ..., "idle_pct": ..., "counters":
+  ...}`` line;
 * ``-gossip-sim-sweep T[:R]`` — ``scenarios.run_autotune(T, rounds=R)``
   (120 by default), published as ``sim.sweep.*`` gauges, the grid
   trimmed to the winner, the chosen constants and the Pareto rows.
@@ -157,6 +163,8 @@ def _coords(n: int, platform: str, dev) -> int:
     with telemetry.armed(telemetry.Metrics()) as m:
         rep, _ = scenarios.run_coords(n=n, device=dev)
     rep["wall_s"] = round(time.perf_counter() - t0, 2)
+    with telemetry.timeline(dev) as line:
+        scenarios.run_coords(n=n, device=dev)
     fl = rep.pop("flight", None)
     if fl:
         rep["phases"] = [{k: v for k, v in ph.items() if k != "curve"}
@@ -165,21 +173,34 @@ def _coords(n: int, platform: str, dev) -> int:
         "dev agent unavailable: this command runs no agent; publish "
         "coordinates with the control plane's agent")
     print(json.dumps(rep, indent=2))
-    _print_spans(m, counters=True)
+    _print_spans(m, line, counters=True)
     return 0
 
 
-def _print_spans(m: telemetry.Metrics, counters: bool = False) -> None:
+def _print_spans(m: telemetry.Metrics, line: telemetry.Timeline,
+                 counters: bool = False) -> None:
     """The armed registry's spans (and, with ``counters``, its counters)
-    as one JSON line on stderr: stdout keeps the reference's report."""
+    as one JSON line on stderr: stdout keeps the reference's report.
+    Beside each span's host ``Mean`` / ``Max`` (ms), the timeline's mean
+    ``device_ms`` (the device's time between the span's markers) and
+    ``wait_ms`` (the device's waits while it was open), and its run's
+    ``idle_pct``: null off the card and for a span the timeline did not
+    mark (a device span)."""
     snap = m.snapshot()
-    line = {"span_ms": {s["Name"]: {k: s[k] for k in ("Count", "Mean",
-                                                      "Max")}
-                        for s in snap["Samples"]}}
+    r = line.read()
+    out = {"span_ms": {}, "idle_pct": telemetry.idle_pct(r)}
+    for s in snap["Samples"]:
+        sp = r["spans"].get(s["Name"].removeprefix(m.prefix + "."))
+        on = sp is not None and sp["device_us"] is not None
+        out["span_ms"][s["Name"]] = {
+            **{k: s[k] for k in ("Count", "Mean", "Max")},
+            "device_ms": sp["device_us"] / sp["count"] * 1e-3 if on
+            else None,
+            "wait_ms": sp["wait_us"] / sp["count"] * 1e-3 if on else None}
     if counters:
-        line["counters"] = {c["Name"]: c["Count"]
-                            for c in snap["Counters"]}
-    print(json.dumps(line), file=sys.stderr)
+        out["counters"] = {c["Name"]: c["Count"]
+                           for c in snap["Counters"]}
+    print(json.dumps(out), file=sys.stderr)
 
 
 def _chaos(name: str, n: int, platform: str, dev) -> int:
@@ -225,11 +246,13 @@ def _default(gossip: GossipConfig, n: int, platform: str, dev) -> int:
           f"rounds on {dev.type}")
     with telemetry.armed(telemetry.default):
         state, _, dt = default_run(p, dev, FlightPublisher())
+    with telemetry.timeline(dev) as line:
+        default_run(p, dev)
     rep = fd_report(state, p)
     publish_report(rep)
     print(json.dumps({"rounds_per_sec": round(SIM_ROUNDS / dt, 1),
                       **rep.to_dict()}, indent=2))
-    _print_spans(telemetry.default)
+    _print_spans(telemetry.default, line)
     return 0
 
 

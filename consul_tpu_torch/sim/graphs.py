@@ -95,6 +95,9 @@ MAX_GRAPHS = 8
 #: a cache key not seen yet (a key seen once maps to None)
 _UNSEEN = object()
 
+#: the name of a replay's groups of copies in a timeline's reading
+COPIES = "sim.graph.copies"
+
 #: captures since the process started: ``graphs`` and their ``ms``, so
 #: a caller that times a run can report the capture apart from the
 #: replays, as a JAX bench splits compile from dispatch
@@ -227,14 +230,20 @@ class _Parts:
                     graph.replay()
 
 
+def _nbytes(tensors) -> int:
+    return sum(x.nbytes for x in tensors)
+
+
 class _Entry:
     """One captured body: its graph and, for a body with device spans,
     its ``_Parts``; its static inputs (the carry's tensors first,
-    ``donated`` of them) and outputs, the launches one replay makes, and
-    what the capture cost."""
+    ``donated`` of them) and outputs, the launches one replay makes,
+    what the capture cost, and the bytes of a replay's three groups of
+    copies (in, back, the outputs' clones) for a listening timeline."""
 
     __slots__ = ("graph", "parts", "inputs", "donated", "out", "launches",
-                 "capture_ms", "pool_bytes", "replays")
+                 "capture_ms", "pool_bytes", "replays", "in_bytes",
+                 "back_bytes", "out_bytes")
 
     def __init__(self, graph, parts, inputs, donated, out, launches,
                  capture_ms, pool_bytes):
@@ -247,6 +256,9 @@ class _Entry:
         self.capture_ms = capture_ms
         self.pool_bytes = pool_bytes
         self.replays = 0
+        self.in_bytes = _nbytes(inputs)
+        self.back_bytes = _nbytes(inputs[:donated])
+        self.out_bytes = _nbytes(_tensors(tree_leaves(out)))
 
 
 class GraphCache:
@@ -274,8 +286,12 @@ class GraphCache:
         key's first call) or ``sim.graph.capture`` (its second), or
         ``sim.graph.prepare`` (the key, the copies into the static
         buffers), ``sim.graph.launch`` (the replay) and
-        ``sim.graph.finish`` (the copies back, the outputs cloned)."""
-        with telemetry.span("sim.graph.call"):
+        ``sim.graph.finish`` (the copies back, the outputs cloned); each
+        group of copies is a ``telemetry.copying`` group (``COPIES``),
+        and the spans declare their stretches (``GRAPH``, ``QUIET``,
+        ``REPLAY``), so that a timeline's stretches are each one replay,
+        one group of copies or host code that launches nothing."""
+        with telemetry.span("sim.graph.call", stretch=telemetry.GRAPH):
             return self._call(key, body, carry, args)
 
     def _call(self, key, body, carry, args):
@@ -289,12 +305,13 @@ class GraphCache:
                 return body(carry, *args)
             with rec.armed(self._key(key, leaves, spec)):
                 return body(carry, *args)
-        with telemetry.span("sim.graph.prepare"):
+        with telemetry.span("sim.graph.prepare", stretch=telemetry.QUIET):
             full_key = self._key(key, leaves, spec)
             entry = self._entries.get(full_key, _UNSEEN)
             if entry is not None and entry is not _UNSEEN:
                 self._entries.move_to_end(full_key)
-                _load(entry.inputs, tensors)
+                with telemetry.copying(COPIES, entry.in_bytes):
+                    _load(entry.inputs, tensors)
         if entry is _UNSEEN:
             self._remember(full_key, None)
             with telemetry.span("sim.graph.eager"):
@@ -305,17 +322,19 @@ class GraphCache:
                                       len(_tensors(tree_leaves(carry))))
                 self._remember(full_key, entry)
                 _load(entry.inputs, tensors)
-        with telemetry.span("sim.graph.launch"):
+        with telemetry.span("sim.graph.launch", stretch=telemetry.REPLAY):
             if entry.parts is not None and telemetry.annotating():
                 entry.parts.replay()
             else:
                 entry.graph.replay()
-        with telemetry.span("sim.graph.finish"):
+        with telemetry.span("sim.graph.finish", stretch=telemetry.QUIET):
             entry.replays += 1
             for c, d in zip(self.counters, entry.launches):
                 c.update(d)
-            _load(tensors[:entry.donated], entry.inputs)
-            return fresh(entry.out)
+            with telemetry.copying(COPIES, entry.back_bytes):
+                _load(tensors[:entry.donated], entry.inputs)
+            with telemetry.copying(COPIES, entry.out_bytes):
+                return fresh(entry.out)
 
     @staticmethod
     def _key(key, leaves, spec) -> tuple:

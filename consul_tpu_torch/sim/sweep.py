@@ -14,13 +14,10 @@ to every point), swept constants enter only elementwise arithmetic, and
 every population sum goes through ``lanes.tree_sum``, a fixed tree of
 f32 additions whatever G is.
 
-Spans and counters (``utils/telemetry.py``): a call of the grid runner
-(and of the one-point runner) runs under ``sim.runner.call``, its start
-(the ``[G]`` initial state, the copy the engine runs on, the key
-stream) under ``sim.sweep.prologue``; while a registry is armed it
-publishes ``sim.sweep.point_rounds`` (points x periods) and
-``sim.sweep.windows`` (the engine's graph-cache calls: windows on the
-lanes engine, rounds on the xla engine), once a call.
+Spans (``utils/telemetry.py``): a call of the grid runner (and of the
+one-point runner) runs under ``sim.runner.call``, its start (the ``[G]``
+initial state, the copy the engine runs on, the key stream) under
+``sim.sweep.prologue``.
 
 Engines:
 
@@ -144,8 +141,7 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
     ONE function serves the grid and the one-point run; with ``coords``
     every point starts from ``init_coords`` and relaxes over ``topo``.
     It updates ``state`` in place and returns it: the caller hands it a
-    copy (``_grid_call``; the reference's sweep does not donate).
-    ``solo.windows`` is the graph-cache calls a run makes."""
+    copy (``_grid_call``; the reference's sweep does not donate)."""
     if engine not in ENGINES:
         raise ValueError(f"unknown sweep engine {engine!r} "
                          f"(expected one of {ENGINES})")
@@ -170,7 +166,6 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
             return out if flight_every is not None else (out, None)
 
         solo.graphs = cache
-        solo.windows = -(-rounds // p.stale_k)
         return solo
 
     def solo(state, tp, keys, cp):
@@ -184,7 +179,6 @@ def _make_solo(p: SimParams, rounds: int, flight_every: Optional[int],
                          coords=c0, topo=topo)
 
     solo.graphs = cache
-    solo.windows = rounds
     return solo
 
 
@@ -207,17 +201,12 @@ def _grid_call(solo, p: SimParams, rounds: int, g: int, tp, key, plan,
     """One call of a ``g``-point runner under ``sim.runner.call``: its
     start under ``sim.sweep.prologue`` (``init_state`` G times, the copy
     the engine runs on, the absolute-round key stream from round 0: the
-    keys every engine draws from a fresh state), the engine, and the
-    sweep's counters to an armed registry."""
+    keys every engine draws from a fresh state), then the engine."""
     with telemetry.span("sim.runner.call"):
         with telemetry.span("sim.sweep.prologue"):
             states = graphs.fresh(_broadcast_state(p, g, dev))
             keys = prng.round_keys(key.to(dev), 0, rounds)
-        out = solo(states, tp, keys, plan)
-        if telemetry.listening():
-            telemetry.count({"sim.sweep.point_rounds": g * rounds,
-                             "sim.sweep.windows": solo.windows})
-        return out
+        return solo(states, tp, keys, plan)
 
 
 def take_point(states: SimState, i: int) -> SimState:

@@ -14,9 +14,8 @@ samples.
 * A sweep's call (the ``xla`` and ``lanes`` grid engines) is one
   ``sim.runner.call`` opening with ``sim.sweep.prologue`` (the lane
   engine's own prologue and epilogue nested after it), its report one
-  ``sim.sweep.report``; an armed registry counts
-  ``sim.sweep.point_rounds`` and ``sim.sweep.windows`` once a call, and
-  nothing is counted unarmed.
+  ``sim.sweep.report``; an armed registry takes their samples, and
+  nothing is counted, armed or not.
 * A device span cuts a capture (``telemetry.cutting``) whoever
   listens, and a body captured so replays each part inside the device
   span it was captured in (``graphs._Parts``, on a stand-in graph).
@@ -300,9 +299,19 @@ def test_runner_calls_under_the_cpu_profiler(label):
     assert telemetry.span("sim.runner.call") is telemetry.OFF
 
 
-def test_cli_default_mode_samples_each_chunk():
+def test_cli_default_mode_samples_each_chunk(monkeypatch):
     reg = telemetry.default
     reg.reset()
+    lines = []
+    timeline = telemetry.timeline
+
+    @contextlib.contextmanager
+    def keep(*a, **k):
+        with timeline(*a, **k) as line:
+            lines.append(line)
+            yield line
+
+    monkeypatch.setattr(telemetry, "timeline", keep)
     err = io.StringIO()
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(err):
@@ -310,15 +319,55 @@ def test_cli_default_mode_samples_each_chunk():
                        "-gossip-sim-nodes", str(N)])
     assert rc == 0
     got = _samples(reg)
-    printed = json.loads(err.getvalue().strip().splitlines()[-1])["span_ms"]
+    line = json.loads(err.getvalue().strip().splitlines()[-1])
+    printed = line["span_ms"]
     chunks = cli.SIM_ROUNDS // cli.SIM_CHUNK
     for name in ("sim.runner.call", "sim.runner.prologue",
                  "sim.graph.call", "sim.runner.epilogue"):
         assert got[name]["Count"] == chunks, name
+        # the timeline's device fields are null on the CPU
         assert printed[f"consul.{name}"] == {
-            k: got[name][k] for k in ("Count", "Mean", "Max")}, name
+            **{k: got[name][k] for k in ("Count", "Mean", "Max")},
+            "device_ms": None, "wait_ms": None}, name
+    assert line["idle_pct"] is None
+    # the timeline ran the chunks again on its own, unarmed: the timed
+    # run's samples carry none of its cost
+    (own,) = lines
+    assert own.read()["spans"]["sim.runner.call"]["count"] == chunks
     assert telemetry.span("sim.runner.call") is telemetry.OFF
+    assert telemetry._line is None
     reg.reset()
+
+
+def test_cli_coords_mode_prints_spans_and_counters(monkeypatch):
+    """The coordinates mode's span line: the armed trial's samples with
+    the device fields (null on the CPU) of a second trial that ran under
+    the timeline, unarmed, and the coordinate counters."""
+    lines = []
+    timeline = telemetry.timeline
+
+    @contextlib.contextmanager
+    def keep(*a, **k):
+        with timeline(*a, **k) as line:
+            lines.append(line)
+            yield line
+
+    monkeypatch.setattr(telemetry, "timeline", keep)
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(["agent", "-dev", "-gossip-sim", "cpu",
+                       "-gossip-sim-nodes", "256", "-gossip-sim-coords"])
+    assert rc == 0
+    line = json.loads(err.getvalue().strip().splitlines()[-1])
+    calls = line["span_ms"]["consul.sim.runner.call"]
+    assert calls["device_ms"] is None and calls["wait_ms"] is None
+    assert line["idle_pct"] is None
+    assert line["counters"]["consul.sim.coords.updates"] > 0
+    (own,) = lines
+    assert own.read()["spans"]["sim.runner.call"]["count"] == \
+        calls["Count"]
+    assert telemetry._line is None
 
 
 #: a 2 x 2 grid of the autotuner's axes
@@ -372,13 +421,12 @@ def test_a_sweep_call_and_its_report_under_the_cpu_profiler(engine):
 
 
 @pytest.mark.parametrize("engine", sorted(SWEEP_WINDOWS))
-def test_an_armed_sweep_counts_its_point_rounds(engine, monkeypatch):
-    """``sim.sweep.point_rounds`` is G x periods a call (a one-point run
-    1 x periods), ``sim.sweep.windows`` the graph-cache calls; the spans
-    land as samples; unarmed, nothing is counted."""
+def test_an_armed_sweep_samples_its_spans(engine, monkeypatch):
+    """Two grid calls, their report and a one-point run land as span
+    samples (a call and a prologue each, one report); armed or not, the
+    sweep counts nothing."""
     run, tp, points = _sweep(engine)
     key = prng.key(5, device=CPU)
-    g = len(points)
     reg = telemetry.Metrics()
     with telemetry.armed(reg):
         for c in range(2):
@@ -386,9 +434,7 @@ def test_an_armed_sweep_counts_its_point_rounds(engine, monkeypatch):
         _report(states, tp, points)
         sweep.make_run_point(tp.static, ROUNDS, engine=engine,
                              device=CPU)(point_params(tp, 1), key)
-    got = _counters(reg)
-    assert got["consul.sim.sweep.point_rounds"] == (2 * g + 1) * ROUNDS
-    assert got["consul.sim.sweep.windows"] == 3 * SWEEP_WINDOWS[engine]
+    assert _counters(reg) == {}
     samples = _samples(reg)
     for name, count in (("sim.runner.call", 3), ("sim.sweep.prologue", 3),
                         ("sim.sweep.report", 1)):
